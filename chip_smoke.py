@@ -1,0 +1,337 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (deepfilternet_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (and so exits non-zero) on any failed check:
+
+  1. device  - needs CUDA; prints the card's name and power limit;
+  2. build   - compiles every CUDA kernel from deepfilternet_torch/csrc/;
+  3. kernels - each kernel against its plain PyTorch version on the card at
+               the main path's shapes (and others), with its time, the plain
+               version's, a library yardstick's and the card's bound for the
+               same work, at the main path's shape and at S=4096;
+  4. main    - streaming DFN3 with the bundled demo checkpoint: 64 streams
+               x 2 s through StreamingRuntime.process, held against the same
+               run on the CPU, then enhance(backend="scan") on 16 x 2 s; the
+               kernels' launch counts show the path went through them. A
+               short profiled run says where a frame's time goes.
+
+The second-to-last line of standard output is {"kernels": [...]}, the last
+{"ok": true, "device": {...}}. TF32 is off for matrix products and
+convolutions, so every comparison is float32 against float32.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+MODEL_DIR = "pretrained/dfn3_fixture_demo"
+SR, HOP = 48000, 480
+SECONDS = 2.0
+
+# dense peaks (NVIDIA data sheets): float32 outside the tensor cores in
+# FLOP/s, device memory in bytes/s; first match on the device name wins
+PEAKS = (
+    ("H100 PCIe", 51.2e12, 2.0e12),
+    ("H100 NVL", 60.0e12, 3.9e12),
+    ("H200", 67.0e12, 4.8e12),
+    ("H100", 67.0e12, 3.35e12),
+)
+
+
+def fail(msg):
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def peaks(name):
+    for key, flops, bw in PEAKS:
+        if key in name:
+            return flops, bw
+    fail(f"no peak rates known for {name!r}")
+
+
+def time_ms(fn, iters=20):
+    """Device time per call, CUDA events around `iters` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def alternate(fns, rounds=3):
+    """Median over `rounds` of each function's time, taken in turns."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            times[k].append(time_ms(fn))
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def noisy_speech_like(n_streams, seconds, seed):
+    """Harmonic tones with a slow vibrato plus white noise, per stream."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * SR)) / SR
+    f0 = rng.uniform(100.0, 300.0, (n_streams, 1))
+    vib = 1.0 + 0.02 * np.sin(2 * np.pi * rng.uniform(2.0, 6.0, (n_streams, 1)) * t)
+    phase = 2 * np.pi * f0 * np.cumsum(vib, axis=1) / SR
+    speech = sum(np.sin(k * phase) / k for k in range(1, 6)) * 0.1
+    noise = rng.standard_normal(speech.shape) * rng.uniform(0.01, 0.05, (n_streams, 1))
+    return (speech + noise).astype(np.float32)
+
+
+# -- phase 3: the fused analysis frontend (TPU kernel K1) --------------------
+
+
+def library_frontend(mem, frame, mean, unit, cs, fb, nb_df, alpha):
+    """Yardstick: one torch.matmul (cuBLAS) for both DFT products, then the
+    same epilogue in torch. Timed here only; the port never calls it."""
+    f = cs.shape[1] // 2
+    buf = torch.cat([mem, frame], dim=-1)
+    spec = torch.matmul(buf, cs)
+    re, im = spec[:, :f], spec[:, f:]
+    power = re * re + im * im
+    erb_db = 10.0 * torch.log10(power @ fb + 1e-10)
+    mn = erb_db * (1.0 - alpha) + mean * alpha
+    un = torch.sqrt(power[:, :nb_df]) * (1.0 - alpha) + unit * alpha
+    scale = torch.rsqrt(un)
+    return (buf[:, HOP:], re, im, (erb_db - mn) / 40.0, re[:, :nb_df] * scale,
+            im[:, :nb_df] * scale, mn, un)
+
+
+def check_frontend(dev, card):
+    from deepfilternet_torch.ops import mean_norm_init
+    from deepfilternet_torch.ops.fused_frontend import (
+        fused_analysis_frontend,
+        fused_analysis_frontend_plain,
+    )
+
+    names = ("new_mem", "spec_re", "spec_im", "feat_erb", "fc_re", "fc_im",
+             "new_mean", "new_unit")
+    alpha, nb_erb, nb_df = 0.99, 32, 96
+    worst = 0.0
+    for s in (1, 37, 64, 4096):
+        rng = np.random.default_rng(s)
+        mem = torch.from_numpy((rng.standard_normal((s, 480)) * 0.1).astype(np.float32)).to(dev)
+        mean = torch.from_numpy(
+            (mean_norm_init(nb_erb) + rng.standard_normal((s, nb_erb)) * 5).astype(np.float32)
+        ).to(dev)
+        unit = torch.from_numpy(rng.uniform(1e-4, 1e-3, (s, nb_df)).astype(np.float32)).to(dev)
+        for _ in range(3):
+            frame = torch.from_numpy(
+                (rng.standard_normal((s, HOP)) * 0.1).astype(np.float32)).to(dev)
+            got = fused_analysis_frontend(mem, frame, mean, unit, alpha=alpha)
+            ref = fused_analysis_frontend_plain(mem, frame, mean, unit, alpha=alpha)
+            torch.cuda.synchronize()
+            errs = []
+            for name, a, b in zip(names, got, ref):
+                if a.shape != b.shape or not torch.isfinite(a).all():
+                    fail(f"K1 {name} at S={s}: shape {tuple(a.shape)} or non-finite values")
+                err = float((a - b).abs().max())
+                # 1e-5 of each output's largest value: the kernel sums the
+                # 960-term products in another order than cuBLAS
+                tol = 1e-5 * float(b.abs().max())
+                if err > tol:
+                    fail(f"K1 {name} at S={s}: max abs err {err:.3e} > tol {tol:.3e}")
+                errs.append(f"{name}={err:.2e}/{tol:.2e}")
+                worst = max(worst, err)
+            mem, mean, unit = (ref[i].contiguous() for i in (0, 6, 7))
+        print(f"K1 S={s}: max abs err / tol (1e-5 x max|plain|) over 3 chained frames "
+              f"(last frame): " + " ".join(errs))
+
+    # timing: at the main path's shape (S=64, the kernels line) and at the
+    # TPU reference's benchmark shape (S=4096)
+    t64 = time_frontend(dev, card, 64)
+    time_frontend(dev, card, 4096)
+    return dict(name="fused_analysis_frontend", route="cuda",
+                source="deepfilternet_torch/csrc/fused_frontend.cu",
+                replaces="deepfilternet_tpu/ops/pallas_frontend.py:37",
+                launches=None, max_abs_err=worst, **t64)
+
+
+def time_frontend(dev, card, s):
+    """K1's time per frame at S streams beside its plain version, the
+    library yardstick and the card's bound for the same work."""
+    from deepfilternet_torch.ops import erb_fb_tensor, erb_widths, mean_norm_init
+    from deepfilternet_torch.ops.fused_frontend import (
+        fused_analysis_frontend,
+        fused_analysis_frontend_plain,
+    )
+    from deepfilternet_torch.ops.stft import dft_matrices
+
+    alpha, nb_erb, nb_df, fft = 0.99, 32, 96, 960
+    rng = np.random.default_rng(7)
+    args = [torch.from_numpy(x).to(dev) for x in (
+        (rng.standard_normal((s, 480)) * 0.1).astype(np.float32),
+        (rng.standard_normal((s, HOP)) * 0.1).astype(np.float32),
+        (mean_norm_init(nb_erb) + rng.standard_normal((s, nb_erb)) * 5).astype(np.float32),
+        rng.uniform(1e-4, 1e-3, (s, nb_df)).astype(np.float32),
+    )]
+    cs = torch.tensor(np.concatenate(dft_matrices(fft, HOP), axis=1), device=dev)
+    fb = erb_fb_tensor(erb_widths(SR, fft, nb_erb, 2), dev)
+    t = alternate({
+        "kernel": lambda: fused_analysis_frontend(*args, alpha=alpha),
+        "plain": lambda: fused_analysis_frontend_plain(*args, alpha=alpha),
+        "library": lambda: library_frontend(*args, cs, fb, nb_df, alpha),
+    })
+    f, n, d = fft // 2 + 1, fft, fft - HOP
+    flops = 2 * s * n * 2 * f + 2 * s * f * nb_erb
+    nbytes = 4 * (s * (d + HOP + nb_erb + nb_df)                    # inputs
+                  + s * (d + 2 * f + 2 * nb_erb + 3 * nb_df)         # outputs
+                  + 2 * n * f + f * nb_erb)                          # DFT + ERB matrices
+    peak_flops, peak_bw = peaks(card)
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    print(f"K1 S={s} per frame on {card}: kernel {t['kernel']:.4f} ms, plain "
+          f"{t['plain']:.4f} ms, library {t['library']:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({flops / 1e9:.3f} GFLOP at {peak_flops / 1e12:.1f} TFLOP/s float32 = "
+          f"{t_ops:.4f} ms; {nbytes / 1e6:.2f} MB at {peak_bw / 1e12:.2f} TB/s = "
+          f"{t_bytes:.4f} ms); kernel at {bound_ms / t['kernel']:.1%} of the bound")
+    return dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=t["library"])
+
+
+# -- phase 4: the main path --------------------------------------------------
+
+
+def profile_frames(rt, audio, card):
+    """Where a frame's time goes: device busy share and the largest device
+    ops, from torch.profiler over a short run (the profiler's own host cost
+    inflates the wall time, so the busy share is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s, n = audio.shape[0], audio.shape[1] // HOP
+    carry = rt.init(s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rt.process(carry, audio)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print("main path profile: the profiler recorded no device time (not measured)")
+        return
+    busy_us = sum(e.self_device_time_total for e in dev)
+    ops = sum(e.count for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"main path profile, S={s}, {n} frames, profiler on, {card}: wall "
+          f"{wall_us / n:.1f} us/frame, device busy {busy_us / n:.1f} us/frame "
+          f"({busy_us / wall_us:.1%}), {ops / n:.1f} device ops/frame; largest: "
+          + "; ".join(f"{e.key[:48]} x{e.count // n} {e.self_device_time_total / n:.1f} us"
+                      for e in top))
+
+
+def main_path(card):
+    from deepfilternet_torch.enhance import enhance, init_df
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.streaming import StreamingRuntime
+
+    model, df_state, suffix = init_df(MODEL_DIR)
+    if model.device.type != "cuda":
+        fail(f"init_df() put the model on {model.device}")
+    rt = StreamingRuntime(model, df_state)
+    s = 64
+    audio = noisy_speech_like(s, SECONDS, seed=0)
+    n_frames = audio.shape[1] // HOP
+    rt.process(rt.init(s), audio[:, : 5 * HOP])  # warm-up (library handles, caches)
+    torch.cuda.synchronize()
+
+    k1.launches = 0
+    t0 = time.perf_counter()
+    carry, out = rt.process(rt.init(s), audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k1.launches
+    if launches != n_frames:
+        fail(f"K1 launches {launches} != frames processed {n_frames}")
+    out = out.cpu().numpy()
+    if out.shape != audio.shape or not np.isfinite(out).all():
+        fail(f"main path output {out.shape} not finite / not {audio.shape}")
+    rtf = SECONDS * s / wall
+    print(f"main path ({MODEL_DIR}, {suffix}): StreamingRuntime.process S={s} x "
+          f"{SECONDS} s = {n_frames} frames, K1 launches {launches}; {wall:.3f} s wall, "
+          f"aggregate RTF {rtf:.1f}x on {card} (information only)")
+
+    profile_frames(rt, audio[:, : 20 * HOP], card)
+
+    cpu_model, cpu_state, _ = init_df(MODEL_DIR, device="cpu")
+    cpu_rt = StreamingRuntime(cpu_model, cpu_state)
+    _, ref = cpu_rt.process(cpu_rt.init(4), audio[:4])
+    err = float(np.abs(out[:4] - ref.numpy()).max())
+    if not err <= 1e-4:
+        fail(f"main path: 4 streams differ from the CPU run by {err:.3e} > 1e-4")
+    print(f"main path vs the same 4 streams on the CPU: max abs err {err:.3e} (tol 1e-4); "
+          f"output rms {float(np.sqrt(np.mean(out ** 2))):.4f}, input rms "
+          f"{float(np.sqrt(np.mean(audio ** 2))):.4f}")
+
+    batch = noisy_speech_like(16, SECONDS, seed=1)
+    k1.launches = 0
+    t0 = time.perf_counter()
+    enh = enhance(model, df_state, batch, backend="scan")
+    wall = time.perf_counter() - t0
+    n_enh = (batch.shape[1] + df_state.fft_size) // HOP
+    if k1.launches != n_enh:
+        fail(f"enhance: K1 launches {k1.launches} != frames {n_enh}")
+    if enh.shape != batch.shape or not np.isfinite(enh).all():
+        fail("enhance(backend='scan') output malformed")
+    ref = enhance(cpu_model, cpu_state, batch[:2], backend="scan")
+    err = float(np.abs(enh[:2] - ref).max())
+    if not err <= 1e-4:
+        fail(f"enhance: 2 rows differ from the CPU run by {err:.3e} > 1e-4")
+    print(f"enhance(backend='scan') [16, {SECONDS} s]: {n_enh} frames, K1 launches "
+          f"{k1.launches}, {wall:.3f} s wall; vs CPU on 2 rows max abs err {err:.3e}")
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from deepfilternet_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; TF32 off "
+          "(torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False)")
+    print(smi)
+
+    t0 = time.perf_counter()
+    built = kernels.build()
+    print(f"build: {len(built)} kernel(s) in {time.perf_counter() - t0:.1f} s wall")
+    for name, (secs, log) in built.items():
+        print(f"  {name}: nvcc {secs:.1f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"    {line.strip()}")
+
+    k1 = check_frontend(dev, card)
+    k1["launches"] = main_path(card)
+
+    print(smi)
+    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

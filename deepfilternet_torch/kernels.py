@@ -1,0 +1,92 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Each source under `csrc/` is compiled by `nvcc` for Hopper (`sm_90a`) into a
+shared library with a plain C interface, loaded with `ctypes`. Builds happen
+at first use, into `_build/` beside this file (listed in `.gitignore`), and
+are keyed by a hash of the source and the flags, so an edited source builds
+anew. `build()` starts one `nvcc` per missing library, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+_PKG = Path(__file__).resolve().parent
+SOURCE_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# kernel name -> source file under csrc/
+SOURCES = {"fused_frontend": "fused_frontend.cu"}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    for c in cands:
+        if os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (SOURCE_DIR / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]:
+    """Compile the named kernels (default: all) that are not built yet.
+
+    Returns {name: (seconds, ptxas report)} for the libraries it built.
+    Raises RuntimeError with the compiler's output if any build fails.
+    """
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not library_path(n).is_file()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out, time.perf_counter())
+    done: Dict[str, Tuple[float, str]] = {}
+    failed = []
+    for n, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{n} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        done[n] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return done
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,0 +1,342 @@
+"""The DFN3 layers as plain functions on parameter trees of tensors.
+
+Parameters keep the JAX package's tree layout, which is the reference torch
+modules' layout, so the same checkpoint feeds both packages:
+
+  * conv weight   [O, I/groups, kT, kF]   (+ optional pointwise [O, O, 1, 1])
+  * convT weight  [I, O/groups, kT, kF]
+  * linear weight [O, I], bias [O]
+  * GRU per layer w_ih [3H, I], b_ih [3H], w_hh [3H, H], b_hh [3H]; gate
+    order (reset, update, new), with b_hn inside r * (W_hn h + b_hn)
+  * grouped linear weight [G, I/G, H/G]
+  * batchnorm params scale/bias, state mean/var [C]
+
+Only the single-frame (`*_step`) forms the streaming cell uses are here, in
+inference mode (batchnorm reads its running statistics).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+# ---------------------------------------------------------------------------
+# initializers (torch defaults), drawn from an explicit generator
+# ---------------------------------------------------------------------------
+
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32).uniform_(-bound, bound, generator=gen)
+
+
+def _kaiming_uniform(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
+    # kaiming_uniform_(a=sqrt(5)) => bound = 1/sqrt(fan_in)
+    return _uniform(gen, shape, 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0)
+
+
+ACT = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "identity": lambda x: x,
+    None: lambda x: x,
+}
+
+
+# ---------------------------------------------------------------------------
+# batch norm 2d (eval)
+# ---------------------------------------------------------------------------
+
+
+def init_batchnorm(c: int) -> Tuple[Params, Params]:
+    return ({"scale": torch.ones(c), "bias": torch.zeros(c)},
+            {"mean": torch.zeros(c), "var": torch.ones(c)})
+
+
+def batchnorm_apply(params: Params, state: Params, x: torch.Tensor,
+                    eps: float = 1e-5) -> Tuple[torch.Tensor, Params]:
+    """Eval mode: x [B, C, T, F] normalized per channel with the running
+    statistics. Returns (out, state), the state unchanged."""
+    inv = torch.rsqrt(state["var"] + eps)
+    out = (x - state["mean"][None, :, None, None]) * inv[None, :, None, None]
+    out = out * params["scale"][None, :, None, None] + params["bias"][None, :, None, None]
+    return out, state
+
+
+# ---------------------------------------------------------------------------
+# causal Conv2d block: conv -> [pointwise] -> [bn] -> [act]
+# ---------------------------------------------------------------------------
+
+
+def init_conv2d_norm_act(
+    gen: torch.Generator,
+    in_ch: int,
+    out_ch: int,
+    kernel: Tuple[int, int],
+    fstride: int = 1,
+    dilation: int = 1,
+    fpad: bool = True,
+    bias: bool = True,
+    separable: bool = False,
+    norm: bool = True,
+    act: Optional[str] = "relu",
+) -> Tuple[Params, Params, Dict]:
+    """Returns (params, state, static_config), the config equal to the JAX
+    package's for the same arguments. The JAX package's DFN1-only options
+    (explicit groups, lookahead, frequency upsampling) are not ported."""
+    kernel = tuple(kernel)
+    groups = math.gcd(in_ch, out_ch) if separable else 1
+    has_pw = separable and groups > 1 and max(kernel) > 1
+    fan_in = (in_ch // groups) * kernel[0] * kernel[1]
+    params: Params = {
+        "w": _kaiming_uniform(gen, (out_ch, in_ch // groups, kernel[0], kernel[1]), fan_in)
+    }
+    if bias:
+        params["b"] = _uniform(gen, (out_ch,), 1.0 / math.sqrt(fan_in))
+    if has_pw:
+        params["pw"] = _kaiming_uniform(gen, (out_ch, out_ch, 1, 1), out_ch)
+    state: Params = {}
+    if norm:
+        params["bn"], state["bn"] = init_batchnorm(out_ch)
+    cfg = dict(
+        kernel=kernel,
+        fstride=fstride,
+        dilation=dilation,
+        fpad=(kernel[1] // 2 + dilation - 1) if fpad else 0,
+        groups=groups,
+        act=act,
+        norm=norm,
+        transposed=False,
+        lookahead=0,
+        fupsample=1,
+    )
+    return params, state, cfg
+
+
+def _conv2d_raw(x, w, groups, fstride, dilation, fpad):
+    return F.conv2d(x, w, stride=(1, fstride), padding=(0, fpad),
+                    dilation=(1, dilation), groups=groups)
+
+
+def _finish(params, state, cfg, out):
+    if "b" in params:
+        out = out + params["b"][None, :, None, None]
+    if "pw" in params:
+        out = F.conv2d(out, params["pw"])
+    if cfg["norm"]:
+        out, _ = batchnorm_apply(params["bn"], state["bn"], out)
+    return ACT[cfg["act"]](out)[:, :, 0, :]
+
+
+def conv2d_norm_act_step(params: Params, state: Params, cfg: Dict,
+                         x_win: torch.Tensor) -> torch.Tensor:
+    """One frame. x_win: [B, C, kT, F] (time window ending at the current
+    frame) -> [B, O, F']."""
+    out = _conv2d_raw(x_win, params["w"], cfg["groups"], cfg["fstride"],
+                      cfg["dilation"], cfg["fpad"])
+    return _finish(params, state, cfg, out)
+
+
+# ---------------------------------------------------------------------------
+# causal ConvTranspose2d block: frequency upsampling decoder convs
+# ---------------------------------------------------------------------------
+
+
+def init_conv_transpose2d_norm_act(
+    gen: torch.Generator,
+    in_ch: int,
+    out_ch: int,
+    kernel: Tuple[int, int],
+    fstride: int = 1,
+    dilation: int = 1,
+    fpad: bool = True,
+    bias: bool = True,
+    separable: bool = False,
+    norm: bool = True,
+    act: Optional[str] = "relu",
+) -> Tuple[Params, Params, Dict]:
+    kernel = tuple(kernel)
+    groups = math.gcd(in_ch, out_ch) if separable else 1
+    has_pw = separable and groups > 1
+    fan_in = (out_ch // groups) * kernel[0] * kernel[1]
+    params: Params = {
+        "w": _kaiming_uniform(gen, (in_ch, out_ch // groups, kernel[0], kernel[1]), fan_in)
+    }
+    if bias:
+        params["b"] = _uniform(gen, (out_ch,), 1.0 / math.sqrt(fan_in))
+    if has_pw:
+        params["pw"] = _kaiming_uniform(gen, (out_ch, out_ch, 1, 1), out_ch)
+    state: Params = {}
+    if norm:
+        params["bn"], state["bn"] = init_batchnorm(out_ch)
+    cfg = dict(
+        kernel=kernel,
+        fstride=fstride,
+        dilation=dilation,
+        fpad=(kernel[1] // 2) if fpad else 0,
+        groups=groups,
+        act=act,
+        norm=norm,
+        transposed=True,
+    )
+    return params, state, cfg
+
+
+def _conv_transpose2d_raw(x, w, groups, fstride, kernel, fpad, dilation):
+    """torch ConvTranspose2d with padding=(kT-1, fpad + dilation - 1),
+    output_padding=(0, fpad), stride=(1, fstride), written out as a
+    convolution of the frequency-dilated input with the flipped,
+    channel-transposed kernel (the JAX package's form). The time axis needs
+    no padding: the caller's window already holds the kT-1 past frames."""
+    kt, kf = kernel
+    p_f = fpad + dilation - 1
+    pad_l = dilation * (kf - 1) - p_f
+    pad_r = dilation * (kf - 1) - p_f + fpad
+    b, c, t, f = x.shape
+    if fstride > 1:
+        xd = x.new_zeros((b, c, t, (f - 1) * fstride + 1))
+        xd[..., ::fstride] = x
+        x = xd
+    # negative padding crops, as lax.conv_general_dilated does
+    x = F.pad(x, (pad_l, pad_r))
+    ig = c // groups
+    og = w.shape[1]
+    w_r = torch.flip(w, dims=(2, 3)).reshape(groups, ig, og, kt, kf)
+    w_r = w_r.transpose(1, 2).reshape(groups * og, ig, kt, kf)
+    return F.conv2d(x, w_r, dilation=(1, dilation), groups=groups)
+
+
+def conv_transpose2d_norm_act_step(params: Params, state: Params, cfg: Dict,
+                                   x_win: torch.Tensor) -> torch.Tensor:
+    """One frame. x_win: [B, C, kT, F] -> [B, O, F*fstride]."""
+    out = _conv_transpose2d_raw(x_win, params["w"], cfg["groups"], cfg["fstride"],
+                                cfg["kernel"], cfg["fpad"], cfg["dilation"])
+    return _finish(params, state, cfg, out)
+
+
+# ---------------------------------------------------------------------------
+# linear / grouped linear
+# ---------------------------------------------------------------------------
+
+
+def init_linear(gen: torch.Generator, in_dim: int, out_dim: int, bias: bool = True) -> Params:
+    p = {"w": _kaiming_uniform(gen, (out_dim, in_dim), in_dim)}
+    if bias:
+        p["b"] = _uniform(gen, (out_dim,), 1.0 / math.sqrt(in_dim))
+    return p
+
+
+def linear_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    out = x @ params["w"].T
+    if "b" in params:
+        out = out + params["b"]
+    return out
+
+
+def init_grouped_linear(gen: torch.Generator, in_dim: int, out_dim: int,
+                        groups: int = 1) -> Params:
+    """Weight [G, I/G, H/G]."""
+    if in_dim % groups or out_dim % groups:
+        raise ValueError("grouped linear widths must divide by the group count")
+    ws = in_dim // groups
+    return {"w": _kaiming_uniform(gen, (groups, ws, out_dim // groups), ws)}
+
+
+def grouped_linear_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """x: [..., I] -> [..., H]."""
+    g, ws, hs = params["w"].shape
+    xg = x.reshape(x.shape[:-1] + (g, ws))
+    out = torch.einsum("...gi,gih->...gh", xg, params["w"])
+    return out.reshape(x.shape[:-1] + (g * hs,))
+
+
+# ---------------------------------------------------------------------------
+# GRU (torch gate conventions)
+# ---------------------------------------------------------------------------
+
+
+def init_gru(gen: torch.Generator, input_size: int, hidden_size: int,
+             num_layers: int = 1) -> Params:
+    bound = 1.0 / math.sqrt(hidden_size)
+    layers = []
+    for li in range(num_layers):
+        isz = input_size if li == 0 else hidden_size
+        layers.append({
+            "w_ih": _uniform(gen, (3 * hidden_size, isz), bound),
+            "w_hh": _uniform(gen, (3 * hidden_size, hidden_size), bound),
+            "b_ih": _uniform(gen, (3 * hidden_size,), bound),
+            "b_hh": _uniform(gen, (3 * hidden_size,), bound),
+        })
+    return {"layers": layers}
+
+
+def _gru_cell(h, x, lp):
+    gi = x @ lp["w_ih"].T + lp["b_ih"]
+    gh = h @ lp["w_hh"].T + lp["b_hh"]
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1.0 - z) * n + z * h
+
+
+def gru_step(params: Params, h: torch.Tensor, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame. x: [B, I]; h: [L, B, H]. Returns (h' [L, B, H], out [B, H])."""
+    out = x
+    new_h = []
+    for li, lp in enumerate(params["layers"]):
+        out = _gru_cell(h[li], out, lp)
+        new_h.append(out)
+    return torch.stack(new_h, dim=0), out
+
+
+# ---------------------------------------------------------------------------
+# SqueezedGRU_S: grouped linear in -> GRU -> grouped linear out; the skip is
+# added after linear_out and fed by the raw input
+# ---------------------------------------------------------------------------
+
+
+def init_squeezed_gru_s(
+    gen: torch.Generator,
+    input_size: int,
+    hidden_size: int,
+    output_size: Optional[int] = None,
+    num_layers: int = 1,
+    linear_groups: int = 8,
+    skip: Optional[str] = None,  # None | "identity" | "groupedlinear"
+    linear_act: Optional[str] = "relu",
+) -> Tuple[Params, Dict]:
+    params: Params = {
+        "linear_in": init_grouped_linear(gen, input_size, hidden_size, linear_groups),
+        "gru": init_gru(gen, hidden_size, hidden_size, num_layers),
+    }
+    if output_size is not None:
+        params["linear_out"] = init_grouped_linear(gen, hidden_size, output_size, linear_groups)
+    if skip == "groupedlinear":
+        out_sz = output_size if output_size is not None else hidden_size
+        params["skip"] = init_grouped_linear(gen, input_size, out_sz, linear_groups)
+    cfg = dict(skip=skip, linear_act=linear_act, num_layers=num_layers,
+               hidden_size=hidden_size)
+    return params, cfg
+
+
+def squeezed_gru_s_step(params: Params, cfg: Dict, h: torch.Tensor, x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame. x: [B, I]; h: [L, B, H]. Returns (h', out)."""
+    act = ACT[cfg["linear_act"]]
+    xin = act(grouped_linear_apply(params["linear_in"], x))
+    h_new, out = gru_step(params["gru"], h, xin)
+    if "linear_out" in params:
+        out = act(grouped_linear_apply(params["linear_out"], out))
+    if cfg["skip"] == "identity":
+        out = out + x
+    elif cfg["skip"] == "groupedlinear":
+        out = out + grouped_linear_apply(params["skip"], x)
+    return h_new, out

@@ -1,0 +1,30 @@
+from deepfilternet_torch.ops.erb import (  # noqa: F401
+    erb2freq,
+    erb_fb_matrices,
+    erb_fb_tensor,
+    erb_widths,
+    freq2erb,
+)
+from deepfilternet_torch.ops.stft import (  # noqa: F401
+    Stft,
+    analysis_step_ri,
+    dft_matrices,
+    idft_matrices,
+    synthesis_step_ri,
+    vorbis_window,
+    wnorm,
+)
+from deepfilternet_torch.ops.norms import (  # noqa: F401
+    MEAN_NORM_INIT,
+    UNIT_NORM_INIT,
+    erb_norm_step,
+    get_norm_alpha,
+    mean_norm_init,
+    unit_norm_init,
+)
+from deepfilternet_torch.ops.df_op import deep_filter  # noqa: F401
+from deepfilternet_torch.ops.postfilter import post_filter  # noqa: F401
+from deepfilternet_torch.ops.fused_frontend import (  # noqa: F401
+    fused_analysis_frontend,
+    fused_analysis_frontend_plain,
+)

@@ -1,0 +1,23 @@
+"""Valin-style perceptual post-filter (spectral form). Slightly
+over-attenuates noisy bins:
+
+    g      = clamp(|e| / |x|, eps, 1)
+    g_sin  = g * sin(pi * g / 2)
+    pf     = (1 + beta) / (1 + beta * (g / g_sin)^2)
+"""
+
+from __future__ import annotations
+
+import torch
+
+PI = 3.1415926535897932384626433
+
+
+def post_filter(
+    noisy: torch.Tensor, enhanced: torch.Tensor, beta: float = 0.02, eps: float = 1e-12
+) -> torch.Tensor:
+    """Post-filter `enhanced` (complex) given the noisy spectrum."""
+    g = torch.clamp(torch.abs(enhanced) / (torch.abs(noisy) + eps), eps, 1.0)
+    g_sin = g * torch.sin(g * (PI / 2.0))
+    pf = (1.0 + beta) / (1.0 + beta * (g / g_sin) ** 2)
+    return enhanced * pf.to(torch.float32)

@@ -1,0 +1,124 @@
+"""Vorbis-windowed streaming STFT pieces, as matrix products.
+
+Semantics of the JAX package's `ops/stft.py`:
+
+  * window: vorbis ``sin(pi/2 * sin^2(pi*(n+0.5)/N))`` computed in float64;
+  * forward normalization ``wnorm = 2*hop / fft_size**2`` in analysis only;
+  * analysis is streaming: each hop is transformed together with the
+    `fft - hop` samples before it (the analysis memory);
+  * synthesis is the unnormalized inverse (scale `fft_size`), windowed and
+    overlap-added through the synthesis memory.
+
+The real DFT and its inverse are dense [N, F] / [F, N] matrices with the
+window and wnorm folded in, built in float64 and stored as float32.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def vorbis_window(fft_size: int) -> np.ndarray:
+    """Vorbis (Princen-Bradley compliant) window, float64 math, f32 output."""
+    half = fft_size / 2
+    n = np.arange(fft_size, dtype=np.float64)
+    s = np.sin(0.5 * np.pi * (n + 0.5) / half)
+    w = np.sin(0.5 * np.pi * s * s).astype(np.float32)
+    w.setflags(write=False)
+    return w
+
+
+def wnorm(fft_size: int, hop_size: int) -> float:
+    """Forward normalization 1/(N^2/(2*hop))."""
+    return float(2.0 * hop_size / (fft_size * fft_size))
+
+
+class Stft(NamedTuple):
+    """Static STFT configuration."""
+
+    sr: int
+    fft_size: int
+    hop_size: int
+
+
+@functools.lru_cache(maxsize=None)
+def dft_matrices(fft_size: int, hop_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(cos_mat, sin_mat): windowed forward real DFT, [N, F] each.
+
+    spec = (frame @ cos_mat) + 1j * (frame @ sin_mat), equal to
+    rfft(frame * window) * wnorm.
+    """
+    n = fft_size
+    f = n // 2 + 1
+    k = np.arange(n, dtype=np.float64)[:, None]
+    j = np.arange(f, dtype=np.float64)[None, :]
+    ang = -2.0 * np.pi * k * j / n
+    w = vorbis_window(n).astype(np.float64)[:, None]
+    scale = wnorm(fft_size, hop_size)
+    cos_m = (np.cos(ang) * w * scale).astype(np.float32)
+    sin_m = (np.sin(ang) * w * scale).astype(np.float32)
+    cos_m.setflags(write=False)
+    sin_m.setflags(write=False)
+    return cos_m, sin_m
+
+
+@functools.lru_cache(maxsize=None)
+def idft_matrices(fft_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(re_mat, im_mat): [F, N] inverse real DFT x fft_size with the
+    synthesis window folded in; interior bins count twice, DC/Nyquist once.
+    """
+    n = fft_size
+    f = n // 2 + 1
+    j = np.arange(f, dtype=np.float64)[:, None]
+    k = np.arange(n, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * j * k / n
+    mult = np.full((f, 1), 2.0)
+    mult[0] = 1.0
+    if n % 2 == 0:
+        mult[-1] = 1.0
+    w = vorbis_window(n).astype(np.float64)[None, :]
+    re_m = (np.cos(ang) * mult * w).astype(np.float32)
+    im_m = (-np.sin(ang) * mult * w).astype(np.float32)
+    re_m.setflags(write=False)
+    im_m.setflags(write=False)
+    return re_m, im_m
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_tensors(fft_size: int, hop_size: int, device: torch.device):
+    return tuple(torch.tensor(m, device=device) for m in dft_matrices(fft_size, hop_size))
+
+
+@functools.lru_cache(maxsize=None)
+def _idft_tensors(fft_size: int, device: torch.device):
+    return tuple(torch.tensor(m, device=device) for m in idft_matrices(fft_size))
+
+
+def analysis_step_ri(
+    state: torch.Tensor, frame: torch.Tensor, cfg: Stft
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One hop of streaming analysis. state [..., fft-hop], frame [..., hop]
+    -> (new_state, spec_re [..., F], spec_im [..., F])."""
+    buf = torch.cat([state, frame], dim=-1)
+    cos_m, sin_m = _dft_tensors(cfg.fft_size, cfg.hop_size, buf.device)
+    return buf[..., cfg.hop_size :], buf @ cos_m, buf @ sin_m
+
+
+def synthesis_step_ri(
+    state: torch.Tensor, spec_re: torch.Tensor, spec_im: torch.Tensor, cfg: Stft
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One hop of streaming synthesis (windowed iDFT + overlap-add).
+    state [..., fft-hop] -> (new_state, out [..., hop])."""
+    hop = cfg.hop_size
+    re_m, im_m = _idft_tensors(cfg.fft_size, spec_re.device)
+    x = spec_re @ re_m + spec_im @ im_m
+    out = x[..., :hop] + state[..., :hop]
+    zeros = state.new_zeros(state.shape[:-1] + (hop,))
+    shifted = torch.cat([state[..., hop:], zeros], dim=-1)
+    new_state = shifted + x[..., hop:] if cfg.fft_size > hop else shifted
+    return new_state, out
