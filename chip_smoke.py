@@ -9,19 +9,27 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
   2. build   - compiles every CUDA kernel from deepfilternet_torch/csrc/;
   3. kernels - each kernel against its plain PyTorch version on the card at
                the main path's shapes (and others), with its time, the plain
-               version's, a library yardstick's and the card's bound for the
-               same work, at the main path's shape and at S=4096;
+               version's, a library yardstick's (where one PyTorch call
+               computes the same function) and the card's bound for the same
+               work, at the main path's shape and at S=4096; the whole-cell
+               kernel in both of its builds (4 and 8 stream rows a block),
+               also where a block walks over several tiles of streams;
   4. main    - streaming DFN3 with the bundled demo checkpoint: 64 streams
-               x 2 s through StreamingRuntime.process, held against the same
-               run on the CPU, then enhance(backend="scan") on 16 x 2 s; the
-               kernels' launch counts show the path went through them. A
-               short profiled run says where a frame's time goes.
+               x 2 s through StreamingRuntime.process (one frontend kernel
+               launch per frame), held against the same run on the CPU, then
+               enhance(backend="scan") on 16 x 2 s; then the same 64 x 2 s
+               through WholeCellStreamingRuntime.process (one whole-cell
+               kernel launch for all 200 frames), held against the per-frame
+               run, the plain version on the CPU and itself in two calls. The
+               kernels' launch counts show each path went through its kernel.
+               A short profiled run says where a per-frame frame's time goes.
 
 The second-to-last line of standard output is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. TF32 is off for matrix products and
 convolutions, so every comparison is float32 against float32.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -202,6 +210,228 @@ def time_frontend(dev, card, s):
                 library_ms=t["library"])
 
 
+# -- phase 3: the whole-cell kernel (TPU kernel K2) --------------------------
+
+K2_RUNTIME_STAGES = dict(atten_lim_db=12.0, post_filter_beta=0.02, lsnr_gating=True)
+
+
+def seeded_audio(s, frames, seed, scale=0.1):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (rng.standard_normal((s, frames * HOP)) * scale).astype(np.float32))
+
+
+def compare_cell(tag, got, ref, rel_tol):
+    """Every output of the whole cell (audio and the 11 carry arrays) against
+    the reference, to rel_tol of the reference's largest value. Returns the
+    largest absolute error."""
+    worst = 0.0
+    for name, b in ref.items():
+        a = got[name]
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"K2 {tag} {name}: shape {tuple(a.shape)} or non-finite values")
+        err = float((a - b).abs().max())
+        tol = rel_tol * float(b.abs().max())
+        if err > tol:
+            fail(f"K2 {tag} {name}: max abs err {err:.3e} > tol {tol:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+@contextlib.contextmanager
+def tile_rows(rows):
+    """Inside the block `cell_process` tiles the streams by `rows` a thread
+    block whatever S is, so that both builds of the kernel (4 and 8 rows) can
+    be checked and timed at one S. None leaves the wrapper's own choice."""
+    from deepfilternet_torch.ops import whole_cell
+
+    if rows is None:
+        yield
+        return
+    own = whole_cell._tile_rows
+    whole_cell._tile_rows = lambda s, n_sm: rows
+    try:
+        yield
+    finally:
+        whole_cell._tile_rows = own
+
+
+def own_tile_rows(s):
+    from deepfilternet_torch.ops.whole_cell import _tile_rows
+
+    return _tile_rows(s, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+# (streams, frames compared, rows a block; None: the wrapper's choice, 4 up to
+# 4 x the card's multiprocessors, else 8). 1100 streams are more tiles than
+# an H100 has multiprocessors at either width, so a block walks over several
+# tiles, the last of them ragged at 8 rows.
+K2_CASES = ((1, 8, None), (37, 8, None), (64, 8, None), (37, 8, 8), (64, 8, 8),
+            (1100, 2, None), (1100, 2, 4))
+
+
+def check_whole_cell(dev, card, model, df_state):
+    from deepfilternet_torch.ops.whole_cell import cell_process, cell_process_plain
+    from deepfilternet_torch.streaming import RuntimeParams
+    from deepfilternet_torch.streaming_whole_cell import (
+        WholeCellStreamingRuntime,
+        carry_to_flat,
+    )
+
+    def outputs(res):
+        carry, audio = res
+        return dict(carry, audio=audio)
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0
+    for stages in ({}, K2_RUNTIME_STAGES):
+        rt = WholeCellStreamingRuntime(model, df_state, RuntimeParams(**stages))
+        W, st = rt.weights, rt.statics
+        label = "runtime stages on" if stages else "default params"
+        for s, frames, rows in K2_CASES:
+            x = seeded_audio(s, 4 + frames, seed=100 + s).to(dev)
+            # a non-trivial carry: 4 frames through the plain version first
+            carry, _ = cell_process_plain(x[:, : 4 * HOP].contiguous(),
+                                          carry_to_flat(rt.init(s)), W, st)
+            xc = x[:, 4 * HOP:].contiguous()
+            ref = outputs(cell_process_plain(xc, carry, W, st))
+            with tile_rows(rows):
+                got = outputs(cell_process(xc, carry, W, st))
+                # chunk continuity: a second call continues from the first
+                # call's carry and equals one call over all frames
+                cut = max(1, 3 * frames // 8) * HOP
+                c1, o1 = cell_process(xc[:, :cut].contiguous(), carry, W, st)
+                c2, o2 = cell_process(xc[:, cut:].contiguous(), c1, W, st)
+            torch.cuda.synchronize()
+            used = rows or own_tile_rows(s)
+            tiles = -(-s // used)
+            tag = f"S={s}, {used} rows a block ({label})"
+            # 1e-4 of each output's largest value: the kernel adds its sums of
+            # up to 2048 terms in another order than cuBLAS, through ~45
+            # layers and three recurrences, over 8 frames
+            err = compare_cell(tag, got, ref, 1e-4)
+            worst = max(worst, err)
+            cerr = compare_cell(tag + " two calls",
+                                dict(c2, audio=torch.cat([o1, o2], 1)), got, 1e-5)
+            print(f"K2 S={s}, {frames} frames, {used} rows a block"
+                  f"{'' if rows is None else ' (not the choice at this S)'}, {tiles} tiles on "
+                  f"{min(tiles, n_sm)} blocks, {label}: 12 outputs within 1e-4 x max|plain| "
+                  f"(max abs err {err:.2e}); {cut // HOP} + {frames - cut // HOP} frames in two "
+                  f"calls equal one call to 1e-5 (max abs err {cerr:.2e})")
+
+    # silence skip: 8 frames of zeros count to 8 and mute the output, a loud
+    # frame resets the counter
+    rt = WholeCellStreamingRuntime(model, df_state)
+    flat = carry_to_flat(rt.init(3))
+    c, o = cell_process(torch.zeros((3, 8 * HOP), device=dev), flat, rt.weights, rt.statics)
+    torch.cuda.synchronize()
+    if not bool((c["sil"][:, 0] == 8).all()) or bool(o[:, 6 * HOP:].any()):
+        fail(f"K2 silence skip: counter {c['sil'][:, 0].tolist()}, output not muted")
+    c, _ = cell_process(torch.full((3, HOP), 0.5, device=dev), c, rt.weights, rt.statics)
+    if not bool((c["sil"][:, 0] == 0).all()):
+        fail("K2 silence skip: a loud frame did not reset the counter")
+    print("K2 silence skip: 8 zero frames count to 8 and mute from frame 6 on; "
+          "a loud frame resets the counter")
+
+    t = time_whole_cell(dev, card, rt, 64, 200)
+    time_whole_cell(dev, card, rt, 1056, 20)
+    time_whole_cell(dev, card, rt, 4096, 20)
+    return dict(name="cell_process", route="cuda",
+                source="deepfilternet_torch/csrc/whole_cell.cu",
+                replaces="deepfilternet_tpu/ops/pallas_cell.py:640",
+                launches=None, max_abs_err=worst, **t)
+
+
+def whole_cell_work(weights, s, frames):
+    """(operations, bytes) of one call. Operations: every product's 2*S*K*N
+    per frame at the widths the function needs, not the padded ones the weight
+    set is stored at: 481 bins where the set holds 512 (`dft`, used twice,
+    `erb_fwd`, `erb_inv`), 96 lanes where it holds 128 (the 16 channel blocks
+    of `c0w_t*` and `c1_w`, the 10 of `df_out_w`), and `convp_co` on each of
+    the 96 DF bins. Bytes: the weights as stored, the audio in and out and the
+    carry in and out, each moved once."""
+    from deepfilternet_torch.ops.whole_cell import BLK, CKEYS, FPAD, NFREQ
+
+    nb_df = 96
+
+    def macs(k, w):
+        if k.endswith("_b") or "bih" in k or "bhh" in k or k == "imult":
+            return 0  # added or multiplied elementwise, not a product
+        rows, cols = w.shape
+        if k == "dft":
+            return 2 * rows * (cols // FPAD) * NFREQ  # analysis and synthesis
+        if k == "erb_fwd":
+            return NFREQ * cols
+        if k == "erb_inv":
+            return rows * NFREQ
+        if k.startswith("c0w_t") or k == "df_out_w":
+            return rows * (cols // BLK) * nb_df
+        if k == "c1_w":
+            return (rows // BLK) * nb_df * cols
+        if k == "convp_co":
+            return rows * cols * nb_df
+        return rows * cols
+
+    per_stream_frame = sum(macs(k, w) for k, w in weights.items())
+    flops = 2 * s * per_stream_frame * frames
+    nbytes = 4 * (sum(w.numel() for w in weights.values())
+                  + 2 * s * frames * HOP + 2 * s * sum(d for _, d in CKEYS))
+    return flops, nbytes
+
+
+def time_whole_cell(dev, card, rt, s, frames):
+    """K2's time for one call of `frames` frames at S streams beside its plain
+    version and the card's bound for the same work. No single PyTorch call
+    computes this function, so it has no library time."""
+    from deepfilternet_torch.ops.whole_cell import cell_process, cell_process_plain
+    from deepfilternet_torch.streaming_whole_cell import carry_to_flat
+
+    x = seeded_audio(s, frames, seed=7).to(dev)
+    carry = carry_to_flat(rt.init(s))
+    W, st = rt.weights, rt.statics
+    own = own_tile_rows(s)
+    other = 12 - own  # the kernel's other build, timed beside the wrapper's choice
+
+    def with_other_rows():
+        with tile_rows(other):
+            return cell_process(x, carry, W, st)
+
+    fns = {"kernel": lambda: cell_process(x, carry, W, st),
+           "plain": lambda: cell_process_plain(x, carry, W, st),
+           f"kernel with {other} rows a block": with_other_rows}
+    times = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            times[k].append(time_ms(fn, iters=2))
+    t = {k: float(np.median(v)) for k, v in times.items()}
+    flops, nbytes = whole_cell_work(W, s, frames)
+    peak_flops, peak_bw = peaks(card)
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    rest = "".join(f", {k} {v / frames:.4f} ms" for k, v in t.items()
+                   if k not in ("kernel", "plain"))
+    print(f"K2 S={s} x {frames} frames in one call on {card}, per frame: kernel ({own} rows "
+          f"a block) {t['kernel'] / frames:.4f} ms, plain {t['plain'] / frames:.4f} ms{rest}, no single "
+          f"library call; bound {bound_ms / frames:.4f} ms ({flops / frames / 1e9:.3f} GFLOP at "
+          f"{peak_flops / 1e12:.1f} TFLOP/s float32 = {t_ops / frames:.4f} ms; "
+          f"{nbytes / 1e6:.2f} MB a call at {peak_bw / 1e12:.2f} TB/s = {t_bytes:.4f} ms a "
+          f"call); kernel at {bound_ms / t['kernel']:.1%} of the bound; per call: kernel "
+          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, bound {bound_ms:.3f} ms")
+    # where a frame's time goes: SM cycles of the kernel's first block per stage
+    from deepfilternet_torch.ops.whole_cell import STAGES
+
+    cell_process(x, carry, W, st)
+    torch.cuda.synchronize()
+    clocks = cell_process.stage_clocks.cpu().numpy().astype(np.float64)
+    if len(clocks) != len(STAGES) or not clocks.sum() > 0:
+        fail(f"K2 stage clocks malformed: {clocks}")
+    print(f"K2 S={s} x {frames} frames, share of the first block's cycles by stage: "
+          + "; ".join(f"{name} {c / clocks.sum():.1%}" for name, c in zip(STAGES, clocks)))
+    return dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None, frames_per_launch=frames)
+
+
 # -- phase 4: the main path --------------------------------------------------
 
 
@@ -234,14 +464,13 @@ def profile_frames(rt, audio, card):
                       for e in top))
 
 
-def main_path(card):
+def main_path(card, model, df_state, suffix):
+    """The per-frame path. Returns (K1 launches, audio, its output on the
+    card, wall seconds)."""
     from deepfilternet_torch.enhance import enhance, init_df
     from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
     from deepfilternet_torch.streaming import StreamingRuntime
 
-    model, df_state, suffix = init_df(MODEL_DIR)
-    if model.device.type != "cuda":
-        fail(f"init_df() put the model on {model.device}")
     rt = StreamingRuntime(model, df_state)
     s = 64
     audio = noisy_speech_like(s, SECONDS, seed=0)
@@ -253,7 +482,7 @@ def main_path(card):
     t0 = time.perf_counter()
     carry, out = rt.process(rt.init(s), audio)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    main_wall = wall = time.perf_counter() - t0
     launches = k1.launches
     if launches != n_frames:
         fail(f"K1 launches {launches} != frames processed {n_frames}")
@@ -293,6 +522,61 @@ def main_path(card):
         fail(f"enhance: 2 rows differ from the CPU run by {err:.3e} > 1e-4")
     print(f"enhance(backend='scan') [16, {SECONDS} s]: {n_enh} frames, K1 launches "
           f"{k1.launches}, {wall:.3f} s wall; vs CPU on 2 rows max abs err {err:.3e}")
+    return launches, audio, out, main_wall, cpu_model, cpu_state
+
+
+def whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio, per_frame_out,
+                    per_frame_wall):
+    """The whole-cell path: the same 64 x 2 s through
+    WholeCellStreamingRuntime.process, one kernel launch for all frames.
+    Returns the kernel's launches in that call."""
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.streaming_whole_cell import WholeCellStreamingRuntime
+
+    rt = WholeCellStreamingRuntime(model, df_state)
+    s, n_frames = audio.shape[0], audio.shape[1] // HOP
+    rt.process(rt.init(s), audio[:, : 5 * HOP])  # warm-up
+    torch.cuda.synchronize()
+
+    k2.launches = k2.frames = 0
+    t0 = time.perf_counter()
+    carry, out_dev = rt.process(rt.init(s), audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, frames = k2.launches, k2.frames
+    if launches != 1 or frames != n_frames:
+        fail(f"K2 launches {launches} (want 1), frames {frames} (want {n_frames})")
+    out = out_dev.cpu().numpy()
+    if out.shape != audio.shape or not np.isfinite(out).all():
+        fail(f"whole-cell output {out.shape} not finite / not {audio.shape}")
+    print(f"whole-cell path ({MODEL_DIR}): WholeCellStreamingRuntime.process S={s} x "
+          f"{SECONDS} s = {n_frames} frames, K2 launches {launches}, frames in them {frames}; "
+          f"{wall:.3f} s wall, aggregate RTF {SECONDS * s / wall:.1f}x beside the per-frame "
+          f"path's {per_frame_wall:.3f} s, {SECONDS * s / per_frame_wall:.1f}x, on {card} "
+          "(information only)")
+
+    # against the per-frame runtime on the card, at the tolerance the JAX
+    # tests hold this pair to
+    excess = np.abs(out - per_frame_out) - (2e-4 + 1e-3 * np.abs(per_frame_out))
+    err = float(np.abs(out - per_frame_out).max())
+    if not excess.max() <= 0:
+        fail(f"whole-cell vs per-frame runtime: max abs err {err:.3e} beyond atol 2e-4 + rtol 1e-3")
+    cpu_rt = WholeCellStreamingRuntime(cpu_model, cpu_state, backend="plain")
+    _, ref = cpu_rt.process(cpu_rt.init(4), audio[:4])
+    err_cpu = float(np.abs(out[:4] - ref.numpy()).max())
+    if not err_cpu <= 1e-4:
+        fail(f"whole-cell: 4 streams differ from the plain CPU run by {err_cpu:.3e} > 1e-4")
+    half = (n_frames // 2) * HOP
+    c, o1 = rt.process(rt.init(s), audio[:, :half])
+    c, o2 = rt.process(c, audio[:, half:])
+    err_two = float((torch.cat([o1, o2], dim=1) - out_dev).abs().max())
+    if not err_two <= 1e-5:
+        fail(f"whole-cell: two calls differ from one by {err_two:.3e} > 1e-5")
+    if int((c.silence_ctr != carry.silence_ctr).sum()) or c.silence_ctr.dtype != torch.int32:
+        fail("whole-cell: silence counters differ between one call and two")
+    print(f"whole-cell vs the per-frame runtime on the card: max abs err {err:.3e} (atol 2e-4, "
+          f"rtol 1e-3); vs backend='plain' on the CPU, 4 streams: {err_cpu:.3e} (tol 1e-4); "
+          f"two calls of {n_frames // 2} frames vs one: {err_two:.3e} (tol 1e-5)")
     return launches
 
 
@@ -323,11 +607,20 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
 
+    from deepfilternet_torch.enhance import init_df
+
+    model, df_state, suffix = init_df(MODEL_DIR)
+    if model.device.type != "cuda":
+        fail(f"init_df() put the model on {model.device}")
     k1 = check_frontend(dev, card)
-    k1["launches"] = main_path(card)
+    k2 = check_whole_cell(dev, card, model, df_state)
+    k1["launches"], audio, out, wall, cpu_model, cpu_state = main_path(
+        card, model, df_state, suffix)
+    k2["launches"] = whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio, out,
+                                     wall)
 
     print(smi)
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,20 +1,31 @@
 """deepfilternet_torch: the PyTorch and CUDA port of deepfilternet_tpu.
 
 Streaming DeepFilterNet3 inference on an NVIDIA GPU, held against the JAX
-package on the same inputs. The per-frame analysis frontend is a hand-written
-CUDA kernel (`csrc/fused_frontend.cu`); everything else is PyTorch.
+package on the same inputs. Two hand-written CUDA kernels: the per-frame
+analysis frontend (`csrc/fused_frontend.cu`) under `StreamingRuntime`, and
+the whole streaming frame with the frame loop inside one launch
+(`csrc/whole_cell.cu`) under `WholeCellStreamingRuntime`; everything else is
+PyTorch.
 
     from deepfilternet_torch import init_df, enhance
+    from deepfilternet_torch import StreamingRuntime, WholeCellStreamingRuntime
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["init_df", "enhance", "__version__"]
+__all__ = ["init_df", "enhance", "StreamingRuntime", "WholeCellStreamingRuntime",
+           "RuntimeParams", "__version__"]
+
+_LAZY = {
+    "init_df": "enhance", "enhance": "enhance",
+    "StreamingRuntime": "streaming", "RuntimeParams": "streaming",
+    "WholeCellStreamingRuntime": "streaming_whole_cell",
+}
 
 
 def __getattr__(name):
-    if name in ("init_df", "enhance"):
-        from deepfilternet_torch import enhance as _enhance_mod
+    if name in _LAZY:
+        import importlib
 
-        return getattr(_enhance_mod, name)
+        return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,6 +3,8 @@
 module exposes `streaming_init` and `streaming_cell`.
 
 Only DeepFilterNet3 is ported; the other families are ROADMAP item 9.
+`dfnet3_fused` holds its dense-folded streaming cell (`build_fused`,
+`FusedDfNet3`).
 """
 
 from __future__ import annotations

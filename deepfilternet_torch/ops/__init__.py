@@ -28,3 +28,11 @@ from deepfilternet_torch.ops.fused_frontend import (  # noqa: F401
     fused_analysis_frontend,
     fused_analysis_frontend_plain,
 )
+from deepfilternet_torch.ops.whole_cell import (  # noqa: F401
+    CKEYS,
+    WKEYS,
+    CellStatics,
+    build_cell_weights,
+    cell_process,
+    cell_process_plain,
+)
