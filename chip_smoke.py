@@ -12,17 +12,20 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                version's, a library yardstick's (where one PyTorch call
                computes the same function) and the card's bound for the same
                work, at the main path's shape and at S=4096; the whole-cell
-               kernel in both of its builds (4 and 8 stream rows a block),
-               also where a block walks over several tiles of streams;
+               kernel in both of its designs (every product cut over all
+               multiprocessors; a tile of stream rows a block, built for 4 and
+               8 rows), also where a block walks over several units or tiles;
   4. main    - streaming DFN3 with the bundled demo checkpoint: 64 streams
                x 2 s through StreamingRuntime.process (one frontend kernel
                launch per frame), held against the same run on the CPU, then
                enhance(backend="scan") on 16 x 2 s; then the same 64 x 2 s
                through WholeCellStreamingRuntime.process (one whole-cell
                kernel launch for all 200 frames), held against the per-frame
-               run, the plain version on the CPU and itself in two calls. The
-               kernels' launch counts show each path went through its kernel.
-               A short profiled run says where a per-frame frame's time goes.
+               run, the plain version on the CPU and itself in two calls; then
+               the same runtime called one frame at a time (per-hop latency).
+               The kernels' launch counts show each path went through its
+               kernel. A short profiled run says where a per-frame frame's
+               time goes.
 
 The second-to-last line of standard output is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. TF32 is off for matrix products and
@@ -42,13 +45,14 @@ MODEL_DIR = "pretrained/dfn3_fixture_demo"
 SR, HOP = 48000, 480
 SECONDS = 2.0
 
-# dense peaks (NVIDIA data sheets): float32 outside the tensor cores in
-# FLOP/s, device memory in bytes/s; first match on the device name wins
+# dense peaks (NVIDIA data sheets): float32 outside the tensor cores and TF32
+# on them in FLOP/s, device memory in bytes/s; first match on the device name
+# wins
 PEAKS = (
-    ("H100 PCIe", 51.2e12, 2.0e12),
-    ("H100 NVL", 60.0e12, 3.9e12),
-    ("H200", 67.0e12, 4.8e12),
-    ("H100", 67.0e12, 3.35e12),
+    ("H100 PCIe", 51.2e12, 378e12, 2.0e12),
+    ("H100 NVL", 60.0e12, 418e12, 3.9e12),
+    ("H200", 67.0e12, 495e12, 4.8e12),
+    ("H100", 67.0e12, 495e12, 3.35e12),
 )
 
 
@@ -57,9 +61,10 @@ def fail(msg):
 
 
 def peaks(name):
-    for key, flops, bw in PEAKS:
+    """(float32 FLOP/s, TF32 tensor-core FLOP/s, bytes/s) of the card."""
+    for key, flops, tf32, bw in PEAKS:
         if key in name:
-            return flops, bw
+            return flops, tf32, bw
     fail(f"no peak rates known for {name!r}")
 
 
@@ -128,7 +133,9 @@ def check_frontend(dev, card):
              "new_mean", "new_unit")
     alpha, nb_erb, nb_df = 0.99, 32, 96
     worst = 0.0
-    for s in (1, 37, 64, 4096):
+    # 16 and 17: one full small tile, and its ragged edge; 37: ragged; 4096:
+    # the large tile
+    for s in (1, 16, 17, 37, 64, 4096):
         rng = np.random.default_rng(s)
         mem = torch.from_numpy((rng.standard_normal((s, 480)) * 0.1).astype(np.float32)).to(dev)
         mean = torch.from_numpy(
@@ -147,7 +154,8 @@ def check_frontend(dev, card):
                     fail(f"K1 {name} at S={s}: shape {tuple(a.shape)} or non-finite values")
                 err = float((a - b).abs().max())
                 # 1e-5 of each output's largest value: the kernel sums the
-                # 960-term products in another order than cuBLAS
+                # 960-term products in another order than cuBLAS, from TF32
+                # operand halves (hi + lo) whose lo * lo term it drops
                 tol = 1e-5 * float(b.abs().max())
                 if err > tol:
                     fail(f"K1 {name} at S={s}: max abs err {err:.3e} > tol {tol:.3e}")
@@ -159,17 +167,54 @@ def check_frontend(dev, card):
 
     # timing: at the main path's shape (S=64, the kernels line) and at the
     # TPU reference's benchmark shape (S=4096)
-    t64 = time_frontend(dev, card, 64)
-    time_frontend(dev, card, 4096)
+    empty = empty_launch_ms()
+    print(f"an empty kernel launch on {card}: {empty:.4f} ms a launch over 200 back-to-back "
+          "launches (CUDA events), what any single launch costs at least")
+    t64 = time_frontend(dev, card, 64, empty)
+    time_frontend(dev, card, 4096, empty)
     return dict(name="fused_analysis_frontend", route="cuda",
                 source="deepfilternet_torch/csrc/fused_frontend.cu",
                 replaces="deepfilternet_tpu/ops/pallas_frontend.py:37",
                 launches=None, max_abs_err=worst, **t64)
 
 
-def time_frontend(dev, card, s):
+def empty_launch_ms():
+    """Device time of an empty kernel launched back to back through ctypes,
+    as the kernels are."""
+    from deepfilternet_torch.kernels import load
+    from deepfilternet_torch.ops.fused_frontend import _bind
+
+    lib = _bind(load("fused_frontend"))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if lib.dfn_empty_launch(stream) != 0:
+            fail("the empty kernel did not launch")
+
+    return time_ms(launch, iters=200)
+
+
+def kernel_device_ms(fn, match, iters=20):
+    """Device time a launch of the kernels whose name holds `match`, from
+    torch.profiler (a host-bound loop of launches leaves gaps that CUDA events
+    around the loop count in). None if the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if match in e.key and e.self_device_time_total > 0]
+    if not hits:
+        return None
+    return sum(e.self_device_time_total for e in hits) / iters / 1e3
+
+
+def time_frontend(dev, card, s, empty_ms):
     """K1's time per frame at S streams beside its plain version, the
-    library yardstick and the card's bound for the same work."""
+    library yardstick and the card's bounds for the same work."""
     from deepfilternet_torch.ops import erb_fb_tensor, erb_widths, mean_norm_init
     from deepfilternet_torch.ops.fused_frontend import (
         fused_analysis_frontend,
@@ -192,22 +237,36 @@ def time_frontend(dev, card, s):
         "plain": lambda: fused_analysis_frontend_plain(*args, alpha=alpha),
         "library": lambda: library_frontend(*args, cs, fb, nb_df, alpha),
     })
+    dev_ms = kernel_device_ms(lambda: fused_analysis_frontend(*args, alpha=alpha),
+                              "fused_frontend")
     f, n, d = fft // 2 + 1, fft, fft - HOP
     flops = 2 * s * n * 2 * f + 2 * s * f * nb_erb
     nbytes = 4 * (s * (d + HOP + nb_erb + nb_df)                    # inputs
                   + s * (d + 2 * f + 2 * nb_erb + 3 * nb_df)         # outputs
                   + 2 * n * f + f * nb_erb)                          # DFT + ERB matrices
-    peak_flops, peak_bw = peaks(card)
+    peak_flops, peak_tf32, peak_bw = peaks(card)
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     bound_ms = max(t_ops, t_bytes)
-    print(f"K1 S={s} per frame on {card}: kernel {t['kernel']:.4f} ms, plain "
-          f"{t['plain']:.4f} ms, library {t['library']:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({flops / 1e9:.3f} GFLOP at {peak_flops / 1e12:.1f} TFLOP/s float32 = "
-          f"{t_ops:.4f} ms; {nbytes / 1e6:.2f} MB at {peak_bw / 1e12:.2f} TB/s = "
-          f"{t_bytes:.4f} ms); kernel at {bound_ms / t['kernel']:.1%} of the bound")
+    # the kernel's products run on the tensor cores as three TF32 passes: the
+    # bound of the unit it uses is three times the operations at the TF32 rate
+    t_tc = 3 * flops / peak_tf32 * 1e3
+    unit_bound = max(t_tc, t_bytes)
+    best = min(t["kernel"], dev_ms) if dev_ms else t["kernel"]
+    print(f"K1 S={s} per frame on {card}: kernel {t['kernel']:.4f} ms over back-to-back calls "
+          f"(CUDA events), {'not measured' if dev_ms is None else format(dev_ms, '.4f') + ' ms'} "
+          f"on the device alone (profiler), plain {t['plain']:.4f} ms, library "
+          f"{t['library']:.4f} ms, an empty launch {empty_ms:.4f} ms "
+          f"({best / empty_ms:.1f} empty launches); float32 bound {bound_ms:.4f} ms "
+          f"({flops / 1e9:.3f} GFLOP at {peak_flops / 1e12:.1f} TFLOP/s float32 = {t_ops:.4f} ms; "
+          f"{nbytes / 1e6:.2f} MB at {peak_bw / 1e12:.2f} TB/s = {t_bytes:.4f} ms); bound of the "
+          f"unit the kernel uses {unit_bound:.4f} ms (3 TF32 passes at "
+          f"{peak_tf32 / 1e12:.0f} TFLOP/s = {t_tc:.4f} ms, or the bytes); kernel at "
+          f"{min(unit_bound / best, 1.0):.1%} of that bound, "
+          f"{min(bound_ms / best, 1.0):.1%} of the float32 one")
     return dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound_ms,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=t["library"])
+                library_ms=t["library"], device_ms=dev_ms, tensor_bound_ms=unit_bound,
+                empty_launch_ms=empty_ms)
 
 
 # -- phase 3: the whole-cell kernel (TPU kernel K2) --------------------------
@@ -239,35 +298,46 @@ def compare_cell(tag, got, ref, rel_tol):
 
 
 @contextlib.contextmanager
-def tile_rows(rows):
-    """Inside the block `cell_process` tiles the streams by `rows` a thread
-    block whatever S is, so that both builds of the kernel (4 and 8 rows) can
-    be checked and timed at one S. None leaves the wrapper's own choice."""
+def k2_design(design, rows=None):
+    """Inside the block `cell_process` launches the named design of the kernel
+    ("units": every product cut over all multiprocessors; "rows": a tile of
+    stream rows a block, with `rows` 4 or 8 a block) whatever S is, so that
+    every build can be checked and timed at one S. None leaves the wrapper's
+    own choice."""
     from deepfilternet_torch.ops import whole_cell
 
-    if rows is None:
-        yield
-        return
-    own = whole_cell._tile_rows
-    whole_cell._tile_rows = lambda s, n_sm: rows
+    own = whole_cell._kernel_choice, whole_cell._tile_rows
+    if design is not None:
+        whole_cell._kernel_choice = lambda s, n_sm: design
+    if rows is not None:
+        whole_cell._tile_rows = lambda s, n_sm: rows
     try:
         yield
     finally:
-        whole_cell._tile_rows = own
+        whole_cell._kernel_choice, whole_cell._tile_rows = own
 
 
-def own_tile_rows(s):
-    from deepfilternet_torch.ops.whole_cell import _tile_rows
+def own_k2_design(s):
+    """(design, rows a block or None) the wrapper picks at S streams."""
+    from deepfilternet_torch.ops.whole_cell import _kernel_choice, _tile_rows
 
-    return _tile_rows(s, torch.cuda.get_device_properties(0).multi_processor_count)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    design = _kernel_choice(s, n_sm)
+    return design, (_tile_rows(s, n_sm) if design == "rows" else None)
 
 
-# (streams, frames compared, rows a block; None: the wrapper's choice, 4 up to
-# 4 x the card's multiprocessors, else 8). 1100 streams are more tiles than
-# an H100 has multiprocessors at either width, so a block walks over several
-# tiles, the last of them ragged at 8 rows.
-K2_CASES = ((1, 8, None), (37, 8, None), (64, 8, None), (37, 8, 8), (64, 8, 8),
-            (1100, 2, None), (1100, 2, 4))
+def design_name(design, rows):
+    return "units" if design == "units" else f"rows, {rows} a block"
+
+
+# (streams, frames compared, design, rows a block; None: the wrapper's choice:
+# "units" up to 8 tiles of 64 streams on 132 multiprocessors, else "rows" with
+# 4 rows up to 4 x the card's multiprocessors, else 8). 1100 streams are 18
+# tiles of 64 (the last ragged), 138 of 8 and 275 of 4: more units or tiles
+# than blocks in every design, so a block walks over several.
+K2_CASES = ((1, 8, None, None), (37, 8, None, None), (64, 8, None, None),
+            (37, 8, "rows", 4), (64, 8, "rows", 8), (1100, 2, None, None),
+            (1100, 2, "rows", 4), (1100, 2, "units", None))
 
 
 def check_whole_cell(dev, card, model, df_state):
@@ -282,20 +352,20 @@ def check_whole_cell(dev, card, model, df_state):
         carry, audio = res
         return dict(carry, audio=audio)
 
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     for stages in ({}, K2_RUNTIME_STAGES):
         rt = WholeCellStreamingRuntime(model, df_state, RuntimeParams(**stages))
         W, st = rt.weights, rt.statics
         label = "runtime stages on" if stages else "default params"
-        for s, frames, rows in K2_CASES:
+        for s, frames, design, rows in K2_CASES:
             x = seeded_audio(s, 4 + frames, seed=100 + s).to(dev)
             # a non-trivial carry: 4 frames through the plain version first
             carry, _ = cell_process_plain(x[:, : 4 * HOP].contiguous(),
                                           carry_to_flat(rt.init(s)), W, st)
             xc = x[:, 4 * HOP:].contiguous()
             ref = outputs(cell_process_plain(xc, carry, W, st))
-            with tile_rows(rows):
+            with k2_design(design, rows):
+                used = design_name(*own_k2_design(s))
                 got = outputs(cell_process(xc, carry, W, st))
                 # chunk continuity: a second call continues from the first
                 # call's carry and equals one call over all frames
@@ -303,9 +373,7 @@ def check_whole_cell(dev, card, model, df_state):
                 c1, o1 = cell_process(xc[:, :cut].contiguous(), carry, W, st)
                 c2, o2 = cell_process(xc[:, cut:].contiguous(), c1, W, st)
             torch.cuda.synchronize()
-            used = rows or own_tile_rows(s)
-            tiles = -(-s // used)
-            tag = f"S={s}, {used} rows a block ({label})"
+            tag = f"S={s}, design {used} ({label})"
             # 1e-4 of each output's largest value: the kernel adds its sums of
             # up to 2048 terms in another order than cuBLAS, through ~45
             # layers and three recurrences, over 8 frames
@@ -313,9 +381,9 @@ def check_whole_cell(dev, card, model, df_state):
             worst = max(worst, err)
             cerr = compare_cell(tag + " two calls",
                                 dict(c2, audio=torch.cat([o1, o2], 1)), got, 1e-5)
-            print(f"K2 S={s}, {frames} frames, {used} rows a block"
-                  f"{'' if rows is None else ' (not the choice at this S)'}, {tiles} tiles on "
-                  f"{min(tiles, n_sm)} blocks, {label}: 12 outputs within 1e-4 x max|plain| "
+            print(f"K2 S={s}, {frames} frames, design {used}"
+                  f"{'' if design is None else ' (forced)'}, {label}: "
+                  f"12 outputs within 1e-4 x max|plain| "
                   f"(max abs err {err:.2e}); {cut // HOP} + {frames - cut // HOP} frames in two "
                   f"calls equal one call to 1e-5 (max abs err {cerr:.2e})")
 
@@ -334,6 +402,7 @@ def check_whole_cell(dev, card, model, df_state):
           "a loud frame resets the counter")
 
     t = time_whole_cell(dev, card, rt, 64, 200)
+    time_whole_cell(dev, card, rt, 512, 30)
     time_whole_cell(dev, card, rt, 1056, 20)
     time_whole_cell(dev, card, rt, 4096, 20)
     return dict(name="cell_process", route="cuda",
@@ -389,47 +458,51 @@ def time_whole_cell(dev, card, rt, s, frames):
     x = seeded_audio(s, frames, seed=7).to(dev)
     carry = carry_to_flat(rt.init(s))
     W, st = rt.weights, rt.statics
-    own = own_tile_rows(s)
-    other = 12 - own  # the kernel's other build, timed beside the wrapper's choice
+    own = own_k2_design(s)
+    # the designs the wrapper did not pick here, timed beside its choice
+    others = [d for d in (("units", None), ("rows", 4), ("rows", 8)) if d != own]
 
-    def with_other_rows():
-        with tile_rows(other):
-            return cell_process(x, carry, W, st)
+    def forced(design, rows):
+        def run():
+            with k2_design(design, rows):
+                return cell_process(x, carry, W, st)
+        return run
 
     fns = {"kernel": lambda: cell_process(x, carry, W, st),
-           "plain": lambda: cell_process_plain(x, carry, W, st),
-           f"kernel with {other} rows a block": with_other_rows}
+           "plain": lambda: cell_process_plain(x, carry, W, st)}
+    fns.update({f"kernel forced to {design_name(*d)}": forced(*d) for d in others})
     times = {k: [] for k in fns}
     for _ in range(3):
         for k, fn in fns.items():
             times[k].append(time_ms(fn, iters=2))
     t = {k: float(np.median(v)) for k, v in times.items()}
     flops, nbytes = whole_cell_work(W, s, frames)
-    peak_flops, peak_bw = peaks(card)
+    peak_flops, _, peak_bw = peaks(card)
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     bound_ms = max(t_ops, t_bytes)
     rest = "".join(f", {k} {v / frames:.4f} ms" for k, v in t.items()
                    if k not in ("kernel", "plain"))
-    print(f"K2 S={s} x {frames} frames in one call on {card}, per frame: kernel ({own} rows "
-          f"a block) {t['kernel'] / frames:.4f} ms, plain {t['plain'] / frames:.4f} ms{rest}, no single "
+    print(f"K2 S={s} x {frames} frames in one call on {card}, per frame: kernel (design "
+          f"{design_name(*own)}) {t['kernel'] / frames:.4f} ms, plain "
+          f"{t['plain'] / frames:.4f} ms{rest}, no single "
           f"library call; bound {bound_ms / frames:.4f} ms ({flops / frames / 1e9:.3f} GFLOP at "
           f"{peak_flops / 1e12:.1f} TFLOP/s float32 = {t_ops / frames:.4f} ms; "
           f"{nbytes / 1e6:.2f} MB a call at {peak_bw / 1e12:.2f} TB/s = {t_bytes:.4f} ms a "
           f"call); kernel at {bound_ms / t['kernel']:.1%} of the bound; per call: kernel "
           f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, bound {bound_ms:.3f} ms")
     # where a frame's time goes: SM cycles of the kernel's first block per stage
-    from deepfilternet_torch.ops.whole_cell import STAGES
-
     cell_process(x, carry, W, st)
     torch.cuda.synchronize()
     clocks = cell_process.stage_clocks.cpu().numpy().astype(np.float64)
-    if len(clocks) != len(STAGES) or not clocks.sum() > 0:
+    names = cell_process.stage_names
+    if len(clocks) != len(names) or not clocks.sum() > 0:
         fail(f"K2 stage clocks malformed: {clocks}")
-    print(f"K2 S={s} x {frames} frames, share of the first block's cycles by stage: "
-          + "; ".join(f"{name} {c / clocks.sum():.1%}" for name, c in zip(STAGES, clocks)))
+    print(f"K2 S={s} x {frames} frames, design {design_name(*own)}, "
+          f"{clocks.sum() / frames:.0f} cycles a frame in the first block, share by stage: "
+          + "; ".join(f"{name} {c / clocks.sum():.1%}" for name, c in zip(names, clocks)))
     return dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound_ms,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=None, frames_per_launch=frames)
+                library_ms=None, frames_per_launch=frames, design=design_name(*own))
 
 
 # -- phase 4: the main path --------------------------------------------------
@@ -574,6 +647,20 @@ def whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio, per_fram
         fail(f"whole-cell: two calls differ from one by {err_two:.3e} > 1e-5")
     if int((c.silence_ctr != carry.silence_ctr).sum()) or c.silence_ctr.dtype != torch.int32:
         fail("whole-cell: silence counters differ between one call and two")
+    # per-hop latency: the same runtime called one frame at a time, each call
+    # waited for (host clock around process + synchronize)
+    c = rt.init(s)
+    hops = []
+    for f in range(110):
+        frame = audio[:, f * HOP: (f + 1) * HOP]
+        t0 = time.perf_counter()
+        c, _ = rt.process(c, frame)
+        torch.cuda.synchronize()
+        hops.append((time.perf_counter() - t0) * 1e3)
+    hops = np.asarray(hops[10:])  # the first calls warm the allocator's cache
+    print(f"whole-cell runtime one frame a call, S={s}, 100 calls on {card}: median "
+          f"{np.median(hops):.3f} ms, worst {hops.max():.3f} ms a hop of 10 ms (host clock, "
+          "audio already on the host as numpy; information only)")
     print(f"whole-cell vs the per-frame runtime on the card: max abs err {err:.3e} (atol 2e-4, "
           f"rtol 1e-3); vs backend='plain' on the CPU, 4 streams: {err_cpu:.3e} (tol 1e-4); "
           f"two calls of {n_frames // 2} frames vs one: {err_two:.3e} (tol 1e-5)")

@@ -10,65 +10,74 @@
 // a 4-frame ring, the ERB mask through erb_inv, post-filter, LSNR gating,
 // attenuation limit, the RMS silence counter and mute, and the iDFT synthesis
 // with overlap-add. The carry (11 arrays, CKEYS order) is read once at the
-// start of a tile of streams and written once at its end. Every matrix product
-// of the frame is computed here, in float32 FMAs on the CUDA cores.
+// start of the call and written once at its end. Every matrix product of the
+// frame is computed here, in float32 FMAs on the CUDA cores.
 //
 // What bounds it: a frame is about 7.2 M multiply-adds a stream (8.1 M at the
-// padded widths the weights are stored at) against 28 MB of float32 weights
-// that every thread block must read once a frame. The weights sit in the
-// 50 MB L2 after the first frame, so the limit is not device memory but what
-// one multiprocessor pulls from L2 (a block reads all 28 MB a frame) and the
-// chain of ~45 dependent products, each with its barriers and L2 round trips.
-// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.54 ms a frame at
-// S = 64 with R = 4, i.e. 50 GB/s of weights per block, and 0.76 ms with
-// R = 8: the FMAs of twice the rows add 40%, so R = 4 is used while every
-// tile of 4 streams gets a multiprocessor of its own. Beyond that R = 8 reads
-// the weights once for twice the streams: 0.84 against 1.20 ms a frame at
-// S = 1056, 3.32 against 4.78 ms at S = 4096. Against the card's float32
-// peak for the 7.2 M multiply-adds that is 2.6% at S = 64, where 16 of 132
-// multiprocessors work, and 27% at S = 1056 and S = 4096.
+// padded widths the weights are stored at) against 28 MB of float32 weights,
+// which sit in the 50 MB L2 after the first frame. With few streams the
+// limit is the chain of dependent products: each must be spread over the
+// whole card to be short, and each then ends in a grid-wide barrier. With
+// many streams it is the float32 FMA rate.
 //
-// What the design does about it (a first kernel that is right, not yet fast):
-//   * one persistent block of 512 threads per tile of R = 4 or 8 streams
-//     (template), looping over the call's frames; blocks beyond the number
-//     of multiprocessors are folded into a loop over tiles, so the scratch
-//     is bounded by the card and not by S. The ragged last tile reads the
-//     last valid stream again for its missing rows and stores nothing for them;
-//   * one device routine gemm<R>: y[R, N] = act(x[R, K] @ W[K, N] + b) + addend.
-//     x is staged in shared memory transposed ([K][R], so one 16-byte
-//     broadcast load gives a thread 4 rows of one k), every thread owns 4
-//     neighbouring columns (one 16-byte coalesced weight load for 4R FMAs,
-//     4 such loads in flight while the last 4 are multiplied) and, where
-//     N / 4 is below the thread count, a slice of K; slices are then added
-//     in shared memory in slice order, so results do not depend on timing
-//     or on R;
-//   * the synthesis product against dft^T (gemm_t) gives each warp an output
-//     sample: lanes stride K with 16-byte loads and reduce by shuffles;
-//   * activations and the per-frame state live in a per-block scratch in
-//     global memory (L1/L2 resident; allocated by the wrapper): about 70 KB a
-//     stream row, more than the 227 KB of shared memory holds for 8 rows.
-//     Rolling windows (conv contexts, DF ring, analysis memory) are shifted in
-//     place by the thread that owns the element;
-//   * static scalars and the stage switches are kernel arguments; the 65 weight
-//     pointers travel in the argument struct, copied by value;
-//   * thread 0 of block 0 adds up the SM cycles of each stage of the frame
-//     (stage_clocks), so a run can say where a frame's time goes.
-// Tensor cores (wgmma with bf16 or 3xTF32 operands), a cp.async or TMA ring
-// that keeps the weight stream in flight across products, keeping the state in
-// shared memory, running independent products side by side, and splitting a
-// layer's columns over blocks (which needs a grid-wide barrier per layer) are
-// left for the redesign.
+// What the design does about it:
+//   * one persistent block of 256 threads per multiprocessor, launched
+//     cooperatively so that all are resident, loops over the call's frames;
+//   * a frame is a fixed list of phases with a grid barrier after each
+//     (a counter in global memory: threadfence, atomicAdd, spin on
+//     ld.acquire). Products that do not depend on one another share a phase:
+//     every h @ w_hh runs beside the analysis DFT, the ERB conv chain beside
+//     the DF conv chain, the ERB decoder beside the DF GRU stack; the
+//     decoder's pathway convs run early and join as addends. 18 phases a
+//     frame where the frame has ~45 products;
+//   * a product is cut into units of one tile of 64 stream rows by one slice
+//     of its output columns, dealt over all blocks, so a block reads only its
+//     slice of the weights. The phases, their products and each slice width
+//     are decided on the host (ops/whole_cell_plan.py) for the stream count
+//     and the card, and arrive as one int32 table;
+//   * activations and state live in a global scratch [tiles, SCR, 64],
+//     feature major, so a K-chunk of any product's input is one contiguous
+//     copy. A multiprocessor gets about 27 bytes a clock from L2 however the
+//     copies are issued, and cp.async from every thread stalls the threads at
+//     that rate; so a unit streams its input chunk and weight slice through a
+//     ring of shared-memory stages filled by bulk copies (the TMA engine, one
+//     warp issuing, an mbarrier a stage), which run while all warps multiply; a thread owns 8 rows x 8 columns
+//     (8 x 2 in narrow slices) and a share of each chunk's K rows, and the
+//     shares are added in shared memory in a fixed order, so results do not
+//     depend on timing;
+//   * a unit owns whole groups of columns that belong together (re and im of
+//     a bin; the three gates of a GRU column), so the elementwise stages run
+//     in the product's epilogue: power / unit norm / complex features after
+//     the DFT, dB and mean norm after the ERB bands, the GRU gates after
+//     x @ w_ih, the DF MAC and the whole tail after erb_inv, overlap-add
+//     after the synthesis product. Synthesis is the same routine against a
+//     transposed copy of dft that the wrapper keeps;
+//   * rows beyond S in the last tile repeat the last stream: computed, never
+//     stored;
+//   * thread 0 of block 0 adds up its cycles in each phase and at the
+//     barriers (stage_clocks), so a run can say where a frame's time goes.
+// Tensor cores (bf16 operands, wgmma) change results beyond the float32
+// tolerance and belong to the reduced-precision runtime.
+//
+// Measured times and the card they were taken on: PERF.md, kernel table.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int UNROLL = 4;  // weight rows a thread keeps in flight per batch
-constexpr int NWARPS = THREADS / 32;
+constexpr int THREADS = 256;                 // compute threads: 8 warps
+constexpr int BLOCK_THREADS = THREADS + 32;  // and one warp that only copies
+constexpr int RT = 64;        // stream rows a tile
+constexpr int KC = 64;        // K rows a stage
+constexpr int MAX_CNT = 64;   // widest column slice of a unit
+constexpr int NSTG = 4;       // depth of the ring of shared-memory stages
+constexpr int EPB = 4;        // elements a thread handles per batch of an epilogue
+constexpr int STAGE_FLOATS = KC * RT + KC * MAX_CNT;
+constexpr int RED_FLOATS = THREADS * RT;  // the K groups' partial sums of a unit
+constexpr size_t SMEM_BYTES = sizeof(float) * (size_t)(NSTG * STAGE_FLOATS + RED_FLOATS);
 constexpr int HOP = 480;
-constexpr int FFT = 960;
 constexpr int FPAD = 512;
 constexpr int BLK = 128;
 constexpr int NB_ERB = 32;
@@ -76,84 +85,44 @@ constexpr int NB_DF = 96;
 constexpr int HID = 256;
 constexpr int CH = 16;
 constexpr int ORDER = 5;
-constexpr int KMAX = 2048;  // widest product input (c1)
 constexpr float PI_F = 3.14159265358979323846f;
+constexpr int N_WKEYS = 65;
+constexpr int W_IMULT = 1, W_LSNR_W = 41, W_LSNR_B = 42, W_CONVP_CO = 63, W_CONVP_B = 64;
+constexpr int N_CKEYS = 11;
+constexpr int C_SIL = 3;
+__constant__ int CWIDTH[N_CKEYS] = {480, 480, 128, 8, 64, 384, 256, 256, 768, 512, 512};
+constexpr int TAB_MAX = 3072;
 
-// weight pointers, WKEYS order
-enum WKey {
-  W_DFT, W_IMULT, W_ERB_FWD, W_ERB_INV,
-  W_E0_W, W_E0_B, W_E1_W, W_E1_B, W_E2_W, W_E2_B, W_E3_W, W_E3_B,
-  W_C0W_T0, W_C0W_T1, W_C0W_T2, W_C0_B, W_C1_W, W_C1_B, W_GL_W,
-  W_P3_W, W_P3_B, W_T3_W, W_T3_B, W_P2_W, W_P2_B, W_T2_W, W_T2_B,
-  W_P1_W, W_P1_B, W_T1_W, W_T1_B, W_P0_W, W_P0_B, W_OUT_W, W_OUT_B,
-  W_ENC_LIN_IN, W_ENC_WIH, W_ENC_WHH, W_ENC_BIH, W_ENC_BHH, W_ENC_LIN_OUT,
-  W_LSNR_W, W_LSNR_B,
-  W_DEC_LIN_IN, W_DEC_WIH, W_DEC_WHH, W_DEC_BIH, W_DEC_BHH, W_DEC_LIN_OUT,
-  W_DF_LIN_IN,
-  W_DF_WIH0, W_DF_WHH0, W_DF_BIH0, W_DF_BHH0,
-  W_DF_WIH1, W_DF_WHH1, W_DF_BIH1, W_DF_BHH1,
-  W_DF_WIH2, W_DF_WHH2, W_DF_BIH2, W_DF_BHH2,
-  W_DF_OUT_W, W_CONVP_CO, W_CONVP_B,
-  N_WKEYS
-};
+// scratch columns, in the order of the plan's LAYOUT
+enum Lay { L_BUF, L_SPEC, L_POW, L_ERBWIN, L_FSWIN, L_E0, L_E1, L_E2, L_E3, L_C0, L_C1, L_CEMB,
+           L_EMB, L_XENC, L_EMB2, L_XDEC, L_XDF, L_GH_ENC, L_GH_DEC, L_GH_DF, L_P0, L_P1, L_P2,
+           L_P3, L_PA3, L_PA2, L_PA1, L_PA0, L_MASK, L_COEF, L_SE, L_SMEM, L_MEAN, L_UNIT,
+           L_ENC_H, L_DEC_H, L_DF_H, L_RING_RE, L_RING_IM, L_LSNR, L_MUTE, L_SILCTR, N_LAY };
 
-// carry arrays, CKEYS order
-enum CKey { C_AMEM, C_SMEM, C_NORMS, C_SIL, C_ERB_CTX, C_SPEC_CTX, C_ENC_H, C_DEC_H,
-            C_DF_H, C_RING_RE, C_RING_IM, N_CKEYS };
-
-// per-row scratch layout, in floats; every offset is a multiple of 4
-constexpr int O_BUF = 0;                     // [prev_hop | frame]         960
-constexpr int O_SPEC = O_BUF + FFT;          // [re | im]                 1024
-constexpr int O_POW = O_SPEC + 2 * FPAD;     // power                      512
-constexpr int O_ERBWIN = O_POW + FPAD;       // [erb t-2 | t-1 | t]         96
-constexpr int O_FSWIN = O_ERBWIN + 96;       // [fs t-2 | t-1 | t], 192 each: [re | im]
-constexpr int O_E0 = O_FSWIN + 576;          // 512
-constexpr int O_E1 = O_E0 + 512;             // 256
-constexpr int O_E2 = O_E1 + 256;             // 128
-constexpr int O_E3 = O_E2 + 128;             // 128
-constexpr int O_C0 = O_E3 + 128;             // 2048
-constexpr int O_C1 = O_C0 + CH * BLK;        // 768
-constexpr int O_EMB = O_C1 + 768;            // 128  e3 + cemb
-constexpr int O_XIN = O_EMB + 128;           // 256  GRU stack input
-constexpr int O_GI = O_XIN + HID;            // 768
-constexpr int O_GH = O_GI + 3 * HID;         // 768
-constexpr int O_EMB2 = O_GH + 3 * HID;       // 128  encoder output embedding
-constexpr int O_DEMB = O_EMB2 + 128;         // 128
-constexpr int O_PA = O_DEMB + 128;           // 512  decoder pathway ping
-constexpr int O_PB = O_PA + 512;             // 512  decoder pathway pong
-constexpr int O_MASK = O_PB + 512;           // 32
-constexpr int O_COEF = O_MASK + NB_ERB;      // 1280
-constexpr int O_Y = O_COEF + ORDER * 2 * BLK;  // [y_re | y_im] 256
-constexpr int O_GAIN = O_Y + 2 * BLK;        // 512  (also the raw ERB band sums)
-constexpr int O_SE = O_GAIN + FPAD;          // [se_re*imult | se_im*imult] 1024
-constexpr int O_X = O_SE + 2 * FPAD;         // synthesis frame 960
-constexpr int O_SMEM = O_X + FFT;            // 480
-constexpr int O_MEAN = O_SMEM + HOP;         // 32
-constexpr int O_UNIT = O_MEAN + NB_ERB;      // 96
-constexpr int O_ENC_H = O_UNIT + NB_DF;      // 256
-constexpr int O_DEC_H = O_ENC_H + HID;       // 256
-constexpr int O_DF_H = O_DEC_H + HID;        // 768
-constexpr int O_RING_RE = O_DF_H + 3 * HID;  // 512
-constexpr int O_RING_IM = O_RING_RE + 4 * BLK;  // 512
-constexpr int SCR = O_RING_IM + 4 * BLK;
-static_assert(SCR % 4 == 0 && O_FSWIN % 4 == 0 && O_MASK % 4 == 0 && O_MEAN % 4 == 0,
-              "scratch offsets must keep 16-byte alignment");
-
+// the plan table: header, scratch offsets, carry segments, phases, jobs
+enum Hdr { H_PHASES, H_JOBS, H_TILES, H_FRAME_PHASES, H_PRE, H_SEGS, H_LAY, H_SCR, HEADER_INTS };
+enum JobField { J_TYPE, J_BEGIN, J_UNITS, J_XOFF, J_K, J_W, J_NCAT, J_CSTRIDE, J_CW, J_SLICES,
+                J_BIAS, J_ACT, J_ADD, J_Y, J_YRAW, J_EP, J_H, J_GH, J_KG, J_AUX, JOB_INTS };
+// J_W: the weight's offset in wpack; J_CSTRIDE: columns between the groups in
+// the unpacked weight (the host's bookkeeping); J_AUX: chunks (elementwise),
+// columns of a thread's register tile (product)
+constexpr int PHASE_INTS = 3;  // first job, jobs, units
+enum JobType { T_GEMM, T_CARRY_IN, T_FRAME0, T_ADVANCE, T_LSNR, T_CARRY_OUT };
+enum Epilogue { EP_STD, EP_SPEC, EP_ERBNORM, EP_GRU, EP_TAIL, EP_OLA };
 enum Act { ACT_NONE, ACT_RELU, ACT_SIGMOID, ACT_TANH };
-
-// stages of a frame whose SM cycles block 0 adds up (see Params::stage_clocks)
-enum Stage { ST_FRAME_IN, ST_ANALYSIS, ST_FEATURES, ST_ERB_CONVS, ST_DF_CONV0, ST_DF_CONV1,
-             ST_ENC_GRU, ST_ERB_DECODER, ST_DF_GRU, ST_DF_COEF_MAC, ST_MASK_TAIL, ST_SYNTHESIS,
-             N_STAGES };
 
 struct Params {
   const float* audio;  // [S, T]
   float* out;          // [S, T]
   const float* cin[N_CKEYS];
   float* cout[N_CKEYS];
-  const float* w[N_WKEYS];
-  float* scratch;      // [gridDim.x, R, SCR]
-  long long* stage_clocks;  // [N_STAGES] SM cycles of block 0 per stage, over the call
+  const float* w[N_WKEYS];      // WKEYS order (biases and the small vectors are read here)
+  const float* wpack;           // every product's weight, packed by unit slice
+  float* scratch;               // [tiles, SCR, RT]
+  const int* table;
+  int table_ints;
+  unsigned int* barrier;        // one counter, zero at launch
+  long long* stage_clocks;      // [frame phases + 1]
   int S, n_frames;
   float alpha, one_minus_alpha, lsnr_min, lsnr_max, pf_beta, silence_thresh, atten_lim,
       gate_min, gate_max_erb, gate_max_df;
@@ -171,468 +140,331 @@ __device__ __forceinline__ float act_apply(float v, int act) {
   }
 }
 
-// acc[r][0..3] += x[r] * w4 over this thread's rows k0..k1 of one weight
-// segment. xs: staged x, [K][R]; w: this thread's 4 columns of row 0. The
-// weight rows come in batches of U 16-byte loads, the next batch in flight
-// while the current one is multiplied.
-template <int R>
-__device__ __forceinline__ void fma_rows(float (&acc)[R][4], const float* __restrict__ xs,
-                                         const float* __restrict__ w, int ldw, int k0, int k1) {
-  constexpr int U = UNROLL;
-  auto load = [&](float4 (&wv)[U], int k) {
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      wv[u] = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k + u) * ldw));
-  };
-  auto mac = [&](const float4 (&wv)[U], int k) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float xr[R];
-#pragma unroll
-      for (int q = 0; q < R / 4; ++q) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + (k + u) * R + 4 * q);
-        xr[4 * q] = xv.x; xr[4 * q + 1] = xv.y; xr[4 * q + 2] = xv.z; xr[4 * q + 3] = xv.w;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        acc[r][0] = fmaf(xr[r], wv[u].x, acc[r][0]);
-        acc[r][1] = fmaf(xr[r], wv[u].y, acc[r][1]);
-        acc[r][2] = fmaf(xr[r], wv[u].z, acc[r][2]);
-        acc[r][3] = fmaf(xr[r], wv[u].w, acc[r][3]);
-      }
-    }
-  };
-  const int nb = (k1 - k0) / U;
-  float4 wa[U], wb[U];
-  if (nb > 0) load(wa, k0);
-  int b = 0;
-  for (; b + 2 <= nb; b += 2) {
-    load(wb, k0 + (b + 1) * U);
-    mac(wa, k0 + b * U);
-    if (b + 2 < nb) load(wa, k0 + (b + 2) * U);
-    mac(wb, k0 + (b + 1) * U);
-  }
-  if (b < nb) mac(wa, k0 + b * U);
-  for (int k = k0 + nb * U; k < k1; ++k) {
-    const float4 wv = __ldg(reinterpret_cast<const float4*>(w + (size_t)k * ldw));
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float xr = xs[k * R + r];
-      acc[r][0] = fmaf(xr, wv.x, acc[r][0]);
-      acc[r][1] = fmaf(xr, wv.y, acc[r][1]);
-      acc[r][2] = fmaf(xr, wv.z, acc[r][2]);
-      acc[r][3] = fmaf(xr, wv.w, acc[r][3]);
-    }
+// ---- bulk copies (TMA, no tensor map) into a ring of shared-memory stages,
+// each stage with an mbarrier that counts the bytes still to land
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals));
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned ok = 0;
+  while (!ok) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
 }
-
-// One row's 4 finished columns: bias, activation, addend, store.
-__device__ __forceinline__ void finish4(float4 v, int col, const float* __restrict__ bias,
-                                        int act, const float* addend_row, float* y_row) {
-  if (bias != nullptr) {
-    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + col));
-    v.x += b.x; v.y += b.y; v.z += b.z; v.w += b.w;
-  }
-  v.x = act_apply(v.x, act); v.y = act_apply(v.y, act);
-  v.z = act_apply(v.z, act); v.w = act_apply(v.w, act);
-  if (addend_row != nullptr) {
-    const float4 a = *reinterpret_cast<const float4*>(addend_row + col);
-    v.x += a.x; v.y += a.y; v.z += a.z; v.w += a.w;
-  }
-  *reinterpret_cast<float4*>(y_row + col) = v;
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// barrier of the compute threads only
+__device__ __forceinline__ void compute_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
-// y[r, :N] = act(x[r, :K] @ [W0; W1; W2] + bias) + addend[r, :N] for the
-// block's R scratch rows (row stride SCR). x, y and addend are scratch
-// columns; the weight is up to three row segments of k_seg rows each, all
-// [k_seg, N] row-major; N % 4 == 0 and nseg * k_seg <= KMAX. The caller has
-// a barrier between the writes of x (and addend) and this call. Ends with a
-// barrier, so the caller may read y and reuse the shared buffers at once.
-template <int R>
-__device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
-                                  const float* __restrict__ w0, const float* __restrict__ w1,
-                                  const float* __restrict__ w2, int k_seg, int nseg, int N,
-                                  const float* __restrict__ bias, int act, const float* addend,
-                                  float* y) {
+// All blocks of the (cooperative) grid meet here. `target` counts arrivals
+// over the whole launch, so the counter is never reset.
+__device__ __forceinline__ void grid_barrier(unsigned int* ctr, unsigned int& target) {
+  // what this thread stored to the scratch is read next by other blocks' bulk
+  // copies (the async proxy)
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    target += gridDim.x;
+    __threadfence();
+    atomicAdd(ctr, 1u);
+    unsigned int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(ctr) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+struct Ctx {
+  const Params& p;
+  const int* tab;      // the plan, in shared memory
+  const int* lay;      // scratch offsets
+  float* smem;         // the ring's stages; the reduction tile takes their place
+  unsigned long long* full;   // per stage: the bytes have landed
+  unsigned long long* empty;  // per stage: every compute warp is done reading
+  const float* sm_co;  // convp_co
+  const float* sm_cb;  // convp_b
+};
+
+// One unit of a product: tile `tile` of stream rows, column slice `slice`.
+// A thread owns 8 rows x MC columns of the tile (MC = 8 where the slice is
+// wide enough: one byte of shared memory read per multiply-add, which is what
+// the multiprocessor can feed; MC = 2 for narrow slices).
+template <int MC>
+__device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile, int slice,
+                          int f) {
+  const Params& p = c.p;
   const int tid = threadIdx.x;
-  const int K = k_seg * nseg;
-  for (int i = tid; i < K * R; i += THREADS) {
-    const int r = i % R, k = i / R;
-    sm_x[i] = x[(size_t)r * SCR + k];
+  const int SCR = c.tab[H_SCR];
+  float* sct = p.scratch + (size_t)tile * SCR * RT;
+  const int K = J[J_K], ncat = J[J_NCAT];
+  const int cw = J[J_CW], kg_n = J[J_KG], x_off = J[J_XOFF];
+  const int cnt = ncat * cw;
+  const int col0 = slice * cw;
+  const int tpk = 8 * cnt / MC;  // threads of a K group: 8 row groups x cnt / MC column groups
+  const int kgi = tid / tpk, idx = tid % tpk;
+  const int rg = idx & 7, cg = idx >> 3;
+  const bool active = kgi < kg_n;
+  float* red = c.smem + NSTG * STAGE_FLOATS;
+
+  const int n_chunks = (K + KC - 1) / KC;
+
+  // Fill number q of the ring (counted over the whole launch, the same in
+  // every thread) goes to stage q % NSTG; it is that stage's (q / NSTG)-th use.
+  if (tid >= THREADS) {
+    // ---- the copy warp (its first lane): two bulk copies (TMA) a chunk, the
+    // input tile's K rows and the unit's weight slice, which the wrapper has
+    // packed contiguously ([slice][K][columns]). It runs ahead of the compute
+    // warps by the depth of the ring, into the block's next unit too.
+    if (tid == THREADS) {
+      const float* wsl = p.wpack + (size_t)J[J_W] + (size_t)slice * K * cnt;
+      for (int o = 0; o < n_chunks; ++o) {
+        const unsigned q = fills + o;
+        const int st = q % NSTG;
+        const unsigned use = q / NSTG;
+        if (use > 0) mbar_wait(c.empty + st, (use - 1) & 1u);
+        float* xs = c.smem + st * STAGE_FLOATS;
+        const int k0 = o * KC;
+        const int len = min(KC, K - k0);
+        // the stage was last read by ordinary loads: order them before the
+        // copy engine's writes
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect(c.full + st, (unsigned)(len * (RT + cnt) * sizeof(float)));
+        bulk_copy(xs, sct + (size_t)(x_off + k0) * RT, (unsigned)(len * RT * sizeof(float)),
+                  c.full + st);
+        bulk_copy(xs + KC * RT, wsl + (size_t)k0 * cnt, (unsigned)(len * cnt * sizeof(float)),
+                  c.full + st);
+      }
+    }
+    fills += n_chunks;
+    return;
   }
-  __syncthreads();
 
-  const int CG = N / 4;  // column groups of 4
-  if (CG >= THREADS) {
-    for (int cg = tid; cg < CG; cg += THREADS) {
-      float acc[R][4] = {};
-      for (int s = 0; s < nseg; ++s) {
-        const float* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
-        fma_rows<R>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, 0, k_seg);
-      }
+  float acc[MC][8];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        finish4(make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]), 4 * cg, bias, act,
-                addend ? addend + (size_t)r * SCR : nullptr, y + (size_t)r * SCR);
-    }
-  } else {
-    const int ksl = THREADS / CG;  // K slices
-    const int cg = tid % CG, ks = tid / CG;
-    if (ks < ksl) {
-      float acc[R][4] = {};
-      const int kper = (k_seg + ksl - 1) / ksl;
-      const int k0 = min(ks * kper, k_seg), k1 = min(k0 + kper, k_seg);
-      for (int s = 0; s < nseg; ++s) {
-        const float* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
-        fma_rows<R>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, k0, k1);
-      }
+  for (int j = 0; j < MC; ++j)
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        *reinterpret_cast<float4*>(sm_red + ((size_t)(ks * R + r) * CG + cg) * 4) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    }
-    __syncthreads();
-    for (int e = tid; e < R * CG; e += THREADS) {
-      const int r = e / CG, c = e % CG;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int s = 0; s < ksl; ++s) {
-        const float4 p =
-            *reinterpret_cast<const float4*>(sm_red + ((size_t)(s * R + r) * CG + c) * 4);
-        v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+    for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
+  for (int o = 0; o < n_chunks; ++o) {
+    const unsigned q = fills + o;
+    const int st = q % NSTG;
+    mbar_wait(c.full + st, (q / NSTG) & 1u);
+    if (active) {
+      const float* xs = c.smem + st * STAGE_FLOATS;
+      const float* ws = xs + KC * RT;
+      const int kper = min(KC, K - o * KC) / kg_n;
+      const float* xp = xs + kgi * kper * RT + rg * 4;
+      const float* wq = ws + kgi * kper * cnt + cg * MC;
+#pragma unroll 2
+      for (int kk = 0; kk < kper; ++kk) {
+        const float4 xa = *reinterpret_cast<const float4*>(xp + kk * RT);
+        const float4 xb = *reinterpret_cast<const float4*>(xp + kk * RT + 32);
+        const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+        float wv[MC];
+        if constexpr (MC == 8) {
+          const float4 wa = *reinterpret_cast<const float4*>(wq + kk * cnt);
+          const float4 wb = *reinterpret_cast<const float4*>(wq + kk * cnt + 4);
+          wv[0] = wa.x; wv[1] = wa.y; wv[2] = wa.z; wv[3] = wa.w;
+          wv[4] = wb.x; wv[5] = wb.y; wv[6] = wb.z; wv[7] = wb.w;
+        } else {
+          const float2 w2 = *reinterpret_cast<const float2*>(wq + kk * cnt);
+          wv[0] = w2.x; wv[1] = w2.y;
+        }
+#pragma unroll
+        for (int j = 0; j < MC; ++j)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(xv[i], wv[j], acc[j][i]);
       }
-      finish4(v, 4 * c, bias, act, addend ? addend + (size_t)r * SCR : nullptr,
-              y + (size_t)r * SCR);
+    }
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(c.empty + st);  // this warp is done with the stage
+  }
+  fills += n_chunks;
+  // K-group partial sums -> red[kg][col][row]; added in group order
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+      float* r = red + (size_t)((kgi * cnt + cg * MC + j) * RT) + rg * 4;
+      *reinterpret_cast<float4*>(r) = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+      *reinterpret_cast<float4*>(r + 32) = make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
     }
   }
-  __syncthreads();
-}
-
-// y[r, j] = sum_k x[r, k] * w[j, k] for j < N, K = 1024: the product against
-// the transposed DFT matrix. One warp per output j; lanes stride k.
-template <int R>
-__device__ __noinline__ void gemm_t(float* sm_x, const float* x, const float* __restrict__ w, int N,
-                       float* y) {
-  constexpr int K = 2 * FPAD;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < R * K / 4; i += THREADS) {
-    const int r = i / (K / 4), k4 = i % (K / 4);
-    reinterpret_cast<float4*>(sm_x)[i] =
-        *reinterpret_cast<const float4*>(x + (size_t)r * SCR + 4 * k4);
+  compute_sync();
+  if (kg_n > 1) {
+    for (int i = tid; i < cnt * RT; i += THREADS) {
+      float v = red[i];
+      for (int g = 1; g < kg_n; ++g) v += red[g * cnt * RT + i];
+      red[i] = v;
+    }
+    compute_sync();
   }
-  __syncthreads();
-  for (int j = warp; j < N; j += NWARPS) {
-    float4 wv[K / 128];
-#pragma unroll
-    for (int i = 0; i < K / 128; ++i)
-      wv[i] = __ldg(reinterpret_cast<const float4*>(w + (size_t)j * K + i * 128 + lane * 4));
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float a = 0.f;
-#pragma unroll
-      for (int i = 0; i < K / 128; ++i) {
-        const float4 xv =
-            *reinterpret_cast<const float4*>(sm_x + r * K + i * 128 + lane * 4);
-        a = fmaf(xv.x, wv[i].x, a); a = fmaf(xv.y, wv[i].y, a);
-        a = fmaf(xv.z, wv[i].z, a); a = fmaf(xv.w, wv[i].w, a);
-      }
-      acc[r] = a;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) y[(size_t)r * SCR + j] = acc[r];
-    }
-  }
-  __syncthreads();
-}
 
-// GRU gates on GI (x @ w_ih + b_ih) and GH (h @ w_hh + b_hh): b_hn sits in GH
-// and so stays inside r * (...). Updates h in place.
-template <int R>
-__device__ void gru_gate(float* sc, int o_h) {
-  for (int i = threadIdx.x; i < R * HID; i += THREADS) {
-    const int r = i / HID, j = i % HID;
-    float* row = sc + (size_t)r * SCR;
-    const float* gi = row + O_GI;
-    const float* gh = row + O_GH;
-    const float rg = sigmoidf_(gi[j] + gh[j]);
-    const float zg = sigmoidf_(gi[HID + j] + gh[HID + j]);
-    const float ng = tanhf(gi[2 * HID + j] + rg * gh[2 * HID + j]);
-    const float h = row[o_h + j];
-    row[o_h + j] = (1.0f - zg) * ng + zg * h;
-  }
-  __syncthreads();
-}
-
-template <int R>
-__global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* sm_x = smem;                 // KMAX * R
-  float* sm_red = smem + KMAX * R;    // THREADS * R * 4
-  __shared__ float sm_co[CH * ORDER * 2];
-  __shared__ float sm_cb[ORDER * 2];
-  __shared__ float sm_lsnr[R];
-  __shared__ int sm_mute[R];
-  __shared__ long long sm_clk[N_STAGES];
-  __shared__ long long sm_t0;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int T = p.n_frames * HOP;
-  float* sc = p.scratch + (size_t)blockIdx.x * R * SCR;
-  const float* const* W = p.w;
-
-  for (int i = tid; i < CH * ORDER * 2; i += THREADS) sm_co[i] = W[W_CONVP_CO][i];
-  if (tid < ORDER * 2) sm_cb[tid] = W[W_CONVP_B][tid];
-  if (tid < N_STAGES) sm_clk[tid] = 0;
-  // thread 0 of block 0 closes a stage: the cycles since the last mark go to it
-  auto mark = [&](int stage) {
-    if (blockIdx.x == 0 && tid == 0) {
-      const long long t = clock64();
-      sm_clk[stage] += t - sm_t0;
-      sm_t0 = t;
-    }
-  };
-
-  const int n_tiles = (p.S + R - 1) / R;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * R;
-    // rows beyond S repeat the last stream: computed, never stored
-    auto grow = [&](int r) { return min(row0 + r, p.S - 1); };
-    auto valid = [&](int r) { return row0 + r < p.S; };
-
-    // ---- carry -> scratch state
-    __syncthreads();
-    for (int i = tid; i < R * HOP; i += THREADS) {
-      const int r = i / HOP, c = i % HOP;
-      float* row = sc + (size_t)r * SCR;
-      const size_t g = (size_t)grow(r);
-      row[O_BUF + c] = p.cin[C_AMEM][g * 480 + c];
-      row[O_SMEM + c] = p.cin[C_SMEM][g * 480 + c];
-    }
-    for (int i = tid; i < R * 512; i += THREADS) {
-      const int r = i / 512, c = i % 512;
-      float* row = sc + (size_t)r * SCR;
-      const size_t g = (size_t)grow(r);
-      row[O_RING_RE + c] = p.cin[C_RING_RE][g * 512 + c];
-      row[O_RING_IM + c] = p.cin[C_RING_IM][g * 512 + c];
-      if (c < 128) {
-        const float v = p.cin[C_NORMS][g * 128 + c];
-        if (c < NB_ERB) row[O_MEAN + c] = v; else row[O_UNIT + c - NB_ERB] = v;
-      }
-      if (c < 64) row[O_ERBWIN + c] = p.cin[C_ERB_CTX][g * 64 + c];
-      if (c < 384) {
-        // spec_ctx is (c, t, f) flat: [re t-2 | re t-1 | im t-2 | im t-1];
-        // the window holds frames as [re | im] pairs
-        const int blk = c / NB_DF, f = c % NB_DF;
-        const int t = blk & 1, ri = blk >> 1;
-        row[O_FSWIN + t * 192 + ri * NB_DF + f] = p.cin[C_SPEC_CTX][g * 384 + c];
-      }
-      if (c < HID) {
-        row[O_ENC_H + c] = p.cin[C_ENC_H][g * HID + c];
-        row[O_DEC_H + c] = p.cin[C_DEC_H][g * HID + c];
-      }
-    }
-    for (int i = tid; i < R * 3 * HID; i += THREADS) {
-      const int r = i / (3 * HID), c = i % (3 * HID);
-      sc[(size_t)r * SCR + O_DF_H + c] = p.cin[C_DF_H][(size_t)grow(r) * 3 * HID + c];
-    }
-    // the silence counter travels as a float in sil[:, 0]
-    float sil_ctr = 0.f;  // lane 0 of warp r keeps row r's counter
-    if (warp < R && lane == 0) sil_ctr = p.cin[C_SIL][(size_t)grow(warp) * 8];
-    __syncthreads();
-
-    if (blockIdx.x == 0 && tid == 0) sm_t0 = clock64();
-    for (int f = 0; f < p.n_frames; ++f) {
-      // ---- frame in; RMS silence counter (one warp per row)
-      for (int i = tid; i < R * HOP; i += THREADS) {
-        const int r = i / HOP, c = i % HOP;
-        sc[(size_t)r * SCR + O_BUF + HOP + c] = p.audio[(size_t)grow(r) * T + (size_t)f * HOP + c];
-      }
-      if (warp < R) {
-        const float* a = p.audio + (size_t)grow(warp) * T + (size_t)f * HOP;
-        float ss = 0.f;
-        for (int c = lane; c < HOP; c += 32) ss = fmaf(a[c], a[c], ss);
+  // ---- epilogue on the unit's finished tile red[col][row]
+  const int row0 = tile * RT;
+  const float* bias = J[J_BIAS] >= 0 ? p.w[J[J_BIAS]] : nullptr;
+  const int* L = c.lay;
+  switch (J[J_EP]) {
+    case EP_STD: {
+      // in batches of EPB elements a thread: the loads of a batch are all
+      // issued before its first store (the compiler must keep a load behind
+      // an earlier store to the scratch)
+      const int act = J[J_ACT], y = J[J_Y], yraw = J[J_YRAW], add = J[J_ADD];
+      for (int i0 = tid; i0 < cnt * RT; i0 += EPB * THREADS) {
+        float v[EPB], ad[EPB];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-        if (lane == 0) {
-          const float rms = sqrtf(ss / (float)HOP);
-          sil_ctr = rms < p.silence_thresh ? sil_ctr + 1.0f : 0.0f;
-          sm_mute[warp] = sil_ctr >= (float)p.silence_frames;
+        for (int u = 0; u < EPB; ++u) {
+          const int i = i0 + u * THREADS;
+          if (i >= cnt * RT) break;
+          const int col = col0 + i / RT, r = i % RT;
+          v[u] = red[i] + (bias ? __ldg(bias + col) : 0.f);
+          ad[u] = add >= 0 ? __ldcg(sct + (size_t)(add + col) * RT + r) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < EPB; ++u) {
+          const int i = i0 + u * THREADS;
+          if (i >= cnt * RT) break;
+          const int col = col0 + i / RT, r = i % RT;
+          const float a = act_apply(v[u], act);
+          if (yraw >= 0) sct[(size_t)(yraw + col) * RT + r] = a;
+          sct[(size_t)(y + col) * RT + r] = a + ad[u];
         }
       }
-      __syncthreads();
-      mark(ST_FRAME_IN);
-      // ---- analysis: [prev_hop | frame] @ dft -> [re | im]
-      gemm<R>(sm_x, sm_red, sc + O_BUF, W[W_DFT], nullptr, nullptr, FFT, 1, 2 * FPAD, nullptr,
-              ACT_NONE, nullptr, sc + O_SPEC);
-      mark(ST_ANALYSIS);
-      // ---- power, unit norm, complex features of this frame
-      for (int i = tid; i < R * FPAD; i += THREADS) {
-        const int r = i / FPAD, k = i % FPAD;
-        float* row = sc + (size_t)r * SCR;
-        const float re = row[O_SPEC + k], im = row[O_SPEC + FPAD + k];
+      break;
+    }
+    case EP_SPEC: {  // power, unit norm, complex features of this frame
+      for (int i = tid; i < cw * RT; i += THREADS) {
+        const int j = i / RT, r = i % RT;
+        const int k = col0 + j;
+        const float re = red[j * RT + r], im = red[(cw + j) * RT + r];
         const float pw = re * re + im * im;
-        row[O_POW + k] = pw;
+        sct[(size_t)(L[L_SPEC] + k) * RT + r] = re;
+        sct[(size_t)(L[L_SPEC] + FPAD + k) * RT + r] = im;
+        sct[(size_t)(L[L_POW] + k) * RT + r] = pw;
         if (k < NB_DF) {
-          const float un = sqrtf(pw) * p.one_minus_alpha + row[O_UNIT + k] * p.alpha;
-          row[O_UNIT + k] = un;
-          const float scale = rsqrtf(un);
-          row[O_FSWIN + 384 + k] = re * scale;
-          row[O_FSWIN + 384 + NB_DF + k] = im * scale;
+          float* un = sct + (size_t)(L[L_UNIT] + k) * RT + r;
+          const float u = sqrtf(pw) * p.one_minus_alpha + __ldcg(un) * p.alpha;
+          *un = u;
+          const float scale = rsqrtf(u);
+          sct[(size_t)(L[L_FSWIN] + 384 + k) * RT + r] = re * scale;
+          sct[(size_t)(L[L_FSWIN] + 384 + NB_DF + k) * RT + r] = im * scale;
         }
       }
-      __syncthreads();
-      gemm<R>(sm_x, sm_red, sc + O_POW, W[W_ERB_FWD], nullptr, nullptr, FPAD, 1, NB_ERB, nullptr,
-              ACT_NONE, nullptr, sc + O_GAIN);
-      for (int i = tid; i < R * NB_ERB; i += THREADS) {
-        const int r = i / NB_ERB, e = i % NB_ERB;
-        float* row = sc + (size_t)r * SCR;
-        const float db = 10.0f * log10f(row[O_GAIN + e] + 1e-10f);
-        const float mean = db * p.one_minus_alpha + row[O_MEAN + e] * p.alpha;
-        row[O_MEAN + e] = mean;
-        row[O_ERBWIN + 64 + e] = (db - mean) / 40.0f;
+      break;
+    }
+    case EP_ERBNORM: {
+      for (int i = tid; i < cnt * RT; i += THREADS) {
+        const int e = col0 + i / RT, r = i % RT;
+        const float db = 10.0f * log10f(red[i] + 1e-10f);
+        float* mp = sct + (size_t)(L[L_MEAN] + e) * RT + r;
+        const float mean = db * p.one_minus_alpha + __ldcg(mp) * p.alpha;
+        *mp = mean;
+        sct[(size_t)(L[L_ERBWIN] + 64 + e) * RT + r] = (db - mean) / 40.0f;
       }
-      __syncthreads();
-      mark(ST_FEATURES);
-      // ---- conv frontend (dense folds)
-      gemm<R>(sm_x, sm_red, sc + O_ERBWIN, W[W_E0_W], nullptr, nullptr, 96, 1, 512, W[W_E0_B],
-              ACT_RELU, nullptr, sc + O_E0);
-      gemm<R>(sm_x, sm_red, sc + O_E0, W[W_E1_W], nullptr, nullptr, 512, 1, 256, W[W_E1_B],
-              ACT_RELU, nullptr, sc + O_E1);
-      gemm<R>(sm_x, sm_red, sc + O_E1, W[W_E2_W], nullptr, nullptr, 256, 1, 128, W[W_E2_B],
-              ACT_RELU, nullptr, sc + O_E2);
-      gemm<R>(sm_x, sm_red, sc + O_E2, W[W_E3_W], nullptr, nullptr, 128, 1, 128, W[W_E3_B],
-              ACT_RELU, nullptr, sc + O_E3);
-      mark(ST_ERB_CONVS);
-      gemm<R>(sm_x, sm_red, sc + O_FSWIN, W[W_C0W_T0], W[W_C0W_T1], W[W_C0W_T2], 192, 3,
-              CH * BLK, W[W_C0_B], ACT_RELU, nullptr, sc + O_C0);
-      mark(ST_DF_CONV0);
-      gemm<R>(sm_x, sm_red, sc + O_C0, W[W_C1_W], nullptr, nullptr, CH * BLK, 1, 768, W[W_C1_B],
-              ACT_RELU, nullptr, sc + O_C1);
-      // emb = e3 + relu(c1 @ gl)
-      gemm<R>(sm_x, sm_red, sc + O_C1, W[W_GL_W], nullptr, nullptr, 768, 1, 128, nullptr,
-              ACT_RELU, sc + O_E3, sc + O_EMB);
-      mark(ST_DF_CONV1);
-      // ---- encoder GRU + LSNR head
-      gemm<R>(sm_x, sm_red, sc + O_EMB, W[W_ENC_LIN_IN], nullptr, nullptr, 128, 1, HID, nullptr,
-              ACT_RELU, nullptr, sc + O_XIN);
-      gemm<R>(sm_x, sm_red, sc + O_XIN, W[W_ENC_WIH], nullptr, nullptr, HID, 1, 3 * HID,
-              W[W_ENC_BIH], ACT_NONE, nullptr, sc + O_GI);
-      gemm<R>(sm_x, sm_red, sc + O_ENC_H, W[W_ENC_WHH], nullptr, nullptr, HID, 1, 3 * HID,
-              W[W_ENC_BHH], ACT_NONE, nullptr, sc + O_GH);
-      gru_gate<R>(sc, O_ENC_H);
-      gemm<R>(sm_x, sm_red, sc + O_ENC_H, W[W_ENC_LIN_OUT], nullptr, nullptr, HID, 1, 128,
-              nullptr, ACT_RELU, nullptr, sc + O_EMB2);
-      if (warp < R) {
-        const float* e = sc + (size_t)warp * SCR + O_EMB2;
-        float a = 0.f;
-        for (int k = lane; k < 128; k += 32) a = fmaf(e[k], __ldg(W[W_LSNR_W] + k), a);
+      break;
+    }
+    case EP_GRU: {  // gates on gi (here) and gh = h @ w_hh + b_hh (scratch); h in place
+      const int ho = J[J_H], gho = J[J_GH];
+      for (int i0 = tid; i0 < cw * RT; i0 += EPB * THREADS) {
+        float gh_r[EPB], gh_z[EPB], gh_n[EPB], h[EPB];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-        if (lane == 0)
-          sm_lsnr[warp] =
-              sigmoidf_(a + __ldg(W[W_LSNR_B])) * (p.lsnr_max - p.lsnr_min) + p.lsnr_min;
-      }
-      mark(ST_ENC_GRU);
-      // ---- ERB decoder
-      gemm<R>(sm_x, sm_red, sc + O_EMB2, W[W_DEC_LIN_IN], nullptr, nullptr, 128, 1, HID, nullptr,
-              ACT_RELU, nullptr, sc + O_XIN);
-      gemm<R>(sm_x, sm_red, sc + O_XIN, W[W_DEC_WIH], nullptr, nullptr, HID, 1, 3 * HID,
-              W[W_DEC_BIH], ACT_NONE, nullptr, sc + O_GI);
-      gemm<R>(sm_x, sm_red, sc + O_DEC_H, W[W_DEC_WHH], nullptr, nullptr, HID, 1, 3 * HID,
-              W[W_DEC_BHH], ACT_NONE, nullptr, sc + O_GH);
-      gru_gate<R>(sc, O_DEC_H);
-      gemm<R>(sm_x, sm_red, sc + O_DEC_H, W[W_DEC_LIN_OUT], nullptr, nullptr, HID, 1, 128,
-              nullptr, ACT_RELU, nullptr, sc + O_DEMB);
-      gemm<R>(sm_x, sm_red, sc + O_E3, W[W_P3_W], nullptr, nullptr, 128, 1, 128, W[W_P3_B],
-              ACT_RELU, sc + O_DEMB, sc + O_PA);
-      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_T3_W], nullptr, nullptr, 128, 1, 128, W[W_T3_B],
-              ACT_RELU, nullptr, sc + O_PB);
-      gemm<R>(sm_x, sm_red, sc + O_E2, W[W_P2_W], nullptr, nullptr, 128, 1, 128, W[W_P2_B],
-              ACT_RELU, sc + O_PB, sc + O_PA);
-      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_T2_W], nullptr, nullptr, 128, 1, 256, W[W_T2_B],
-              ACT_RELU, nullptr, sc + O_PB);
-      gemm<R>(sm_x, sm_red, sc + O_E1, W[W_P1_W], nullptr, nullptr, 256, 1, 256, W[W_P1_B],
-              ACT_RELU, sc + O_PB, sc + O_PA);
-      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_T1_W], nullptr, nullptr, 256, 1, 512, W[W_T1_B],
-              ACT_RELU, nullptr, sc + O_PB);
-      gemm<R>(sm_x, sm_red, sc + O_E0, W[W_P0_W], nullptr, nullptr, 512, 1, 512, W[W_P0_B],
-              ACT_RELU, sc + O_PB, sc + O_PA);
-      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_OUT_W], nullptr, nullptr, 512, 1, NB_ERB, W[W_OUT_B],
-              ACT_SIGMOID, nullptr, sc + O_MASK);
-      mark(ST_ERB_DECODER);
-      // ---- DF decoder: 3-layer GRU, coefficient head
-      gemm<R>(sm_x, sm_red, sc + O_EMB2, W[W_DF_LIN_IN], nullptr, nullptr, 128, 1, HID, nullptr,
-              ACT_RELU, nullptr, sc + O_XIN);
-      for (int li = 0; li < 3; ++li) {
-        const int o_in = li == 0 ? O_XIN : O_DF_H + (li - 1) * HID;
-        const int o_h = O_DF_H + li * HID;
-        gemm<R>(sm_x, sm_red, sc + o_in, W[W_DF_WIH0 + 4 * li], nullptr, nullptr, HID, 1, 3 * HID,
-                W[W_DF_BIH0 + 4 * li], ACT_NONE, nullptr, sc + O_GI);
-        gemm<R>(sm_x, sm_red, sc + o_h, W[W_DF_WHH0 + 4 * li], nullptr, nullptr, HID, 1, 3 * HID,
-                W[W_DF_BHH0 + 4 * li], ACT_NONE, nullptr, sc + O_GH);
-        gru_gate<R>(sc, o_h);
-      }
-      mark(ST_DF_GRU);
-      gemm<R>(sm_x, sm_red, sc + O_DF_H + 2 * HID, W[W_DF_OUT_W], nullptr, nullptr, HID, 1,
-              ORDER * 2 * BLK, nullptr, ACT_TANH, nullptr, sc + O_COEF);
-      // ---- deep filter MAC: ring frames 0..3, the current frame as tap 4;
-      // then the ring shifts. Pad lanes (f >= 96) of the current frame are 0.
-      for (int i = tid; i < R * BLK; i += THREADS) {
-        const int r = i / BLK, f = i % BLK;
-        float* row = sc + (size_t)r * SCR;
-        const float cur_re = f < NB_DF ? row[O_SPEC + f] : 0.f;
-        const float cur_im = f < NB_DF ? row[O_SPEC + FPAD + f] : 0.f;
-        float c0v[CH];
-#pragma unroll
-        for (int c = 0; c < CH; ++c) c0v[c] = row[O_C0 + c * BLK + f];
-        float y_re = 0.f, y_im = 0.f;
-#pragma unroll
-        for (int n = 0; n < ORDER; ++n) {
-          const float t_re = n < ORDER - 1 ? row[O_RING_RE + n * BLK + f] : cur_re;
-          const float t_im = n < ORDER - 1 ? row[O_RING_IM + n * BLK + f] : cur_im;
-          float cp_re = 0.f, cp_im = 0.f;
-#pragma unroll
-          for (int c = 0; c < CH; ++c) {
-            cp_re = fmaf(sm_co[c * ORDER * 2 + 2 * n], c0v[c], cp_re);
-            cp_im = fmaf(sm_co[c * ORDER * 2 + 2 * n + 1], c0v[c], cp_im);
-          }
-          const float c_re = row[O_COEF + (2 * n) * BLK + f] + fmaxf(cp_re + sm_cb[2 * n], 0.f);
-          const float c_im =
-              row[O_COEF + (2 * n + 1) * BLK + f] + fmaxf(cp_im + sm_cb[2 * n + 1], 0.f);
-          y_re = y_re + t_re * c_re - t_im * c_im;
-          y_im = y_im + t_re * c_im + t_im * c_re;
+        for (int u = 0; u < EPB; ++u) {
+          const int i = i0 + u * THREADS;
+          if (i >= cw * RT) break;
+          const int col = col0 + i / RT, r = i % RT;
+          gh_r[u] = __ldcg(sct + (size_t)(gho + col) * RT + r);
+          gh_z[u] = __ldcg(sct + (size_t)(gho + HID + col) * RT + r);
+          gh_n[u] = __ldcg(sct + (size_t)(gho + 2 * HID + col) * RT + r);
+          h[u] = __ldcg(sct + (size_t)(ho + col) * RT + r);
         }
-        row[O_Y + f] = y_re;
-        row[O_Y + BLK + f] = y_im;
 #pragma unroll
-        for (int n = 0; n < ORDER - 2; ++n) {
-          row[O_RING_RE + n * BLK + f] = row[O_RING_RE + (n + 1) * BLK + f];
-          row[O_RING_IM + n * BLK + f] = row[O_RING_IM + (n + 1) * BLK + f];
+        for (int u = 0; u < EPB; ++u) {
+          const int i = i0 + u * THREADS;
+          if (i >= cw * RT) break;
+          const int j = i / RT, r = i % RT;
+          const int col = col0 + j;
+          const float gi_r = red[j * RT + r] + __ldg(bias + col);
+          const float gi_z = red[(cw + j) * RT + r] + __ldg(bias + HID + col);
+          const float gi_n = red[(2 * cw + j) * RT + r] + __ldg(bias + 2 * HID + col);
+          const float rgate = sigmoidf_(gi_r + gh_r[u]);
+          const float zg = sigmoidf_(gi_z + gh_z[u]);
+          const float ng = tanhf(gi_n + rgate * gh_n[u]);
+          sct[(size_t)(ho + col) * RT + r] = (1.0f - zg) * ng + zg * h[u];
         }
-        row[O_RING_RE + (ORDER - 2) * BLK + f] = cur_re;
-        row[O_RING_IM + (ORDER - 2) * BLK + f] = cur_im;
       }
-      __syncthreads();
-      mark(ST_DF_COEF_MAC);
-      // ---- ERB mask -> bin gains
-      gemm<R>(sm_x, sm_red, sc + O_MASK, W[W_ERB_INV], nullptr, nullptr, NB_ERB, 1, FPAD, nullptr,
-              ACT_NONE, nullptr, sc + O_GAIN);
-      // ---- tail: post-filter, LSNR gating, atten-lim, mute, iDFT scaling
-      for (int i = tid; i < R * FPAD; i += THREADS) {
-        const int r = i / FPAD, k = i % FPAD;
-        float* row = sc + (size_t)r * SCR;
-        const float re = row[O_SPEC + k], im = row[O_SPEC + FPAD + k];
-        const float g = row[O_GAIN + k];
+      break;
+    }
+    case EP_TAIL: {  // DF MAC (low bins), mask gains, post-filter, gating, atten-lim, mute
+      for (int i = tid; i < cnt * RT; i += THREADS) {
+        const int k = col0 + i / RT, r = i % RT;
+        auto S_ = [&](int col) { return sct + (size_t)col * RT + r; };
+        const float g = red[i];
+        const float re = __ldcg(S_(L[L_SPEC] + k)), im = __ldcg(S_(L[L_SPEC] + FPAD + k));
         const float m_re = re * g, m_im = im * g;
-        float se_re = k < NB_DF ? row[O_Y + k] : m_re;
-        float se_im = k < NB_DF ? row[O_Y + BLK + k] : m_im;
+        float se_re = m_re, se_im = m_im;
+        if (k < BLK) {
+          // ring frames 0..3, the current frame as tap 4; then the ring
+          // shifts. Pad lanes (k >= 96) of the current frame are 0.
+          const float cur_re = k < NB_DF ? re : 0.f, cur_im = k < NB_DF ? im : 0.f;
+          float c0v[CH];
+#pragma unroll
+          for (int q = 0; q < CH; ++q) c0v[q] = __ldcg(S_(L[L_C0] + q * BLK + k));
+          float ring_re[ORDER - 1], ring_im[ORDER - 1];
+#pragma unroll
+          for (int n = 0; n < ORDER - 1; ++n) {
+            ring_re[n] = __ldcg(S_(L[L_RING_RE] + n * BLK + k));
+            ring_im[n] = __ldcg(S_(L[L_RING_IM] + n * BLK + k));
+          }
+          float y_re = 0.f, y_im = 0.f;
+#pragma unroll
+          for (int n = 0; n < ORDER; ++n) {
+            const float t_re = n < ORDER - 1 ? ring_re[n] : cur_re;
+            const float t_im = n < ORDER - 1 ? ring_im[n] : cur_im;
+            float cp_re = 0.f, cp_im = 0.f;
+#pragma unroll
+            for (int q = 0; q < CH; ++q) {
+              cp_re = fmaf(c.sm_co[q * ORDER * 2 + 2 * n], c0v[q], cp_re);
+              cp_im = fmaf(c.sm_co[q * ORDER * 2 + 2 * n + 1], c0v[q], cp_im);
+            }
+            const float c_re = __ldcg(S_(L[L_COEF] + (2 * n) * BLK + k)) +
+                               fmaxf(cp_re + c.sm_cb[2 * n], 0.f);
+            const float c_im = __ldcg(S_(L[L_COEF] + (2 * n + 1) * BLK + k)) +
+                               fmaxf(cp_im + c.sm_cb[2 * n + 1], 0.f);
+            y_re = y_re + t_re * c_re - t_im * c_im;
+            y_im = y_im + t_re * c_im + t_im * c_re;
+          }
+#pragma unroll
+          for (int n = 0; n < ORDER - 2; ++n) {
+            *S_(L[L_RING_RE] + n * BLK + k) = ring_re[n + 1];
+            *S_(L[L_RING_IM] + n * BLK + k) = ring_im[n + 1];
+          }
+          *S_(L[L_RING_RE] + (ORDER - 2) * BLK + k) = cur_re;
+          *S_(L[L_RING_IM] + (ORDER - 2) * BLK + k) = cur_im;
+          if (k < NB_DF) { se_re = y_re; se_im = y_im; }
+        }
         if (p.mask_pf) {
           const float eps = 1e-12f;
           const float mag_e = sqrtf(se_re * se_re + se_im * se_im);
@@ -645,7 +477,7 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
           se_im *= pf;
         }
         if (p.lsnr_gating) {
-          const float ls = sm_lsnr[r];
+          const float ls = __ldcg(S_(L[L_LSNR]));
           if (ls < p.gate_min) {
             se_re = 0.f; se_im = 0.f;
           } else if (ls > p.gate_max_df && ls <= p.gate_max_erb) {
@@ -658,104 +490,219 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
           se_re = re * p.atten_lim + se_re * (1.0f - p.atten_lim);
           se_im = im * p.atten_lim + se_im * (1.0f - p.atten_lim);
         }
-        if (sm_mute[r]) {  // the mute comes last, after atten-lim
+        if (__ldcg(S_(L[L_MUTE])) != 0.f) {  // the mute comes last, after atten-lim
           se_re = 0.f; se_im = 0.f;
         }
-        const float sc_k = __ldg(W[W_IMULT] + k);
-        row[O_SE + k] = se_re * sc_k;
-        row[O_SE + FPAD + k] = se_im * sc_k;
+        const float sc_k = __ldg(p.w[W_IMULT] + k);
+        *S_(L[L_SE] + k) = se_re * sc_k;
+        *S_(L[L_SE] + FPAD + k) = se_im * sc_k;
       }
-      __syncthreads();
-      mark(ST_MASK_TAIL);
-      // ---- synthesis: [se_re | se_im] @ dft^T, overlap-add
-      gemm_t<R>(sm_x, sc + O_SE, W[W_DFT], FFT, sc + O_X);
-      for (int i = tid; i < R * HOP; i += THREADS) {
-        const int r = i / HOP, c = i % HOP;
-        float* row = sc + (size_t)r * SCR;
-        const float o = row[O_X + c] + row[O_SMEM + c];
-        if (valid(r)) p.out[(size_t)(row0 + r) * T + (size_t)f * HOP + c] = o;
-        row[O_SMEM + c] = row[O_X + HOP + c];
-        row[O_BUF + c] = row[O_BUF + HOP + c];  // prev_hop = frame
-        if (c < 192) {  // conv contexts advance one frame
-          row[O_FSWIN + c] = row[O_FSWIN + 192 + c];
-          row[O_FSWIN + 192 + c] = row[O_FSWIN + 384 + c];
-        }
-        if (c < NB_ERB) {
-          row[O_ERBWIN + c] = row[O_ERBWIN + NB_ERB + c];
-          row[O_ERBWIN + NB_ERB + c] = row[O_ERBWIN + 2 * NB_ERB + c];
-        }
-      }
-      __syncthreads();
-      mark(ST_SYNTHESIS);
+      break;
     }
-
-    // ---- scratch state -> carry, valid rows only
-    for (int i = tid; i < R * 3 * HID; i += THREADS) {
-      const int r = i / (3 * HID), c = i % (3 * HID);
-      if (!valid(r)) continue;
-      const float* row = sc + (size_t)r * SCR;
-      const size_t g = (size_t)(row0 + r);
-      p.cout[C_DF_H][g * 3 * HID + c] = row[O_DF_H + c];
-      if (c < HOP) {
-        p.cout[C_AMEM][g * 480 + c] = row[O_BUF + c];
-        p.cout[C_SMEM][g * 480 + c] = row[O_SMEM + c];
+    case EP_OLA: {  // the unit owns x[c] and x[HOP + c]: output, then the new tail
+      const int T = p.n_frames * HOP;
+      for (int i = tid; i < cw * RT; i += THREADS) {
+        const int j = i / RT, r = i % RT;
+        const int cc = col0 + j;
+        float* tail = sct + (size_t)(L[L_SMEM] + cc) * RT + r;
+        const float o = red[j * RT + r] + __ldcg(tail);
+        if (row0 + r < p.S) p.out[(size_t)(row0 + r) * T + (size_t)f * HOP + cc] = o;
+        *tail = red[(cw + j) * RT + r];
       }
-      if (c < 512) {
-        p.cout[C_RING_RE][g * 512 + c] = row[O_RING_RE + c];
-        p.cout[C_RING_IM][g * 512 + c] = row[O_RING_IM + c];
-      }
-      if (c < 128)
-        p.cout[C_NORMS][g * 128 + c] = c < NB_ERB ? row[O_MEAN + c] : row[O_UNIT + c - NB_ERB];
-      if (c < 64) p.cout[C_ERB_CTX][g * 64 + c] = row[O_ERBWIN + c];
-      if (c < 384) {
-        const int blk = c / NB_DF, fq = c % NB_DF;
-        const int t = blk & 1, ri = blk >> 1;
-        p.cout[C_SPEC_CTX][g * 384 + c] = row[O_FSWIN + t * 192 + ri * NB_DF + fq];
-      }
-      if (c < HID) {
-        p.cout[C_ENC_H][g * HID + c] = row[O_ENC_H + c];
-        p.cout[C_DEC_H][g * HID + c] = row[O_DEC_H + c];
-      }
-      if (c >= 1 && c < 8) p.cout[C_SIL][g * 8 + c] = p.cin[C_SIL][g * 8 + c];
+      break;
     }
-    if (warp < R && lane == 0 && valid(warp)) p.cout[C_SIL][(size_t)(row0 + warp) * 8] = sil_ctr;
   }
-  if (blockIdx.x == 0 && tid == 0)
-    for (int i = 0; i < N_STAGES; ++i) p.stage_clocks[i] = sm_clk[i];
+  compute_sync();  // red and the ring are free for the next unit
 }
 
-template <int R>
-cudaError_t launch(const Params& p, int n_blocks, cudaStream_t stream) {
-  const size_t shmem = (size_t)(KMAX * R + THREADS * R * 4) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(whole_cell_kernel<R>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-  if (err != cudaSuccess) return err;
-  whole_cell_kernel<R><<<n_blocks, THREADS, shmem, stream>>>(p);
-  return cudaGetLastError();
+// Audio frame f into buf's second half (after moving the last frame to the
+// first half and advancing the conv windows, when `shift`), and, in chunk 0,
+// that frame's RMS silence counter and mute flag.
+__device__ void frame_in_unit(const Ctx& c, int tile, int chunk, int chunks, int f, bool shift) {
+  const Params& p = c.p;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid >= THREADS) return;
+  const int* L = c.lay;
+  float* sct = p.scratch + (size_t)tile * c.tab[H_SCR] * RT;
+  const int row0 = tile * RT;
+  const int T = p.n_frames * HOP;
+  const bool load = f < p.n_frames;
+  for (int i = chunk * THREADS + tid; i < HOP * RT; i += chunks * THREADS) {
+    const int r = i / HOP, cc = i % HOP;
+    float* lo = sct + (size_t)(L[L_BUF] + cc) * RT + r;
+    float* hi = sct + (size_t)(L[L_BUF] + HOP + cc) * RT + r;
+    if (shift) *lo = __ldcg(hi);  // prev_hop = frame
+    if (load) *hi = p.audio[(size_t)min(row0 + r, p.S - 1) * T + (size_t)f * HOP + cc];
+  }
+  if (shift) {  // conv contexts advance one frame
+    for (int i = chunk * THREADS + tid; i < 192 * RT; i += chunks * THREADS) {
+      float* w0 = sct + (size_t)L[L_FSWIN] * RT + i;
+      w0[0] = __ldcg(w0 + 192 * RT);
+      w0[192 * RT] = __ldcg(w0 + 384 * RT);
+    }
+    for (int i = chunk * THREADS + tid; i < NB_ERB * RT; i += chunks * THREADS) {
+      float* w0 = sct + (size_t)L[L_ERBWIN] * RT + i;
+      w0[0] = __ldcg(w0 + NB_ERB * RT);
+      w0[NB_ERB * RT] = __ldcg(w0 + 2 * NB_ERB * RT);
+    }
+  }
+  if (chunk == 0 && load) {  // one warp per row
+    for (int r = warp; r < RT; r += THREADS / 32) {
+      const float* a = p.audio + (size_t)min(row0 + r, p.S - 1) * T + (size_t)f * HOP;
+      float ss = 0.f;
+      for (int cc = lane; cc < HOP; cc += 32) ss = fmaf(a[cc], a[cc], ss);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      if (lane == 0) {
+        float* ctr = sct + (size_t)L[L_SILCTR] * RT + r;
+        const float rms = sqrtf(ss / (float)HOP);
+        const float n = rms < p.silence_thresh ? __ldcg(ctr) + 1.0f : 0.0f;
+        *ctr = n;
+        sct[(size_t)L[L_MUTE] * RT + r] = n >= (float)p.silence_frames ? 1.0f : 0.0f;
+      }
+    }
+  }
+}
+
+__device__ void lsnr_unit(const Ctx& c, int tile) {
+  const Params& p = c.p;
+  const int r = threadIdx.x;
+  if (r >= RT) return;
+  const int* L = c.lay;
+  float* sct = p.scratch + (size_t)tile * c.tab[H_SCR] * RT;
+  float a = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < 128; ++k)
+    a = fmaf(__ldcg(sct + (size_t)(L[L_EMB2] + k) * RT + r), __ldg(p.w[W_LSNR_W] + k), a);
+  sct[(size_t)L[L_LSNR] * RT + r] =
+      sigmoidf_(a + __ldg(p.w[W_LSNR_B])) * (p.lsnr_max - p.lsnr_min) + p.lsnr_min;
+}
+
+// carry <-> scratch state, by the plan's segments; `store`: scratch -> carry,
+// valid rows only
+__device__ void carry_unit(const Ctx& c, int tile, int chunk, int chunks, bool store) {
+  const Params& p = c.p;
+  const int tid = threadIdx.x;
+  if (tid >= THREADS) return;
+  float* sct = p.scratch + (size_t)tile * c.tab[H_SCR] * RT;
+  const int row0 = tile * RT;
+  const int* seg = c.tab + HEADER_INTS + c.tab[H_LAY];
+  for (int s = 0; s < c.tab[H_SEGS]; ++s, seg += 4) {
+    const int key = seg[0], cstart = seg[1], len = seg[2], soff = seg[3];
+    const int d = CWIDTH[key];
+    for (int i = chunk * THREADS + tid; i < len * RT; i += chunks * THREADS) {
+      const int r = i / len, cc = i % len;
+      float* sp = sct + (size_t)(soff + cc) * RT + r;
+      if (!store) {
+        *sp = p.cin[key][(size_t)min(row0 + r, p.S - 1) * d + cstart + cc];
+      } else if (row0 + r < p.S) {
+        p.cout[key][(size_t)(row0 + r) * d + cstart + cc] = __ldcg(sp);
+      }
+    }
+  }
+  if (store && chunk == 0) {  // the unused columns of `sil` pass through
+    for (int i = tid; i < RT * 7; i += THREADS) {
+      const int row = row0 + i / 7, cc = 1 + i % 7;
+      if (row < p.S) p.cout[C_SIL][(size_t)row * 8 + cc] = p.cin[C_SIL][(size_t)row * 8 + cc];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Params p) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ int tab[TAB_MAX];
+  __shared__ float sm_co[CH * ORDER * 2];
+  __shared__ float sm_cb[ORDER * 2];
+  __shared__ __align__(8) unsigned long long full[NSTG];
+  __shared__ __align__(8) unsigned long long empty[NSTG];
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < NSTG; ++i) {
+      mbar_init(full + i, 1);              // the copy thread's expect; then bytes count
+      mbar_init(empty + i, THREADS / 32);  // one arrival a compute warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::);
+  }
+  for (int i = tid; i < p.table_ints; i += THREADS) tab[i] = p.table[i];
+  for (int i = tid; i < CH * ORDER * 2; i += THREADS) sm_co[i] = p.w[W_CONVP_CO][i];
+  if (tid < ORDER * 2) sm_cb[tid] = p.w[W_CONVP_B][tid];
+  __syncthreads();
+  const Ctx c{p, tab, tab + HEADER_INTS, smem, full, empty, sm_co, sm_cb};
+  unsigned fills = 0;  // ring fills so far, the same in every thread
+  const int tiles = tab[H_TILES], n_pre = tab[H_PRE], n_fp = tab[H_FRAME_PHASES];
+  const int* phases = tab + HEADER_INTS + tab[H_LAY] + 4 * tab[H_SEGS];
+  const int* jobs = phases + PHASE_INTS * tab[H_PHASES];
+
+  auto run_phase = [&](int ph, int f) {
+    const int* P = phases + ph * PHASE_INTS;
+    for (int u = blockIdx.x; u < P[2]; u += gridDim.x) {
+      const int* J = jobs + P[0] * JOB_INTS;
+      while (u >= J[J_BEGIN] + J[J_UNITS]) J += JOB_INTS;
+      const int local = u - J[J_BEGIN];
+      const int tile = local % tiles, part = local / tiles;
+      switch (J[J_TYPE]) {
+        case T_GEMM:
+          if (J[J_AUX] == 8) gemm_unit<8>(c, fills, J, tile, part, f);
+          else gemm_unit<2>(c, fills, J, tile, part, f);
+          break;
+        case T_CARRY_IN: carry_unit(c, tile, part, J[J_AUX], false); break;
+        case T_FRAME0: frame_in_unit(c, tile, part, J[J_AUX], 0, false); break;
+        case T_ADVANCE: frame_in_unit(c, tile, part, J[J_AUX], f + 1, true); break;
+        case T_LSNR: lsnr_unit(c, tile); break;
+        case T_CARRY_OUT: carry_unit(c, tile, part, J[J_AUX], true); break;
+      }
+    }
+  };
+
+  unsigned int target = 0;
+  for (int ph = 0; ph < n_pre; ++ph) {
+    run_phase(ph, 0);
+    grid_barrier(p.barrier, target);
+  }
+  // thread 0 of block 0 keeps its cycles per phase, and at the barriers
+  const bool timer = blockIdx.x == 0 && tid == 0;
+  long long t0 = clock64();
+  for (int f = 0; f < p.n_frames; ++f) {
+    for (int ph = 0; ph < n_fp; ++ph) {
+      run_phase(n_pre + ph, f);
+      long long t1 = 0;
+      if (timer) {
+        t1 = clock64();
+        p.stage_clocks[ph] += t1 - t0;
+      }
+      grid_barrier(p.barrier, target);
+      if (timer) {
+        t0 = clock64();
+        p.stage_clocks[n_fp] += t0 - t1;
+      }
+    }
+  }
+  run_phase(n_pre + n_fp, 0);
 }
 
 }  // namespace
 
-// Floats of scratch the kernel needs for each stream row of each block.
-extern "C" int dfn_whole_cell_scratch_floats() { return SCR; }
+// Threads a block, which the plan's K groups are sized for.
+extern "C" int dfn_whole_cell_threads() { return THREADS; }
 
-// Entries of the stage_clocks array (int64), in the order of the Stage enum.
-extern "C" int dfn_whole_cell_stages() { return N_STAGES; }
-
-// Launches the kernel on `stream` for audio [S, n_frames * 480]. carry_in,
-// carry_out (11 device pointers, CKEYS order), weights (n_weights device
-// pointers, WKEYS order) and scalars (alpha, 1 - alpha, lsnr_min, lsnr_max,
-// pf_beta, silence_thresh, atten_lim, gate_min, gate_max_erb, gate_max_df) are
-// host arrays. scratch: n_blocks * rows * dfn_whole_cell_scratch_floats()
-// floats. stage_clocks: dfn_whole_cell_stages() int64 on the device, written
-// by block 0. Returns the CUDA error of the launch (0 on success).
+// Launches the kernel cooperatively on `stream` with n_blocks blocks (at most
+// one per multiprocessor) for audio [S, n_frames * 480]. carry_in, carry_out
+// (11 device pointers, CKEYS order), weights (n_weights device pointers: WKEYS
+// order, then the transposed dft [1024, 960]) and scalars (alpha, 1 - alpha,
+// lsnr_min, lsnr_max, pf_beta, silence_thresh, atten_lim, gate_min,
+// gate_max_erb, gate_max_df) are host arrays. table: the plan
+// (ops/whole_cell_plan.py), table_ints int32 on the device. scratch:
+// [tiles, SCR, 64] floats, zero where never written; barrier: one uint32,
+// zero; stage_clocks: frame phases + 1 int64, zero. Returns the CUDA error
+// (0 on success); cudaErrorCooperativeLaunchTooLarge or cudaErrorNotSupported
+// if the card cannot hold the grid.
 extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* carry_in,
                               void* const* carry_out, const void* const* weights, int n_weights,
-                              void* scratch, void* stage_clocks, int S, int n_frames, int rows,
-                              int n_blocks,
+                              const void* wpack, void* scratch, const void* table, int table_ints, void* barrier,
+                              void* stage_clocks, int S, int n_frames, int n_blocks,
                               const float* scalars, int mask_pf, int lsnr_gating,
                               int silence_frames, void* stream) {
-  if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1)
+  if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1 || table_ints > TAB_MAX)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.audio = static_cast<const float*>(audio);
@@ -765,7 +712,11 @@ extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* c
     p.cout[i] = static_cast<float*>(carry_out[i]);
   }
   for (int i = 0; i < N_WKEYS; ++i) p.w[i] = static_cast<const float*>(weights[i]);
+  p.wpack = static_cast<const float*>(wpack);
   p.scratch = static_cast<float*>(scratch);
+  p.table = static_cast<const int*>(table);
+  p.table_ints = table_ints;
+  p.barrier = static_cast<unsigned int*>(barrier);
   p.stage_clocks = static_cast<long long*>(stage_clocks);
   p.S = S;
   p.n_frames = n_frames;
@@ -774,10 +725,24 @@ extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* c
   p.pf_beta = scalars[4]; p.silence_thresh = scalars[5]; p.atten_lim = scalars[6];
   p.gate_min = scalars[7]; p.gate_max_erb = scalars[8]; p.gate_max_df = scalars[9];
   p.mask_pf = mask_pf; p.lsnr_gating = lsnr_gating; p.silence_frames = silence_frames;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (rows == 4) err = launch<4>(p, n_blocks, st);
-  else if (rows == 8) err = launch<8>(p, n_blocks, st);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+
+  int dev = 0, coop = 0, per_sm = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  err = cudaFuncSetAttribute(whole_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, whole_cell_kernel, BLOCK_THREADS,
+                                                      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  if (n_blocks > per_sm * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)whole_cell_kernel, dim3((unsigned)n_blocks),
+                                    dim3(BLOCK_THREADS), args, SMEM_BYTES,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -1,0 +1,776 @@
+// Whole-cell streaming DFN3 for S streams, all frames of a call in one launch
+// (Hopper, sm_90a).
+//
+// Replaces the TPU kernel deepfilternet_tpu/ops/pallas_cell.py (the kernel
+// closure of make_cell_kernel with its body _frame_step / _frame_tail,
+// launched by cell_process). For every stream row and frame it computes the
+// analysis DFT, the ERB / unit-norm features and their exponential norms, the
+// dense-folded encoder convs, the three GRU stacks, the LSNR head, the ERB
+// decoder and mask, the DF coefficient head and the order-5 complex MAC over
+// a 4-frame ring, the ERB mask through erb_inv, post-filter, LSNR gating,
+// attenuation limit, the RMS silence counter and mute, and the iDFT synthesis
+// with overlap-add. The carry (11 arrays, CKEYS order) is read once at the
+// start of a tile of streams and written once at its end. Every matrix product
+// of the frame is computed here, in float32 FMAs on the CUDA cores.
+//
+// This is the row-tile design: one persistent block per tile of 4 or 8 stream
+// rows computes every product of the frame by itself. The wrapper launches it
+// for many streams only (ops/whole_cell.py::_kernel_choice); for few streams
+// the design of whole_cell.cu, which spreads every product over the whole
+// card, is several times faster.
+//
+// What bounds it: a frame is about 7.2 M multiply-adds a stream (8.1 M at the
+// padded widths the weights are stored at) against 28 MB of float32 weights
+// that every thread block must read once a frame, from L2, at the 27 bytes a
+// clock one multiprocessor gets from it. With 8 rows a block and all
+// multiprocessors busy the weight stream and the FMAs cost about the same.
+//
+// What the design does about it:
+//   * one persistent block of 512 threads per tile of R = 4 or 8 streams
+//     (template), looping over the call's frames; blocks beyond the number
+//     of multiprocessors are folded into a loop over tiles, so the scratch
+//     is bounded by the card and not by S. The ragged last tile reads the
+//     last valid stream again for its missing rows and stores nothing for them;
+//   * one device routine gemm<R>: y[R, N] = act(x[R, K] @ W[K, N] + b) + addend.
+//     x is staged in shared memory transposed ([K][R], so one 16-byte
+//     broadcast load gives a thread 4 rows of one k), every thread owns 4
+//     neighbouring columns (one 16-byte coalesced weight load for 4R FMAs,
+//     4 such loads in flight while the last 4 are multiplied) and, where
+//     N / 4 is below the thread count, a slice of K; slices are then added
+//     in shared memory in slice order, so results do not depend on timing
+//     or on R;
+//   * the synthesis product against dft^T (gemm_t) gives each warp an output
+//     sample: lanes stride K with 16-byte loads and reduce by shuffles;
+//   * activations and the per-frame state live in a per-block scratch in
+//     global memory (L1/L2 resident; allocated by the wrapper): about 70 KB a
+//     stream row. Rolling windows (conv contexts, DF ring, analysis memory)
+//     are shifted in place by the thread that owns the element;
+//   * static scalars and the stage switches are kernel arguments; the 65 weight
+//     pointers travel in the argument struct, copied by value;
+//   * thread 0 of block 0 adds up the SM cycles of each stage of the frame
+//     (stage_clocks), so a run can say where a frame's time goes.
+//
+// Measured times and the card they were taken on: PERF.md, kernel table.
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int THREADS = 512;
+constexpr int UNROLL = 4;  // weight rows a thread keeps in flight per batch
+constexpr int NWARPS = THREADS / 32;
+constexpr int HOP = 480;
+constexpr int FFT = 960;
+constexpr int FPAD = 512;
+constexpr int BLK = 128;
+constexpr int NB_ERB = 32;
+constexpr int NB_DF = 96;
+constexpr int HID = 256;
+constexpr int CH = 16;
+constexpr int ORDER = 5;
+constexpr int KMAX = 2048;  // widest product input (c1)
+constexpr float PI_F = 3.14159265358979323846f;
+
+// weight pointers, WKEYS order
+enum WKey {
+  W_DFT, W_IMULT, W_ERB_FWD, W_ERB_INV,
+  W_E0_W, W_E0_B, W_E1_W, W_E1_B, W_E2_W, W_E2_B, W_E3_W, W_E3_B,
+  W_C0W_T0, W_C0W_T1, W_C0W_T2, W_C0_B, W_C1_W, W_C1_B, W_GL_W,
+  W_P3_W, W_P3_B, W_T3_W, W_T3_B, W_P2_W, W_P2_B, W_T2_W, W_T2_B,
+  W_P1_W, W_P1_B, W_T1_W, W_T1_B, W_P0_W, W_P0_B, W_OUT_W, W_OUT_B,
+  W_ENC_LIN_IN, W_ENC_WIH, W_ENC_WHH, W_ENC_BIH, W_ENC_BHH, W_ENC_LIN_OUT,
+  W_LSNR_W, W_LSNR_B,
+  W_DEC_LIN_IN, W_DEC_WIH, W_DEC_WHH, W_DEC_BIH, W_DEC_BHH, W_DEC_LIN_OUT,
+  W_DF_LIN_IN,
+  W_DF_WIH0, W_DF_WHH0, W_DF_BIH0, W_DF_BHH0,
+  W_DF_WIH1, W_DF_WHH1, W_DF_BIH1, W_DF_BHH1,
+  W_DF_WIH2, W_DF_WHH2, W_DF_BIH2, W_DF_BHH2,
+  W_DF_OUT_W, W_CONVP_CO, W_CONVP_B,
+  N_WKEYS
+};
+
+// carry arrays, CKEYS order
+enum CKey { C_AMEM, C_SMEM, C_NORMS, C_SIL, C_ERB_CTX, C_SPEC_CTX, C_ENC_H, C_DEC_H,
+            C_DF_H, C_RING_RE, C_RING_IM, N_CKEYS };
+
+// per-row scratch layout, in floats; every offset is a multiple of 4
+constexpr int O_BUF = 0;                     // [prev_hop | frame]         960
+constexpr int O_SPEC = O_BUF + FFT;          // [re | im]                 1024
+constexpr int O_POW = O_SPEC + 2 * FPAD;     // power                      512
+constexpr int O_ERBWIN = O_POW + FPAD;       // [erb t-2 | t-1 | t]         96
+constexpr int O_FSWIN = O_ERBWIN + 96;       // [fs t-2 | t-1 | t], 192 each: [re | im]
+constexpr int O_E0 = O_FSWIN + 576;          // 512
+constexpr int O_E1 = O_E0 + 512;             // 256
+constexpr int O_E2 = O_E1 + 256;             // 128
+constexpr int O_E3 = O_E2 + 128;             // 128
+constexpr int O_C0 = O_E3 + 128;             // 2048
+constexpr int O_C1 = O_C0 + CH * BLK;        // 768
+constexpr int O_EMB = O_C1 + 768;            // 128  e3 + cemb
+constexpr int O_XIN = O_EMB + 128;           // 256  GRU stack input
+constexpr int O_GI = O_XIN + HID;            // 768
+constexpr int O_GH = O_GI + 3 * HID;         // 768
+constexpr int O_EMB2 = O_GH + 3 * HID;       // 128  encoder output embedding
+constexpr int O_DEMB = O_EMB2 + 128;         // 128
+constexpr int O_PA = O_DEMB + 128;           // 512  decoder pathway ping
+constexpr int O_PB = O_PA + 512;             // 512  decoder pathway pong
+constexpr int O_MASK = O_PB + 512;           // 32
+constexpr int O_COEF = O_MASK + NB_ERB;      // 1280
+constexpr int O_Y = O_COEF + ORDER * 2 * BLK;  // [y_re | y_im] 256
+constexpr int O_GAIN = O_Y + 2 * BLK;        // 512  (also the raw ERB band sums)
+constexpr int O_SE = O_GAIN + FPAD;          // [se_re*imult | se_im*imult] 1024
+constexpr int O_X = O_SE + 2 * FPAD;         // synthesis frame 960
+constexpr int O_SMEM = O_X + FFT;            // 480
+constexpr int O_MEAN = O_SMEM + HOP;         // 32
+constexpr int O_UNIT = O_MEAN + NB_ERB;      // 96
+constexpr int O_ENC_H = O_UNIT + NB_DF;      // 256
+constexpr int O_DEC_H = O_ENC_H + HID;       // 256
+constexpr int O_DF_H = O_DEC_H + HID;        // 768
+constexpr int O_RING_RE = O_DF_H + 3 * HID;  // 512
+constexpr int O_RING_IM = O_RING_RE + 4 * BLK;  // 512
+constexpr int SCR = O_RING_IM + 4 * BLK;
+static_assert(SCR % 4 == 0 && O_FSWIN % 4 == 0 && O_MASK % 4 == 0 && O_MEAN % 4 == 0,
+              "scratch offsets must keep 16-byte alignment");
+
+enum Act { ACT_NONE, ACT_RELU, ACT_SIGMOID, ACT_TANH };
+
+// stages of a frame whose SM cycles block 0 adds up (see Params::stage_clocks)
+enum Stage { ST_FRAME_IN, ST_ANALYSIS, ST_FEATURES, ST_ERB_CONVS, ST_DF_CONV0, ST_DF_CONV1,
+             ST_ENC_GRU, ST_ERB_DECODER, ST_DF_GRU, ST_DF_COEF_MAC, ST_MASK_TAIL, ST_SYNTHESIS,
+             N_STAGES };
+
+struct Params {
+  const float* audio;  // [S, T]
+  float* out;          // [S, T]
+  const float* cin[N_CKEYS];
+  float* cout[N_CKEYS];
+  const float* w[N_WKEYS];
+  float* scratch;      // [gridDim.x, R, SCR]
+  long long* stage_clocks;  // [N_STAGES] SM cycles of block 0 per stage, over the call
+  int S, n_frames;
+  float alpha, one_minus_alpha, lsnr_min, lsnr_max, pf_beta, silence_thresh, atten_lim,
+      gate_min, gate_max_erb, gate_max_df;
+  int mask_pf, lsnr_gating, silence_frames;
+};
+
+__device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ float act_apply(float v, int act) {
+  switch (act) {
+    case ACT_RELU: return fmaxf(v, 0.0f);
+    case ACT_SIGMOID: return sigmoidf_(v);
+    case ACT_TANH: return tanhf(v);
+    default: return v;
+  }
+}
+
+// acc[r][0..3] += x[r] * w4 over this thread's rows k0..k1 of one weight
+// segment. xs: staged x, [K][R]; w: this thread's 4 columns of row 0. The
+// weight rows come in batches of U 16-byte loads, the next batch in flight
+// while the current one is multiplied.
+template <int R>
+__device__ __forceinline__ void fma_rows(float (&acc)[R][4], const float* __restrict__ xs,
+                                         const float* __restrict__ w, int ldw, int k0, int k1) {
+  constexpr int U = UNROLL;
+  auto load = [&](float4 (&wv)[U], int k) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      wv[u] = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k + u) * ldw));
+  };
+  auto mac = [&](const float4 (&wv)[U], int k) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float xr[R];
+#pragma unroll
+      for (int q = 0; q < R / 4; ++q) {
+        const float4 xv = *reinterpret_cast<const float4*>(xs + (k + u) * R + 4 * q);
+        xr[4 * q] = xv.x; xr[4 * q + 1] = xv.y; xr[4 * q + 2] = xv.z; xr[4 * q + 3] = xv.w;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[r][0] = fmaf(xr[r], wv[u].x, acc[r][0]);
+        acc[r][1] = fmaf(xr[r], wv[u].y, acc[r][1]);
+        acc[r][2] = fmaf(xr[r], wv[u].z, acc[r][2]);
+        acc[r][3] = fmaf(xr[r], wv[u].w, acc[r][3]);
+      }
+    }
+  };
+  const int nb = (k1 - k0) / U;
+  float4 wa[U], wb[U];
+  if (nb > 0) load(wa, k0);
+  int b = 0;
+  for (; b + 2 <= nb; b += 2) {
+    load(wb, k0 + (b + 1) * U);
+    mac(wa, k0 + b * U);
+    if (b + 2 < nb) load(wa, k0 + (b + 2) * U);
+    mac(wb, k0 + (b + 1) * U);
+  }
+  if (b < nb) mac(wa, k0 + b * U);
+  for (int k = k0 + nb * U; k < k1; ++k) {
+    const float4 wv = __ldg(reinterpret_cast<const float4*>(w + (size_t)k * ldw));
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float xr = xs[k * R + r];
+      acc[r][0] = fmaf(xr, wv.x, acc[r][0]);
+      acc[r][1] = fmaf(xr, wv.y, acc[r][1]);
+      acc[r][2] = fmaf(xr, wv.z, acc[r][2]);
+      acc[r][3] = fmaf(xr, wv.w, acc[r][3]);
+    }
+  }
+}
+
+// One row's 4 finished columns: bias, activation, addend, store.
+__device__ __forceinline__ void finish4(float4 v, int col, const float* __restrict__ bias,
+                                        int act, const float* addend_row, float* y_row) {
+  if (bias != nullptr) {
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + col));
+    v.x += b.x; v.y += b.y; v.z += b.z; v.w += b.w;
+  }
+  v.x = act_apply(v.x, act); v.y = act_apply(v.y, act);
+  v.z = act_apply(v.z, act); v.w = act_apply(v.w, act);
+  if (addend_row != nullptr) {
+    const float4 a = *reinterpret_cast<const float4*>(addend_row + col);
+    v.x += a.x; v.y += a.y; v.z += a.z; v.w += a.w;
+  }
+  *reinterpret_cast<float4*>(y_row + col) = v;
+}
+
+// y[r, :N] = act(x[r, :K] @ [W0; W1; W2] + bias) + addend[r, :N] for the
+// block's R scratch rows (row stride SCR). x, y and addend are scratch
+// columns; the weight is up to three row segments of k_seg rows each, all
+// [k_seg, N] row-major; N % 4 == 0 and nseg * k_seg <= KMAX. The caller has
+// a barrier between the writes of x (and addend) and this call. Ends with a
+// barrier, so the caller may read y and reuse the shared buffers at once.
+template <int R>
+__device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
+                                  const float* __restrict__ w0, const float* __restrict__ w1,
+                                  const float* __restrict__ w2, int k_seg, int nseg, int N,
+                                  const float* __restrict__ bias, int act, const float* addend,
+                                  float* y) {
+  const int tid = threadIdx.x;
+  const int K = k_seg * nseg;
+  for (int i = tid; i < K * R; i += THREADS) {
+    const int r = i % R, k = i / R;
+    sm_x[i] = x[(size_t)r * SCR + k];
+  }
+  __syncthreads();
+
+  const int CG = N / 4;  // column groups of 4
+  if (CG >= THREADS) {
+    for (int cg = tid; cg < CG; cg += THREADS) {
+      float acc[R][4] = {};
+      for (int s = 0; s < nseg; ++s) {
+        const float* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
+        fma_rows<R>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, 0, k_seg);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        finish4(make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]), 4 * cg, bias, act,
+                addend ? addend + (size_t)r * SCR : nullptr, y + (size_t)r * SCR);
+    }
+  } else {
+    const int ksl = THREADS / CG;  // K slices
+    const int cg = tid % CG, ks = tid / CG;
+    if (ks < ksl) {
+      float acc[R][4] = {};
+      const int kper = (k_seg + ksl - 1) / ksl;
+      const int k0 = min(ks * kper, k_seg), k1 = min(k0 + kper, k_seg);
+      for (int s = 0; s < nseg; ++s) {
+        const float* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
+        fma_rows<R>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, k0, k1);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        *reinterpret_cast<float4*>(sm_red + ((size_t)(ks * R + r) * CG + cg) * 4) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    __syncthreads();
+    for (int e = tid; e < R * CG; e += THREADS) {
+      const int r = e / CG, c = e % CG;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < ksl; ++s) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(sm_red + ((size_t)(s * R + r) * CG + c) * 4);
+        v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+      }
+      finish4(v, 4 * c, bias, act, addend ? addend + (size_t)r * SCR : nullptr,
+              y + (size_t)r * SCR);
+    }
+  }
+  __syncthreads();
+}
+
+// y[r, j] = sum_k x[r, k] * w[j, k] for j < N, K = 1024: the product against
+// the transposed DFT matrix. One warp per output j; lanes stride k.
+template <int R>
+__device__ __noinline__ void gemm_t(float* sm_x, const float* x, const float* __restrict__ w, int N,
+                       float* y) {
+  constexpr int K = 2 * FPAD;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < R * K / 4; i += THREADS) {
+    const int r = i / (K / 4), k4 = i % (K / 4);
+    reinterpret_cast<float4*>(sm_x)[i] =
+        *reinterpret_cast<const float4*>(x + (size_t)r * SCR + 4 * k4);
+  }
+  __syncthreads();
+  for (int j = warp; j < N; j += NWARPS) {
+    float4 wv[K / 128];
+#pragma unroll
+    for (int i = 0; i < K / 128; ++i)
+      wv[i] = __ldg(reinterpret_cast<const float4*>(w + (size_t)j * K + i * 128 + lane * 4));
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float a = 0.f;
+#pragma unroll
+      for (int i = 0; i < K / 128; ++i) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(sm_x + r * K + i * 128 + lane * 4);
+        a = fmaf(xv.x, wv[i].x, a); a = fmaf(xv.y, wv[i].y, a);
+        a = fmaf(xv.z, wv[i].z, a); a = fmaf(xv.w, wv[i].w, a);
+      }
+      acc[r] = a;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) y[(size_t)r * SCR + j] = acc[r];
+    }
+  }
+  __syncthreads();
+}
+
+// GRU gates on GI (x @ w_ih + b_ih) and GH (h @ w_hh + b_hh): b_hn sits in GH
+// and so stays inside r * (...). Updates h in place.
+template <int R>
+__device__ void gru_gate(float* sc, int o_h) {
+  for (int i = threadIdx.x; i < R * HID; i += THREADS) {
+    const int r = i / HID, j = i % HID;
+    float* row = sc + (size_t)r * SCR;
+    const float* gi = row + O_GI;
+    const float* gh = row + O_GH;
+    const float rg = sigmoidf_(gi[j] + gh[j]);
+    const float zg = sigmoidf_(gi[HID + j] + gh[HID + j]);
+    const float ng = tanhf(gi[2 * HID + j] + rg * gh[2 * HID + j]);
+    const float h = row[o_h + j];
+    row[o_h + j] = (1.0f - zg) * ng + zg * h;
+  }
+  __syncthreads();
+}
+
+template <int R>
+__global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  float* sm_x = smem;                 // KMAX * R
+  float* sm_red = smem + KMAX * R;    // THREADS * R * 4
+  __shared__ float sm_co[CH * ORDER * 2];
+  __shared__ float sm_cb[ORDER * 2];
+  __shared__ float sm_lsnr[R];
+  __shared__ int sm_mute[R];
+  __shared__ long long sm_clk[N_STAGES];
+  __shared__ long long sm_t0;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = p.n_frames * HOP;
+  float* sc = p.scratch + (size_t)blockIdx.x * R * SCR;
+  const float* const* W = p.w;
+
+  for (int i = tid; i < CH * ORDER * 2; i += THREADS) sm_co[i] = W[W_CONVP_CO][i];
+  if (tid < ORDER * 2) sm_cb[tid] = W[W_CONVP_B][tid];
+  if (tid < N_STAGES) sm_clk[tid] = 0;
+  // thread 0 of block 0 closes a stage: the cycles since the last mark go to it
+  auto mark = [&](int stage) {
+    if (blockIdx.x == 0 && tid == 0) {
+      const long long t = clock64();
+      sm_clk[stage] += t - sm_t0;
+      sm_t0 = t;
+    }
+  };
+
+  const int n_tiles = (p.S + R - 1) / R;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * R;
+    // rows beyond S repeat the last stream: computed, never stored
+    auto grow = [&](int r) { return min(row0 + r, p.S - 1); };
+    auto valid = [&](int r) { return row0 + r < p.S; };
+
+    // ---- carry -> scratch state
+    __syncthreads();
+    for (int i = tid; i < R * HOP; i += THREADS) {
+      const int r = i / HOP, c = i % HOP;
+      float* row = sc + (size_t)r * SCR;
+      const size_t g = (size_t)grow(r);
+      row[O_BUF + c] = p.cin[C_AMEM][g * 480 + c];
+      row[O_SMEM + c] = p.cin[C_SMEM][g * 480 + c];
+    }
+    for (int i = tid; i < R * 512; i += THREADS) {
+      const int r = i / 512, c = i % 512;
+      float* row = sc + (size_t)r * SCR;
+      const size_t g = (size_t)grow(r);
+      row[O_RING_RE + c] = p.cin[C_RING_RE][g * 512 + c];
+      row[O_RING_IM + c] = p.cin[C_RING_IM][g * 512 + c];
+      if (c < 128) {
+        const float v = p.cin[C_NORMS][g * 128 + c];
+        if (c < NB_ERB) row[O_MEAN + c] = v; else row[O_UNIT + c - NB_ERB] = v;
+      }
+      if (c < 64) row[O_ERBWIN + c] = p.cin[C_ERB_CTX][g * 64 + c];
+      if (c < 384) {
+        // spec_ctx is (c, t, f) flat: [re t-2 | re t-1 | im t-2 | im t-1];
+        // the window holds frames as [re | im] pairs
+        const int blk = c / NB_DF, f = c % NB_DF;
+        const int t = blk & 1, ri = blk >> 1;
+        row[O_FSWIN + t * 192 + ri * NB_DF + f] = p.cin[C_SPEC_CTX][g * 384 + c];
+      }
+      if (c < HID) {
+        row[O_ENC_H + c] = p.cin[C_ENC_H][g * HID + c];
+        row[O_DEC_H + c] = p.cin[C_DEC_H][g * HID + c];
+      }
+    }
+    for (int i = tid; i < R * 3 * HID; i += THREADS) {
+      const int r = i / (3 * HID), c = i % (3 * HID);
+      sc[(size_t)r * SCR + O_DF_H + c] = p.cin[C_DF_H][(size_t)grow(r) * 3 * HID + c];
+    }
+    // the silence counter travels as a float in sil[:, 0]
+    float sil_ctr = 0.f;  // lane 0 of warp r keeps row r's counter
+    if (warp < R && lane == 0) sil_ctr = p.cin[C_SIL][(size_t)grow(warp) * 8];
+    __syncthreads();
+
+    if (blockIdx.x == 0 && tid == 0) sm_t0 = clock64();
+    for (int f = 0; f < p.n_frames; ++f) {
+      // ---- frame in; RMS silence counter (one warp per row)
+      for (int i = tid; i < R * HOP; i += THREADS) {
+        const int r = i / HOP, c = i % HOP;
+        sc[(size_t)r * SCR + O_BUF + HOP + c] = p.audio[(size_t)grow(r) * T + (size_t)f * HOP + c];
+      }
+      if (warp < R) {
+        const float* a = p.audio + (size_t)grow(warp) * T + (size_t)f * HOP;
+        float ss = 0.f;
+        for (int c = lane; c < HOP; c += 32) ss = fmaf(a[c], a[c], ss);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+        if (lane == 0) {
+          const float rms = sqrtf(ss / (float)HOP);
+          sil_ctr = rms < p.silence_thresh ? sil_ctr + 1.0f : 0.0f;
+          sm_mute[warp] = sil_ctr >= (float)p.silence_frames;
+        }
+      }
+      __syncthreads();
+      mark(ST_FRAME_IN);
+      // ---- analysis: [prev_hop | frame] @ dft -> [re | im]
+      gemm<R>(sm_x, sm_red, sc + O_BUF, W[W_DFT], nullptr, nullptr, FFT, 1, 2 * FPAD, nullptr,
+              ACT_NONE, nullptr, sc + O_SPEC);
+      mark(ST_ANALYSIS);
+      // ---- power, unit norm, complex features of this frame
+      for (int i = tid; i < R * FPAD; i += THREADS) {
+        const int r = i / FPAD, k = i % FPAD;
+        float* row = sc + (size_t)r * SCR;
+        const float re = row[O_SPEC + k], im = row[O_SPEC + FPAD + k];
+        const float pw = re * re + im * im;
+        row[O_POW + k] = pw;
+        if (k < NB_DF) {
+          const float un = sqrtf(pw) * p.one_minus_alpha + row[O_UNIT + k] * p.alpha;
+          row[O_UNIT + k] = un;
+          const float scale = rsqrtf(un);
+          row[O_FSWIN + 384 + k] = re * scale;
+          row[O_FSWIN + 384 + NB_DF + k] = im * scale;
+        }
+      }
+      __syncthreads();
+      gemm<R>(sm_x, sm_red, sc + O_POW, W[W_ERB_FWD], nullptr, nullptr, FPAD, 1, NB_ERB, nullptr,
+              ACT_NONE, nullptr, sc + O_GAIN);
+      for (int i = tid; i < R * NB_ERB; i += THREADS) {
+        const int r = i / NB_ERB, e = i % NB_ERB;
+        float* row = sc + (size_t)r * SCR;
+        const float db = 10.0f * log10f(row[O_GAIN + e] + 1e-10f);
+        const float mean = db * p.one_minus_alpha + row[O_MEAN + e] * p.alpha;
+        row[O_MEAN + e] = mean;
+        row[O_ERBWIN + 64 + e] = (db - mean) / 40.0f;
+      }
+      __syncthreads();
+      mark(ST_FEATURES);
+      // ---- conv frontend (dense folds)
+      gemm<R>(sm_x, sm_red, sc + O_ERBWIN, W[W_E0_W], nullptr, nullptr, 96, 1, 512, W[W_E0_B],
+              ACT_RELU, nullptr, sc + O_E0);
+      gemm<R>(sm_x, sm_red, sc + O_E0, W[W_E1_W], nullptr, nullptr, 512, 1, 256, W[W_E1_B],
+              ACT_RELU, nullptr, sc + O_E1);
+      gemm<R>(sm_x, sm_red, sc + O_E1, W[W_E2_W], nullptr, nullptr, 256, 1, 128, W[W_E2_B],
+              ACT_RELU, nullptr, sc + O_E2);
+      gemm<R>(sm_x, sm_red, sc + O_E2, W[W_E3_W], nullptr, nullptr, 128, 1, 128, W[W_E3_B],
+              ACT_RELU, nullptr, sc + O_E3);
+      mark(ST_ERB_CONVS);
+      gemm<R>(sm_x, sm_red, sc + O_FSWIN, W[W_C0W_T0], W[W_C0W_T1], W[W_C0W_T2], 192, 3,
+              CH * BLK, W[W_C0_B], ACT_RELU, nullptr, sc + O_C0);
+      mark(ST_DF_CONV0);
+      gemm<R>(sm_x, sm_red, sc + O_C0, W[W_C1_W], nullptr, nullptr, CH * BLK, 1, 768, W[W_C1_B],
+              ACT_RELU, nullptr, sc + O_C1);
+      // emb = e3 + relu(c1 @ gl)
+      gemm<R>(sm_x, sm_red, sc + O_C1, W[W_GL_W], nullptr, nullptr, 768, 1, 128, nullptr,
+              ACT_RELU, sc + O_E3, sc + O_EMB);
+      mark(ST_DF_CONV1);
+      // ---- encoder GRU + LSNR head
+      gemm<R>(sm_x, sm_red, sc + O_EMB, W[W_ENC_LIN_IN], nullptr, nullptr, 128, 1, HID, nullptr,
+              ACT_RELU, nullptr, sc + O_XIN);
+      gemm<R>(sm_x, sm_red, sc + O_XIN, W[W_ENC_WIH], nullptr, nullptr, HID, 1, 3 * HID,
+              W[W_ENC_BIH], ACT_NONE, nullptr, sc + O_GI);
+      gemm<R>(sm_x, sm_red, sc + O_ENC_H, W[W_ENC_WHH], nullptr, nullptr, HID, 1, 3 * HID,
+              W[W_ENC_BHH], ACT_NONE, nullptr, sc + O_GH);
+      gru_gate<R>(sc, O_ENC_H);
+      gemm<R>(sm_x, sm_red, sc + O_ENC_H, W[W_ENC_LIN_OUT], nullptr, nullptr, HID, 1, 128,
+              nullptr, ACT_RELU, nullptr, sc + O_EMB2);
+      if (warp < R) {
+        const float* e = sc + (size_t)warp * SCR + O_EMB2;
+        float a = 0.f;
+        for (int k = lane; k < 128; k += 32) a = fmaf(e[k], __ldg(W[W_LSNR_W] + k), a);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+        if (lane == 0)
+          sm_lsnr[warp] =
+              sigmoidf_(a + __ldg(W[W_LSNR_B])) * (p.lsnr_max - p.lsnr_min) + p.lsnr_min;
+      }
+      mark(ST_ENC_GRU);
+      // ---- ERB decoder
+      gemm<R>(sm_x, sm_red, sc + O_EMB2, W[W_DEC_LIN_IN], nullptr, nullptr, 128, 1, HID, nullptr,
+              ACT_RELU, nullptr, sc + O_XIN);
+      gemm<R>(sm_x, sm_red, sc + O_XIN, W[W_DEC_WIH], nullptr, nullptr, HID, 1, 3 * HID,
+              W[W_DEC_BIH], ACT_NONE, nullptr, sc + O_GI);
+      gemm<R>(sm_x, sm_red, sc + O_DEC_H, W[W_DEC_WHH], nullptr, nullptr, HID, 1, 3 * HID,
+              W[W_DEC_BHH], ACT_NONE, nullptr, sc + O_GH);
+      gru_gate<R>(sc, O_DEC_H);
+      gemm<R>(sm_x, sm_red, sc + O_DEC_H, W[W_DEC_LIN_OUT], nullptr, nullptr, HID, 1, 128,
+              nullptr, ACT_RELU, nullptr, sc + O_DEMB);
+      gemm<R>(sm_x, sm_red, sc + O_E3, W[W_P3_W], nullptr, nullptr, 128, 1, 128, W[W_P3_B],
+              ACT_RELU, sc + O_DEMB, sc + O_PA);
+      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_T3_W], nullptr, nullptr, 128, 1, 128, W[W_T3_B],
+              ACT_RELU, nullptr, sc + O_PB);
+      gemm<R>(sm_x, sm_red, sc + O_E2, W[W_P2_W], nullptr, nullptr, 128, 1, 128, W[W_P2_B],
+              ACT_RELU, sc + O_PB, sc + O_PA);
+      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_T2_W], nullptr, nullptr, 128, 1, 256, W[W_T2_B],
+              ACT_RELU, nullptr, sc + O_PB);
+      gemm<R>(sm_x, sm_red, sc + O_E1, W[W_P1_W], nullptr, nullptr, 256, 1, 256, W[W_P1_B],
+              ACT_RELU, sc + O_PB, sc + O_PA);
+      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_T1_W], nullptr, nullptr, 256, 1, 512, W[W_T1_B],
+              ACT_RELU, nullptr, sc + O_PB);
+      gemm<R>(sm_x, sm_red, sc + O_E0, W[W_P0_W], nullptr, nullptr, 512, 1, 512, W[W_P0_B],
+              ACT_RELU, sc + O_PB, sc + O_PA);
+      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_OUT_W], nullptr, nullptr, 512, 1, NB_ERB, W[W_OUT_B],
+              ACT_SIGMOID, nullptr, sc + O_MASK);
+      mark(ST_ERB_DECODER);
+      // ---- DF decoder: 3-layer GRU, coefficient head
+      gemm<R>(sm_x, sm_red, sc + O_EMB2, W[W_DF_LIN_IN], nullptr, nullptr, 128, 1, HID, nullptr,
+              ACT_RELU, nullptr, sc + O_XIN);
+      for (int li = 0; li < 3; ++li) {
+        const int o_in = li == 0 ? O_XIN : O_DF_H + (li - 1) * HID;
+        const int o_h = O_DF_H + li * HID;
+        gemm<R>(sm_x, sm_red, sc + o_in, W[W_DF_WIH0 + 4 * li], nullptr, nullptr, HID, 1, 3 * HID,
+                W[W_DF_BIH0 + 4 * li], ACT_NONE, nullptr, sc + O_GI);
+        gemm<R>(sm_x, sm_red, sc + o_h, W[W_DF_WHH0 + 4 * li], nullptr, nullptr, HID, 1, 3 * HID,
+                W[W_DF_BHH0 + 4 * li], ACT_NONE, nullptr, sc + O_GH);
+        gru_gate<R>(sc, o_h);
+      }
+      mark(ST_DF_GRU);
+      gemm<R>(sm_x, sm_red, sc + O_DF_H + 2 * HID, W[W_DF_OUT_W], nullptr, nullptr, HID, 1,
+              ORDER * 2 * BLK, nullptr, ACT_TANH, nullptr, sc + O_COEF);
+      // ---- deep filter MAC: ring frames 0..3, the current frame as tap 4;
+      // then the ring shifts. Pad lanes (f >= 96) of the current frame are 0.
+      for (int i = tid; i < R * BLK; i += THREADS) {
+        const int r = i / BLK, f = i % BLK;
+        float* row = sc + (size_t)r * SCR;
+        const float cur_re = f < NB_DF ? row[O_SPEC + f] : 0.f;
+        const float cur_im = f < NB_DF ? row[O_SPEC + FPAD + f] : 0.f;
+        float c0v[CH];
+#pragma unroll
+        for (int c = 0; c < CH; ++c) c0v[c] = row[O_C0 + c * BLK + f];
+        float y_re = 0.f, y_im = 0.f;
+#pragma unroll
+        for (int n = 0; n < ORDER; ++n) {
+          const float t_re = n < ORDER - 1 ? row[O_RING_RE + n * BLK + f] : cur_re;
+          const float t_im = n < ORDER - 1 ? row[O_RING_IM + n * BLK + f] : cur_im;
+          float cp_re = 0.f, cp_im = 0.f;
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            cp_re = fmaf(sm_co[c * ORDER * 2 + 2 * n], c0v[c], cp_re);
+            cp_im = fmaf(sm_co[c * ORDER * 2 + 2 * n + 1], c0v[c], cp_im);
+          }
+          const float c_re = row[O_COEF + (2 * n) * BLK + f] + fmaxf(cp_re + sm_cb[2 * n], 0.f);
+          const float c_im =
+              row[O_COEF + (2 * n + 1) * BLK + f] + fmaxf(cp_im + sm_cb[2 * n + 1], 0.f);
+          y_re = y_re + t_re * c_re - t_im * c_im;
+          y_im = y_im + t_re * c_im + t_im * c_re;
+        }
+        row[O_Y + f] = y_re;
+        row[O_Y + BLK + f] = y_im;
+#pragma unroll
+        for (int n = 0; n < ORDER - 2; ++n) {
+          row[O_RING_RE + n * BLK + f] = row[O_RING_RE + (n + 1) * BLK + f];
+          row[O_RING_IM + n * BLK + f] = row[O_RING_IM + (n + 1) * BLK + f];
+        }
+        row[O_RING_RE + (ORDER - 2) * BLK + f] = cur_re;
+        row[O_RING_IM + (ORDER - 2) * BLK + f] = cur_im;
+      }
+      __syncthreads();
+      mark(ST_DF_COEF_MAC);
+      // ---- ERB mask -> bin gains
+      gemm<R>(sm_x, sm_red, sc + O_MASK, W[W_ERB_INV], nullptr, nullptr, NB_ERB, 1, FPAD, nullptr,
+              ACT_NONE, nullptr, sc + O_GAIN);
+      // ---- tail: post-filter, LSNR gating, atten-lim, mute, iDFT scaling
+      for (int i = tid; i < R * FPAD; i += THREADS) {
+        const int r = i / FPAD, k = i % FPAD;
+        float* row = sc + (size_t)r * SCR;
+        const float re = row[O_SPEC + k], im = row[O_SPEC + FPAD + k];
+        const float g = row[O_GAIN + k];
+        const float m_re = re * g, m_im = im * g;
+        float se_re = k < NB_DF ? row[O_Y + k] : m_re;
+        float se_im = k < NB_DF ? row[O_Y + BLK + k] : m_im;
+        if (p.mask_pf) {
+          const float eps = 1e-12f;
+          const float mag_e = sqrtf(se_re * se_re + se_im * se_im);
+          const float mag_x = sqrtf(re * re + im * im);
+          const float gg = fminf(fmaxf(mag_e / (mag_x + eps), eps), 1.0f);
+          const float g_sin = fmaxf(gg * sinf(PI_F * gg / 2.0f), eps);
+          const float q = gg / g_sin;
+          const float pf = (1.0f + p.pf_beta) / (1.0f + p.pf_beta * (q * q));
+          se_re *= pf;
+          se_im *= pf;
+        }
+        if (p.lsnr_gating) {
+          const float ls = sm_lsnr[r];
+          if (ls < p.gate_min) {
+            se_re = 0.f; se_im = 0.f;
+          } else if (ls > p.gate_max_df && ls <= p.gate_max_erb) {
+            se_re = m_re; se_im = m_im;
+          } else if (ls > p.gate_max_erb) {
+            se_re = re; se_im = im;
+          }
+        }
+        if (p.atten_lim > 0.f) {
+          se_re = re * p.atten_lim + se_re * (1.0f - p.atten_lim);
+          se_im = im * p.atten_lim + se_im * (1.0f - p.atten_lim);
+        }
+        if (sm_mute[r]) {  // the mute comes last, after atten-lim
+          se_re = 0.f; se_im = 0.f;
+        }
+        const float sc_k = __ldg(W[W_IMULT] + k);
+        row[O_SE + k] = se_re * sc_k;
+        row[O_SE + FPAD + k] = se_im * sc_k;
+      }
+      __syncthreads();
+      mark(ST_MASK_TAIL);
+      // ---- synthesis: [se_re | se_im] @ dft^T, overlap-add
+      gemm_t<R>(sm_x, sc + O_SE, W[W_DFT], FFT, sc + O_X);
+      for (int i = tid; i < R * HOP; i += THREADS) {
+        const int r = i / HOP, c = i % HOP;
+        float* row = sc + (size_t)r * SCR;
+        const float o = row[O_X + c] + row[O_SMEM + c];
+        if (valid(r)) p.out[(size_t)(row0 + r) * T + (size_t)f * HOP + c] = o;
+        row[O_SMEM + c] = row[O_X + HOP + c];
+        row[O_BUF + c] = row[O_BUF + HOP + c];  // prev_hop = frame
+        if (c < 192) {  // conv contexts advance one frame
+          row[O_FSWIN + c] = row[O_FSWIN + 192 + c];
+          row[O_FSWIN + 192 + c] = row[O_FSWIN + 384 + c];
+        }
+        if (c < NB_ERB) {
+          row[O_ERBWIN + c] = row[O_ERBWIN + NB_ERB + c];
+          row[O_ERBWIN + NB_ERB + c] = row[O_ERBWIN + 2 * NB_ERB + c];
+        }
+      }
+      __syncthreads();
+      mark(ST_SYNTHESIS);
+    }
+
+    // ---- scratch state -> carry, valid rows only
+    for (int i = tid; i < R * 3 * HID; i += THREADS) {
+      const int r = i / (3 * HID), c = i % (3 * HID);
+      if (!valid(r)) continue;
+      const float* row = sc + (size_t)r * SCR;
+      const size_t g = (size_t)(row0 + r);
+      p.cout[C_DF_H][g * 3 * HID + c] = row[O_DF_H + c];
+      if (c < HOP) {
+        p.cout[C_AMEM][g * 480 + c] = row[O_BUF + c];
+        p.cout[C_SMEM][g * 480 + c] = row[O_SMEM + c];
+      }
+      if (c < 512) {
+        p.cout[C_RING_RE][g * 512 + c] = row[O_RING_RE + c];
+        p.cout[C_RING_IM][g * 512 + c] = row[O_RING_IM + c];
+      }
+      if (c < 128)
+        p.cout[C_NORMS][g * 128 + c] = c < NB_ERB ? row[O_MEAN + c] : row[O_UNIT + c - NB_ERB];
+      if (c < 64) p.cout[C_ERB_CTX][g * 64 + c] = row[O_ERBWIN + c];
+      if (c < 384) {
+        const int blk = c / NB_DF, fq = c % NB_DF;
+        const int t = blk & 1, ri = blk >> 1;
+        p.cout[C_SPEC_CTX][g * 384 + c] = row[O_FSWIN + t * 192 + ri * NB_DF + fq];
+      }
+      if (c < HID) {
+        p.cout[C_ENC_H][g * HID + c] = row[O_ENC_H + c];
+        p.cout[C_DEC_H][g * HID + c] = row[O_DEC_H + c];
+      }
+      if (c >= 1 && c < 8) p.cout[C_SIL][g * 8 + c] = p.cin[C_SIL][g * 8 + c];
+    }
+    if (warp < R && lane == 0 && valid(warp)) p.cout[C_SIL][(size_t)(row0 + warp) * 8] = sil_ctr;
+  }
+  if (blockIdx.x == 0 && tid == 0)
+    for (int i = 0; i < N_STAGES; ++i) p.stage_clocks[i] = sm_clk[i];
+}
+
+template <int R>
+cudaError_t launch(const Params& p, int n_blocks, cudaStream_t stream) {
+  const size_t shmem = (size_t)(KMAX * R + THREADS * R * 4) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(whole_cell_kernel<R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (err != cudaSuccess) return err;
+  whole_cell_kernel<R><<<n_blocks, THREADS, shmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of scratch the kernel needs for each stream row of each block.
+extern "C" int dfn_whole_cell_rows_scratch_floats() { return SCR; }
+
+// Entries of the stage_clocks array (int64), in the order of the Stage enum.
+extern "C" int dfn_whole_cell_rows_stages() { return N_STAGES; }
+
+// Launches the kernel on `stream` for audio [S, n_frames * 480]. carry_in,
+// carry_out (11 device pointers, CKEYS order), weights (n_weights device
+// pointers, WKEYS order) and scalars (alpha, 1 - alpha, lsnr_min, lsnr_max,
+// pf_beta, silence_thresh, atten_lim, gate_min, gate_max_erb, gate_max_df) are
+// host arrays. scratch: n_blocks * rows * dfn_whole_cell_rows_scratch_floats()
+// floats. stage_clocks: dfn_whole_cell_rows_stages() int64 on the device, written
+// by block 0. Returns the CUDA error of the launch (0 on success).
+extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* const* carry_in,
+                              void* const* carry_out, const void* const* weights, int n_weights,
+                              void* scratch, void* stage_clocks, int S, int n_frames, int rows,
+                              int n_blocks,
+                              const float* scalars, int mask_pf, int lsnr_gating,
+                              int silence_frames, void* stream) {
+  if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.audio = static_cast<const float*>(audio);
+  p.out = static_cast<float*>(out);
+  for (int i = 0; i < N_CKEYS; ++i) {
+    p.cin[i] = static_cast<const float*>(carry_in[i]);
+    p.cout[i] = static_cast<float*>(carry_out[i]);
+  }
+  for (int i = 0; i < N_WKEYS; ++i) p.w[i] = static_cast<const float*>(weights[i]);
+  p.scratch = static_cast<float*>(scratch);
+  p.stage_clocks = static_cast<long long*>(stage_clocks);
+  p.S = S;
+  p.n_frames = n_frames;
+  p.alpha = scalars[0]; p.one_minus_alpha = scalars[1];
+  p.lsnr_min = scalars[2]; p.lsnr_max = scalars[3];
+  p.pf_beta = scalars[4]; p.silence_thresh = scalars[5]; p.atten_lim = scalars[6];
+  p.gate_min = scalars[7]; p.gate_max_erb = scalars[8]; p.gate_max_df = scalars[9];
+  p.mask_pf = mask_pf; p.lsnr_gating = lsnr_gating; p.silence_frames = silence_frames;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (rows == 4) err = launch<4>(p, n_blocks, st);
+  else if (rows == 8) err = launch<8>(p, n_blocks, st);
+  else err = cudaErrorInvalidValue;
+  return (int)err;
+}

@@ -24,7 +24,8 @@ SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"fused_frontend": "fused_frontend.cu", "whole_cell": "whole_cell.cu"}
+SOURCES = {"fused_frontend": "fused_frontend.cu", "whole_cell": "whole_cell.cu",
+           "whole_cell_rows": "whole_cell_rows.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

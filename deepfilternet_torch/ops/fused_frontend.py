@@ -29,7 +29,39 @@ from deepfilternet_torch.ops.erb import erb_fb_tensor, erb_widths
 from deepfilternet_torch.ops.norms import erb_norm_step
 from deepfilternet_torch.ops.stft import Stft, analysis_step_ri, dft_matrices
 
-_NC = 128  # bins per kernel block; its DFT matrices are padded to a multiple
+_NC = 128  # the kernel's DFT matrices are padded to a multiple of this many bins
+
+# the kernel's two builds: (stream rows, bins) a block
+_TILE_LARGE = (64, 64)
+_TILE_SMALL = (16, 32)
+
+
+def _frontend_tile(s: int, n_sm: int, fp: int = 512) -> Tuple[int, int]:
+    """(stream rows, bins) a block for S streams on a card of n_sm
+    multiprocessors: the large tile reads the DFT columns once for 64 streams,
+    so it is taken as soon as its grid gives every multiprocessor a block;
+    below that the small tile starts 8 times the blocks."""
+    rows, bins = _TILE_LARGE
+    return _TILE_LARGE if -(-s // rows) * (fp // bins) >= n_sm else _TILE_SMALL
+
+
+def _frontend_scratch(s: int, tile: Tuple[int, int], fp: int, nb_erb: int):
+    """Shapes of the kernel's scratch: each bin chunk's ERB band sums, and a
+    zeroed done-counter per tile of streams (see the kernel's note)."""
+    rows, bins = tile
+    return (fp // bins, s, nb_erb), (-(-s // rows),)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's operand split, bit for bit: hi is x rounded to TF32's 10
+    mantissa bits (half away from zero, on the bit pattern), lo = x - hi is
+    exact in float32 and is cut to its upper 19 bits as the tensor core
+    reads it. Used by the CPU tests to size the numerics; the kernel splits
+    in registers."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,6 +74,22 @@ def _padded_dft_tensors(fft_size: int, hop_size: int, device: torch.device):
         pad[:, :f] = m
         out.append(torch.tensor(pad, device=device))
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_dft(fft_size: int, hop_size: int, bins: int, device: torch.device) -> torch.Tensor:
+    """The padded DFT matrices as the kernel's build with `bins` bins a block
+    reads them: [chunks, fft, 2 * bins + 8], chunk c's K rows of
+    [cos[:, c*bins:(c+1)*bins] | sin[...] | 8 floats of padding], so that a
+    K-slice of a chunk is one contiguous copy in the layout (row stride 8
+    off a multiple of 32 banks) its shared-memory loads want."""
+    cos_p, sin_p = _padded_dft_tensors(fft_size, hop_size, device)
+    n, fp = cos_p.shape
+    chunks = fp // bins
+    out = torch.zeros((chunks, n, 2 * bins + 8), dtype=torch.float32, device=device)
+    out[:, :, :bins] = cos_p.reshape(n, chunks, bins).permute(1, 0, 2)
+    out[:, :, bins: 2 * bins] = sin_p.reshape(n, chunks, bins).permute(1, 0, 2)
+    return out
 
 
 def fused_analysis_frontend_plain(
@@ -109,7 +157,9 @@ def fused_analysis_frontend(
     CPU tensors run the plain version; CUDA tensors launch the kernel (and
     count one launch in `fused_analysis_frontend.launches`) or raise. Unlike
     the TPU kernel, any number of streams S works: the CUDA kernel masks its
-    ragged last tile of 32 streams, so there is no `tile` argument.
+    ragged last tile of streams, and the tile (64 streams x 64 bins a block,
+    or 16 x 32 while that would leave multiprocessors idle) is chosen here
+    from S and the card, so there is no `tile` argument.
     """
     _check_inputs(analysis_mem, frame, mean_state, unit_state, fft_size, hop_size,
                   nb_erb, nb_df)
@@ -128,24 +178,28 @@ def fused_analysis_frontend(
         raise ValueError("the fused frontend kernel needs contiguous inputs")
     s = analysis_mem.shape[0]
     d, f = fft_size - hop_size, fft_size // 2 + 1
-    cos_p, sin_p = _padded_dft_tensors(fft_size, hop_size, device)
     fb = erb_fb_tensor(erb_widths(sr, fft_size, nb_erb, min_nb_erb_freqs), device)
-    fp = cos_p.shape[1]
-    outs = [torch.empty((s, n), dtype=torch.float32, device=device)
-            for n in (d, f, f, nb_erb, nb_df, nb_df, nb_erb, nb_df)]
-    # scratch: each bin chunk's ERB band sums, and a zeroed done-counter per
-    # tile of 32 streams (see the kernel's note)
-    band_part = torch.empty((fp // _NC, s, nb_erb), dtype=torch.float32, device=device)
-    done = torch.zeros((-(-s // 32),), dtype=torch.int32, device=device)
+    fp = -(-f // _NC) * _NC
+    tile = _frontend_tile(s, _sm_count(device), fp)
+    dft = _packed_dft(fft_size, hop_size, tile[1], device)
+    band_shape, done_shape = _frontend_scratch(s, tile, fp, nb_erb)
+    # one allocation for the eight outputs and the band-sum scratch (at S = 64
+    # the host's per-tensor cost would otherwise exceed the kernel's time)
+    widths = (d, f, f, nb_erb, nb_df, nb_df, nb_erb, nb_df, band_shape[0] * nb_erb)
+    flat = torch.empty((s * sum(widths),), dtype=torch.float32, device=device)
+    parts = flat.split([s * n for n in widths])
+    outs = [t.view(s, n) for t, n in zip(parts[:8], widths)]
+    band_part = parts[8]
+    done = torch.zeros(done_shape, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.dfn_fused_frontend(
             *[t.data_ptr() for t in inputs],
-            cos_p.data_ptr(), sin_p.data_ptr(), fb.data_ptr(),
+            dft.data_ptr(), fb.data_ptr(),
             *[t.data_ptr() for t in outs],
             band_part.data_ptr(), done.data_ptr(),
             s, d, hop_size, f, fp, nb_erb, nb_df,
-            float(alpha), float(1.0 - alpha), stream,
+            float(alpha), float(1.0 - alpha), tile[0], stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_frontend kernel launch failed: cudaError {err}")
@@ -157,9 +211,16 @@ fused_analysis_frontend.launches = 0  # type: ignore[attr-defined]
 
 
 @functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.dfn_fused_frontend
-    fn.argtypes = [p] * 17 + [i] * 7 + [fl, fl, p]
+    fn.argtypes = [p] * 16 + [i] * 7 + [fl, fl, i, p]
     fn.restype = ctypes.c_int
+    lib.dfn_empty_launch.argtypes = [p]
+    lib.dfn_empty_launch.restype = ctypes.c_int
     return lib

@@ -28,11 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from deepfilternet_torch.ops import whole_cell_plan as plan
 from deepfilternet_torch.ops.stft import dft_matrices, wnorm
 
 PI = 3.1415926535897932384626433
@@ -563,11 +565,55 @@ def cell_process_plain(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
+# (ids of the weight tensors) -> (weak references to them, {plan: packed copy})
+_PACKED: Dict[Tuple[int, ...], Tuple[list, Dict[Tuple[int, int], torch.Tensor]]] = {}
+
+
+def packed_weights(weights: Dict[str, torch.Tensor], s: int, n_blocks: int) -> torch.Tensor:
+    """The kernel's private copy of the products' weights, packed by the
+    slices of the plan for (S, blocks) (`whole_cell_plan.pack_weights`; it
+    holds `dft` transposed for the synthesis product). Made once per weight
+    set and plan and kept while the set's tensors live (it is found again by
+    their identity, so a tensor edited in place afterwards is not seen); it
+    is no key of the weight set, which goes on comparing with the JAX package
+    key by key."""
+    key = tuple(id(weights[k]) for k in WKEYS)
+    hit = _PACKED.get(key)
+    if hit is None or any(r() is not weights[k] for r, k in zip(hit[0], WKEYS)):
+        refs = [weakref.ref(weights[k]) for k in WKEYS]
+        refs[0] = weakref.ref(weights[WKEYS[0]], lambda _: _PACKED.pop(key, None))
+        hit = (refs, {})
+        _PACKED[key] = hit
+    tiles = -(-s // plan.RT)
+    if (tiles, n_blocks) not in hit[1]:
+        _, info = plan.cached_plan(s, n_blocks)
+        hit[1][(tiles, n_blocks)] = plan.pack_weights(weights, info)
+    return hit[1][(tiles, n_blocks)]
+
+
+# The units design wins while there are few tiles of 64 streams for the
+# card's multiprocessors; measured on an H100 (132 multiprocessors) it is
+# ahead up to 8 tiles, level at 12 and behind at 17 (PERF.md).
+_UNITS_SM_PER_TILE = 16
+
+
+def _kernel_choice(s: int, n_sm: int) -> str:
+    """Which design runs S streams on a card of n_sm multiprocessors:
+    "units" (`csrc/whole_cell.cu`) or "rows" (`csrc/whole_cell_rows.cu`)."""
+    return "units" if -(-s // plan.RT) * _UNITS_SM_PER_TILE <= n_sm else "rows"
+
+
 def _tile_rows(s: int, n_sm: int) -> int:
-    """Stream rows per thread block (the kernel is compiled for 4 and 8): 4
-    while that gives every tile a multiprocessor of its own, else 8, which
+    """Stream rows per thread block of the rows design (built for 4 and 8):
+    4 while that gives every tile a multiprocessor of its own, else 8, which
     reads the weights once for twice the streams."""
     return 4 if -(-s // 4) <= n_sm else 8
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on_device(s: int, n_blocks: int, device: torch.device):
+    table, info = plan.cached_plan(s, n_blocks)
+    return torch.from_numpy(table).to(device), info
 
 
 def _check_inputs(audio, carry, weights):
@@ -601,8 +647,12 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     CPU tensors run `cell_process_plain`. CUDA tensors launch the kernel
     once for all frames (counting one launch in `cell_process.launches` and
     the frames in `cell_process.frames`, and leaving the kernel's per-stage
-    cycle counts in `cell_process.stage_clocks`) or raise. Any S works: the kernel
-    masks its ragged last tile of streams.
+    cycle counts in `cell_process.stage_clocks`) or raise. Two designs of
+    the kernel exist and `_kernel_choice` picks one from S and the card, with
+    no argument for the caller: for few streams every product is cut over
+    all multiprocessors (`whole_cell_plan.plan`; a cooperative launch, one
+    persistent block per multiprocessor), for many a block keeps a tile of
+    stream rows to itself. Any S works: both mask their ragged last tile.
     """
     _check_inputs(audio, carry, weights)
     device = audio.device
@@ -612,9 +662,6 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
         raise ValueError(f"no kernel for device {device}")
     if statics.nb_erb != _NB_ERB or statics.nb_df != _NB_DF or statics.df_order != _ORDER:
         raise ValueError(f"the whole-cell kernel is built for DFN3's widths, got {statics}")
-    from deepfilternet_torch.kernels import load
-
-    lib = _bind(load("whole_cell"))
     tensors = [audio] + [carry[k] for k, _ in CKEYS] + [weights[k] for k in WKEYS]
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("the whole-cell kernel needs contiguous inputs")
@@ -622,47 +669,98 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     n_frames = t // HOP
     with torch.cuda.device(device):
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        rows = _tile_rows(s, n_sm)
-        # one persistent block per multiprocessor at most: each walks over
-        # its tiles of `rows` streams, so the scratch stays small
-        n_blocks = max(1, min(-(-s // rows), n_sm))
         out = torch.empty_like(audio)
         new_carry = {k: torch.empty_like(carry[k]) for k, _ in CKEYS}
-        scratch = torch.empty((n_blocks, rows, lib.dfn_whole_cell_scratch_floats()),
-                              dtype=torch.float32, device=device)
-        clocks = torch.empty((lib.dfn_whole_cell_stages(),), dtype=torch.int64, device=device)
         ptr = ctypes.c_void_p * len(CKEYS)
-        c_in = ptr(*[carry[k].data_ptr() for k, _ in CKEYS])
-        c_out = ptr(*[new_carry[k].data_ptr() for k, _ in CKEYS])
-        w_ptrs = (ctypes.c_void_p * len(WKEYS))(*[weights[k].data_ptr() for k in WKEYS])
         st = statics
-        scalars = (ctypes.c_float * 10)(
-            st.alpha, 1.0 - st.alpha, st.lsnr_min, st.lsnr_max, st.pf_beta,
-            st.silence_thresh, st.atten_lim, st.gate_lsnr_min, st.gate_lsnr_max_erb,
-            st.gate_lsnr_max_df,
+        args = dict(
+            audio=audio, out=out, s=s, n_frames=n_frames, n_sm=n_sm, weights=weights,
+            c_in=ptr(*[carry[k].data_ptr() for k, _ in CKEYS]),
+            c_out=ptr(*[new_carry[k].data_ptr() for k, _ in CKEYS]),
+            w_ptrs=(ctypes.c_void_p * len(WKEYS))(*[weights[k].data_ptr() for k in WKEYS]),
+            scalars=(ctypes.c_float * 10)(
+                st.alpha, 1.0 - st.alpha, st.lsnr_min, st.lsnr_max, st.pf_beta,
+                st.silence_thresh, st.atten_lim, st.gate_lsnr_min, st.gate_lsnr_max_erb,
+                st.gate_lsnr_max_df),
+            flags=(int(st.mask_pf), int(st.lsnr_gating), int(st.silence_frames)),
+            stream=torch.cuda.current_stream(device).cuda_stream,
         )
-        err = lib.dfn_whole_cell(
-            audio.data_ptr(), out.data_ptr(), c_in, c_out, w_ptrs, len(WKEYS),
-            scratch.data_ptr(), clocks.data_ptr(), s, n_frames, rows, n_blocks, scalars,
-            int(st.mask_pf), int(st.lsnr_gating), int(st.silence_frames),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        design = _kernel_choice(s, n_sm)
+        launch = _launch_units if design == "units" else _launch_rows
+        err, clocks = launch(**args)
     if err != 0:
-        raise RuntimeError(f"whole_cell kernel launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"whole_cell kernel launch failed: cudaError {err}"
+            + (" (the card refused the cooperative launch of one block per multiprocessor)"
+               if err in (720, 801) else ""))
     cell_process.launches += 1
     cell_process.frames += n_frames
     cell_process.stage_clocks = clocks
+    cell_process.stage_names = STAGES[design]
     return new_carry, out
+
+
+def _launch_units(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, scalars, flags,
+                  stream):
+    """The design of `csrc/whole_cell.cu`: every product cut over all
+    multiprocessors by the plan for (S, card), a grid barrier between
+    dependent products. One persistent block per multiprocessor, all resident
+    at once: the launch is cooperative, and a card that refuses it makes
+    `cell_process` raise."""
+    from deepfilternet_torch.kernels import load
+
+    lib = _bind(load("whole_cell"))
+    if lib.dfn_whole_cell_threads() != plan.THREADS:
+        raise RuntimeError("the whole-cell kernel and its plan disagree on the block size")
+    device = audio.device
+    table, info = _plan_on_device(s, n_sm, device)
+    wpack = packed_weights(weights, s, n_sm)
+    # zeroed: the columns nothing writes (pad lanes) are read as zeros
+    scratch = torch.zeros(info["scratch_shape"], dtype=torch.float32, device=device)
+    barrier = torch.zeros((1,), dtype=torch.int32, device=device)
+    clocks = torch.zeros((info["n_stages"],), dtype=torch.int64, device=device)
+    err = lib.dfn_whole_cell(
+        audio.data_ptr(), out.data_ptr(), c_in, c_out, w_ptrs, len(WKEYS), wpack.data_ptr(),
+        scratch.data_ptr(), table.data_ptr(), table.numel(), barrier.data_ptr(),
+        clocks.data_ptr(), s, n_frames, n_sm, scalars, *flags, stream)
+    return err, clocks
+
+
+def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, scalars, flags,
+                 stream):
+    """The design of `csrc/whole_cell_rows.cu`: one persistent block per tile
+    of 4 or 8 stream rows computes the whole frame by itself."""
+    from deepfilternet_torch.kernels import load
+
+    lib = _bind_rows(load("whole_cell_rows"))
+    device = audio.device
+    rows = _tile_rows(s, n_sm)
+    # one persistent block per multiprocessor at most: each walks over its
+    # tiles of `rows` streams, so the scratch stays small
+    n_blocks = max(1, min(-(-s // rows), n_sm))
+    scratch = torch.empty((n_blocks, rows, lib.dfn_whole_cell_rows_scratch_floats()),
+                          dtype=torch.float32, device=device)
+    clocks = torch.empty((lib.dfn_whole_cell_rows_stages(),), dtype=torch.int64, device=device)
+    err = lib.dfn_whole_cell_rows(
+        audio.data_ptr(), out.data_ptr(), c_in, c_out, w_ptrs, len(WKEYS), scratch.data_ptr(),
+        clocks.data_ptr(), s, n_frames, rows, n_blocks, scalars, *flags, stream)
+    return err, clocks
 
 
 cell_process.launches = 0  # type: ignore[attr-defined]
 cell_process.frames = 0  # type: ignore[attr-defined]
 # after a launch: int64 device tensor of the SM cycles the kernel's first
-# block spent in each stage of STAGES over the call (read after a synchronize)
+# block spent in each stage of the frame over the call (read after a
+# synchronize), and the stages' names, which differ between the two designs
 cell_process.stage_clocks = None  # type: ignore[attr-defined]
-STAGES = ("frame in, rms", "analysis DFT", "features, norms", "erb convs e0-e3", "df_conv0",
-          "df_conv1, df_fc_emb", "encoder GRU, lsnr", "erb decoder", "df GRU stack",
-          "df_out, DF MAC", "mask gains, tail", "synthesis, overlap-add")
+cell_process.stage_names = None  # type: ignore[attr-defined]
+STAGES = {
+    # each phase of the frame, then the wait at the grid barriers
+    "units": plan.STAGES,
+    "rows": ("frame in, rms", "analysis DFT", "features, norms", "erb convs e0-e3", "df_conv0",
+             "df_conv1, df_fc_emb", "encoder GRU, lsnr", "erb decoder", "df GRU stack",
+             "df_out, DF MAC", "mask gains, tail", "synthesis, overlap-add"),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -670,9 +768,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     pp, pf = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float)
     fn = lib.dfn_whole_cell
+    fn.argtypes = [p, p, pp, pp, pp, i, p, p, p, i, p, p, i, i, i, pf, i, i, i, p]
+    fn.restype = ctypes.c_int
+    lib.dfn_whole_cell_threads.argtypes = []
+    lib.dfn_whole_cell_threads.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_rows(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    pp, pf = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float)
+    fn = lib.dfn_whole_cell_rows
     fn.argtypes = [p, p, pp, pp, pp, i, p, p, i, i, i, i, pf, i, i, i, p]
     fn.restype = ctypes.c_int
-    for count in (lib.dfn_whole_cell_scratch_floats, lib.dfn_whole_cell_stages):
+    for count in (lib.dfn_whole_cell_rows_scratch_floats, lib.dfn_whole_cell_rows_stages):
         count.argtypes = []
         count.restype = ctypes.c_int
     return lib

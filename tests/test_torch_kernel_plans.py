@@ -1,0 +1,329 @@
+"""What surrounds the port's two CUDA kernels, on the CPU: the Python that
+decides tiles, work units, scratch sizes and weight layouts, and the numerics
+the kernels rely on. No test here needs a GPU; the kernels themselves are
+held against their plain versions on the card by `chip_smoke.py`.
+
+  * K1 (`ops/fused_frontend.py`): the tile chooser and scratch shapes; the
+    packed DFT chunks; the TF32 hi/lo operand split and the three-term
+    product, emulated bit for bit in PyTorch;
+  * K2 (`ops/whole_cell.py`, `ops/whole_cell_plan.py`): the design chooser;
+    the work plan (every output of every product owned by exactly one unit,
+    no job touching what another job of its phase writes); the plan executed
+    with plain tensor operations against `cell_process_plain`; the packed
+    weights, including the transposed DFT of the synthesis product; the
+    reordering of `h @ w_hh` that the plan relies on.
+"""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")  # collected and counted like the other port tests
+torch = pytest.importorskip("torch")
+
+from deepfilternet_torch.config import config as t_config  # noqa: E402
+from deepfilternet_torch.enhance import init_df  # noqa: E402
+from deepfilternet_torch.ops import fused_frontend as ff  # noqa: E402
+from deepfilternet_torch.ops import whole_cell as wc  # noqa: E402
+from deepfilternet_torch.ops import whole_cell_plan as wp  # noqa: E402
+from deepfilternet_torch.ops.stft import dft_matrices  # noqa: E402
+from deepfilternet_torch.streaming import RuntimeParams  # noqa: E402
+from deepfilternet_torch.streaming_whole_cell import (  # noqa: E402
+    WholeCellStreamingRuntime,
+    carry_to_flat,
+)
+
+MODEL_DIR = "pretrained/dfn3_fixture_demo"
+HOP = 480
+N_SM = 132  # an H100's multiprocessors
+STREAMS = (1, 16, 17, 37, 64, 528, 529, 1056, 1100, 4096)
+STAGES = dict(atten_lim_db=12.0, post_filter_beta=0.02, lsnr_gating=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_port_config():
+    t_config.reset()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def runtimes():
+    model, df_state, _ = init_df(MODEL_DIR, device="cpu")
+    return {name: WholeCellStreamingRuntime(model, df_state, RuntimeParams(**kw), backend="plain")
+            for name, kw in (("default", {}), ("stages", STAGES))}
+
+
+# -- K1 ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s", STREAMS)
+def test_frontend_tile_covers_every_stream_and_bin(s):
+    rows, bins = ff._frontend_tile(s, N_SM)
+    assert (rows, bins) in (ff._TILE_SMALL, ff._TILE_LARGE)
+    fp, f, nb_erb = 512, 481, 32
+    assert fp % bins == 0
+    grid = (-(-s // rows), fp // bins)
+    # every (stream, bin) lies in exactly one block's tile
+    owner = np.zeros((s, f), np.int32)
+    for i in range(grid[0]):
+        for j in range(grid[1]):
+            owner[i * rows: (i + 1) * rows, j * bins: (j + 1) * bins] += 1
+    assert (owner == 1).all()
+    # the large tile only once its grid fills the card; the small one starts
+    # 8 times the blocks where it would not
+    if (rows, bins) == ff._TILE_LARGE:
+        assert grid[0] * grid[1] >= N_SM
+    else:
+        big = ff._TILE_LARGE
+        assert -(-s // big[0]) * (fp // big[1]) < N_SM
+    band, done = ff._frontend_scratch(s, (rows, bins), fp, nb_erb)
+    assert band == (grid[1], s, nb_erb) and done == (grid[0],)
+
+
+@pytest.mark.parametrize("bins", [ff._TILE_SMALL[1], ff._TILE_LARGE[1]])
+def test_packed_dft_holds_the_chunks(bins):
+    cpu = torch.device("cpu")
+    cos_p, sin_p = ff._padded_dft_tensors(960, 480, cpu)
+    packed = ff._packed_dft(960, 480, bins, cpu)
+    assert packed.shape == (512 // bins, 960, 2 * bins + 8) and packed.is_contiguous()
+    for c in range(512 // bins):
+        assert torch.equal(packed[c, :, :bins], cos_p[:, c * bins: (c + 1) * bins])
+        assert torch.equal(packed[c, :, bins: 2 * bins], sin_p[:, c * bins: (c + 1) * bins])
+    assert not packed[:, :, 2 * bins:].any()
+    # a K-slice of a chunk is a whole number of 16-byte units (one bulk copy)
+    assert (32 * (2 * bins + 8) * 4) % 16 == 0
+
+
+def test_tf32_split_of_the_dft_matrices():
+    cs = torch.tensor(np.concatenate(dft_matrices(960, 480), axis=1))
+    hi, lo = ff.tf32_split(cs)
+    # hi keeps at most 10 mantissa bits: its low 13 bits are clear
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    # hi + lo gives the float32 value back to 2^-21 of it (lo is cut to TF32,
+    # which loses at most 2^-10 of a value that is at most 2^-11 of x)
+    err = ((hi.double() + lo.double()) - cs.double()).abs()
+    assert (err <= cs.double().abs() * 2.0 ** -21).all()
+    # lo is what rounding hi to the nearest left over: at most half a TF32 ulp
+    assert (lo.abs() <= hi.abs() * 2.0 ** -11 + 1e-45).all()
+
+
+@pytest.mark.parametrize("s", [16, 64])
+def test_three_term_tf32_product_holds_float32_accuracy(s):
+    """The kernel's product a_lo*b_hi + a_hi*b_lo + a_hi*b_hi on seeded audio
+    against a float64 product at K = 960: within 1e-5 of the largest value
+    (the limit the card check holds K1 to), with more than 2x head-room, and
+    about as good as a plain float32 product. One TF32 pass alone is not."""
+    rng = np.random.default_rng(s)
+    a = torch.from_numpy((rng.standard_normal((s, 960)) * 0.1).astype(np.float32))
+    b = torch.tensor(np.concatenate(dft_matrices(960, 480), axis=1))
+    ref = a.double() @ b.double()
+    a_hi, a_lo = ff.tf32_split(a)
+    b_hi, b_lo = ff.tf32_split(b)
+    got = (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+    scale = float(ref.abs().max())
+    err = float((got.double() - ref).abs().max()) / scale
+    plain = float(((a @ b).double() - ref).abs().max()) / scale
+    one_pass = float(((a_hi @ b_hi).double() - ref).abs().max()) / scale
+    assert err < 5e-6          # 2x under the 1e-5 limit
+    assert err < 4 * plain     # float32-like
+    assert one_pass > 1e-5     # plain TF32 would fail the limit
+
+
+# -- K2 ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s", STREAMS)
+def test_kernel_choice_and_rows(s):
+    design = wc._kernel_choice(s, N_SM)
+    tiles = -(-s // wp.RT)
+    # measured on an H100: the units design is ahead up to 8 tiles of 64 streams
+    assert design == ("units" if tiles <= 8 else "rows")
+    assert wc._tile_rows(s, N_SM) == (4 if -(-s // 4) <= N_SM else 8)
+    assert set(wc.STAGES) == {"units", "rows"}
+    assert wc.STAGES["units"][-1] == "grid barriers"
+
+
+@pytest.mark.parametrize("s", STREAMS)
+def test_plan_units_own_every_output_once(s):
+    table, info = wp.plan(s, N_SM)
+    t = wp.decode(table)
+    tiles = -(-s // wp.RT)
+    assert info["blocks"] == N_SM and info["tiles"] == tiles == int(t.header[wp.H_TILES])
+    assert info["scratch_shape"] == (tiles, wp.SCR, wp.RT) and tiles * wp.RT >= s
+    assert int(t.header[wp.H_SCR]) == wp.SCR and info["n_stages"] == len(wp.STAGES)
+    assert len(table) <= 3072  # the kernel's shared-memory copy of the table
+    assert [int(x) for x in t.lay] == [wp.OFF[n] for n, _ in wp.LAYOUT]
+    for first, count, n_units in t.phases:
+        jobs = t.jobs[first: first + count]
+        # units of a phase are numbered job after job without gaps
+        assert int(jobs[0][wp.J_BEGIN]) == 0
+        assert all(int(a[wp.J_BEGIN] + a[wp.J_UNITS]) == int(b[wp.J_BEGIN])
+                   for a, b in zip(jobs[:-1], jobs[1:]))
+        assert int(jobs[-1][wp.J_BEGIN] + jobs[-1][wp.J_UNITS]) == n_units
+        for j in jobs:
+            if j[wp.J_TYPE] != wp.T_GEMM:
+                assert int(j[wp.J_UNITS]) == int(j[wp.J_AUX]) * tiles
+                continue
+            ncat, stride, cw, n_slices = (int(j[i]) for i in (
+                wp.J_NCAT, wp.J_CSTRIDE, wp.J_CW, wp.J_SLICES))
+            n = cw * n_slices
+            cnt = ncat * cw
+            assert cw % 4 == 0 and cnt <= wp.MAX_CNT and int(j[wp.J_K]) % 32 == 0
+            # every (tile, output column) of the product is owned by one unit
+            owned = np.zeros((tiles, max(ncat * stride, n)), np.int32)
+            for u in range(int(j[wp.J_BEGIN]), int(j[wp.J_BEGIN] + j[wp.J_UNITS])):
+                tile, cols = wp.unit_columns(j, u, tiles)
+                owned[tile, cols] += 1
+            want = np.zeros_like(owned)
+            for c in range(ncat):
+                want[:, c * stride: c * stride + n] = 1
+            assert (owned == want).all()
+            # the unit's threads: K groups x 8 row groups x column groups
+            mc, kg = int(j[wp.J_AUX]), int(j[wp.J_KG])
+            assert mc in (2, 8) and cnt % mc == 0
+            assert kg * 8 * cnt // mc <= wp.THREADS and 32 % kg == 0
+            assert kg * cnt * wp.RT <= wp.THREADS * wp.RT  # the reduction tile
+
+
+def test_plan_spreads_small_s_over_the_card():
+    """At S = 64 (one tile) the big products are cut into about one unit a
+    multiprocessor, not one unit a tile."""
+    _, info = wp.plan(64, N_SM)
+    units = {name: n for ph in info["phases"] for name, _, _, n in ph}
+    assert units["dft"] + 5 * units["enc_whh"] <= N_SM
+    assert units["c0"] >= 64 and units["c1"] >= 64 and units["synthesis"] >= 64
+    assert len(wp.frame_phases()) == 18  # grid barriers a frame
+
+
+@pytest.mark.parametrize("pset", ["default", "stages"])
+@pytest.mark.parametrize("s", [3, 70])
+def test_plan_executed_plain_matches_cell_process_plain(runtimes, pset, s):
+    """The plan's table run with plain tensor operations (`run_plan`: phase by
+    phase, each product on its packed weight, each epilogue as the kernel
+    writes it) against `cell_process_plain`, from a non-initial carry, with a
+    silent stretch. 1e-5 of each output's largest value: same arithmetic in
+    another order of products. No job reads or writes what another job of its
+    phase writes."""
+    rt = runtimes[pset]
+    frames = 6
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy((rng.standard_normal((s, (4 + frames) * HOP)) * 0.1).astype(np.float32))
+    x[:, 6 * HOP: 8 * HOP] = 0.0
+    carry, _ = wc.cell_process_plain(x[:, : 4 * HOP].contiguous(), carry_to_flat(rt.init(s)),
+                                     rt.weights, rt.statics)
+    xc = x[:, 4 * HOP:].contiguous()
+    ref_c, ref_o = wc.cell_process_plain(xc, carry, rt.weights, rt.statics)
+    table, info = wp.plan(s, N_SM)
+    packed = wp.pack_weights(rt.weights, info)
+    hazards = []
+    got_c, got_o = wp.run_plan(table, xc, carry, rt.weights, rt.statics, packed, hazards=hazards)
+    assert hazards == []
+    for name, ref in dict(ref_c, audio=ref_o).items():
+        got = got_o if name == "audio" else got_c[name]
+        tol = 1e-5 * max(float(ref.abs().max()), 1e-30)
+        assert float((got - ref).abs().max()) <= tol, name
+
+
+def test_run_plan_reports_a_hazard(runtimes):
+    """The hazard check is live: a plan whose e1 is moved into e0's phase
+    (e1 reads what e0 writes) is reported."""
+    rt = runtimes["default"]
+    table, info = wp.plan(2, N_SM)
+    t = wp.decode(table)
+    n_pre = int(t.header[wp.H_PRE])
+    bad = table.copy()
+    a = wp.HEADER_INTS + len(t.lay) + t.segs.size
+    phases = bad[a: a + t.phases.size].reshape(-1, wp.PHASE_INTS)
+    # phase "e0, df_conv1" takes the first job of the next phase (e1) as well
+    assert wp.frame_phases()[3][1][0].name == "e1"
+    phases[n_pre + 2][1] += 1
+    x = torch.zeros((2, HOP))
+    hazards = []
+    wp.run_plan(bad, x, carry_to_flat(rt.init(2)), rt.weights, rt.statics,
+                wp.pack_weights(rt.weights, info), hazards=hazards)
+    assert any(pi == n_pre + 2 for pi, _, _ in hazards)
+
+
+def test_packed_weights_hold_every_product_and_leave_the_set_alone(runtimes):
+    rt = runtimes["default"]
+    keys_before = list(rt.weights)
+    for s in (64, 4096):
+        table, info = wp.plan(s, N_SM)
+        packed = wp.pack_weights(rt.weights, info)
+        assert packed.numel() == info["pack_floats"]
+        jobs = [j for j in wp.decode(table).jobs if j[wp.J_TYPE] == wp.T_GEMM]
+        assert len(jobs) == len(info["packing"])
+        for j, pk in zip(jobs, info["packing"]):
+            assert int(j[wp.J_W]) == pk.offset and pk.offset % 4 == 0
+            w = torch.cat([rt.weights["dft"].T if k == "dft_t" else rt.weights[k]
+                           for k in pk.keys], dim=0)
+            got = wp.unpack_weight(packed, j)
+            for c in range(pk.ncat):
+                assert torch.equal(got[:, c], w[:, c * pk.cat_stride: c * pk.cat_stride + pk.n])
+    # the synthesis product's weight is dft transposed, [1024, 960]
+    syn = next(pk for pk in info["packing"] if pk.keys == ("dft_t",))
+    assert (syn.k, syn.ncat * syn.n) == (2 * wc.FPAD, wc.FFT)
+    # the weight set keeps its keys and shapes: it compares with the JAX
+    # package key by key
+    assert list(rt.weights) == keys_before == wc.WKEYS
+    assert all(tuple(rt.weights[k].shape) == wc.WSHAPES[k] for k in wc.WKEYS)
+    assert "dft_t" not in wc.WKEYS and "dft_t" not in wc.WSHAPES
+
+
+def test_packed_weights_are_cached_per_weight_set_and_plan(runtimes):
+    rt = runtimes["default"]
+    a = wc.packed_weights(rt.weights, 64, N_SM)
+    assert wc.packed_weights(rt.weights, 33, N_SM) is a       # same tiles, same plan
+    assert wc.packed_weights(rt.weights, 4096, N_SM) is not a
+    # found again by the identity of every tensor of the set
+    other = dict(rt.weights, e0_w=rt.weights["e0_w"].clone())
+    assert wc.packed_weights(other, 64, N_SM) is not a
+    assert wc.packed_weights(rt.weights, 64, N_SM) is a
+
+
+@pytest.mark.parametrize("pset", ["default", "stages"])
+def test_hidden_products_first_is_bit_equal(runtimes, pset, monkeypatch):
+    """The kernel computes every h @ w_hh of the frame in the frame's first
+    phase, from last frame's state, beside the analysis DFT. In
+    `cell_process_plain`'s arithmetic that reordering changes no bit: with
+    all five products made before the rest of the frame and handed to the GRU
+    cells, outputs and carry are equal."""
+    rt = runtimes[pset]
+    W, st = rt.weights, rt.statics
+    s, frames = 3, 5
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.standard_normal((s, frames * HOP)) * 0.1).astype(np.float32))
+    carry = carry_to_flat(rt.init(s))
+    ref_c, ref_o = wc.cell_process_plain(x, carry, W, st)
+
+    own_step, own_cell = wc._frame_step, wc._gru_cell
+    pre = {}
+
+    def frame_step(W_, st_, state, frame):
+        # the frame's five h @ w_hh, before anything else of the frame
+        pre.clear()
+        for h_key, w_key in (("enc_h", "enc_whh"), ("dec_h", "dec_whh"), ("dfh0", "df_whh0"),
+                             ("dfh1", "df_whh1"), ("dfh2", "df_whh2")):
+            pre[id(W_[w_key])] = state[h_key] @ W_[w_key]
+        return own_step(W_, st_, state, frame)
+
+    def gru_cell(h, gi, ghw, b_hh):
+        gh = pre[id(ghw)]  # made at the top of the frame
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        b_r, b_z, b_n = b_hh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r + b_r)
+        z = torch.sigmoid(i_z + h_z + b_z)
+        n = torch.tanh(i_n + r * (h_n + b_n))
+        return (1.0 - z) * n + z * h
+
+    monkeypatch.setattr(wc, "_frame_step", frame_step)
+    monkeypatch.setattr(wc, "_gru_cell", gru_cell)
+    got_c, got_o = wc.cell_process_plain(x, carry, W, st)
+    assert own_cell is not gru_cell
+    assert torch.equal(got_o, ref_o)
+    for k in ref_c:
+        assert torch.equal(got_c[k], ref_c[k]), k
