@@ -25,7 +25,14 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                the same runtime called one frame at a time (per-hop latency).
                The kernels' launch counts show each path went through its
                kernel. A short profiled run says where a per-frame frame's
-               time goes.
+               time goes;
+  5. offline - enhance() with its default backend (the whole-utterance
+               forward) on 16 x 10 s, held against the same 2 rows on the CPU
+               and against backend="scan" on the card; the chunked runtime on
+               the main path's 64 x 2 s, held against the per-frame output and
+               against itself in two calls; the CLI once. These paths launch
+               neither kernel (cuFFT, cuDNN and cuBLAS do their work), which
+               the launch counts show. Wall times and RTF are information.
 
 The second-to-last line of standard output is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. TF32 is off for matrix products and
@@ -34,8 +41,10 @@ convolutions, so every comparison is float32 against float32.
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -667,6 +676,127 @@ def whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio, per_fram
     return launches
 
 
+# -- phase 5: the offline forward, the chunked runtime and the CLI -------------
+
+OFFLINE_ROWS, OFFLINE_SECONDS = 16, 10.0
+
+
+def profile_call(fn, label, card, audio_seconds):
+    """Device busy share and the largest device ops of one call, from
+    torch.profiler (its own host cost inflates the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print(f"{label} profile: the profiler recorded no device time (not measured)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"{label} profile, profiler on, {card}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), {sum(e.count for e in dev)} device ops "
+          f"for {audio_seconds:.0f} s of audio; largest: "
+          + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+                      for e in top))
+
+
+def offline_and_chunked_path(card, model, df_state, cpu_model, cpu_state, audio,
+                             per_frame_out):
+    """enhance() with its default backend, ChunkedStreamingRuntime and the
+    CLI. None of them launches K1 or K2: both counts are set to 0 before the
+    paths run and must read 0 after."""
+    from deepfilternet_torch.enhance import enhance, main as cli
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.streaming import ChunkedStreamingRuntime
+    from deepfilternet_torch.utils import load_audio, save_audio
+
+    batch = noisy_speech_like(OFFLINE_ROWS, OFFLINE_SECONDS, seed=2)
+    # references first: the per-frame runtime on the card (it launches K1)
+    # over the first 2 s of 2 rows, and the offline path on the CPU
+    short = batch[:2, : int(SECONDS * SR)]
+    scan = enhance(model, df_state, short, backend="scan")
+    cpu_ref = enhance(cpu_model, cpu_state, batch[:2])
+
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    enh = enhance(model, df_state, batch)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enh = enhance(model, df_state, batch)
+    wall = time.perf_counter() - t0
+    if enh.shape != batch.shape or not np.isfinite(enh).all():
+        fail(f"enhance() default backend: output {enh.shape} not finite / not {batch.shape}")
+    err_cpu = float(np.abs(enh[:2] - cpu_ref).max())
+    if not err_cpu <= 1e-4:
+        fail(f"enhance() default backend: 2 rows differ from the CPU run by {err_cpu:.3e} > 1e-4")
+    # the first 2 s fix every output sample up to 2 s - delay in the longer run
+    n = short.shape[1] - df_state.delay
+    err_scan = float(np.abs(enh[:2, :n] - scan[:, :n]).max())
+    if not err_scan <= 1e-4:
+        fail(f"enhance() default backend vs backend='scan' on the card: {err_scan:.3e} > 1e-4")
+    rows_s = OFFLINE_ROWS * OFFLINE_SECONDS
+    print(f"enhance() default backend (offline) [{OFFLINE_ROWS}, {OFFLINE_SECONDS} s] on {card}: "
+          f"{wall:.3f} s wall, aggregate RTF {rows_s / wall:.1f}x (first call {first:.3f} s); "
+          f"vs the CPU on 2 rows max abs err {err_cpu:.3e} (tol 1e-4); vs backend='scan' on the "
+          f"card, first {n} samples of 2 rows: {err_scan:.3e} (tol 1e-4) (information only)")
+    profile_call(lambda: enhance(model, df_state, batch), "enhance() offline", card, rows_s)
+
+    s, n_frames = audio.shape[0], audio.shape[1] // HOP
+    crt = ChunkedStreamingRuntime(model, df_state)
+    crt.process(crt.init(s), audio[:, : 20 * HOP])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, out_dev = crt.process(crt.init(s), audio)
+    torch.cuda.synchronize()
+    c_wall = time.perf_counter() - t0
+    out = out_dev.cpu().numpy()
+    if out.shape != audio.shape or not np.isfinite(out).all():
+        fail(f"chunked runtime output {out.shape} not finite / not {audio.shape}")
+    err_pf = float(np.abs(out - per_frame_out).max())
+    if not err_pf <= 1e-4:
+        fail(f"chunked runtime vs per-frame runtime on the card: {err_pf:.3e} > 1e-4")
+    cut = 73 * HOP  # 3 chunks of 20 and one of 13, then 6 of 20 and one of 7
+    c, o1 = crt.process(crt.init(s), audio[:, :cut])
+    c, o2 = crt.process(c, audio[:, cut:])
+    err_two = float((torch.cat([o1, o2], dim=1) - out_dev).abs().max())
+    if not err_two <= 1e-5:
+        fail(f"chunked runtime: two calls differ from one by {err_two:.3e} > 1e-5")
+    if int((c.silence_ctr != carry.silence_ctr).sum()) or c.silence_ctr.dtype != torch.int32:
+        fail("chunked runtime: silence counters differ between one call and two")
+    print(f"chunked runtime S={s} x {SECONDS} s = {n_frames} frames in chunks of "
+          f"{crt.chunk_frames} on {card}: {c_wall:.3f} s wall, aggregate RTF "
+          f"{SECONDS * s / c_wall:.1f}x (information only); vs the per-frame runtime on the "
+          f"card max abs err {err_pf:.3e} (tol 1e-4); 73 + {n_frames - 73} frames in two calls "
+          f"vs one {err_two:.3e} (tol 1e-5)")
+    profile_call(lambda: crt.process(crt.init(s), audio), "chunked runtime", card, SECONDS * s)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "noisy.wav")
+        save_audio(wav, batch[:1], SR)
+        t0 = time.perf_counter()
+        cli([wav, "-o", tmp])
+        cli_wall = time.perf_counter() - t0
+        got, sr = load_audio(os.path.join(tmp, "noisy_DeepFilterNet_TPU.wav"))
+        # what the CLI computes: the int16 input through enhance(), written as int16
+        want = enhance(model, df_state, load_audio(wav)[0])
+    want = np.round(np.clip(want, -1.0, 1.0) * 32767.0) / 32768.0
+    err_cli = float(np.abs(got - want).max()) * 32768
+    if sr != SR or got.shape != (1, batch.shape[1]) or not err_cli <= 1.0:
+        fail(f"CLI output {got.shape} at {sr} Hz, {err_cli:.2f} int16 steps from enhance()")
+    print(f"CLI on one {OFFLINE_SECONDS} s wav on {card}: {cli_wall:.3f} s wall with model "
+          f"loading; {err_cli:.0f} int16 steps from enhance() at most (tol 1)")
+
+    if k1.launches or k2.launches:
+        fail(f"offline / chunked / CLI paths launched K1 {k1.launches}, K2 {k2.launches} times")
+    print("offline, chunked and CLI paths: K1 launches 0, K2 launches 0 (neither is on them)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -705,6 +835,9 @@ def main():
         card, model, df_state, suffix)
     k2["launches"] = whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio, out,
                                      wall)
+    t0 = time.perf_counter()
+    offline_and_chunked_path(card, model, df_state, cpu_model, cpu_state, audio, out)
+    print(f"phase 5 (offline, chunked, CLI): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2]}))

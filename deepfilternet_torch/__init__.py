@@ -1,24 +1,30 @@
 """deepfilternet_torch: the PyTorch and CUDA port of deepfilternet_tpu.
 
-Streaming DeepFilterNet3 inference on an NVIDIA GPU, held against the JAX
-package on the same inputs. Two hand-written CUDA kernels: the per-frame
-analysis frontend (`csrc/fused_frontend.cu`) under `StreamingRuntime`, and
-the whole streaming frame with the frame loop inside one launch
-(`csrc/whole_cell.cu`) under `WholeCellStreamingRuntime`; everything else is
-PyTorch.
+DeepFilterNet3 inference on an NVIDIA GPU, held against the JAX package on
+the same inputs: offline `enhance()` (and its CLI, `python -m
+deepfilternet_torch.enhance`), the per-frame `StreamingRuntime`, the
+frame-parallel `ChunkedStreamingRuntime` and the `WholeCellStreamingRuntime`.
+Two hand-written CUDA kernels: the per-frame analysis frontend
+(`csrc/fused_frontend.cu`) under `StreamingRuntime`, and the whole streaming
+frame with the frame loop inside one launch (`csrc/whole_cell.cu`,
+`csrc/whole_cell_rows.cu`) under `WholeCellStreamingRuntime`; everything
+else is PyTorch.
 
     from deepfilternet_torch import init_df, enhance
-    from deepfilternet_torch import StreamingRuntime, WholeCellStreamingRuntime
+    from deepfilternet_torch import StreamingRuntime, ChunkedStreamingRuntime
+    from deepfilternet_torch import WholeCellStreamingRuntime
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["init_df", "enhance", "StreamingRuntime", "WholeCellStreamingRuntime",
-           "RuntimeParams", "__version__"]
+__all__ = ["init_df", "enhance", "df_features", "StreamingRuntime",
+           "ChunkedStreamingRuntime", "WholeCellStreamingRuntime", "RuntimeParams",
+           "__version__"]
 
 _LAZY = {
-    "init_df": "enhance", "enhance": "enhance",
+    "init_df": "enhance", "enhance": "enhance", "df_features": "enhance",
     "StreamingRuntime": "streaming", "RuntimeParams": "streaming",
+    "ChunkedStreamingRuntime": "streaming",
     "WholeCellStreamingRuntime": "streaming_whole_cell",
 }
 

@@ -1,4 +1,4 @@
-"""DeepFilterNet3, streaming form: encoder + ERB-mask decoder + DF decoder.
+"""DeepFilterNet3: encoder + ERB-mask decoder + DF decoder.
 
   Encoder: erb_conv0..3 (freq strides 1,2,2,1) over the ERB features,
   df_conv0..1 over the re/im complex features, a grouped-linear df_fc_emb
@@ -10,9 +10,12 @@
   DfDecoder: 3-layer SqueezedGRU_S + df_convp pathway, grouped-linear + tanh
   coefficient head.
 
-`streaming_cell` runs one frame for a batch of streams with an explicit
-carry (`StreamState`); the parameter tree and `cfg` are those of the JAX
-package's `models/dfnet3.py`. The offline forward is not ported yet.
+Three forms, with the parameter tree and `cfg` of the JAX package's
+`models/dfnet3.py`: `forward` over whole utterances (frame-parallel convs and
+products, one `aten.gru` call a GRU stack); `streaming_cell`, one frame for
+a batch of streams with an explicit carry (`StreamState`); and
+`forward_chunk`, a chunk of frames in the offline form that starts from
+and returns that carry, equal to running the cell frame by frame.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ import torch
 
 from deepfilternet_torch.config import DfParams, config
 from deepfilternet_torch.nn import (
+    conv2d_norm_act_apply,
     conv2d_norm_act_step,
+    conv_transpose2d_norm_act_apply,
     conv_transpose2d_norm_act_step,
     grouped_linear_apply,
     init_conv2d_norm_act,
@@ -33,9 +38,10 @@ from deepfilternet_torch.nn import (
     init_linear,
     init_squeezed_gru_s,
     linear_apply,
+    squeezed_gru_s_apply,
     squeezed_gru_s_step,
 )
-from deepfilternet_torch.ops.df_op import deep_filter
+from deepfilternet_torch.ops.df_op import deep_filter, deep_filter_offline
 from deepfilternet_torch.ops.erb import erb_fb_matrices, erb_fb_tensor, erb_widths
 
 PI = 3.1415926535897932384626433
@@ -193,6 +199,145 @@ def _tree_to(tree, device):
 
 
 # ---------------------------------------------------------------------------
+# offline forward
+# ---------------------------------------------------------------------------
+
+
+def _seq_conv(params, state, L):
+    """name, x [B, C, T, F] -> the named (transposed) conv block over the
+    whole sequence."""
+    def conv(name, x):
+        fn = (conv_transpose2d_norm_act_apply if L[name].get("transposed")
+              else conv2d_norm_act_apply)
+        return fn(params[name], state.get(name, {}), L[name], x)[0]
+    return conv
+
+
+def _lsnr(params, cfg, emb):
+    lsnr = torch.sigmoid(linear_apply(params["lsnr_fc"], emb))
+    return lsnr * (cfg["lsnr_max"] - cfg["lsnr_min"]) + cfg["lsnr_min"]
+
+
+def _embed(params, cfg, e3, c1):
+    """Encoder outputs e3 [B, C, T, E/4], c1 [B, C, T, F'/2] -> the GRU's
+    input [B, T, *]."""
+    b, _, t, _ = c1.shape
+    cemb = c1.permute(0, 2, 3, 1).reshape(b, t, -1)
+    cemb = torch.relu(grouped_linear_apply(params["df_fc_emb"], cemb))
+    emb = e3.permute(0, 2, 3, 1).reshape(b, t, -1)
+    return torch.cat([emb, cemb], -1) if cfg["enc_concat"] else emb + cemb
+
+
+def _encoder(params, state, L, cfg, feat_erb, feat_spec):
+    """feat_erb [B, 1, T, E], feat_spec [B, 2, T, F'] -> (e0, e1, e2, e3,
+    emb, c0, lsnr)."""
+    conv = _seq_conv(params, state, L)
+    e0 = conv("erb_conv0", feat_erb)
+    e1 = conv("erb_conv1", e0)
+    e2 = conv("erb_conv2", e1)
+    e3 = conv("erb_conv3", e2)
+    c0 = conv("df_conv0", feat_spec)
+    c1 = conv("df_conv1", c0)
+    emb, _ = squeezed_gru_s_apply(params["enc_emb_gru"], L["enc_emb_gru"],
+                                  _embed(params, cfg, e3, c1))
+    return e0, e1, e2, e3, emb, c0, _lsnr(params, cfg, emb)
+
+
+def _mask_pathway(conv, demb, e3, e2, e1, e0):
+    """The ERB decoder's conv pathway: demb [B, T, E/4*C] -> mask [B, T, E]."""
+    b, _, t, f4 = e3.shape
+    demb = demb.reshape(b, t, f4, -1).permute(0, 3, 1, 2)  # [B, C, T, E/4]
+    d3 = conv("convt3", conv("conv3p", e3) + demb)
+    d2 = conv("convt2", conv("conv2p", e2) + d3)
+    d1 = conv("convt1", conv("conv1p", e1) + d2)
+    return conv("conv0_out", conv("conv0p", e0) + d1)[:, 0]
+
+
+def _erb_decoder(params, state, L, cfg, emb, e3, e2, e1, e0):
+    demb, _ = squeezed_gru_s_apply(params["dec_emb_gru"], L["dec_emb_gru"], emb)
+    return _mask_pathway(_seq_conv(params, state, L), demb, e3, e2, e1, e0)
+
+
+def _df_skip(params, cfg, c, emb):
+    if cfg["df_gru_skip"] == "identity":
+        return c + emb
+    if cfg["df_gru_skip"] == "groupedlinear":
+        return c + grouped_linear_apply(params["df_skip"], emb)
+    return c
+
+
+def _df_coefs(params, cfg, c, c0p):
+    """GRU output c [B, T, H], pathway c0p [B, O*2, T, F'] -> coefficients
+    [B, T, F', O*2]."""
+    b, t, _ = c.shape
+    coefs = torch.tanh(grouped_linear_apply(params["df_out"], c))
+    return coefs.reshape(b, t, cfg["nb_df"], cfg["df_order"] * 2) + c0p.permute(0, 2, 3, 1)
+
+
+def _df_decoder(params, state, L, cfg, emb, c0):
+    c, _ = squeezed_gru_s_apply(params["df_gru"], L["df_gru"], emb)
+    c0p = _seq_conv(params, state, L)("df_convp", c0)
+    return _df_coefs(params, cfg, _df_skip(params, cfg, c, emb), c0p)
+
+
+def _inv_fb(cfg, device):
+    """cfg["erb_inv_fb"] [E, F] on `device`, made once per device from the
+    same widths (a copy from the host each call would wait for the card)."""
+    return erb_fb_tensor(cfg["erb_widths"], device, inverse=True)
+
+
+def _post_filter(cfg, spec_e, spec_c):
+    beta = cfg["pf_beta"]
+    eps = 1e-12
+    g = torch.clamp(torch.abs(spec_e) / (torch.abs(spec_c) + eps), eps, 1.0)
+    g_sin = torch.clamp(g * torch.sin(PI * g / 2.0), min=eps)
+    return spec_e * ((1.0 + beta) / (1.0 + beta * (g / g_sin) ** 2))
+
+
+def forward(
+    params: Dict,
+    state: Dict,
+    cfg: Dict,
+    spec: torch.Tensor,
+    feat_erb: torch.Tensor,
+    feat_spec: torch.Tensor,
+    train: bool = False,
+) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], Dict]:
+    """Offline forward, inference only (`train=True` raises).
+
+    Args (real-valued, re/im split):
+        spec:      [B, T, F, 2] noisy spectrum.
+        feat_erb:  [B, T, E] normalized ERB features.
+        feat_spec: [B, T, F', 2] unit-normalized complex features.
+    Returns ((spec_e [B, T, F, 2], mask [B, T, E], lsnr [B, T, 1],
+              df_coefs [B, O, T, F', 2]), state).
+    """
+    if train:
+        raise NotImplementedError("training is not ported yet (ROADMAP)")
+    L = cfg["layers"]
+    e0, e1, e2, e3, emb, c0, lsnr = _encoder(
+        params, state, L, cfg, feat_erb[:, None], torch.movedim(feat_spec, -1, 1))
+    mask = _erb_decoder(params, state, L, cfg, emb, e3, e2, e1, e0)  # [B, T, E]
+    coefs = _df_decoder(params, state, L, cfg, emb, c0)  # [B, T, F', O*2]
+
+    nb_df = cfg["nb_df"]
+    spec_c = torch.complex(spec[..., 0], spec[..., 1])  # [B, T, F]
+    spec_m = spec_c * (mask @ _inv_fb(cfg, mask.device))
+    b, t = coefs.shape[:2]
+    coefs_ri = coefs.reshape(b, t, nb_df, cfg["df_order"], 2)
+    if cfg.get("run_df", True):
+        coefs_c = torch.complex(coefs_ri[..., 0], coefs_ri[..., 1]).permute(0, 3, 1, 2)
+        spec_e = deep_filter_offline(spec_c, coefs_c, nb_df, cfg["df_lookahead"])
+        spec_e = torch.cat([spec_e[..., :nb_df], spec_m[..., nb_df:]], dim=-1)
+    else:
+        spec_e = spec_m  # mask-only ablation: the coefficients are not applied
+    if cfg["mask_pf"]:
+        spec_e = _post_filter(cfg, spec_e, spec_c)
+    spec_e_ri = torch.stack([spec_e.real, spec_e.imag], dim=-1)
+    return (spec_e_ri, mask, lsnr, coefs_ri.permute(0, 3, 1, 2, 4)), state
+
+
+# ---------------------------------------------------------------------------
 # streaming cell
 # ---------------------------------------------------------------------------
 
@@ -325,11 +470,7 @@ def streaming_cell(
         spec_e = spec_m  # mask-only ablation; the ring still advances
 
     if cfg["mask_pf"]:
-        beta = cfg["pf_beta"]
-        eps = 1e-12
-        g = torch.clamp(torch.abs(spec_e) / (torch.abs(spec_c) + eps), eps, 1.0)
-        g_sin = torch.clamp(g * torch.sin(PI * g / 2.0), min=eps)
-        spec_e = spec_e * ((1.0 + beta) / (1.0 + beta * (g / g_sin) ** 2))
+        spec_e = _post_filter(cfg, spec_e, spec_c)
 
     kt0 = cfg["conv_kernel_inp"][0]
     new_carry = StreamState(
@@ -344,3 +485,90 @@ def streaming_cell(
     )
     spec_e_ri = torch.stack([spec_e.real, spec_e.imag], dim=-1)
     return new_carry, (spec_e_ri, lsnr, m)
+
+
+# ---------------------------------------------------------------------------
+# chunked streaming forward: the offline form with a carried state
+# ---------------------------------------------------------------------------
+
+
+def forward_chunk(
+    params: Dict,
+    state: Dict,
+    cfg: Dict,
+    carry: StreamState,
+    spec: torch.Tensor,
+    feat_erb: torch.Tensor,
+    feat_spec: torch.Tensor,
+) -> Tuple[StreamState, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """T frames with streaming semantics in the offline form: convs,
+    products and DF over all frames at once, the GRUs seeded from the carry
+    (one `aten.gru` call a stack). Equal to T calls of `streaming_cell`.
+
+    spec [B, T, F, 2], feat_erb [B, T, E], feat_spec [B, T, F', 2] ->
+    (carry', (spec_e [B, T, F, 2], lsnr [B, T, 1], mask [B, T, E])).
+    """
+    L = cfg["layers"]
+    nb_df, order = cfg["nb_df"], cfg["df_order"]
+    ctx = cfg["conv_kernel_inp"][0] - 1
+    t = feat_erb.shape[1]
+    conv = _seq_conv(params, state, L)
+
+    # the carried context frames go in front; their conv outputs are dropped
+    fe = torch.cat([carry.erb_buf[:, 0], feat_erb], dim=1)  # [B, ctx+T, E]
+    fs = torch.cat([carry.spec_buf, torch.movedim(feat_spec, -1, 1)], dim=2)  # [B, 2, ctx+T, F']
+    e0 = conv("erb_conv0", fe[:, None])[:, :, ctx:]
+    e1 = conv("erb_conv1", e0)
+    e2 = conv("erb_conv2", e1)
+    e3 = conv("erb_conv3", e2)
+    c0 = conv("df_conv0", fs)[:, :, ctx:]
+    c1 = conv("df_conv1", c0)
+    emb, enc_h = squeezed_gru_s_apply(params["enc_emb_gru"], L["enc_emb_gru"],
+                                      _embed(params, cfg, e3, c1), carry.enc_gru_h)
+    lsnr = _lsnr(params, cfg, emb)
+
+    demb, dec_h = squeezed_gru_s_apply(params["dec_emb_gru"], L["dec_emb_gru"], emb,
+                                       carry.dec_gru_h)
+    m = _mask_pathway(conv, demb, e3, e2, e1, e0)  # [B, T, E]
+
+    c, df_h = squeezed_gru_s_apply(params["df_gru"], L["df_gru"], emb, carry.df_gru_h)
+    ktp = cfg["df_pathway_kt"]
+    if ktp > 1:
+        c0_ext = torch.cat([carry.c0_buf, c0], dim=2)
+        c0p = conv("df_convp", c0_ext)[:, :, ktp - 1:]
+        new_c0_buf = c0_ext[:, :, -(ktp - 1):]
+    else:
+        c0p = conv("df_convp", c0)
+        new_c0_buf = carry.c0_buf
+    coefs = _df_coefs(params, cfg, _df_skip(params, cfg, c, emb), c0p)
+    b = coefs.shape[0]
+    coefs_ri = coefs.reshape(b, t, nb_df, order, 2)
+    coefs_c = torch.complex(coefs_ri[..., 0], coefs_ri[..., 1])  # [B, T, F', O]
+
+    # DF over the carried ring: the O-1 past low-band frames go in front
+    spec_c = torch.complex(spec[..., 0], spec[..., 1])
+    ring = torch.complex(carry.df_ring_re, carry.df_ring_im)  # [B, O-1, F']
+    lo_ext = torch.cat([ring, spec_c[..., :nb_df]], dim=1)  # [B, O-1+T, F']
+    taps = torch.stack([lo_ext[:, n:n + t] for n in range(order)], dim=-1)  # [B, T, F', O]
+    y_lo = torch.sum(taps * coefs_c, dim=-1)
+
+    spec_m = spec_c * (m @ _inv_fb(cfg, m.device))
+    if cfg.get("run_df", True):
+        spec_e = torch.cat([y_lo, spec_m[..., nb_df:]], dim=-1)
+    else:
+        spec_e = spec_m  # mask-only ablation; the ring still advances
+    if cfg["mask_pf"]:
+        spec_e = _post_filter(cfg, spec_e, spec_c)
+
+    new_ring = lo_ext[:, lo_ext.shape[1] - (order - 1):]
+    new_carry = StreamState(
+        erb_buf=fe[:, fe.shape[1] - ctx:][:, None] if ctx > 0 else carry.erb_buf,
+        spec_buf=fs[:, :, fs.shape[2] - ctx:] if ctx > 0 else carry.spec_buf,
+        c0_buf=new_c0_buf.contiguous(),
+        enc_gru_h=enc_h,
+        dec_gru_h=dec_h,
+        df_gru_h=df_h,
+        df_ring_re=new_ring.real.contiguous(),
+        df_ring_im=new_ring.imag.contiguous(),
+    )
+    return new_carry, (torch.stack([spec_e.real, spec_e.imag], dim=-1), lsnr, m)

@@ -11,8 +11,11 @@ modules' layout, so the same checkpoint feeds both packages:
   * grouped linear weight [G, I/G, H/G]
   * batchnorm params scale/bias, state mean/var [C]
 
-Only the single-frame (`*_step`) forms the streaming cell uses are here, in
-inference mode (batchnorm reads its running statistics).
+Two forms of each layer, both in inference mode (batchnorm reads its
+running statistics): `*_apply` over a whole [B, C, T, F] or [B, T, I]
+sequence (causal time padding; a GRU stack is one `aten.gru` call, cuDNN on
+the card), and `*_step` over one frame for the streaming cell. Training
+(`train=True`) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 Params = Dict[str, Any]
 
@@ -123,14 +127,36 @@ def _conv2d_raw(x, w, groups, fstride, dilation, fpad):
                     dilation=(1, dilation), groups=groups)
 
 
-def _finish(params, state, cfg, out):
+def _finish_seq(params, state, cfg, out):
+    """Bias, pointwise conv, eval batchnorm and activation on [B, O, T, F']."""
     if "b" in params:
         out = out + params["b"][None, :, None, None]
     if "pw" in params:
         out = F.conv2d(out, params["pw"])
     if cfg["norm"]:
         out, _ = batchnorm_apply(params["bn"], state["bn"], out)
-    return ACT[cfg["act"]](out)[:, :, 0, :]
+    return ACT[cfg["act"]](out)
+
+
+def _finish(params, state, cfg, out):
+    return _finish_seq(params, state, cfg, out)[:, :, 0, :]
+
+
+def _no_training(train: bool):
+    if train:
+        raise NotImplementedError(
+            "training mode (batchnorm statistics, LSNR dropout) is not ported yet (ROADMAP)")
+
+
+def conv2d_norm_act_apply(params: Params, state: Params, cfg: Dict, x: torch.Tensor,
+                          train: bool = False) -> Tuple[torch.Tensor, Params]:
+    """Whole sequence, causal in time: x [B, C, T, F] -> ([B, O, T, F'],
+    state unchanged)."""
+    _no_training(train)
+    x = F.pad(x, (0, 0, cfg["kernel"][0] - 1, 0))
+    out = _conv2d_raw(x, params["w"], cfg["groups"], cfg["fstride"],
+                      cfg["dilation"], cfg["fpad"])
+    return _finish_seq(params, state, cfg, out), state
 
 
 def conv2d_norm_act_step(params: Params, state: Params, cfg: Dict,
@@ -192,7 +218,8 @@ def _conv_transpose2d_raw(x, w, groups, fstride, kernel, fpad, dilation):
     output_padding=(0, fpad), stride=(1, fstride), written out as a
     convolution of the frequency-dilated input with the flipped,
     channel-transposed kernel (the JAX package's form). The time axis needs
-    no padding: the caller's window already holds the kT-1 past frames."""
+    no padding here: the caller's input already holds the kT-1 past frames
+    (a streaming window, or the causal pad of the sequence form)."""
     kt, kf = kernel
     p_f = fpad + dilation - 1
     pad_l = dilation * (kf - 1) - p_f
@@ -209,6 +236,18 @@ def _conv_transpose2d_raw(x, w, groups, fstride, kernel, fpad, dilation):
     w_r = torch.flip(w, dims=(2, 3)).reshape(groups, ig, og, kt, kf)
     w_r = w_r.transpose(1, 2).reshape(groups * og, ig, kt, kf)
     return F.conv2d(x, w_r, dilation=(1, dilation), groups=groups)
+
+
+def conv_transpose2d_norm_act_apply(params: Params, state: Params, cfg: Dict,
+                                    x: torch.Tensor, train: bool = False
+                                    ) -> Tuple[torch.Tensor, Params]:
+    """Whole sequence, causal in time: x [B, C, T, F] -> ([B, O, T,
+    F*fstride], state unchanged)."""
+    _no_training(train)
+    x = F.pad(x, (0, 0, cfg["kernel"][0] - 1, 0))
+    out = _conv_transpose2d_raw(x, params["w"], cfg["groups"], cfg["fstride"],
+                                cfg["kernel"], cfg["fpad"], cfg["dilation"])
+    return _finish_seq(params, state, cfg, out), state
 
 
 def conv_transpose2d_norm_act_step(params: Params, state: Params, cfg: Dict,
@@ -286,6 +325,51 @@ def _gru_cell(h, x, lp):
     return (1.0 - z) * n + z * h
 
 
+def gru_apply(params: Params, x: torch.Tensor, h0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole sequence. x: [B, T, I]; h0: [L, B, H] (default zeros). Returns
+    (out [B, T, H], hN [L, B, H]).
+
+    The stack is one `aten.gru` call (cuDNN on the card, ATen on the CPU):
+    the same gate form as `_gru_cell`, with b_hn inside r * (W_hn h + b_hn).
+    """
+    layers = params["layers"]
+    hidden = layers[0]["w_hh"].shape[1]
+    if h0 is None:
+        h0 = x.new_zeros((len(layers), x.shape[0], hidden))
+    weights = [lp[k] for lp in layers for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    if x.is_cuda and torch._use_cudnn_rnn_flatten_weight():
+        weights = _cudnn_gru_weights(weights, len(layers), hidden)
+    out, h_n = torch.ops.aten.gru.input(x, h0.contiguous(), weights, True, len(layers),
+                                        0.0, False, False, True)
+    return out, h_n
+
+
+# cuDNN's one-buffer copy of a GRU stack's weights, found again by the stack's
+# first weight tensor while it lives
+_CUDNN_GRU = WeakIdKeyDictionary()
+
+
+def _cudnn_gru_weights(weights, n_layers: int, hidden: int):
+    """A copy of the stack's weights as views into one buffer in cuDNN's
+    layout, made once per weight set (checked by identity and version). With
+    separate tensors cuDNN copies them into such a buffer at every call, and
+    warns each time."""
+    from torch.backends.cudnn import rnn as cudnn_rnn
+
+    stamp = tuple((id(w), w._version) for w in weights)
+    hit = _CUDNN_GRU.get(weights[0])
+    if hit is None or hit[0] != stamp:
+        flat = [w.detach().clone() for w in weights]
+        with torch.no_grad():
+            torch._cudnn_rnn_flatten_weight(
+                flat, 4, weights[0].shape[1], cudnn_rnn.get_cudnn_mode("GRU"),
+                hidden, 0, n_layers, True, False)
+        hit = (stamp, flat)
+        _CUDNN_GRU[weights[0]] = hit
+    return hit[1]
+
+
 def gru_step(params: Params, h: torch.Tensor, x: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frame. x: [B, I]; h: [L, B, H]. Returns (h' [L, B, H], out [B, H])."""
@@ -327,16 +411,31 @@ def init_squeezed_gru_s(
     return params, cfg
 
 
+def squeezed_gru_s_apply(params: Params, cfg: Dict, x: torch.Tensor,
+                         h0: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole sequence. x: [B, T, I]; h0: [L, B, H]. Returns (out, hN)."""
+    act = ACT[cfg["linear_act"]]
+    xin = act(grouped_linear_apply(params["linear_in"], x))
+    out, h = gru_apply(params["gru"], xin, h0)
+    return _squeezed_out(params, cfg, act, x, out), h
+
+
 def squeezed_gru_s_step(params: Params, cfg: Dict, h: torch.Tensor, x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frame. x: [B, I]; h: [L, B, H]. Returns (h', out)."""
     act = ACT[cfg["linear_act"]]
     xin = act(grouped_linear_apply(params["linear_in"], x))
     h_new, out = gru_step(params["gru"], h, xin)
+    return h_new, _squeezed_out(params, cfg, act, x, out)
+
+
+def _squeezed_out(params, cfg, act, x, out):
+    """linear_out and the skip from the raw input x."""
     if "linear_out" in params:
         out = act(grouped_linear_apply(params["linear_out"], out))
     if cfg["skip"] == "identity":
         out = out + x
     elif cfg["skip"] == "groupedlinear":
         out = out + grouped_linear_apply(params["skip"], x)
-    return h_new, out
+    return out

@@ -1,16 +1,20 @@
-"""Vorbis-windowed streaming STFT pieces, as matrix products.
+"""Vorbis-windowed STFT and inverse STFT, offline and streaming.
 
 Semantics of the JAX package's `ops/stft.py`:
 
   * window: vorbis ``sin(pi/2 * sin^2(pi*(n+0.5)/N))`` computed in float64;
   * forward normalization ``wnorm = 2*hop / fft_size**2`` in analysis only;
   * analysis is streaming: each hop is transformed together with the
-    `fft - hop` samples before it (the analysis memory);
+    `fft - hop` samples before it (the analysis memory, zero at the start),
+    so a signal of T samples gives T // hop frames;
   * synthesis is the unnormalized inverse (scale `fft_size`), windowed and
     overlap-added through the synthesis memory.
 
-The real DFT and its inverse are dense [N, F] / [F, N] matrices with the
-window and wnorm folded in, built in float64 and stored as float32.
+Offline, `stft` frames the whole signal and takes one batched rfft (cuFFT on
+the card); `istft` inverts with irfft, `istft_ri` with the iDFT matrices.
+The real DFT and its inverse as dense [N, F] / [F, N] matrices, with the
+window and wnorm folded in, are built in float64 and stored as float32; the
+per-frame steps and the chunked runtime multiply by them.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,6 +49,57 @@ class Stft(NamedTuple):
     sr: int
     fft_size: int
     hop_size: int
+
+
+def frame_signal(x: torch.Tensor, fft_size: int, hop_size: int) -> torch.Tensor:
+    """[..., T] -> [..., T // hop, fft_size] after a left zero pad of
+    fft - hop: frame i holds signal[(i+1)*hop - fft : (i+1)*hop]."""
+    if x.shape[-1] < hop_size:
+        return x.new_zeros(x.shape[:-1] + (0, fft_size))
+    return F.pad(x, (fft_size - hop_size, 0)).unfold(-1, fft_size, hop_size)
+
+
+def stft(x: torch.Tensor, cfg: Stft) -> torch.Tensor:
+    """Analysis: [..., T] real -> [..., T // hop, F] complex64, the windowed
+    rfft scaled by wnorm with fresh (zero) stream state."""
+    frames = frame_signal(x, cfg.fft_size, cfg.hop_size)
+    win = _window_tensor(cfg.fft_size, x.device)
+    spec = torch.fft.rfft(frames * win, dim=-1)
+    return (spec * wnorm(cfg.fft_size, cfg.hop_size)).to(torch.complex64)
+
+
+def overlap_add(frames: torch.Tensor, hop_size: int) -> torch.Tensor:
+    """[..., T', N] windowed frames -> [..., T'*hop + N - hop]: chunk k of
+    frame i lands at offset (i + k) * hop. The first T'*hop samples are the
+    finished output, the rest the tail still in flight."""
+    n_frames, fft = frames.shape[-2], frames.shape[-1]
+    if fft % hop_size:
+        raise ValueError("overlap-add needs hop | fft_size")
+    r = fft // hop_size
+    chunks = frames.reshape(frames.shape[:-1] + (r, hop_size))
+    out_len = n_frames * hop_size
+    out = frames.new_zeros(frames.shape[:-2] + (out_len + (r - 1) * hop_size,))
+    for k in range(r):
+        seg = chunks[..., :, k, :].reshape(frames.shape[:-2] + (out_len,))
+        out[..., k * hop_size : k * hop_size + out_len] += seg
+    return out
+
+
+def istft(spec: torch.Tensor, cfg: Stft) -> torch.Tensor:
+    """Synthesis: [..., T', F] complex -> [..., T'*hop] real: unnormalized
+    irfft (x fft_size), windowed, overlap-added from zero synthesis memory."""
+    fft = cfg.fft_size
+    frames = torch.fft.irfft(spec, n=fft, dim=-1) * float(fft)
+    frames = (frames * _window_tensor(fft, spec.device)).to(torch.float32)
+    return overlap_add(frames, cfg.hop_size)[..., : spec.shape[-2] * cfg.hop_size]
+
+
+def istft_ri(spec_ri: torch.Tensor, cfg: Stft) -> torch.Tensor:
+    """Synthesis from re/im-split input [..., T', F, 2] -> [..., T'*hop], by
+    the iDFT matrices (real arithmetic only)."""
+    re_m, im_m = _idft_tensors(cfg.fft_size, spec_ri.device)
+    frames = spec_ri[..., 0] @ re_m + spec_ri[..., 1] @ im_m
+    return overlap_add(frames, cfg.hop_size)[..., : spec_ri.shape[-3] * cfg.hop_size]
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,6 +143,11 @@ def idft_matrices(fft_size: int) -> Tuple[np.ndarray, np.ndarray]:
     re_m.setflags(write=False)
     im_m.setflags(write=False)
     return re_m, im_m
+
+
+@functools.lru_cache(maxsize=None)
+def _window_tensor(fft_size: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(vorbis_window(fft_size), device=device)
 
 
 @functools.lru_cache(maxsize=None)

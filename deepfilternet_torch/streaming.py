@@ -10,6 +10,10 @@ its XLA scheduling options (`fused`, `fuse_ops`, `unroll`, `packed_carry`,
 `fuse_convs`, `fuse_gru_pairs`, `use_pallas`) have no counterpart here: the
 frontend always goes through the kernel wrapper and the rest runs eagerly.
 
+`ChunkedStreamingRuntime` has the same semantics and carry but batches
+`chunk_frames` frames at a time in the offline form (the model's
+`forward_chunk`): no loop over frames, and no frontend kernel.
+
 API:
     rt = StreamingRuntime(model, df_state)       # from enhance.init_df
     carry = rt.init(n_streams)
@@ -27,9 +31,20 @@ import torch
 from deepfilternet_torch.config import config
 from deepfilternet_torch.ops.erb import erb_fb_tensor
 from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend
-from deepfilternet_torch.ops.norms import get_norm_alpha, mean_norm_init, unit_norm_init
+from deepfilternet_torch.ops.norms import (
+    _ema_scan,
+    get_norm_alpha,
+    mean_norm_init,
+    unit_norm_init,
+)
 from deepfilternet_torch.ops.postfilter import post_filter
-from deepfilternet_torch.ops.stft import Stft, synthesis_step_ri
+from deepfilternet_torch.ops.stft import (
+    Stft,
+    _dft_tensors,
+    _idft_tensors,
+    overlap_add,
+    synthesis_step_ri,
+)
 
 
 class StreamCarry(NamedTuple):
@@ -134,7 +149,7 @@ class StreamingRuntime:
 
     def _apply_runtime_stages(self, spec, spec_e, lsnr, mask):
         """Post-model RuntimeParams stages. spec/spec_e complex [S, F],
-        lsnr [S, 1], mask [S, E]."""
+        lsnr [S, 1], mask [S, E]; or [S, T, ...] for a chunk."""
         rt, cfg = self.rt, self.cfg
         inv_fb = erb_fb_tensor(cfg["erb_widths"], spec.device, inverse=True)
 
@@ -181,17 +196,132 @@ class StreamingRuntime:
         """frame: [S, hop] -> (carry', enhanced [S, hop])."""
         return self._cell(carry, self._audio(frame).contiguous())
 
+    def _frames(self, audio) -> Tuple[torch.Tensor, int]:
+        """audio [S, T] -> (audio on the device, T // hop); raises unless T
+        is a multiple of hop."""
+        audio = self._audio(audio)
+        if audio.shape[1] % self.stft_cfg.hop_size:
+            raise ValueError("process() needs whole hops")
+        return audio, audio.shape[1] // self.stft_cfg.hop_size
+
     def process(self, carry: StreamCarry, audio) -> Tuple[StreamCarry, torch.Tensor]:
         """audio: [S, T] with T a multiple of hop. Returns [S, T] enhanced
         (delayed by fft-hop samples, streaming semantics)."""
-        audio = self._audio(audio)
+        audio, n = self._frames(audio)
         hop = self.stft_cfg.hop_size
         s, t = audio.shape
-        if t % hop:
-            raise ValueError("process() needs whole hops")
-        n = t // hop
         frames = audio.reshape(s, n, hop).transpose(0, 1).contiguous()
         out = torch.empty((n, s, hop), dtype=torch.float32, device=self.device)
         for i in range(n):
             carry, out[i] = self._cell(carry, frames[i])
         return carry, out.transpose(0, 1).reshape(s, t)
+
+
+# ---------------------------------------------------------------------------
+# chunked runtime: the frame-parallel pipeline with an explicit carried state
+# ---------------------------------------------------------------------------
+
+
+class ChunkedStreamingRuntime(StreamingRuntime):
+    """Streaming with offline-style batching per chunk.
+
+    Audio goes `chunk_frames` frames at a time: analysis (hop-reshape
+    framing and the DFT matrices), features and their norms (blocked scans
+    seeded from the carry), the model's `forward_chunk`, the runtime stages,
+    the silence skip and the synthesis (iDFT matrices, overlap-add with the
+    carried tail) each run over all frames of the chunk at once; only the GRU
+    recurrences run frame after frame, inside one `aten.gru` call a stack.
+    Same semantics and carry as `StreamingRuntime`: chunk and call
+    boundaries are state-continuous. The frontend kernel is never launched.
+
+    Needs a model module with `forward_chunk`.
+    """
+
+    def __init__(self, model, df_state, params: RuntimeParams = RuntimeParams(),
+                 dtype: torch.dtype = torch.float32, chunk_frames: int = 20):
+        super().__init__(model, df_state, params, dtype)
+        if not hasattr(self.model.module, "forward_chunk"):
+            raise NotImplementedError(
+                f"model module {self.model.module.__name__} has no forward_chunk; "
+                "use StreamingRuntime"
+            )
+        if chunk_frames < 1:
+            raise ValueError("chunk_frames must be at least 1")
+        self.chunk_frames = chunk_frames
+
+    def _chunk_body(self, carry: StreamCarry, audio: torch.Tensor
+                    ) -> Tuple[StreamCarry, torch.Tensor]:
+        """One frame-parallel chunk: audio [S, t*hop] -> (carry', out [S, t*hop])."""
+        hop, fft = self.stft_cfg.hop_size, self.stft_cfg.fft_size
+        d = fft - hop
+        s, t = audio.shape[0], audio.shape[1] // hop
+        nb_df, alpha, dev = self.nb_df, self.alpha, self.device
+
+        # analysis: frame t is hops t .. t+r-1 of [memory | audio]
+        buf = torch.cat([carry.analysis_mem, audio], dim=-1)
+        r = fft // hop
+        hops = buf.reshape(s, t + r - 1, hop)
+        frames = torch.cat([hops[:, k:k + t] for k in range(r)], dim=-1)  # [S, T, fft]
+        cos_m, sin_m = _dft_tensors(fft, hop, dev)
+        re, im = frames @ cos_m, frames @ sin_m
+        # features, the norms as blocked scans seeded from the carry
+        power = re**2 + im**2
+        erb_db = 10.0 * torch.log10(power @ erb_fb_tensor(self.cfg["erb_widths"], dev) + 1e-10)
+        mtrack = _ema_scan(erb_db, carry.mean_norm, alpha, axis=1)
+        utrack = _ema_scan(torch.sqrt(power[..., :nb_df]), carry.unit_norm, alpha, axis=1)
+        scale = torch.rsqrt(utrack)
+        feat_spec = torch.stack([re[..., :nb_df] * scale, im[..., :nb_df] * scale], dim=-1)
+        mcarry, (spec_e_ri, lsnr, mask) = self.model.module.forward_chunk(
+            self.model.params, self.model.state, self.cfg, carry.model,
+            torch.stack([re, im], dim=-1), (erb_db - mtrack) / 40.0, feat_spec,
+        )
+        spec_e = self._apply_runtime_stages(
+            torch.complex(re, im), torch.complex(spec_e_ri[..., 0], spec_e_ri[..., 1]),
+            lsnr, mask,
+        )
+
+        # RMS silence skip: the quiet-frame counter is t - (last loud frame
+        # index <= t), a cummax over loud frames' indices seeded by the
+        # carried counter; the seed saturates at the skip threshold (only
+        # ctr >= threshold matters), which keeps it above the quiet marker
+        rt = self.rt
+        rms = torch.sqrt(torch.mean(audio.reshape(s, t, hop) ** 2, dim=-1))
+        tidx = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+        loud_idx = torch.where(rms < rt.silence_rms_thresh, torch.full_like(tidx, -(2**30)), tidx)
+        seed = (-1 - torch.clamp(carry.silence_ctr, max=rt.silence_skip_frames))[:, None]
+        last_loud = torch.cummax(torch.cat([seed, loud_idx], dim=1), dim=1).values[:, 1:]
+        ctr = tidx - last_loud  # [S, T]
+        spec_e = torch.where((ctr >= rt.silence_skip_frames)[..., None],
+                             torch.zeros_like(spec_e), spec_e)
+
+        # synthesis: iDFT of all frames, overlap-add, the carried tail added
+        re_m, im_m = _idft_tensors(fft, dev)
+        full = overlap_add(spec_e.real @ re_m + spec_e.imag @ im_m, hop)  # [S, t*hop + d]
+        full[:, :d] += carry.synthesis_mem
+        new_carry = StreamCarry(
+            analysis_mem=buf[:, buf.shape[1] - d:],
+            synthesis_mem=full[:, t * hop:],
+            mean_norm=mtrack[:, -1],
+            unit_norm=utrack[:, -1],
+            silence_ctr=ctr[:, -1].contiguous(),
+            model=mcarry,
+        )
+        return new_carry, full[:, : t * hop]
+
+    def process_frame(self, carry: StreamCarry, frame) -> Tuple[StreamCarry, torch.Tensor]:
+        """frame: [S, hop] -> (carry', enhanced [S, hop]), as a chunk of one."""
+        return self.process(carry, frame)
+
+    def process(self, carry: StreamCarry, audio) -> Tuple[StreamCarry, torch.Tensor]:
+        """audio: [S, T] with T a multiple of hop: whole chunks of
+        `chunk_frames` frames, then one shorter chunk for the rest. Returns
+        [S, T] enhanced (delayed by fft-hop samples)."""
+        audio, _ = self._frames(audio)
+        step = self.chunk_frames * self.stft_cfg.hop_size
+        outs = []
+        for lo in range(0, audio.shape[1], step):
+            carry, out = self._chunk_body(carry, audio[:, lo:lo + step])
+            outs.append(out)
+        if not outs:
+            return carry, audio.new_zeros(audio.shape)
+        return carry, torch.cat(outs, dim=1)

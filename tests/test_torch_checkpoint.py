@@ -114,19 +114,27 @@ def test_init_df_cpu_loads_demo_checkpoint():
     assert model.params["df_out"]["w"].shape == (1, 256, 960)
 
 
-def test_port_imports_no_jax_at_run_time():
-    """A fresh interpreter loads the demo model and runs 3 frames, then no
-    jax, optax or deepfilternet_tpu module may be loaded."""
-    code = textwrap.dedent("""
-        import sys
+def test_port_imports_no_jax_at_run_time(tmp_path):
+    """A fresh interpreter loads the demo model and runs 3 frames per frame,
+    the offline enhance, the chunked runtime and the CLI, then no jax, optax
+    or deepfilternet_tpu module may be loaded."""
+    code = textwrap.dedent(f"""
+        import os, sys
         import numpy as np
-        from deepfilternet_torch.enhance import init_df
-        from deepfilternet_torch.streaming import StreamingRuntime
+        from deepfilternet_torch.enhance import enhance, init_df, main
+        from deepfilternet_torch.streaming import ChunkedStreamingRuntime, StreamingRuntime
+        from deepfilternet_torch.utils import save_audio
         model, df_state, _ = init_df("pretrained/dfn3_fixture_demo", device="cpu")
         rt = StreamingRuntime(model, df_state)
         audio = np.random.default_rng(0).standard_normal((2, 480 * 3)).astype(np.float32)
         _, out = rt.process(rt.init(2), audio)
         assert out.shape == (2, 1440)
+        assert enhance(model, df_state, audio, backend="offline").shape == (2, 1440)
+        crt = ChunkedStreamingRuntime(model, df_state, chunk_frames=2)
+        assert crt.process(crt.init(2), audio)[1].shape == (2, 1440)
+        save_audio({str(tmp_path / "in.wav")!r}, audio[:1] * 0.1, 48000)
+        main([{str(tmp_path / "in.wav")!r}, "-o", {str(tmp_path)!r}, "--device", "cpu"])
+        assert os.path.isfile({str(tmp_path / "in_DeepFilterNet_TPU.wav")!r})
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "optax", "deepfilternet_tpu"))
         print("LOADED", bad)

@@ -181,11 +181,13 @@ def test_enhance_scan_matches_jax(models):
     np.testing.assert_allclose(got_lim, ref_lim, rtol=0, atol=1e-4)
 
 
-def test_enhance_offline_not_ported(models):
-    _, _, tm, td = models
-    x = np.zeros((2, HOP * 4), np.float32)
-    for backend in ("offline", "auto"):  # auto -> offline below 16 rows
-        with pytest.raises(NotImplementedError, match="offline"):
-            enhance(tm, td, x, backend=backend)
+@pytest.mark.parametrize("backend", ["offline", "auto"])  # auto -> offline below 16 rows
+def test_enhance_offline_and_auto_match_jax(models, audio, backend):
+    jm, jd, tm, td = models
+    x = audio[:, : HOP * 12]
+    ref = j_enhance(jm, jd, x, backend="offline")
+    got = enhance(tm, td, x, backend=backend)
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
     with pytest.raises(ValueError):
         enhance(tm, td, x, backend="nonsense")
