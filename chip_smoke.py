@@ -32,11 +32,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                the main path's 64 x 2 s, held against the per-frame output and
                against itself in two calls; the CLI once. These paths launch
                neither kernel (cuFFT, cuDNN and cuBLAS do their work), which
-               the launch counts show. Wall times and RTF are information.
+               the launch counts show. Wall times and RTF are information;
+  6. reduced precision - the whole-cell kernel's bfloat16 build against its
+               plain bfloat16 version in both designs, and its times with
+               their bounds; StreamingRuntime(dtype=bfloat16) on the main
+               path's 64 x 2 s (K1 once a frame) against the same streams on
+               the CPU, ChunkedStreamingRuntime(dtype=bfloat16), out_dtype;
+               WholeCellStreamingRuntime with its default bfloat16 operands
+               (one K2 launch, counted apart) against the per-frame bfloat16
+               run, the float32 whole-cell run and itself in two calls, then
+               one frame a call.
 
+Phases 3 to 5 hold the whole cell at float32 operands
+(matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
 The second-to-last line of standard output is {"kernels": [...]}, the last
-{"ok": true, "device": {...}}. TF32 is off for matrix products and
-convolutions, so every comparison is float32 against float32.
+{"ok": true, "device": {...}}. TF32 and cuBLAS's reduced-precision bfloat16
+reductions are off, so float32 runs are float32 against float32 and bfloat16
+products sum in float32.
 """
 
 import contextlib
@@ -54,14 +66,14 @@ MODEL_DIR = "pretrained/dfn3_fixture_demo"
 SR, HOP = 48000, 480
 SECONDS = 2.0
 
-# dense peaks (NVIDIA data sheets): float32 outside the tensor cores and TF32
-# on them in FLOP/s, device memory in bytes/s; first match on the device name
-# wins
+# dense peaks (NVIDIA data sheets): float32 outside the tensor cores, TF32 and
+# bfloat16 on them in FLOP/s, device memory in bytes/s; first match on the
+# device name wins
 PEAKS = (
-    ("H100 PCIe", 51.2e12, 378e12, 2.0e12),
-    ("H100 NVL", 60.0e12, 418e12, 3.9e12),
-    ("H200", 67.0e12, 495e12, 4.8e12),
-    ("H100", 67.0e12, 495e12, 3.35e12),
+    ("H100 PCIe", 51.2e12, 378e12, 756e12, 2.0e12),
+    ("H100 NVL", 60.0e12, 418e12, 835e12, 3.9e12),
+    ("H200", 67.0e12, 495e12, 989e12, 4.8e12),
+    ("H100", 67.0e12, 495e12, 989e12, 3.35e12),
 )
 
 
@@ -70,10 +82,11 @@ def fail(msg):
 
 
 def peaks(name):
-    """(float32 FLOP/s, TF32 tensor-core FLOP/s, bytes/s) of the card."""
-    for key, flops, tf32, bw in PEAKS:
+    """(float32 FLOP/s, TF32 and bfloat16 tensor-core FLOP/s, bytes/s) of the
+    card."""
+    for key, flops, tf32, bf16, bw in PEAKS:
         if key in name:
-            return flops, tf32, bw
+            return flops, tf32, bf16, bw
     fail(f"no peak rates known for {name!r}")
 
 
@@ -253,7 +266,7 @@ def time_frontend(dev, card, s, empty_ms):
     nbytes = 4 * (s * (d + HOP + nb_erb + nb_df)                    # inputs
                   + s * (d + 2 * f + 2 * nb_erb + 3 * nb_df)         # outputs
                   + 2 * n * f + f * nb_erb)                          # DFT + ERB matrices
-    peak_flops, peak_tf32, peak_bw = peaks(card)
+    peak_flops, peak_tf32, _, peak_bw = peaks(card)
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     bound_ms = max(t_ops, t_bytes)
     # the kernel's products run on the tensor cores as three TF32 passes: the
@@ -289,21 +302,28 @@ def seeded_audio(s, frames, seed, scale=0.1):
         (rng.standard_normal((s, frames * HOP)) * scale).astype(np.float32))
 
 
-def compare_cell(tag, got, ref, rel_tol):
+def compare_cell(tag, got, ref, rel_tol, mean_tol=None):
     """Every output of the whole cell (audio and the 11 carry arrays) against
-    the reference, to rel_tol of the reference's largest value. Returns the
-    largest absolute error."""
-    worst = 0.0
+    the reference: its largest absolute error within rel_tol of the
+    reference's largest value, and, if mean_tol is given, its mean absolute
+    error within mean_tol of it. Returns the largest absolute error and the
+    largest of either kind over the output's largest value."""
+    worst = worst_rel = worst_mean = 0.0
     for name, b in ref.items():
         a = got[name]
         if a.shape != b.shape or not torch.isfinite(a).all():
             fail(f"K2 {tag} {name}: shape {tuple(a.shape)} or non-finite values")
-        err = float((a - b).abs().max())
-        tol = rel_tol * float(b.abs().max())
-        if err > tol:
-            fail(f"K2 {tag} {name}: max abs err {err:.3e} > tol {tol:.3e}")
+        diff = (a - b).abs()
+        err, mean = float(diff.max()), float(diff.mean())
+        scale = float(b.abs().max())
+        if err > rel_tol * scale:
+            fail(f"K2 {tag} {name}: max abs err {err:.3e} > tol {rel_tol * scale:.3e}")
+        if mean_tol is not None and mean > mean_tol * scale:
+            fail(f"K2 {tag} {name}: mean abs err {mean:.3e} > tol {mean_tol * scale:.3e}")
         worst = max(worst, err)
-    return worst
+        worst_rel = max(worst_rel, err / max(scale, 1e-30))
+        worst_mean = max(worst_mean, mean / max(scale, 1e-30))
+    return worst, worst_rel, worst_mean
 
 
 @contextlib.contextmanager
@@ -349,8 +369,62 @@ K2_CASES = ((1, 8, None, None), (37, 8, None, None), (64, 8, None, None),
             (1100, 2, "rows", 4), (1100, 2, "units", None))
 
 
-def check_whole_cell(dev, card, model, df_state):
+def k2_bounds(dtype):
+    """Kernel against plain version: {"one frame": (largest, mean error),
+    "frames": ...}, fractions of each output's largest value, for each frame
+    from the plain version's carry and for several running on from the same
+    carry (mean None: not bounded). float32:
+    1e-4, the kernel adds its sums of up to 2048 terms in another order than
+    cuBLAS, through ~45 layers and three recurrences, over 8 frames.
+    bfloat16: `whole_cell_check.BF16_BOUNDS`, which a right kernel summing in
+    another order meets and a kernel that skips or misplaces the bfloat16
+    rounding does not (checked on the card by `check_bf16_bounds`)."""
+    if dtype == torch.float32:
+        return {"one frame": (1e-4, 1e-4), "frames": (1e-4, None)}
+    from deepfilternet_torch.ops.whole_cell_check import BF16_BOUNDS
+
+    return BF16_BOUNDS
+
+
+def check_bf16_bounds(tag, x, carry, W, st):
+    """The plain version with products that sum in float64 (a right kernel
+    in another order) and with each wrong rounding of `whole_cell_check`,
+    against the plain version, each frame from the plain version's carry and
+    all frames from `carry`: the first must stay within BF16_BOUNDS, every
+    wrong one must exceed them in both spans."""
+    from deepfilternet_torch.ops import whole_cell_check as wcc
+    from deepfilternet_torch.ops.whole_cell import cell_process_plain
+
+    readings = []
+    ref = cell_process_plain(x, carry, W, st)
+    for products in (wcc.Float64Sums,) + wcc.WRONG:
+        right = products is wcc.Float64Sums
+        variant = lambda x1, c1: cell_process_plain(x1, c1, W, st, products)  # noqa: E731
+        for span, errs in (("one frame", wcc.frame_by_frame(variant, x, carry, W, st)),
+                           ("frames", wcc.cell_errors(variant(x, carry), ref))):
+            bad = wcc.out_of_bounds(errs, wcc.BF16_BOUNDS[span])
+            if right == bool(bad):
+                fail(f"K2 bfloat16 bounds ({tag}): {products.__name__} {span} "
+                     f"{'exceeds' if right else 'meets'} {wcc.BF16_BOUNDS[span]}: {errs}")
+            top, mean = wcc.worst(errs)
+            readings.append(f"{products.__name__} {span} {top:.2e} / {mean:.2e}")
+    print(f"K2 bfloat16 bounds {dict(wcc.BF16_BOUNDS)} ({tag}), plain variants against the "
+          "plain version on the card (largest / mean error of the worst output): "
+          + "; ".join(readings) + f"; {wcc.Float64Sums.__name__} within, "
+          + ", ".join(c.__name__ for c in wcc.WRONG) + " beyond in both spans")
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def check_whole_cell(dev, card, model, df_state, dtype):
+    """K2 at `dtype` operands against its plain version in every design, from
+    a non-initial carry, with and without the runtime stages. Returns (the
+    largest absolute error, a runtime at `dtype` with default params)."""
     from deepfilternet_torch.ops.whole_cell import cell_process, cell_process_plain
+    from deepfilternet_torch.ops.whole_cell_check import frame_by_frame, out_of_bounds
+    from deepfilternet_torch.ops.whole_cell_check import worst as worst_errs
     from deepfilternet_torch.streaming import RuntimeParams
     from deepfilternet_torch.streaming_whole_cell import (
         WholeCellStreamingRuntime,
@@ -361,11 +435,14 @@ def check_whole_cell(dev, card, model, df_state):
         carry, audio = res
         return dict(carry, audio=audio)
 
+    bounds = k2_bounds(dtype)
+    tol_max, tol_mean = bounds["frames"]
     worst = 0.0
     for stages in ({}, K2_RUNTIME_STAGES):
-        rt = WholeCellStreamingRuntime(model, df_state, RuntimeParams(**stages))
+        rt = WholeCellStreamingRuntime(model, df_state, RuntimeParams(**stages),
+                                       matmul_dtype=dtype)
         W, st = rt.weights, rt.statics
-        label = "runtime stages on" if stages else "default params"
+        label = f"{dtype_name(dtype)}, " + ("runtime stages on" if stages else "default params")
         for s, frames, design, rows in K2_CASES:
             x = seeded_audio(s, 4 + frames, seed=100 + s).to(dev)
             # a non-trivial carry: 4 frames through the plain version first
@@ -376,6 +453,9 @@ def check_whole_cell(dev, card, model, df_state):
             with k2_design(design, rows):
                 used = design_name(*own_k2_design(s))
                 got = outputs(cell_process(xc, carry, W, st))
+                # each frame alone, from the carry the plain version reaches
+                each = frame_by_frame(lambda x1, c1: cell_process(x1, c1, W, st), xc, carry,
+                                      W, st)
                 # chunk continuity: a second call continues from the first
                 # call's carry and equals one call over all frames
                 cut = max(1, 3 * frames // 8) * HOP
@@ -383,22 +463,29 @@ def check_whole_cell(dev, card, model, df_state):
                 c2, o2 = cell_process(xc[:, cut:].contiguous(), c1, W, st)
             torch.cuda.synchronize()
             tag = f"S={s}, design {used} ({label})"
-            # 1e-4 of each output's largest value: the kernel adds its sums of
-            # up to 2048 terms in another order than cuBLAS, through ~45
-            # layers and three recurrences, over 8 frames
-            err = compare_cell(tag, got, ref, 1e-4)
+            err, rel, mean = compare_cell(tag, got, ref, tol_max, tol_mean)
             worst = max(worst, err)
-            cerr = compare_cell(tag + " two calls",
-                                dict(c2, audio=torch.cat([o1, o2], 1)), got, 1e-5)
+            rel1, mean1 = worst_errs(each)
+            if out_of_bounds(each, bounds["one frame"]):
+                fail(f"K2 {tag}, each frame from the plain carry: {each} beyond "
+                     f"{bounds['one frame']}")
+            if dtype == torch.bfloat16 and (s, design) == (64, None):
+                check_bf16_bounds(label, xc, carry, W, st)
+            cerr, _, _ = compare_cell(tag + " two calls",
+                                      dict(c2, audio=torch.cat([o1, o2], 1)), got, 1e-5)
+            means = "" if tol_mean is None else f", mean within {tol_mean:g} ({mean:.2e})"
+            top1, mean_tol1 = bounds["one frame"]
             print(f"K2 S={s}, {frames} frames, design {used}"
-                  f"{'' if design is None else ' (forced)'}, {label}: "
-                  f"12 outputs within 1e-4 x max|plain| "
-                  f"(max abs err {err:.2e}); {cut // HOP} + {frames - cut // HOP} frames in two "
-                  f"calls equal one call to 1e-5 (max abs err {cerr:.2e})")
+                  f"{'' if design is None else ' (forced)'}, {label}: 12 outputs within "
+                  f"{tol_max:g} x max|plain| (max abs err {err:.2e}, {rel:.2e} of the largest)"
+                  f"{means}; each frame from the plain carry within {top1:g} ({rel1:.2e}), "
+                  f"mean within {mean_tol1:g} ({mean1:.2e}); "
+                  f"{cut // HOP} + {frames - cut // HOP} frames in two calls equal one "
+                  f"call to 1e-5 (max abs err {cerr:.2e})")
 
     # silence skip: 8 frames of zeros count to 8 and mute the output, a loud
     # frame resets the counter
-    rt = WholeCellStreamingRuntime(model, df_state)
+    rt = WholeCellStreamingRuntime(model, df_state, matmul_dtype=dtype)
     flat = carry_to_flat(rt.init(3))
     c, o = cell_process(torch.zeros((3, 8 * HOP), device=dev), flat, rt.weights, rt.statics)
     torch.cuda.synchronize()
@@ -407,17 +494,20 @@ def check_whole_cell(dev, card, model, df_state):
     c, _ = cell_process(torch.full((3, HOP), 0.5, device=dev), c, rt.weights, rt.statics)
     if not bool((c["sil"][:, 0] == 0).all()):
         fail("K2 silence skip: a loud frame did not reset the counter")
-    print("K2 silence skip: 8 zero frames count to 8 and mute from frame 6 on; "
-          "a loud frame resets the counter")
+    print(f"K2 silence skip ({dtype_name(dtype)}): 8 zero frames count to 8 and mute from "
+          "frame 6 on; a loud frame resets the counter")
+    return worst, rt
 
+
+def time_whole_cell_all(dev, card, rt, tag):
+    """K2's times at the main path's shape and at more streams; returns the
+    main path's (S=64 x 200) for the kernels line."""
     t = time_whole_cell(dev, card, rt, 64, 200)
-    time_whole_cell(dev, card, rt, 512, 30)
-    time_whole_cell(dev, card, rt, 1056, 20)
-    time_whole_cell(dev, card, rt, 4096, 20)
-    return dict(name="cell_process", route="cuda",
+    for s, frames in ((512, 30), (1056, 20), (4096, 20)):
+        time_whole_cell(dev, card, rt, s, frames)
+    return dict(name=f"cell_process{tag}", route="cuda",
                 source="deepfilternet_torch/csrc/whole_cell.cu",
-                replaces="deepfilternet_tpu/ops/pallas_cell.py:640",
-                launches=None, max_abs_err=worst, **t)
+                replaces="deepfilternet_tpu/ops/pallas_cell.py:640", **t)
 
 
 def whole_cell_work(weights, s, frames):
@@ -426,8 +516,8 @@ def whole_cell_work(weights, s, frames):
     set is stored at: 481 bins where the set holds 512 (`dft`, used twice,
     `erb_fwd`, `erb_inv`), 96 lanes where it holds 128 (the 16 channel blocks
     of `c0w_t*` and `c1_w`, the 10 of `df_out_w`), and `convp_co` on each of
-    the 96 DF bins. Bytes: the weights as stored, the audio in and out and the
-    carry in and out, each moved once."""
+    the 96 DF bins. Bytes: the weights as stored (float32 or bfloat16), the
+    audio in and out and the carry in and out (float32), each moved once."""
     from deepfilternet_torch.ops.whole_cell import BLK, CKEYS, FPAD, NFREQ
 
     nb_df = 96
@@ -452,15 +542,18 @@ def whole_cell_work(weights, s, frames):
 
     per_stream_frame = sum(macs(k, w) for k, w in weights.items())
     flops = 2 * s * per_stream_frame * frames
-    nbytes = 4 * (sum(w.numel() for w in weights.values())
-                  + 2 * s * frames * HOP + 2 * s * sum(d for _, d in CKEYS))
+    nbytes = (sum(w.numel() * w.element_size() for w in weights.values())
+              + 4 * (2 * s * frames * HOP + 2 * s * sum(d for _, d in CKEYS)))
     return flops, nbytes
 
 
 def time_whole_cell(dev, card, rt, s, frames):
     """K2's time for one call of `frames` frames at S streams beside its plain
-    version and the card's bound for the same work. No single PyTorch call
-    computes this function, so it has no library time."""
+    version and the card's bound for the same work, at the runtime's operand
+    type. No single PyTorch call computes this function, so it has no library
+    time. The bound of bfloat16 work takes its operations at the bfloat16
+    tensor-core rate; the bound at the float32 FMA rate the kernel uses is
+    printed beside it."""
     from deepfilternet_torch.ops.whole_cell import cell_process, cell_process_plain
     from deepfilternet_torch.streaming_whole_cell import carry_to_flat
 
@@ -486,19 +579,25 @@ def time_whole_cell(dev, card, rt, s, frames):
             times[k].append(time_ms(fn, iters=2))
     t = {k: float(np.median(v)) for k, v in times.items()}
     flops, nbytes = whole_cell_work(W, s, frames)
-    peak_flops, _, peak_bw = peaks(card)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    peak_flops, _, peak_bf16, peak_bw = peaks(card)
+    bf16 = W["dft"].dtype == torch.bfloat16
+    peak_type = peak_bf16 if bf16 else peak_flops
+    t_ops, t_bytes = flops / peak_type * 1e3, nbytes / peak_bw * 1e3
+    t_fma = flops / peak_flops * 1e3
     bound_ms = max(t_ops, t_bytes)
     rest = "".join(f", {k} {v / frames:.4f} ms" for k, v in t.items()
                    if k not in ("kernel", "plain"))
-    print(f"K2 S={s} x {frames} frames in one call on {card}, per frame: kernel (design "
-          f"{design_name(*own)}) {t['kernel'] / frames:.4f} ms, plain "
-          f"{t['plain'] / frames:.4f} ms{rest}, no single "
-          f"library call; bound {bound_ms / frames:.4f} ms ({flops / frames / 1e9:.3f} GFLOP at "
-          f"{peak_flops / 1e12:.1f} TFLOP/s float32 = {t_ops / frames:.4f} ms; "
-          f"{nbytes / 1e6:.2f} MB a call at {peak_bw / 1e12:.2f} TB/s = {t_bytes:.4f} ms a "
-          f"call); kernel at {bound_ms / t['kernel']:.1%} of the bound; per call: kernel "
-          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, bound {bound_ms:.3f} ms")
+    fma = (f"; at the float32 FMA rate the kernel uses {max(t_fma, t_bytes) / frames:.4f} ms, "
+           f"kernel at {max(t_fma, t_bytes) / t['kernel']:.1%} of it") if bf16 else ""
+    print(f"K2 S={s} x {frames} frames in one call, {dtype_name(W['dft'].dtype)} operands, on "
+          f"{card}, per frame: kernel (design {design_name(*own)}) {t['kernel'] / frames:.4f} ms, "
+          f"plain {t['plain'] / frames:.4f} ms{rest}, no single library call; bound "
+          f"{bound_ms / frames:.4f} ms ({flops / frames / 1e9:.3f} GFLOP at "
+          f"{peak_type / 1e12:.1f} TFLOP/s {'bfloat16 tensor cores' if bf16 else 'float32'} = "
+          f"{t_ops / frames:.4f} ms; {nbytes / 1e6:.2f} MB a call at {peak_bw / 1e12:.2f} TB/s = "
+          f"{t_bytes:.4f} ms a call); kernel at {bound_ms / t['kernel']:.1%} of the bound{fma}; "
+          f"per call: kernel {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, bound "
+          f"{bound_ms:.3f} ms")
     # where a frame's time goes: SM cycles of the kernel's first block per stage
     cell_process(x, carry, W, st)
     torch.cuda.synchronize()
@@ -539,7 +638,8 @@ def profile_frames(rt, audio, card):
     busy_us = sum(e.self_device_time_total for e in dev)
     ops = sum(e.count for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"main path profile, S={s}, {n} frames, profiler on, {card}: wall "
+    print(f"{'bfloat16 ' if getattr(rt, 'dtype', None) == torch.bfloat16 else ''}main path "
+          f"profile, S={s}, {n} frames, profiler on, {card}: wall "
           f"{wall_us / n:.1f} us/frame, device busy {busy_us / n:.1f} us/frame "
           f"({busy_us / wall_us:.1%}), {ops / n:.1f} device ops/frame; largest: "
           + "; ".join(f"{e.key[:48]} x{e.count // n} {e.self_device_time_total / n:.1f} us"
@@ -607,47 +707,96 @@ def main_path(card, model, df_state, suffix):
     return launches, audio, out, main_wall, cpu_model, cpu_state
 
 
+def scale_err(got, ref):
+    """Largest absolute difference over the reference's largest value."""
+    return float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+
+
+# Two bfloat16 runtimes drift apart as frames go by: the per-frame runtime
+# keeps its GRU states in bfloat16 (as the JAX package's does), and a rounding
+# flip in one carries on. Over these 200 frames the JAX package's own pairs
+# read 7.5e-2 (per-frame bfloat16 against float32) and 8.4e-2 (whole cell
+# against per-frame, both bfloat16) of the largest value, on the CPU
+# (`python tests/test_torch_reduced_precision.py`); the comparisons with the
+# per-frame bfloat16 runtime use the JAX tests' bound for such pairs.
+BF16_DRIFT_TOL = 0.1
+
+
 def whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio, per_frame_out,
-                    per_frame_wall):
-    """The whole-cell path: the same 64 x 2 s through
+                    per_frame_wall, dtype=torch.float32, f32_out=None):
+    """The whole-cell path at `dtype` operands: the same 64 x 2 s through
     WholeCellStreamingRuntime.process, one kernel launch for all frames.
-    Returns the kernel's launches in that call."""
+    Returns the kernel's launches in that call and its output (numpy).
+
+    float32: held against the per-frame runtime on the card at the JAX
+    tests' atol 2e-4 + rtol 1e-3, and the plain version on the CPU at 1e-4.
+    bfloat16 (the runtime's default): against the per-frame bfloat16 runtime
+    on the card at BF16_DRIFT_TOL of its largest value (the JAX tests' bound
+    for two bfloat16 runtimes that round differently inside the model: the
+    per-frame one keeps its GRU states in bfloat16, the whole cell in
+    float32), against
+    the float32 whole-cell output `f32_out` and the plain version on the CPU
+    at 0.05 (the JAX tests' bound for bfloat16 against float32 and for two
+    bfloat16 runs that sum in another order). Both: two calls equal one to
+    1e-5, then one frame a call."""
     from deepfilternet_torch.ops.whole_cell import cell_process as k2
     from deepfilternet_torch.streaming_whole_cell import WholeCellStreamingRuntime
 
-    rt = WholeCellStreamingRuntime(model, df_state)
+    bf16 = dtype == torch.bfloat16
+    kw = {} if bf16 else dict(matmul_dtype=torch.float32)  # bfloat16: the default
+    rt = WholeCellStreamingRuntime(model, df_state, **kw)
+    if rt.matmul_dtype != dtype:
+        fail(f"WholeCellStreamingRuntime runs {rt.matmul_dtype}, not {dtype}")
     s, n_frames = audio.shape[0], audio.shape[1] // HOP
     rt.process(rt.init(s), audio[:, : 5 * HOP])  # warm-up
     torch.cuda.synchronize()
 
-    k2.launches = k2.frames = 0
+    k2.launches = k2.bf16_launches = k2.frames = 0
     t0 = time.perf_counter()
     carry, out_dev = rt.process(rt.init(s), audio)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, frames = k2.launches, k2.frames
-    if launches != 1 or frames != n_frames:
-        fail(f"K2 launches {launches} (want 1), frames {frames} (want {n_frames})")
+    launches, frames, bf16_launches = k2.launches, k2.frames, k2.bf16_launches
+    if launches != 1 or frames != n_frames or bf16_launches != int(bf16):
+        fail(f"K2 launches {launches} (want 1), frames {frames} (want {n_frames}), of them "
+             f"bfloat16 {bf16_launches} (want {int(bf16)})")
     out = out_dev.cpu().numpy()
     if out.shape != audio.shape or not np.isfinite(out).all():
         fail(f"whole-cell output {out.shape} not finite / not {audio.shape}")
-    print(f"whole-cell path ({MODEL_DIR}): WholeCellStreamingRuntime.process S={s} x "
-          f"{SECONDS} s = {n_frames} frames, K2 launches {launches}, frames in them {frames}; "
+    print(f"whole-cell path ({MODEL_DIR}, {dtype_name(dtype)} operands): "
+          f"WholeCellStreamingRuntime.process S={s} x {SECONDS} s = {n_frames} frames, K2 "
+          f"launches {launches} ({bf16_launches} of the bfloat16 build), frames in them {frames}; "
           f"{wall:.3f} s wall, aggregate RTF {SECONDS * s / wall:.1f}x beside the per-frame "
           f"path's {per_frame_wall:.3f} s, {SECONDS * s / per_frame_wall:.1f}x, on {card} "
           "(information only)")
 
-    # against the per-frame runtime on the card, at the tolerance the JAX
-    # tests hold this pair to
-    excess = np.abs(out - per_frame_out) - (2e-4 + 1e-3 * np.abs(per_frame_out))
-    err = float(np.abs(out - per_frame_out).max())
-    if not excess.max() <= 0:
-        fail(f"whole-cell vs per-frame runtime: max abs err {err:.3e} beyond atol 2e-4 + rtol 1e-3")
-    cpu_rt = WholeCellStreamingRuntime(cpu_model, cpu_state, backend="plain")
+    cpu_rt = WholeCellStreamingRuntime(cpu_model, cpu_state, backend="plain", **kw)
     _, ref = cpu_rt.process(cpu_rt.init(4), audio[:4])
-    err_cpu = float(np.abs(out[:4] - ref.numpy()).max())
-    if not err_cpu <= 1e-4:
-        fail(f"whole-cell: 4 streams differ from the plain CPU run by {err_cpu:.3e} > 1e-4")
+    if bf16:
+        checks = [("the per-frame bfloat16 runtime on the card", scale_err(out, per_frame_out),
+                   BF16_DRIFT_TOL),
+                  ("the float32 whole-cell runtime on the card", scale_err(out, f32_out), 0.05),
+                  ("backend='plain' on the CPU, 4 streams", scale_err(out[:4], ref.numpy()),
+                   0.05)]
+        for name, e, tol in checks:
+            if not e <= tol:
+                fail(f"whole-cell bfloat16 vs {name}: {e:.3e} of its largest value > {tol}")
+        summary = "; ".join(f"vs {name}: {e:.3e} of its largest value (tol {tol})"
+                            for name, e, tol in checks)
+    else:
+        # against the per-frame runtime on the card, at the tolerance the JAX
+        # tests hold this pair to
+        err = float(np.abs(out - per_frame_out).max())
+        excess = np.abs(out - per_frame_out) - (2e-4 + 1e-3 * np.abs(per_frame_out))
+        if not excess.max() <= 0:
+            fail(f"whole-cell vs per-frame runtime: max abs err {err:.3e} beyond atol 2e-4 + "
+                 "rtol 1e-3")
+        err_cpu = float(np.abs(out[:4] - ref.numpy()).max())
+        if not err_cpu <= 1e-4:
+            fail(f"whole-cell: 4 streams differ from the plain CPU run by {err_cpu:.3e} > 1e-4")
+        summary = (f"vs the per-frame runtime on the card: max abs err {err:.3e} (atol 2e-4, "
+                   f"rtol 1e-3); vs backend='plain' on the CPU, 4 streams: {err_cpu:.3e} "
+                   "(tol 1e-4)")
     half = (n_frames // 2) * HOP
     c, o1 = rt.process(rt.init(s), audio[:, :half])
     c, o2 = rt.process(c, audio[:, half:])
@@ -667,13 +816,12 @@ def whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio, per_fram
         torch.cuda.synchronize()
         hops.append((time.perf_counter() - t0) * 1e3)
     hops = np.asarray(hops[10:])  # the first calls warm the allocator's cache
-    print(f"whole-cell runtime one frame a call, S={s}, 100 calls on {card}: median "
-          f"{np.median(hops):.3f} ms, worst {hops.max():.3f} ms a hop of 10 ms (host clock, "
-          "audio already on the host as numpy; information only)")
-    print(f"whole-cell vs the per-frame runtime on the card: max abs err {err:.3e} (atol 2e-4, "
-          f"rtol 1e-3); vs backend='plain' on the CPU, 4 streams: {err_cpu:.3e} (tol 1e-4); "
-          f"two calls of {n_frames // 2} frames vs one: {err_two:.3e} (tol 1e-5)")
-    return launches
+    print(f"whole-cell runtime ({dtype_name(dtype)}) one frame a call, S={s}, 100 calls on "
+          f"{card}: median {np.median(hops):.3f} ms, worst {hops.max():.3f} ms a hop of 10 ms "
+          "(host clock, audio already on the host as numpy; information only)")
+    print(f"whole-cell ({dtype_name(dtype)}) {summary}; two calls of {n_frames // 2} frames vs "
+          f"one: {err_two:.3e} (tol 1e-5)")
+    return launches, out
 
 
 # -- phase 5: the offline forward, the chunked runtime and the CLI -------------
@@ -797,6 +945,95 @@ def offline_and_chunked_path(card, model, df_state, cpu_model, cpu_state, audio,
     print("offline, chunked and CLI paths: K1 launches 0, K2 launches 0 (neither is on them)")
 
 
+# -- phase 6: reduced precision -----------------------------------------------
+
+
+def reduced_precision_path(dev, card, model, df_state, cpu_model, cpu_state, audio,
+                           per_frame_out, wc_f32_out):
+    """K2's bfloat16 build against its plain version and timed; then the
+    bfloat16 runtimes on the main path's 64 x 2 s. Returns K2 bfloat16's
+    entry of the kernels line."""
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.streaming import ChunkedStreamingRuntime, StreamingRuntime
+
+    bf16 = torch.bfloat16
+    worst, rt_b = check_whole_cell(dev, card, model, df_state, bf16)
+    k2b = time_whole_cell_all(dev, card, rt_b, " (bfloat16)")
+
+    # the per-frame runtime at bfloat16: K1 (float32) once a frame, the model
+    # in bfloat16
+    s, n_frames = audio.shape[0], audio.shape[1] // HOP
+    rt = StreamingRuntime(model, df_state, dtype=bf16)
+    rt.process(rt.init(s), audio[:, : 5 * HOP])  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = k2.bf16_launches = 0
+    t0 = time.perf_counter()
+    carry, out_dev = rt.process(rt.init(s), audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_launches = k1.launches
+    if k1_launches != n_frames or k2.launches:
+        fail(f"bfloat16 per-frame path: K1 launches {k1_launches} (want {n_frames}), K2 "
+             f"{k2.launches} (want 0)")
+    out = out_dev.cpu().numpy()
+    if out.shape != audio.shape or out_dev.dtype != torch.float32 or not np.isfinite(out).all():
+        fail(f"bfloat16 per-frame output {out.shape} {out_dev.dtype} malformed")
+    kinds = {f: str(getattr(carry.model, f).dtype) for f in carry.model._fields}
+    if any((t != "torch.float32") if "ring" in f else (t != "torch.bfloat16")
+           for f, t in kinds.items()):
+        fail(f"bfloat16 per-frame carry types {kinds}")
+    profile_frames(rt, audio[:, : 20 * HOP], card)
+    cpu_rt = StreamingRuntime(cpu_model, cpu_state, dtype=bf16)
+    _, ref = cpu_rt.process(cpu_rt.init(4), audio[:4])
+    # 0.05: the JAX tests' bound for two bfloat16 runs that sum in another
+    # order; BF16_DRIFT_TOL: their bound for a bfloat16 runtime against float32
+    e_cpu, e_f32 = scale_err(out[:4], ref.numpy()), scale_err(out, per_frame_out)
+    if not (e_cpu <= 0.05 and e_f32 <= BF16_DRIFT_TOL):
+        fail(f"bfloat16 per-frame path: vs CPU {e_cpu:.3e} (tol 0.05), vs float32 {e_f32:.3e} "
+             f"(tol {BF16_DRIFT_TOL}) of the largest value")
+    print(f"bfloat16 per-frame path: StreamingRuntime(dtype=bfloat16).process S={s} x "
+          f"{SECONDS} s = {n_frames} frames, K1 launches {k1_launches}; {wall:.3f} s wall, "
+          f"aggregate RTF {SECONDS * s / wall:.1f}x on {card} (information only); vs the same 4 "
+          f"streams on the CPU {e_cpu:.3e} of the largest value (tol 0.05), vs the float32 run "
+          f"{e_f32:.3e} (tol {BF16_DRIFT_TOL})")
+
+    crt = ChunkedStreamingRuntime(model, df_state, dtype=bf16)
+    crt.process(crt.init(s), audio[:, : 20 * HOP])  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    _, c_dev = crt.process(crt.init(s), audio)
+    torch.cuda.synchronize()
+    c_wall = time.perf_counter() - t0
+    if k1.launches or k2.launches:
+        fail(f"bfloat16 chunked path launched K1 {k1.launches}, K2 {k2.launches} times")
+    c_out = c_dev.cpu().numpy()
+    e_pf, e_f32 = scale_err(c_out, out), scale_err(c_out, per_frame_out)
+    if not (np.isfinite(c_out).all() and e_pf <= BF16_DRIFT_TOL and e_f32 <= BF16_DRIFT_TOL):
+        fail(f"bfloat16 chunked path: vs per-frame bfloat16 {e_pf:.3e}, vs float32 {e_f32:.3e} "
+             f"(tol {BF16_DRIFT_TOL})")
+    print(f"bfloat16 chunked runtime S={s} x {SECONDS} s in chunks of {crt.chunk_frames}: "
+          f"{c_wall:.3f} s wall, aggregate RTF {SECONDS * s / c_wall:.1f}x (information only); "
+          f"vs the per-frame bfloat16 run {e_pf:.3e}, vs the float32 run {e_f32:.3e} of the "
+          f"largest value (tol {BF16_DRIFT_TOL}, the JAX tests' own); K1 and K2 launches 0")
+
+    # out_dtype only casts the output: the float32 runtime's first 20 frames
+    short = audio[:, : 20 * HOP]
+    o_rt, f_rt = StreamingRuntime(model, df_state, out_dtype=bf16), StreamingRuntime(model, df_state)
+    _, o_b = o_rt.process(o_rt.init(s), short)
+    _, o_f = f_rt.process(f_rt.init(s), short)
+    if o_b.dtype != bf16 or not torch.equal(o_b, o_f.to(bf16)):
+        fail("out_dtype=bfloat16 is not the float32 output cast")
+    print("StreamingRuntime(out_dtype=bfloat16): bfloat16 output, equal to the float32 "
+          "output cast, 20 frames")
+
+    k2b["launches"], _ = whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio,
+                                         out, wall, bf16, wc_f32_out)
+    k2b["max_abs_err"] = worst
+    return k2b
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -805,6 +1042,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -812,7 +1050,8 @@ def main():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; TF32 off "
-          "(torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False)")
+          "(torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False), "
+          "bfloat16 products sum in float32 (allow_bf16_reduced_precision_reduction = False)")
     print(smi)
 
     t0 = time.perf_counter()
@@ -830,17 +1069,22 @@ def main():
     if model.device.type != "cuda":
         fail(f"init_df() put the model on {model.device}")
     k1 = check_frontend(dev, card)
-    k2 = check_whole_cell(dev, card, model, df_state)
+    worst, rt32 = check_whole_cell(dev, card, model, df_state, torch.float32)
+    k2 = dict(time_whole_cell_all(dev, card, rt32, ""), max_abs_err=worst)
     k1["launches"], audio, out, wall, cpu_model, cpu_state = main_path(
         card, model, df_state, suffix)
-    k2["launches"] = whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio, out,
-                                     wall)
+    k2["launches"], wc_out = whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio,
+                                             out, wall)
     t0 = time.perf_counter()
     offline_and_chunked_path(card, model, df_state, cpu_model, cpu_state, audio, out)
     print(f"phase 5 (offline, chunked, CLI): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    k2b = reduced_precision_path(dev, card, model, df_state, cpu_model, cpu_state, audio, out,
+                                 wc_out)
+    print(f"phase 6 (reduced precision): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k2b]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -56,14 +56,28 @@
 //     stored;
 //   * thread 0 of block 0 adds up its cycles in each phase and at the
 //     barriers (stage_clocks), so a run can say where a frame's time goes.
-// Tensor cores (bf16 operands, wgmma) change results beyond the float32
-// tolerance and belong to the reduced-precision runtime.
+//
+// Two builds of the kernel, by the weights' type (the TPU kernel's mdtype):
+// float32, and bfloat16, the JAX package's default. The bfloat16 build reads
+// the packed weights, biases and small vectors as bfloat16 (imult and convp_b
+// stay float32), so a unit's K-chunk moves half the weight bytes through the
+// ring; it rounds a product's input to bfloat16 as it leaves shared memory
+// (unless trunk products wrote it, rounded already), multiplies the widened
+// values in float32 FMAs (a product of two
+// bfloat16 values is exact in float32), and rounds each result where the
+// plain version's `mm` rounds (the plan's Rnd field; df_conv0's three window
+// products each rounded before they are added). Gates, norms, the DF MAC, the
+// runtime stages and the carry stay float32. Tensor cores (mma.sync or wgmma
+// on bfloat16) are later work.
 //
 // Measured times and the card they were taken on: PERF.md, kernel table.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -102,22 +116,30 @@ enum Lay { L_BUF, L_SPEC, L_POW, L_ERBWIN, L_FSWIN, L_E0, L_E1, L_E2, L_E3, L_C0
 // the plan table: header, scratch offsets, carry segments, phases, jobs
 enum Hdr { H_PHASES, H_JOBS, H_TILES, H_FRAME_PHASES, H_PRE, H_SEGS, H_LAY, H_SCR, HEADER_INTS };
 enum JobField { J_TYPE, J_BEGIN, J_UNITS, J_XOFF, J_K, J_W, J_NCAT, J_CSTRIDE, J_CW, J_SLICES,
-                J_BIAS, J_ACT, J_ADD, J_Y, J_YRAW, J_EP, J_H, J_GH, J_KG, J_AUX, JOB_INTS };
-// J_W: the weight's offset in wpack; J_CSTRIDE: columns between the groups in
-// the unpacked weight (the host's bookkeeping); J_AUX: chunks (elementwise),
-// columns of a thread's register tile (product)
+                J_BIAS, J_ACT, J_ADD, J_Y, J_YRAW, J_EP, J_H, J_GH, J_KG, J_AUX, J_RND, J_KSEG,
+                J_XRND, JOB_INTS };
+// J_W: the weight's offset in wpack, in elements; J_CSTRIDE: columns between
+// the groups in the unpacked weight (the host's bookkeeping); J_AUX: chunks
+// (elementwise), columns of a thread's register tile (product); J_RND, J_KSEG:
+// where the bfloat16 build rounds the result (Rnd), and the K rows of each
+// input segment whose product it rounds before adding (0: one sum); J_XRND:
+// whether it rounds the input (0 where trunk products wrote all of it)
 constexpr int PHASE_INTS = 3;  // first job, jobs, units
 enum JobType { T_GEMM, T_CARRY_IN, T_FRAME0, T_ADVANCE, T_LSNR, T_CARRY_OUT };
 enum Epilogue { EP_STD, EP_SPEC, EP_ERBNORM, EP_GRU, EP_TAIL, EP_OLA };
 enum Act { ACT_NONE, ACT_RELU, ACT_SIGMOID, ACT_TANH };
+// never (float32 result); the sum only (the bias then added in float32); the
+// sum, the bias add and the addend add (the model trunk)
+enum Rnd { R_F32, R_SUM, R_TRUNK };
 
 struct Params {
   const float* audio;  // [S, T]
   float* out;          // [S, T]
   const float* cin[N_CKEYS];
   float* cout[N_CKEYS];
-  const float* w[N_WKEYS];      // WKEYS order (biases and the small vectors are read here)
-  const float* wpack;           // every product's weight, packed by unit slice
+  const void* w[N_WKEYS];       // WKEYS order (biases and the small vectors are read here);
+                                // the weights' type but imult and convp_b, float32
+  const void* wpack;            // every product's weight, packed by unit slice
   float* scratch;               // [tiles, SCR, RT]
   const int* table;
   int table_ints;
@@ -130,6 +152,22 @@ struct Params {
 };
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+template <typename WT>
+constexpr bool kBf16 = std::is_same<WT, __nv_bfloat16>::value;
+
+// x rounded to bfloat16 (to nearest, ties to even), as a float
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// element i of a weight vector, widened to float
+__device__ __forceinline__ float wget(const float* p, int i) { return __ldg(p + i); }
+__device__ __forceinline__ float wget(const __nv_bfloat16* p, int i) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p) + i) << 16);
+}
+// two bfloat16 in one 32-bit word, widened: the lower half is element 0
+__device__ __forceinline__ float bf_lo(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
 
 __device__ __forceinline__ float act_apply(float v, int act) {
   switch (act) {
@@ -199,6 +237,7 @@ __device__ __forceinline__ void grid_barrier(unsigned int* ctr, unsigned int& ta
   __syncthreads();
 }
 
+template <typename WT>
 struct Ctx {
   const Params& p;
   const int* tab;      // the plan, in shared memory
@@ -213,10 +252,12 @@ struct Ctx {
 // One unit of a product: tile `tile` of stream rows, column slice `slice`.
 // A thread owns 8 rows x MC columns of the tile (MC = 8 where the slice is
 // wide enough: one byte of shared memory read per multiply-add, which is what
-// the multiprocessor can feed; MC = 2 for narrow slices).
-template <int MC>
-__device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile, int slice,
+// the multiprocessor can feed; MC = 2 for narrow slices). WT: the weights'
+// type.
+template <int MC, typename WT>
+__device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int tile, int slice,
                           int f) {
+  constexpr bool BF = kBf16<WT>;
   const Params& p = c.p;
   const int tid = threadIdx.x;
   const int SCR = c.tab[H_SCR];
@@ -232,6 +273,10 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
   float* red = c.smem + NSTG * STAGE_FLOATS;
 
   const int n_chunks = (K + KC - 1) / KC;
+  // bfloat16: chunks of each input segment whose product is rounded on its
+  // own; whether the input needs rounding
+  const int seg_chunks = BF && J[J_KSEG] > 0 ? J[J_KSEG] / KC : 0;
+  const bool round_x = BF && J[J_XRND] != 0;
 
   // Fill number q of the ring (counted over the whole launch, the same in
   // every thread) goes to stage q % NSTG; it is that stage's (q / NSTG)-th use.
@@ -241,7 +286,8 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
     // packed contiguously ([slice][K][columns]). It runs ahead of the compute
     // warps by the depth of the ring, into the block's next unit too.
     if (tid == THREADS) {
-      const float* wsl = p.wpack + (size_t)J[J_W] + (size_t)slice * K * cnt;
+      const WT* wsl =
+          static_cast<const WT*>(p.wpack) + (size_t)J[J_W] + (size_t)slice * K * cnt;
       for (int o = 0; o < n_chunks; ++o) {
         const unsigned q = fills + o;
         const int st = q % NSTG;
@@ -253,10 +299,11 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
         // the stage was last read by ordinary loads: order them before the
         // copy engine's writes
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        mbar_expect(c.full + st, (unsigned)(len * (RT + cnt) * sizeof(float)));
+        mbar_expect(c.full + st, (unsigned)(len * (RT * sizeof(float) + cnt * sizeof(WT))));
         bulk_copy(xs, sct + (size_t)(x_off + k0) * RT, (unsigned)(len * RT * sizeof(float)),
                   c.full + st);
-        bulk_copy(xs + KC * RT, wsl + (size_t)k0 * cnt, (unsigned)(len * cnt * sizeof(float)),
+        // len is a multiple of 32 and cnt of 4: at least 256 bytes, 16-byte aligned
+        bulk_copy(xs + KC * RT, wsl + (size_t)k0 * cnt, (unsigned)(len * cnt * sizeof(WT)),
                   c.full + st);
       }
     }
@@ -269,23 +316,55 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
   for (int j = 0; j < MC; ++j)
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
+  // K-group partial sums -> red[kg][col][row]
+  auto partials_to_red = [&]() {
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < MC; ++j) {
+        float* r = red + (size_t)((kgi * cnt + cg * MC + j) * RT) + rg * 4;
+        *reinterpret_cast<float4*>(r) = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        *reinterpret_cast<float4*>(r + 32) =
+            make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
+      }
+    }
+    compute_sync();
+  };
+  // bfloat16, segmented K: each thread keeps a running rounded total of its
+  // share of the tile's outputs (i = tid + m * THREADS)
+  constexpr int TOT = BF ? MAX_CNT * RT / THREADS : 1;
+  float tot[TOT];
   for (int o = 0; o < n_chunks; ++o) {
     const unsigned q = fills + o;
     const int st = q % NSTG;
     mbar_wait(c.full + st, (q / NSTG) & 1u);
-    if (active) {
+    // the chunk's products; ROUND: the input is rounded to the operand type
+    // here (an input that a trunk product wrote is in it already)
+    auto mac_chunk = [&](auto round) {
       const float* xs = c.smem + st * STAGE_FLOATS;
-      const float* ws = xs + KC * RT;
+      const WT* ws = reinterpret_cast<const WT*>(xs + KC * RT);
       const int kper = min(KC, K - o * KC) / kg_n;
       const float* xp = xs + kgi * kper * RT + rg * 4;
-      const float* wq = ws + kgi * kper * cnt + cg * MC;
+      const WT* wq = ws + kgi * kper * cnt + cg * MC;
 #pragma unroll 2
       for (int kk = 0; kk < kper; ++kk) {
         const float4 xa = *reinterpret_cast<const float4*>(xp + kk * RT);
         const float4 xb = *reinterpret_cast<const float4*>(xp + kk * RT + 32);
-        const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+        float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
         float wv[MC];
-        if constexpr (MC == 8) {
+        if constexpr (BF) {
+          if constexpr (decltype(round)::value) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) xv[i] = bf16r(xv[i]);
+          }
+          if constexpr (MC == 8) {
+            const uint4 w8 = *reinterpret_cast<const uint4*>(wq + kk * cnt);
+            wv[0] = bf_lo(w8.x); wv[1] = bf_hi(w8.x); wv[2] = bf_lo(w8.y); wv[3] = bf_hi(w8.y);
+            wv[4] = bf_lo(w8.z); wv[5] = bf_hi(w8.z); wv[6] = bf_lo(w8.w); wv[7] = bf_hi(w8.w);
+          } else {
+            const unsigned w2 = *reinterpret_cast<const unsigned*>(wq + kk * cnt);
+            wv[0] = bf_lo(w2); wv[1] = bf_hi(w2);
+          }
+        } else if constexpr (MC == 8) {
           const float4 wa = *reinterpret_cast<const float4*>(wq + kk * cnt);
           const float4 wb = *reinterpret_cast<const float4*>(wq + kk * cnt + 4);
           wv[0] = wa.x; wv[1] = wa.y; wv[2] = wa.z; wv[3] = wa.w;
@@ -299,33 +378,56 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
 #pragma unroll
           for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(xv[i], wv[j], acc[j][i]);
       }
+    };
+    if (active) {
+      if (round_x) mac_chunk(std::true_type{});
+      else mac_chunk(std::false_type{});
     }
     __syncwarp();
     if ((tid & 31) == 0) mbar_arrive(c.empty + st);  // this warp is done with the stage
+    if (seg_chunks > 0 && (o + 1) % seg_chunks == 0) {
+      // a segment ends: its sum rounded, added to the rounded total and
+      // rounded again; after the last, the total is the unit's tile
+      partials_to_red();
+      const bool first = o + 1 == seg_chunks, last = o + 1 == n_chunks;
+#pragma unroll
+      for (int m = 0; m < TOT; ++m) {
+        const int i = tid + m * THREADS;
+        if (i < cnt * RT) {
+          float v = red[i];
+          for (int g = 1; g < kg_n; ++g) v += red[g * cnt * RT + i];
+          v = bf16r(v);
+          tot[m] = first ? v : bf16r(tot[m] + v);
+          if (last) red[i] = tot[m];
+        }
+      }
+      compute_sync();
+#pragma unroll
+      for (int j = 0; j < MC; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
+    }
   }
   fills += n_chunks;
-  // K-group partial sums -> red[kg][col][row]; added in group order
-  if (active) {
-#pragma unroll
-    for (int j = 0; j < MC; ++j) {
-      float* r = red + (size_t)((kgi * cnt + cg * MC + j) * RT) + rg * 4;
-      *reinterpret_cast<float4*>(r) = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-      *reinterpret_cast<float4*>(r + 32) = make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
+  if (seg_chunks == 0) {  // the K groups' partial sums added in group order
+    partials_to_red();
+    if (kg_n > 1) {
+      for (int i = tid; i < cnt * RT; i += THREADS) {
+        float v = red[i];
+        for (int g = 1; g < kg_n; ++g) v += red[g * cnt * RT + i];
+        red[i] = v;
+      }
+      compute_sync();
     }
-  }
-  compute_sync();
-  if (kg_n > 1) {
-    for (int i = tid; i < cnt * RT; i += THREADS) {
-      float v = red[i];
-      for (int g = 1; g < kg_n; ++g) v += red[g * cnt * RT + i];
-      red[i] = v;
-    }
-    compute_sync();
   }
 
-  // ---- epilogue on the unit's finished tile red[col][row]
+  // ---- epilogue on the unit's finished tile red[col][row]; the bfloat16
+  // build rounds where the job says (Rnd), the float32 build never
+  const int rnd = BF ? J[J_RND] : R_F32;
+  auto r_sum = [&](float v) { return rnd != R_F32 ? bf16r(v) : v; };
+  auto r_trunk = [&](float v) { return rnd == R_TRUNK ? bf16r(v) : v; };
   const int row0 = tile * RT;
-  const float* bias = J[J_BIAS] >= 0 ? p.w[J[J_BIAS]] : nullptr;
+  const WT* bias = J[J_BIAS] >= 0 ? static_cast<const WT*>(p.w[J[J_BIAS]]) : nullptr;
   const int* L = c.lay;
   switch (J[J_EP]) {
     case EP_STD: {
@@ -340,7 +442,8 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
           const int i = i0 + u * THREADS;
           if (i >= cnt * RT) break;
           const int col = col0 + i / RT, r = i % RT;
-          v[u] = red[i] + (bias ? __ldg(bias + col) : 0.f);
+          v[u] = r_sum(red[i]);
+          if (bias) v[u] = r_trunk(v[u] + wget(bias, col));
           ad[u] = add >= 0 ? __ldcg(sct + (size_t)(add + col) * RT + r) : 0.f;
         }
 #pragma unroll
@@ -350,7 +453,7 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
           const int col = col0 + i / RT, r = i % RT;
           const float a = act_apply(v[u], act);
           if (yraw >= 0) sct[(size_t)(yraw + col) * RT + r] = a;
-          sct[(size_t)(y + col) * RT + r] = a + ad[u];
+          sct[(size_t)(y + col) * RT + r] = add >= 0 ? r_trunk(a + ad[u]) : a;
         }
       }
       break;
@@ -406,9 +509,10 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
           if (i >= cw * RT) break;
           const int j = i / RT, r = i % RT;
           const int col = col0 + j;
-          const float gi_r = red[j * RT + r] + __ldg(bias + col);
-          const float gi_z = red[(cw + j) * RT + r] + __ldg(bias + HID + col);
-          const float gi_n = red[(2 * cw + j) * RT + r] + __ldg(bias + 2 * HID + col);
+          const float gi_r = r_trunk(r_sum(red[j * RT + r]) + wget(bias, col));
+          const float gi_z = r_trunk(r_sum(red[(cw + j) * RT + r]) + wget(bias, HID + col));
+          const float gi_n =
+              r_trunk(r_sum(red[(2 * cw + j) * RT + r]) + wget(bias, 2 * HID + col));
           const float rgate = sigmoidf_(gi_r + gh_r[u]);
           const float zg = sigmoidf_(gi_z + gh_z[u]);
           const float ng = tanhf(gi_n + rgate * gh_n[u]);
@@ -493,7 +597,7 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
         if (__ldcg(S_(L[L_MUTE])) != 0.f) {  // the mute comes last, after atten-lim
           se_re = 0.f; se_im = 0.f;
         }
-        const float sc_k = __ldg(p.w[W_IMULT] + k);
+        const float sc_k = __ldg(static_cast<const float*>(p.w[W_IMULT]) + k);
         *S_(L[L_SE] + k) = se_re * sc_k;
         *S_(L[L_SE] + FPAD + k) = se_im * sc_k;
       }
@@ -518,7 +622,9 @@ __device__ void gemm_unit(const Ctx& c, unsigned& fills, const int* J, int tile,
 // Audio frame f into buf's second half (after moving the last frame to the
 // first half and advancing the conv windows, when `shift`), and, in chunk 0,
 // that frame's RMS silence counter and mute flag.
-__device__ void frame_in_unit(const Ctx& c, int tile, int chunk, int chunks, int f, bool shift) {
+template <typename WT>
+__device__ void frame_in_unit(const Ctx<WT>& c, int tile, int chunk, int chunks, int f,
+                              bool shift) {
   const Params& p = c.p;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid >= THREADS) return;
@@ -564,23 +670,27 @@ __device__ void frame_in_unit(const Ctx& c, int tile, int chunk, int chunks, int
   }
 }
 
-__device__ void lsnr_unit(const Ctx& c, int tile) {
+template <typename WT>
+__device__ void lsnr_unit(const Ctx<WT>& c, int tile) {
   const Params& p = c.p;
   const int r = threadIdx.x;
   if (r >= RT) return;
   const int* L = c.lay;
   float* sct = p.scratch + (size_t)tile * c.tab[H_SCR] * RT;
-  float a = 0.f;
+  const WT* w = static_cast<const WT*>(p.w[W_LSNR_W]);
+  float a = 0.f;  // emb2 is a trunk activation: already in the operand type
 #pragma unroll 8
   for (int k = 0; k < 128; ++k)
-    a = fmaf(__ldcg(sct + (size_t)(L[L_EMB2] + k) * RT + r), __ldg(p.w[W_LSNR_W] + k), a);
+    a = fmaf(__ldcg(sct + (size_t)(L[L_EMB2] + k) * RT + r), wget(w, k), a);
   sct[(size_t)L[L_LSNR] * RT + r] =
-      sigmoidf_(a + __ldg(p.w[W_LSNR_B])) * (p.lsnr_max - p.lsnr_min) + p.lsnr_min;
+      sigmoidf_(a + wget(static_cast<const WT*>(p.w[W_LSNR_B]), 0)) * (p.lsnr_max - p.lsnr_min) +
+      p.lsnr_min;
 }
 
 // carry <-> scratch state, by the plan's segments; `store`: scratch -> carry,
 // valid rows only
-__device__ void carry_unit(const Ctx& c, int tile, int chunk, int chunks, bool store) {
+template <typename WT>
+__device__ void carry_unit(const Ctx<WT>& c, int tile, int chunk, int chunks, bool store) {
   const Params& p = c.p;
   const int tid = threadIdx.x;
   if (tid >= THREADS) return;
@@ -608,6 +718,7 @@ __device__ void carry_unit(const Ctx& c, int tile, int chunk, int chunks, bool s
   }
 }
 
+template <typename WT>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Params p) {
   extern __shared__ __align__(128) float smem[];
   __shared__ int tab[TAB_MAX];
@@ -624,10 +735,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Para
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::);
   }
   for (int i = tid; i < p.table_ints; i += THREADS) tab[i] = p.table[i];
-  for (int i = tid; i < CH * ORDER * 2; i += THREADS) sm_co[i] = p.w[W_CONVP_CO][i];
-  if (tid < ORDER * 2) sm_cb[tid] = p.w[W_CONVP_B][tid];
+  for (int i = tid; i < CH * ORDER * 2; i += THREADS)
+    sm_co[i] = wget(static_cast<const WT*>(p.w[W_CONVP_CO]), i);
+  if (tid < ORDER * 2) sm_cb[tid] = static_cast<const float*>(p.w[W_CONVP_B])[tid];
   __syncthreads();
-  const Ctx c{p, tab, tab + HEADER_INTS, smem, full, empty, sm_co, sm_cb};
+  const Ctx<WT> c{p, tab, tab + HEADER_INTS, smem, full, empty, sm_co, sm_cb};
   unsigned fills = 0;  // ring fills so far, the same in every thread
   const int tiles = tab[H_TILES], n_pre = tab[H_PRE], n_fp = tab[H_FRAME_PHASES];
   const int* phases = tab + HEADER_INTS + tab[H_LAY] + 4 * tab[H_SEGS];
@@ -642,8 +754,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Para
       const int tile = local % tiles, part = local / tiles;
       switch (J[J_TYPE]) {
         case T_GEMM:
-          if (J[J_AUX] == 8) gemm_unit<8>(c, fills, J, tile, part, f);
-          else gemm_unit<2>(c, fills, J, tile, part, f);
+          if (J[J_AUX] == 8) gemm_unit<8, WT>(c, fills, J, tile, part, f);
+          else gemm_unit<2, WT>(c, fills, J, tile, part, f);
           break;
         case T_CARRY_IN: carry_unit(c, tile, part, J[J_AUX], false); break;
         case T_FRAME0: frame_in_unit(c, tile, part, J[J_AUX], 0, false); break;
@@ -685,10 +797,33 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Para
 // Threads a block, which the plan's K groups are sized for.
 extern "C" int dfn_whole_cell_threads() { return THREADS; }
 
+template <typename WT>
+cudaError_t launch(Params& p, int n_blocks, cudaStream_t stream) {
+  int dev = 0, coop = 0, per_sm = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaFuncSetAttribute(whole_cell_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, whole_cell_kernel<WT>,
+                                                      BLOCK_THREADS, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  if (n_blocks > per_sm * n_sm) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)whole_cell_kernel<WT>, dim3((unsigned)n_blocks),
+                                    dim3(BLOCK_THREADS), args, SMEM_BYTES, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // Launches the kernel cooperatively on `stream` with n_blocks blocks (at most
 // one per multiprocessor) for audio [S, n_frames * 480]. carry_in, carry_out
-// (11 device pointers, CKEYS order), weights (n_weights device pointers: WKEYS
-// order, then the transposed dft [1024, 960]) and scalars (alpha, 1 - alpha,
+// (11 device pointers, CKEYS order), weights (n_weights device pointers, WKEYS
+// order: bfloat16 but imult and convp_b when `bf16`, else all float32), wpack
+// (the packed product weights, of the same type) and scalars (alpha, 1 - alpha,
 // lsnr_min, lsnr_max, pf_beta, silence_thresh, atten_lim, gate_min,
 // gate_max_erb, gate_max_df) are host arrays. table: the plan
 // (ops/whole_cell_plan.py), table_ints int32 on the device. scratch:
@@ -698,10 +833,10 @@ extern "C" int dfn_whole_cell_threads() { return THREADS; }
 // if the card cannot hold the grid.
 extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* carry_in,
                               void* const* carry_out, const void* const* weights, int n_weights,
-                              const void* wpack, void* scratch, const void* table, int table_ints, void* barrier,
-                              void* stage_clocks, int S, int n_frames, int n_blocks,
+                              const void* wpack, void* scratch, const void* table, int table_ints,
+                              void* barrier, void* stage_clocks, int S, int n_frames, int n_blocks,
                               const float* scalars, int mask_pf, int lsnr_gating,
-                              int silence_frames, void* stream) {
+                              int silence_frames, int bf16, void* stream) {
   if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1 || table_ints > TAB_MAX)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -711,8 +846,8 @@ extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* c
     p.cin[i] = static_cast<const float*>(carry_in[i]);
     p.cout[i] = static_cast<float*>(carry_out[i]);
   }
-  for (int i = 0; i < N_WKEYS; ++i) p.w[i] = static_cast<const float*>(weights[i]);
-  p.wpack = static_cast<const float*>(wpack);
+  for (int i = 0; i < N_WKEYS; ++i) p.w[i] = weights[i];
+  p.wpack = wpack;
   p.scratch = static_cast<float*>(scratch);
   p.table = static_cast<const int*>(table);
   p.table_ints = table_ints;
@@ -726,23 +861,6 @@ extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* c
   p.gate_min = scalars[7]; p.gate_max_erb = scalars[8]; p.gate_max_df = scalars[9];
   p.mask_pf = mask_pf; p.lsnr_gating = lsnr_gating; p.silence_frames = silence_frames;
 
-  int dev = 0, coop = 0, per_sm = 0, n_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaFuncSetAttribute(whole_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, whole_cell_kernel, BLOCK_THREADS,
-                                                      SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  if (n_blocks > per_sm * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)whole_cell_kernel, dim3((unsigned)n_blocks),
-                                    dim3(BLOCK_THREADS), args, SMEM_BYTES,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? launch<__nv_bfloat16>(p, n_blocks, st) : launch<float>(p, n_blocks, st));
 }

@@ -50,10 +50,24 @@
 //   * thread 0 of block 0 adds up the SM cycles of each stage of the frame
 //     (stage_clocks), so a run can say where a frame's time goes.
 //
+// Two builds of each tile size, by the weights' type (the TPU kernel's
+// mdtype): float32, and bfloat16, the JAX package's default. The bfloat16
+// build reads every weight, bias and small vector as bfloat16 (imult and
+// convp_b stay float32), which halves the weight stream; it rounds each
+// product's input to bfloat16 as it stages it in shared memory, multiplies the
+// widened values in float32 FMAs (a product of two bfloat16 values is exact
+// in float32), and rounds each result where the plain version's `mm` rounds
+// (Rnd; df_conv0's three window products each rounded before they are
+// added). Gates, norms, the DF MAC, the runtime stages and the carry stay
+// float32.
+//
 // Measured times and the card they were taken on: PERF.md, kernel table.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -133,6 +147,10 @@ static_assert(SCR % 4 == 0 && O_FSWIN % 4 == 0 && O_MASK % 4 == 0 && O_MEAN % 4 
               "scratch offsets must keep 16-byte alignment");
 
 enum Act { ACT_NONE, ACT_RELU, ACT_SIGMOID, ACT_TANH };
+// where the bfloat16 build rounds a product's result: never (float32); the sum
+// only (the bias then added in float32: h @ w_hh, whose bias joins the GRU
+// gates); the sum, the bias add and the addend add (the model trunk)
+enum Rnd { R_F32, R_SUM, R_TRUNK };
 
 // stages of a frame whose SM cycles block 0 adds up (see Params::stage_clocks)
 enum Stage { ST_FRAME_IN, ST_ANALYSIS, ST_FEATURES, ST_ERB_CONVS, ST_DF_CONV0, ST_DF_CONV1,
@@ -144,7 +162,7 @@ struct Params {
   float* out;          // [S, T]
   const float* cin[N_CKEYS];
   float* cout[N_CKEYS];
-  const float* w[N_WKEYS];
+  const void* w[N_WKEYS];  // the weights' type but imult and convp_b, float32
   float* scratch;      // [gridDim.x, R, SCR]
   long long* stage_clocks;  // [N_STAGES] SM cycles of block 0 per stage, over the call
   int S, n_frames;
@@ -154,6 +172,34 @@ struct Params {
 };
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+template <typename WT>
+constexpr bool kBf16 = std::is_same<WT, __nv_bfloat16>::value;
+
+// x rounded to bfloat16 (to nearest, ties to even), as a float
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// a product's input as the build multiplies it
+template <typename WT>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (kBf16<WT>) return bf16r(x);
+  return x;
+}
+// element i of a weight vector, widened to float
+__device__ __forceinline__ float wget(const float* p, int i) { return __ldg(p + i); }
+__device__ __forceinline__ float wget(const __nv_bfloat16* p, int i) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p) + i) << 16);
+}
+// 4 neighbouring weights, widened (16 bytes of float32 or 8 of bfloat16)
+__device__ __forceinline__ float4 wget4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 wget4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
 
 __device__ __forceinline__ float act_apply(float v, int act) {
   switch (act) {
@@ -168,14 +214,13 @@ __device__ __forceinline__ float act_apply(float v, int act) {
 // segment. xs: staged x, [K][R]; w: this thread's 4 columns of row 0. The
 // weight rows come in batches of U 16-byte loads, the next batch in flight
 // while the current one is multiplied.
-template <int R>
+template <int R, typename WT>
 __device__ __forceinline__ void fma_rows(float (&acc)[R][4], const float* __restrict__ xs,
-                                         const float* __restrict__ w, int ldw, int k0, int k1) {
+                                         const WT* __restrict__ w, int ldw, int k0, int k1) {
   constexpr int U = UNROLL;
   auto load = [&](float4 (&wv)[U], int k) {
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-      wv[u] = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k + u) * ldw));
+    for (int u = 0; u < U; ++u) wv[u] = wget4(w + (size_t)(k + u) * ldw);
   };
   auto mac = [&](const float4 (&wv)[U], int k) {
 #pragma unroll
@@ -207,7 +252,7 @@ __device__ __forceinline__ void fma_rows(float (&acc)[R][4], const float* __rest
   }
   if (b < nb) mac(wa, k0 + b * U);
   for (int k = k0 + nb * U; k < k1; ++k) {
-    const float4 wv = __ldg(reinterpret_cast<const float4*>(w + (size_t)k * ldw));
+    const float4 wv = wget4(w + (size_t)k * ldw);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float xr = xs[k * R + r];
@@ -219,18 +264,27 @@ __device__ __forceinline__ void fma_rows(float (&acc)[R][4], const float* __rest
   }
 }
 
-// One row's 4 finished columns: bias, activation, addend, store.
-__device__ __forceinline__ void finish4(float4 v, int col, const float* __restrict__ bias,
-                                        int act, const float* addend_row, float* y_row) {
+// One row's 4 finished columns: bias, activation, addend, store; the
+// bfloat16 build rounds where `rnd` says.
+template <typename WT>
+__device__ __forceinline__ void finish4(float4 v, int col, const WT* __restrict__ bias, int act,
+                                        int rnd, const float* addend_row, float* y_row) {
+  auto r = [&](float4 a, bool on) {
+    return on ? make_float4(bf16r(a.x), bf16r(a.y), bf16r(a.z), bf16r(a.w)) : a;
+  };
+  const bool bf = kBf16<WT>;
+  v = r(v, bf && rnd != R_F32);
   if (bias != nullptr) {
-    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + col));
+    const float4 b = wget4(bias + col);
     v.x += b.x; v.y += b.y; v.z += b.z; v.w += b.w;
+    v = r(v, bf && rnd == R_TRUNK);
   }
   v.x = act_apply(v.x, act); v.y = act_apply(v.y, act);
   v.z = act_apply(v.z, act); v.w = act_apply(v.w, act);
   if (addend_row != nullptr) {
     const float4 a = *reinterpret_cast<const float4*>(addend_row + col);
     v.x += a.x; v.y += a.y; v.z += a.z; v.w += a.w;
+    v = r(v, bf && rnd == R_TRUNK);
   }
   *reinterpret_cast<float4*>(y_row + col) = v;
 }
@@ -238,35 +292,48 @@ __device__ __forceinline__ void finish4(float4 v, int col, const float* __restri
 // y[r, :N] = act(x[r, :K] @ [W0; W1; W2] + bias) + addend[r, :N] for the
 // block's R scratch rows (row stride SCR). x, y and addend are scratch
 // columns; the weight is up to three row segments of k_seg rows each, all
-// [k_seg, N] row-major; N % 4 == 0 and nseg * k_seg <= KMAX. The caller has
-// a barrier between the writes of x (and addend) and this call. Ends with a
-// barrier, so the caller may read y and reuse the shared buffers at once.
-template <int R>
+// [k_seg, N] row-major; N % 4 == 0 and nseg * k_seg <= KMAX. The bfloat16
+// build rounds x as it stages it, and the result where `rnd` says; with
+// `seg_round` it rounds each segment's product before adding it (each thread
+// then sums whole columns, whatever N). The caller has a barrier between the writes of x (and addend)
+// and this call. Ends with a barrier, so the caller may read y and reuse the
+// shared buffers at once.
+template <int R, typename WT>
 __device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
-                                  const float* __restrict__ w0, const float* __restrict__ w1,
-                                  const float* __restrict__ w2, int k_seg, int nseg, int N,
-                                  const float* __restrict__ bias, int act, const float* addend,
-                                  float* y) {
+                                  const WT* __restrict__ w0, const WT* __restrict__ w1,
+                                  const WT* __restrict__ w2, int k_seg, int nseg, int N,
+                                  const WT* __restrict__ bias, int act, int rnd,
+                                  const float* addend, float* y, bool seg_round = false) {
   const int tid = threadIdx.x;
   const int K = k_seg * nseg;
   for (int i = tid; i < K * R; i += THREADS) {
     const int r = i % R, k = i / R;
-    sm_x[i] = x[(size_t)r * SCR + k];
+    sm_x[i] = operand<WT>(x[(size_t)r * SCR + k]);
   }
   __syncthreads();
 
   const int CG = N / 4;  // column groups of 4
-  if (CG >= THREADS) {
+  if (CG >= THREADS || (kBf16<WT> && seg_round)) {
     for (int cg = tid; cg < CG; cg += THREADS) {
       float acc[R][4] = {};
       for (int s = 0; s < nseg; ++s) {
-        const float* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
-        fma_rows<R>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, 0, k_seg);
+        const WT* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
+        if (kBf16<WT> && seg_round) {  // this segment's sum rounded, then added with rounding
+          float part[R][4] = {};
+          fma_rows<R, WT>(part, sm_x + s * k_seg * R, w + 4 * cg, N, 0, k_seg);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              acc[r][q] = s == 0 ? bf16r(part[r][q]) : bf16r(acc[r][q] + bf16r(part[r][q]));
+        } else {
+          fma_rows<R, WT>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, 0, k_seg);
+        }
       }
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        finish4(make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]), 4 * cg, bias, act,
-                addend ? addend + (size_t)r * SCR : nullptr, y + (size_t)r * SCR);
+        finish4<WT>(make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]), 4 * cg, bias, act,
+                    rnd, addend ? addend + (size_t)r * SCR : nullptr, y + (size_t)r * SCR);
     }
   } else {
     const int ksl = THREADS / CG;  // K slices
@@ -276,8 +343,8 @@ __device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
       const int kper = (k_seg + ksl - 1) / ksl;
       const int k0 = min(ks * kper, k_seg), k1 = min(k0 + kper, k_seg);
       for (int s = 0; s < nseg; ++s) {
-        const float* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
-        fma_rows<R>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, k0, k1);
+        const WT* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
+        fma_rows<R, WT>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, k0, k1);
       }
 #pragma unroll
       for (int r = 0; r < R; ++r)
@@ -293,8 +360,8 @@ __device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
             *reinterpret_cast<const float4*>(sm_red + ((size_t)(s * R + r) * CG + c) * 4);
         v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
       }
-      finish4(v, 4 * c, bias, act, addend ? addend + (size_t)r * SCR : nullptr,
-              y + (size_t)r * SCR);
+      finish4<WT>(v, 4 * c, bias, act, rnd, addend ? addend + (size_t)r * SCR : nullptr,
+                  y + (size_t)r * SCR);
     }
   }
   __syncthreads();
@@ -302,22 +369,22 @@ __device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
 
 // y[r, j] = sum_k x[r, k] * w[j, k] for j < N, K = 1024: the product against
 // the transposed DFT matrix. One warp per output j; lanes stride k.
-template <int R>
-__device__ __noinline__ void gemm_t(float* sm_x, const float* x, const float* __restrict__ w, int N,
-                       float* y) {
+template <int R, typename WT>
+__device__ __noinline__ void gemm_t(float* sm_x, const float* x, const WT* __restrict__ w, int N,
+                                    float* y) {
   constexpr int K = 2 * FPAD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < R * K / 4; i += THREADS) {
     const int r = i / (K / 4), k4 = i % (K / 4);
+    const float4 v = *reinterpret_cast<const float4*>(x + (size_t)r * SCR + 4 * k4);
     reinterpret_cast<float4*>(sm_x)[i] =
-        *reinterpret_cast<const float4*>(x + (size_t)r * SCR + 4 * k4);
+        make_float4(operand<WT>(v.x), operand<WT>(v.y), operand<WT>(v.z), operand<WT>(v.w));
   }
   __syncthreads();
   for (int j = warp; j < N; j += NWARPS) {
     float4 wv[K / 128];
 #pragma unroll
-    for (int i = 0; i < K / 128; ++i)
-      wv[i] = __ldg(reinterpret_cast<const float4*>(w + (size_t)j * K + i * 128 + lane * 4));
+    for (int i = 0; i < K / 128; ++i) wv[i] = wget4(w + (size_t)j * K + i * 128 + lane * 4);
     float acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -363,7 +430,7 @@ __device__ void gru_gate(float* sc, int o_h) {
   __syncthreads();
 }
 
-template <int R>
+template <int R, typename WT>
 __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   float* sm_x = smem;                 // KMAX * R
@@ -378,10 +445,11 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int T = p.n_frames * HOP;
   float* sc = p.scratch + (size_t)blockIdx.x * R * SCR;
-  const float* const* W = p.w;
+  // weight k in the build's type (imult and convp_b are float32 in both)
+  auto W = [&](int k) { return static_cast<const WT*>(p.w[k]); };
 
-  for (int i = tid; i < CH * ORDER * 2; i += THREADS) sm_co[i] = W[W_CONVP_CO][i];
-  if (tid < ORDER * 2) sm_cb[tid] = W[W_CONVP_B][tid];
+  for (int i = tid; i < CH * ORDER * 2; i += THREADS) sm_co[i] = wget(W(W_CONVP_CO), i);
+  if (tid < ORDER * 2) sm_cb[tid] = static_cast<const float*>(p.w[W_CONVP_B])[tid];
   if (tid < N_STAGES) sm_clk[tid] = 0;
   // thread 0 of block 0 closes a stage: the cycles since the last mark go to it
   auto mark = [&](int stage) {
@@ -462,8 +530,8 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
       __syncthreads();
       mark(ST_FRAME_IN);
       // ---- analysis: [prev_hop | frame] @ dft -> [re | im]
-      gemm<R>(sm_x, sm_red, sc + O_BUF, W[W_DFT], nullptr, nullptr, FFT, 1, 2 * FPAD, nullptr,
-              ACT_NONE, nullptr, sc + O_SPEC);
+      gemm<R, WT>(sm_x, sm_red, sc + O_BUF, W(W_DFT), nullptr, nullptr, FFT, 1, 2 * FPAD, nullptr,
+              ACT_NONE, R_F32, nullptr, sc + O_SPEC);
       mark(ST_ANALYSIS);
       // ---- power, unit norm, complex features of this frame
       for (int i = tid; i < R * FPAD; i += THREADS) {
@@ -481,8 +549,8 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
         }
       }
       __syncthreads();
-      gemm<R>(sm_x, sm_red, sc + O_POW, W[W_ERB_FWD], nullptr, nullptr, FPAD, 1, NB_ERB, nullptr,
-              ACT_NONE, nullptr, sc + O_GAIN);
+      gemm<R, WT>(sm_x, sm_red, sc + O_POW, W(W_ERB_FWD), nullptr, nullptr, FPAD, 1, NB_ERB, nullptr,
+              ACT_NONE, R_F32, nullptr, sc + O_GAIN);
       for (int i = tid; i < R * NB_ERB; i += THREADS) {
         const int r = i / NB_ERB, e = i % NB_ERB;
         float* row = sc + (size_t)r * SCR;
@@ -494,87 +562,87 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
       __syncthreads();
       mark(ST_FEATURES);
       // ---- conv frontend (dense folds)
-      gemm<R>(sm_x, sm_red, sc + O_ERBWIN, W[W_E0_W], nullptr, nullptr, 96, 1, 512, W[W_E0_B],
-              ACT_RELU, nullptr, sc + O_E0);
-      gemm<R>(sm_x, sm_red, sc + O_E0, W[W_E1_W], nullptr, nullptr, 512, 1, 256, W[W_E1_B],
-              ACT_RELU, nullptr, sc + O_E1);
-      gemm<R>(sm_x, sm_red, sc + O_E1, W[W_E2_W], nullptr, nullptr, 256, 1, 128, W[W_E2_B],
-              ACT_RELU, nullptr, sc + O_E2);
-      gemm<R>(sm_x, sm_red, sc + O_E2, W[W_E3_W], nullptr, nullptr, 128, 1, 128, W[W_E3_B],
-              ACT_RELU, nullptr, sc + O_E3);
+      gemm<R, WT>(sm_x, sm_red, sc + O_ERBWIN, W(W_E0_W), nullptr, nullptr, 96, 1, 512, W(W_E0_B),
+              ACT_RELU, R_TRUNK, nullptr, sc + O_E0);
+      gemm<R, WT>(sm_x, sm_red, sc + O_E0, W(W_E1_W), nullptr, nullptr, 512, 1, 256, W(W_E1_B),
+              ACT_RELU, R_TRUNK, nullptr, sc + O_E1);
+      gemm<R, WT>(sm_x, sm_red, sc + O_E1, W(W_E2_W), nullptr, nullptr, 256, 1, 128, W(W_E2_B),
+              ACT_RELU, R_TRUNK, nullptr, sc + O_E2);
+      gemm<R, WT>(sm_x, sm_red, sc + O_E2, W(W_E3_W), nullptr, nullptr, 128, 1, 128, W(W_E3_B),
+              ACT_RELU, R_TRUNK, nullptr, sc + O_E3);
       mark(ST_ERB_CONVS);
-      gemm<R>(sm_x, sm_red, sc + O_FSWIN, W[W_C0W_T0], W[W_C0W_T1], W[W_C0W_T2], 192, 3,
-              CH * BLK, W[W_C0_B], ACT_RELU, nullptr, sc + O_C0);
+      gemm<R, WT>(sm_x, sm_red, sc + O_FSWIN, W(W_C0W_T0), W(W_C0W_T1), W(W_C0W_T2), 192, 3,
+              CH * BLK, W(W_C0_B), ACT_RELU, R_TRUNK, nullptr, sc + O_C0, true);
       mark(ST_DF_CONV0);
-      gemm<R>(sm_x, sm_red, sc + O_C0, W[W_C1_W], nullptr, nullptr, CH * BLK, 1, 768, W[W_C1_B],
-              ACT_RELU, nullptr, sc + O_C1);
+      gemm<R, WT>(sm_x, sm_red, sc + O_C0, W(W_C1_W), nullptr, nullptr, CH * BLK, 1, 768, W(W_C1_B),
+              ACT_RELU, R_TRUNK, nullptr, sc + O_C1);
       // emb = e3 + relu(c1 @ gl)
-      gemm<R>(sm_x, sm_red, sc + O_C1, W[W_GL_W], nullptr, nullptr, 768, 1, 128, nullptr,
-              ACT_RELU, sc + O_E3, sc + O_EMB);
+      gemm<R, WT>(sm_x, sm_red, sc + O_C1, W(W_GL_W), nullptr, nullptr, 768, 1, 128, nullptr,
+              ACT_RELU, R_TRUNK, sc + O_E3, sc + O_EMB);
       mark(ST_DF_CONV1);
       // ---- encoder GRU + LSNR head
-      gemm<R>(sm_x, sm_red, sc + O_EMB, W[W_ENC_LIN_IN], nullptr, nullptr, 128, 1, HID, nullptr,
-              ACT_RELU, nullptr, sc + O_XIN);
-      gemm<R>(sm_x, sm_red, sc + O_XIN, W[W_ENC_WIH], nullptr, nullptr, HID, 1, 3 * HID,
-              W[W_ENC_BIH], ACT_NONE, nullptr, sc + O_GI);
-      gemm<R>(sm_x, sm_red, sc + O_ENC_H, W[W_ENC_WHH], nullptr, nullptr, HID, 1, 3 * HID,
-              W[W_ENC_BHH], ACT_NONE, nullptr, sc + O_GH);
+      gemm<R, WT>(sm_x, sm_red, sc + O_EMB, W(W_ENC_LIN_IN), nullptr, nullptr, 128, 1, HID, nullptr,
+              ACT_RELU, R_TRUNK, nullptr, sc + O_XIN);
+      gemm<R, WT>(sm_x, sm_red, sc + O_XIN, W(W_ENC_WIH), nullptr, nullptr, HID, 1, 3 * HID,
+              W(W_ENC_BIH), ACT_NONE, R_TRUNK, nullptr, sc + O_GI);
+      gemm<R, WT>(sm_x, sm_red, sc + O_ENC_H, W(W_ENC_WHH), nullptr, nullptr, HID, 1, 3 * HID,
+              W(W_ENC_BHH), ACT_NONE, R_SUM, nullptr, sc + O_GH);
       gru_gate<R>(sc, O_ENC_H);
-      gemm<R>(sm_x, sm_red, sc + O_ENC_H, W[W_ENC_LIN_OUT], nullptr, nullptr, HID, 1, 128,
-              nullptr, ACT_RELU, nullptr, sc + O_EMB2);
+      gemm<R, WT>(sm_x, sm_red, sc + O_ENC_H, W(W_ENC_LIN_OUT), nullptr, nullptr, HID, 1, 128,
+              nullptr, ACT_RELU, R_TRUNK, nullptr, sc + O_EMB2);
       if (warp < R) {
         const float* e = sc + (size_t)warp * SCR + O_EMB2;
         float a = 0.f;
-        for (int k = lane; k < 128; k += 32) a = fmaf(e[k], __ldg(W[W_LSNR_W] + k), a);
+        for (int k = lane; k < 128; k += 32) a = fmaf(e[k], wget(W(W_LSNR_W), k), a);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
         if (lane == 0)
           sm_lsnr[warp] =
-              sigmoidf_(a + __ldg(W[W_LSNR_B])) * (p.lsnr_max - p.lsnr_min) + p.lsnr_min;
+              sigmoidf_(a + wget(W(W_LSNR_B), 0)) * (p.lsnr_max - p.lsnr_min) + p.lsnr_min;
       }
       mark(ST_ENC_GRU);
       // ---- ERB decoder
-      gemm<R>(sm_x, sm_red, sc + O_EMB2, W[W_DEC_LIN_IN], nullptr, nullptr, 128, 1, HID, nullptr,
-              ACT_RELU, nullptr, sc + O_XIN);
-      gemm<R>(sm_x, sm_red, sc + O_XIN, W[W_DEC_WIH], nullptr, nullptr, HID, 1, 3 * HID,
-              W[W_DEC_BIH], ACT_NONE, nullptr, sc + O_GI);
-      gemm<R>(sm_x, sm_red, sc + O_DEC_H, W[W_DEC_WHH], nullptr, nullptr, HID, 1, 3 * HID,
-              W[W_DEC_BHH], ACT_NONE, nullptr, sc + O_GH);
+      gemm<R, WT>(sm_x, sm_red, sc + O_EMB2, W(W_DEC_LIN_IN), nullptr, nullptr, 128, 1, HID, nullptr,
+              ACT_RELU, R_TRUNK, nullptr, sc + O_XIN);
+      gemm<R, WT>(sm_x, sm_red, sc + O_XIN, W(W_DEC_WIH), nullptr, nullptr, HID, 1, 3 * HID,
+              W(W_DEC_BIH), ACT_NONE, R_TRUNK, nullptr, sc + O_GI);
+      gemm<R, WT>(sm_x, sm_red, sc + O_DEC_H, W(W_DEC_WHH), nullptr, nullptr, HID, 1, 3 * HID,
+              W(W_DEC_BHH), ACT_NONE, R_SUM, nullptr, sc + O_GH);
       gru_gate<R>(sc, O_DEC_H);
-      gemm<R>(sm_x, sm_red, sc + O_DEC_H, W[W_DEC_LIN_OUT], nullptr, nullptr, HID, 1, 128,
-              nullptr, ACT_RELU, nullptr, sc + O_DEMB);
-      gemm<R>(sm_x, sm_red, sc + O_E3, W[W_P3_W], nullptr, nullptr, 128, 1, 128, W[W_P3_B],
-              ACT_RELU, sc + O_DEMB, sc + O_PA);
-      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_T3_W], nullptr, nullptr, 128, 1, 128, W[W_T3_B],
-              ACT_RELU, nullptr, sc + O_PB);
-      gemm<R>(sm_x, sm_red, sc + O_E2, W[W_P2_W], nullptr, nullptr, 128, 1, 128, W[W_P2_B],
-              ACT_RELU, sc + O_PB, sc + O_PA);
-      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_T2_W], nullptr, nullptr, 128, 1, 256, W[W_T2_B],
-              ACT_RELU, nullptr, sc + O_PB);
-      gemm<R>(sm_x, sm_red, sc + O_E1, W[W_P1_W], nullptr, nullptr, 256, 1, 256, W[W_P1_B],
-              ACT_RELU, sc + O_PB, sc + O_PA);
-      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_T1_W], nullptr, nullptr, 256, 1, 512, W[W_T1_B],
-              ACT_RELU, nullptr, sc + O_PB);
-      gemm<R>(sm_x, sm_red, sc + O_E0, W[W_P0_W], nullptr, nullptr, 512, 1, 512, W[W_P0_B],
-              ACT_RELU, sc + O_PB, sc + O_PA);
-      gemm<R>(sm_x, sm_red, sc + O_PA, W[W_OUT_W], nullptr, nullptr, 512, 1, NB_ERB, W[W_OUT_B],
-              ACT_SIGMOID, nullptr, sc + O_MASK);
+      gemm<R, WT>(sm_x, sm_red, sc + O_DEC_H, W(W_DEC_LIN_OUT), nullptr, nullptr, HID, 1, 128,
+              nullptr, ACT_RELU, R_TRUNK, nullptr, sc + O_DEMB);
+      gemm<R, WT>(sm_x, sm_red, sc + O_E3, W(W_P3_W), nullptr, nullptr, 128, 1, 128, W(W_P3_B),
+              ACT_RELU, R_TRUNK, sc + O_DEMB, sc + O_PA);
+      gemm<R, WT>(sm_x, sm_red, sc + O_PA, W(W_T3_W), nullptr, nullptr, 128, 1, 128, W(W_T3_B),
+              ACT_RELU, R_TRUNK, nullptr, sc + O_PB);
+      gemm<R, WT>(sm_x, sm_red, sc + O_E2, W(W_P2_W), nullptr, nullptr, 128, 1, 128, W(W_P2_B),
+              ACT_RELU, R_TRUNK, sc + O_PB, sc + O_PA);
+      gemm<R, WT>(sm_x, sm_red, sc + O_PA, W(W_T2_W), nullptr, nullptr, 128, 1, 256, W(W_T2_B),
+              ACT_RELU, R_TRUNK, nullptr, sc + O_PB);
+      gemm<R, WT>(sm_x, sm_red, sc + O_E1, W(W_P1_W), nullptr, nullptr, 256, 1, 256, W(W_P1_B),
+              ACT_RELU, R_TRUNK, sc + O_PB, sc + O_PA);
+      gemm<R, WT>(sm_x, sm_red, sc + O_PA, W(W_T1_W), nullptr, nullptr, 256, 1, 512, W(W_T1_B),
+              ACT_RELU, R_TRUNK, nullptr, sc + O_PB);
+      gemm<R, WT>(sm_x, sm_red, sc + O_E0, W(W_P0_W), nullptr, nullptr, 512, 1, 512, W(W_P0_B),
+              ACT_RELU, R_TRUNK, sc + O_PB, sc + O_PA);
+      gemm<R, WT>(sm_x, sm_red, sc + O_PA, W(W_OUT_W), nullptr, nullptr, 512, 1, NB_ERB, W(W_OUT_B),
+              ACT_SIGMOID, R_F32, nullptr, sc + O_MASK);
       mark(ST_ERB_DECODER);
       // ---- DF decoder: 3-layer GRU, coefficient head
-      gemm<R>(sm_x, sm_red, sc + O_EMB2, W[W_DF_LIN_IN], nullptr, nullptr, 128, 1, HID, nullptr,
-              ACT_RELU, nullptr, sc + O_XIN);
+      gemm<R, WT>(sm_x, sm_red, sc + O_EMB2, W(W_DF_LIN_IN), nullptr, nullptr, 128, 1, HID, nullptr,
+              ACT_RELU, R_TRUNK, nullptr, sc + O_XIN);
       for (int li = 0; li < 3; ++li) {
         const int o_in = li == 0 ? O_XIN : O_DF_H + (li - 1) * HID;
         const int o_h = O_DF_H + li * HID;
-        gemm<R>(sm_x, sm_red, sc + o_in, W[W_DF_WIH0 + 4 * li], nullptr, nullptr, HID, 1, 3 * HID,
-                W[W_DF_BIH0 + 4 * li], ACT_NONE, nullptr, sc + O_GI);
-        gemm<R>(sm_x, sm_red, sc + o_h, W[W_DF_WHH0 + 4 * li], nullptr, nullptr, HID, 1, 3 * HID,
-                W[W_DF_BHH0 + 4 * li], ACT_NONE, nullptr, sc + O_GH);
+        gemm<R, WT>(sm_x, sm_red, sc + o_in, W(W_DF_WIH0 + 4 * li), nullptr, nullptr, HID, 1, 3 * HID,
+                W(W_DF_BIH0 + 4 * li), ACT_NONE, R_TRUNK, nullptr, sc + O_GI);
+        gemm<R, WT>(sm_x, sm_red, sc + o_h, W(W_DF_WHH0 + 4 * li), nullptr, nullptr, HID, 1, 3 * HID,
+                W(W_DF_BHH0 + 4 * li), ACT_NONE, R_SUM, nullptr, sc + O_GH);
         gru_gate<R>(sc, o_h);
       }
       mark(ST_DF_GRU);
-      gemm<R>(sm_x, sm_red, sc + O_DF_H + 2 * HID, W[W_DF_OUT_W], nullptr, nullptr, HID, 1,
-              ORDER * 2 * BLK, nullptr, ACT_TANH, nullptr, sc + O_COEF);
+      gemm<R, WT>(sm_x, sm_red, sc + O_DF_H + 2 * HID, W(W_DF_OUT_W), nullptr, nullptr, HID, 1,
+              ORDER * 2 * BLK, nullptr, ACT_TANH, R_F32, nullptr, sc + O_COEF);
       // ---- deep filter MAC: ring frames 0..3, the current frame as tap 4;
       // then the ring shifts. Pad lanes (f >= 96) of the current frame are 0.
       for (int i = tid; i < R * BLK; i += THREADS) {
@@ -615,8 +683,8 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
       __syncthreads();
       mark(ST_DF_COEF_MAC);
       // ---- ERB mask -> bin gains
-      gemm<R>(sm_x, sm_red, sc + O_MASK, W[W_ERB_INV], nullptr, nullptr, NB_ERB, 1, FPAD, nullptr,
-              ACT_NONE, nullptr, sc + O_GAIN);
+      gemm<R, WT>(sm_x, sm_red, sc + O_MASK, W(W_ERB_INV), nullptr, nullptr, NB_ERB, 1, FPAD, nullptr,
+              ACT_NONE, R_F32, nullptr, sc + O_GAIN);
       // ---- tail: post-filter, LSNR gating, atten-lim, mute, iDFT scaling
       for (int i = tid; i < R * FPAD; i += THREADS) {
         const int r = i / FPAD, k = i % FPAD;
@@ -654,14 +722,14 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
         if (sm_mute[r]) {  // the mute comes last, after atten-lim
           se_re = 0.f; se_im = 0.f;
         }
-        const float sc_k = __ldg(W[W_IMULT] + k);
+        const float sc_k = __ldg(static_cast<const float*>(p.w[W_IMULT]) + k);
         row[O_SE + k] = se_re * sc_k;
         row[O_SE + FPAD + k] = se_im * sc_k;
       }
       __syncthreads();
       mark(ST_MASK_TAIL);
       // ---- synthesis: [se_re | se_im] @ dft^T, overlap-add
-      gemm_t<R>(sm_x, sc + O_SE, W[W_DFT], FFT, sc + O_X);
+      gemm_t<R, WT>(sm_x, sc + O_SE, W(W_DFT), FFT, sc + O_X);
       for (int i = tid; i < R * HOP; i += THREADS) {
         const int r = i / HOP, c = i % HOP;
         float* row = sc + (size_t)r * SCR;
@@ -717,13 +785,13 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
     for (int i = 0; i < N_STAGES; ++i) p.stage_clocks[i] = sm_clk[i];
 }
 
-template <int R>
+template <int R, typename WT>
 cudaError_t launch(const Params& p, int n_blocks, cudaStream_t stream) {
   const size_t shmem = (size_t)(KMAX * R + THREADS * R * 4) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(whole_cell_kernel<R>,
+  cudaError_t err = cudaFuncSetAttribute(whole_cell_kernel<R, WT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return err;
-  whole_cell_kernel<R><<<n_blocks, THREADS, shmem, stream>>>(p);
+  whole_cell_kernel<R, WT><<<n_blocks, THREADS, shmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -739,15 +807,17 @@ extern "C" int dfn_whole_cell_rows_stages() { return N_STAGES; }
 // carry_out (11 device pointers, CKEYS order), weights (n_weights device
 // pointers, WKEYS order) and scalars (alpha, 1 - alpha, lsnr_min, lsnr_max,
 // pf_beta, silence_thresh, atten_lim, gate_min, gate_max_erb, gate_max_df) are
-// host arrays. scratch: n_blocks * rows * dfn_whole_cell_rows_scratch_floats()
-// floats. stage_clocks: dfn_whole_cell_rows_stages() int64 on the device, written
-// by block 0. Returns the CUDA error of the launch (0 on success).
+// host arrays; the weights are bfloat16 but imult and convp_b when `bf16`,
+// else all float32. scratch: n_blocks * rows *
+// dfn_whole_cell_rows_scratch_floats() floats. stage_clocks:
+// dfn_whole_cell_rows_stages() int64 on the device, written by block 0.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* const* carry_in,
-                              void* const* carry_out, const void* const* weights, int n_weights,
-                              void* scratch, void* stage_clocks, int S, int n_frames, int rows,
-                              int n_blocks,
-                              const float* scalars, int mask_pf, int lsnr_gating,
-                              int silence_frames, void* stream) {
+                                   void* const* carry_out, const void* const* weights,
+                                   int n_weights, void* scratch, void* stage_clocks, int S,
+                                   int n_frames, int rows, int n_blocks, const float* scalars,
+                                   int mask_pf, int lsnr_gating, int silence_frames, int bf16,
+                                   void* stream) {
   if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -757,7 +827,7 @@ extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* con
     p.cin[i] = static_cast<const float*>(carry_in[i]);
     p.cout[i] = static_cast<float*>(carry_out[i]);
   }
-  for (int i = 0; i < N_WKEYS; ++i) p.w[i] = static_cast<const float*>(weights[i]);
+  for (int i = 0; i < N_WKEYS; ++i) p.w[i] = weights[i];
   p.scratch = static_cast<float*>(scratch);
   p.stage_clocks = static_cast<long long*>(stage_clocks);
   p.S = S;
@@ -769,8 +839,9 @@ extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* con
   p.mask_pf = mask_pf; p.lsnr_gating = lsnr_gating; p.silence_frames = silence_frames;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (rows == 4) err = launch<4>(p, n_blocks, st);
-  else if (rows == 8) err = launch<8>(p, n_blocks, st);
+  using bf = __nv_bfloat16;
+  if (rows == 4) err = bf16 ? launch<4, bf>(p, n_blocks, st) : launch<4, float>(p, n_blocks, st);
+  else if (rows == 8) err = bf16 ? launch<8, bf>(p, n_blocks, st) : launch<8, float>(p, n_blocks, st);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

@@ -38,6 +38,7 @@ from deepfilternet_torch.nn import (
     init_linear,
     init_squeezed_gru_s,
     linear_apply,
+    sigmoid,
     squeezed_gru_s_apply,
     squeezed_gru_s_step,
 )
@@ -214,7 +215,7 @@ def _seq_conv(params, state, L):
 
 
 def _lsnr(params, cfg, emb):
-    lsnr = torch.sigmoid(linear_apply(params["lsnr_fc"], emb))
+    lsnr = sigmoid(linear_apply(params["lsnr_fc"], emb))
     return lsnr * (cfg["lsnr_max"] - cfg["lsnr_min"]) + cfg["lsnr_min"]
 
 
@@ -278,6 +279,12 @@ def _df_decoder(params, state, L, cfg, emb, c0):
     c, _ = squeezed_gru_s_apply(params["df_gru"], L["df_gru"], emb)
     c0p = _seq_conv(params, state, L)("df_convp", c0)
     return _df_coefs(params, cfg, _df_skip(params, cfg, c, emb), c0p)
+
+
+def _complex(ri: torch.Tensor) -> torch.Tensor:
+    """[..., 2] re/im -> complex64. A bfloat16 pair is widened first: JAX's
+    `re + 1j * im` promotes it to complex64, and torch.complex refuses it."""
+    return torch.complex(ri[..., 0].float(), ri[..., 1].float())
 
 
 def _inv_fb(cfg, device):
@@ -356,6 +363,7 @@ class StreamState(NamedTuple):
 
 
 def streaming_init(batch: int, cfg: Dict, device="cpu") -> StreamState:
+    """The zero carry, float32 (a reduced-precision runtime casts it)."""
     kt0 = cfg["conv_kernel_inp"][0]
     ktp = cfg["df_pathway_kt"]
     e, fp, o, ch = cfg["nb_erb"], cfg["nb_df"], cfg["df_order"], cfg["conv_ch"]
@@ -417,7 +425,7 @@ def streaming_cell(
     emb = torch.cat([emb, cemb], -1) if cfg["enc_concat"] else emb + cemb
     enc_h, emb = squeezed_gru_s_step(params["enc_emb_gru"], L["enc_emb_gru"],
                                      carry.enc_gru_h, emb)
-    lsnr = torch.sigmoid(linear_apply(params["lsnr_fc"], emb))
+    lsnr = sigmoid(linear_apply(params["lsnr_fc"], emb))
     lsnr = lsnr * (cfg["lsnr_max"] - cfg["lsnr_min"]) + cfg["lsnr_min"]
 
     # erb decoder
@@ -453,16 +461,17 @@ def streaming_cell(
     coefs = coefs.reshape(b, nb_df, cfg["df_order"], 2) + c0p.reshape(
         b, nb_df, cfg["df_order"], 2
     )
-    coefs_c = torch.complex(coefs[..., 0], coefs[..., 1])  # [B, F', O]
+    coefs_c = _complex(coefs)  # [B, F', O]
     coefs_c = torch.movedim(coefs_c, -1, 1)  # [B, O, F']
 
     # apply: DF over the ring buffer (current + O-1 past low-band frames)
-    spec_c = torch.complex(spec_ri[..., 0], spec_ri[..., 1])  # [B, F]
+    spec_c = _complex(spec_ri)  # [B, F]
     ring = torch.complex(carry.df_ring_re, carry.df_ring_im)
     new_ring, y_lo = deep_filter(ring, spec_c[:, :nb_df], coefs_c)
 
-    # upper bins: ERB mask on the current frame
-    bin_gains = m @ erb_fb_tensor(cfg["erb_widths"], m.device, inverse=True)  # [B, F]
+    # upper bins: ERB mask on the current frame; a bfloat16 mask is widened,
+    # as JAX promotes a bfloat16 @ float32 product
+    bin_gains = m.float() @ erb_fb_tensor(cfg["erb_widths"], m.device, inverse=True)  # [B, F]
     spec_m = spec_c * bin_gains
     if cfg.get("run_df", True):
         spec_e = torch.cat([y_lo, spec_m[:, nb_df:]], dim=-1)
@@ -543,16 +552,16 @@ def forward_chunk(
     coefs = _df_coefs(params, cfg, _df_skip(params, cfg, c, emb), c0p)
     b = coefs.shape[0]
     coefs_ri = coefs.reshape(b, t, nb_df, order, 2)
-    coefs_c = torch.complex(coefs_ri[..., 0], coefs_ri[..., 1])  # [B, T, F', O]
+    coefs_c = _complex(coefs_ri)  # [B, T, F', O]
 
     # DF over the carried ring: the O-1 past low-band frames go in front
-    spec_c = torch.complex(spec[..., 0], spec[..., 1])
+    spec_c = _complex(spec)
     ring = torch.complex(carry.df_ring_re, carry.df_ring_im)  # [B, O-1, F']
     lo_ext = torch.cat([ring, spec_c[..., :nb_df]], dim=1)  # [B, O-1+T, F']
     taps = torch.stack([lo_ext[:, n:n + t] for n in range(order)], dim=-1)  # [B, T, F', O]
     y_lo = torch.sum(taps * coefs_c, dim=-1)
 
-    spec_m = spec_c * (m @ _inv_fb(cfg, m.device))
+    spec_m = spec_c * (m.float() @ _inv_fb(cfg, m.device))
     if cfg.get("run_df", True):
         spec_e = torch.cat([y_lo, spec_m[..., nb_df:]], dim=-1)
     else:

@@ -20,6 +20,7 @@ the card), and `*_step` over one frame for the streaming cell. Training
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -43,9 +44,26 @@ def _kaiming_uniform(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
     return _uniform(gen, shape, 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function. Below float32 it is written out as JAX lowers
+    it, 1 / (1 + exp(-x)) rounded after each operation; torch.sigmoid rounds
+    once, which moves a third of bfloat16 results by one unit in the last
+    place and, through the GRU recurrences, the output by about 1%."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    """A constant rounded to `dtype`, as JAX rounds a weakly typed constant
+    to the type of the tensor it meets (torch keeps it in float32)."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
 ACT = {
     "relu": torch.relu,
-    "sigmoid": torch.sigmoid,
+    "sigmoid": sigmoid,
     "tanh": torch.tanh,
     "identity": lambda x: x,
     None: lambda x: x,
@@ -66,7 +84,11 @@ def batchnorm_apply(params: Params, state: Params, x: torch.Tensor,
                     eps: float = 1e-5) -> Tuple[torch.Tensor, Params]:
     """Eval mode: x [B, C, T, F] normalized per channel with the running
     statistics. Returns (out, state), the state unchanged."""
-    inv = torch.rsqrt(state["var"] + eps)
+    var = state["var"] + _rounded(eps, state["var"].dtype)
+    # in float32, rounded once: torch's own bfloat16 rsqrt rounds twice on
+    # short tensors and moves a quarter of the values by one unit in the last
+    # place
+    inv = torch.rsqrt(var.float()).to(var.dtype)
     out = (x - state["mean"][None, :, None, None]) * inv[None, :, None, None]
     out = out * params["scale"][None, :, None, None] + params["bias"][None, :, None, None]
     return out, state
@@ -319,8 +341,8 @@ def _gru_cell(h, x, lp):
     gh = h @ lp["w_hh"].T + lp["b_hh"]
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
-    r = torch.sigmoid(i_r + h_r)
-    z = torch.sigmoid(i_z + h_z)
+    r = sigmoid(i_r + h_r)
+    z = sigmoid(i_z + h_z)
     n = torch.tanh(i_n + r * h_n)
     return (1.0 - z) * n + z * h
 
@@ -352,7 +374,8 @@ _CUDNN_GRU = WeakIdKeyDictionary()
 
 def _cudnn_gru_weights(weights, n_layers: int, hidden: int):
     """A copy of the stack's weights as views into one buffer in cuDNN's
-    layout, made once per weight set (checked by identity and version). With
+    layout, made once per weight set (checked by identity and version; a
+    bfloat16 runtime's cast parameters are a set of their own). With
     separate tensors cuDNN copies them into such a buffer at every call, and
     warns each time."""
     from torch.backends.cudnn import rnn as cudnn_rnn

@@ -4,7 +4,9 @@
 
 Offline (`deep_filter_offline`) the N taps are time shifts of the whole
 spectrogram, any lookahead; streaming (`deep_filter`) keeps an (N-1)-frame
-ring buffer, lookahead 0.
+ring buffer, lookahead 0. Both take complex64; a bfloat16 model hands them
+coefficients and spectra widened from bfloat16 parts (as JAX promotes
+`re + 1j * im`), so the ring stays float32 at either model type.
 """
 
 from __future__ import annotations

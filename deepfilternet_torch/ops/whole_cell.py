@@ -11,6 +11,15 @@ iDFT synthesis with overlap-add. State travels as a flat carry of 11 float32
 arrays [S, d] (`CKEYS`), weights as the prefolded set `WKEYS` made by
 `build_cell_weights`.
 
+Two operand types, as in the JAX package: float32, and bfloat16 (the JAX
+package's default `mdtype`). With a bfloat16 weight set every key but
+`imult` and `convp_b` is bfloat16; a product's input is rounded to bfloat16,
+its sum kept in float32, and then either kept (`mmf`: the analysis DFT, the
+ERB bands, the LSNR head, the mask, `df_out_w`, `convp_co`, `erb_inv` and the
+synthesis) or rounded to bfloat16 (`mm`: the model trunk, whose bias adds,
+ReLUs and residual sums stay in bfloat16). The GRU gates, norms, DF MAC,
+runtime stages and the carry stay float32.
+
 Port of the TPU kernel `deepfilternet_tpu/ops/pallas_cell.py`
 (`cell_process`, kernel closure of `make_cell_kernel`). The CUDA kernel is
 `csrc/whole_cell.cu`; `cell_process_plain` is the same function as a Python
@@ -133,10 +142,22 @@ def _pad_cols(a: np.ndarray, n: int) -> np.ndarray:
     return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, n - a.shape[-1])])
 
 
-def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.float32,
+# operand types of the products; float16 has no counterpart in the JAX package
+MATMUL_DTYPES = (torch.float32, torch.bfloat16)
+# keys that stay float32 in a reduced-precision weight set: the iDFT row
+# scaling multiplies the float32 spectrum, convp_b is added to a float32 sum
+F32_KEYS = ("imult", "convp_b")
+
+
+def weight_dtype(key: str, matmul_dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if key in F32_KEYS else matmul_dtype
+
+
+def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.bfloat16,
                        cfg=None) -> Tuple[Dict[str, torch.Tensor], CellStatics]:
     """Precompute the whole-cell weight set from a loaded DFN3 model, as
-    float32 tensors on the model's device.
+    tensors on the model's device: `matmul_dtype` (float32 or bfloat16; the
+    JAX package's default is bfloat16), `F32_KEYS` always float32.
 
     Reuses the dense conv folds of `models/dfnet3_fused.build_fused` and
     re-permutes the DF-coefficient heads so both emit (n, ri, f)-blocked
@@ -155,11 +176,10 @@ def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.float32,
     from deepfilternet_torch.ops.erb import erb_fb_matrices
     from deepfilternet_torch.ops.norms import get_norm_alpha
 
-    if matmul_dtype != torch.float32:
+    if matmul_dtype not in MATMUL_DTYPES:
         raise NotImplementedError(
-            "only float32 matrix operands are ported; reduced precision is a "
-            "later ROADMAP item"
-        )
+            f"matmul_dtype {matmul_dtype}: the whole cell takes torch.float32 or "
+            "torch.bfloat16")
     cfg = cfg if cfg is not None else model.cfg
     if not cfg.get("run_df", True):
         raise NotImplementedError(
@@ -311,9 +331,11 @@ def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.float32,
         gate_lsnr_max_erb=float(rt_params.lsnr_max_erb),
         gate_lsnr_max_df=float(rt_params.lsnr_max_df),
     )
-    device = model.device
+    # copies, rounded on the CPU (to nearest, ties to even, as JAX's cast),
+    # then moved
     weights = {
-        k: torch.tensor(np.ascontiguousarray(W[k], dtype=np.float32), device=device)
+        k: torch.tensor(np.ascontiguousarray(W[k], dtype=np.float32))
+        .to(weight_dtype(k, matmul_dtype)).to(model.device)
         for k in WKEYS
     }
     return weights, statics
@@ -324,16 +346,37 @@ def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 
-def _gru_cell(h, gi, ghw, b_hh):
-    # b_hn stays inside r * (...), per the torch GRU definition
-    gh = h @ ghw
-    i_r, i_z, i_n = gi.chunk(3, dim=-1)
-    h_r, h_z, h_n = gh.chunk(3, dim=-1)
-    b_r, b_z, b_n = b_hh.chunk(3, dim=-1)
+class _Products:
+    """The products of one weight set. `mmf(x, k)`: x rounded to the set's
+    operand type, times weight k, summed in float32 and kept so; `mm(x, k)`:
+    the same result rounded to the operand type. A product of two bfloat16
+    values is exact in float32, so the float32 product of the widened
+    operands equals a bfloat16 product with float32 sums, on any device and
+    whatever its reduced-precision settings. For a float32 set both are
+    plain float32 products."""
+
+    def __init__(self, weights: Dict[str, torch.Tensor]):
+        self.dtype = weights["dft"].dtype
+        self.w = {k: w.float() for k, w in weights.items()}  # widened once
+
+    def mmf(self, x: torch.Tensor, k: str) -> torch.Tensor:
+        return x.to(self.dtype).float() @ self.w[k]
+
+    def mm(self, x: torch.Tensor, k: str) -> torch.Tensor:
+        return self.mmf(x, k).to(self.dtype)
+
+
+def _gru_cell(h, gi, gh, b_hh):
+    # gates in float32 whatever the operand type; b_hn stays inside
+    # r * (...), per the torch GRU definition
+    f32 = torch.float32
+    i_r, i_z, i_n = gi.to(f32).chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.to(f32).chunk(3, dim=-1)
+    b_r, b_z, b_n = b_hh.to(f32).chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r + b_r)
     z = torch.sigmoid(i_z + h_z + b_z)
     n = torch.tanh(i_n + r * (h_n + b_n))
-    return (1.0 - z) * n + z * h
+    return (1.0 - z) * n + z * h.to(f32)
 
 
 def _carry_split(c: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -382,9 +425,11 @@ def _carry_join(s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     }
 
 
-def _frame_step(W: Dict[str, torch.Tensor], st: CellStatics, s: Dict[str, torch.Tensor],
-                frame: torch.Tensor) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """One frame on the split state. frame: [S, hop] float32.
+def _frame_step(W: Dict[str, torch.Tensor], P: _Products, st: CellStatics,
+                s: Dict[str, torch.Tensor], frame: torch.Tensor
+                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """One frame on the split state. frame: [S, hop] float32; W the weight
+    set (its biases are read as stored), P its products.
 
     Window products are split per context frame, so no window tensor is
     materialized:
@@ -393,20 +438,22 @@ def _frame_step(W: Dict[str, torch.Tensor], st: CellStatics, s: Dict[str, torch.
       * synthesis iDFT: separate re/im products against the transposed DFT.
     """
     relu = torch.relu
+    mm, mmf = P.mm, P.mmf
     nb_df = st.nb_df
     n_rows = frame.shape[0]
     ns = dict(s)
     lane_mask = (torch.arange(BLK, device=frame.device) < nb_df).to(torch.float32)[None, :]
 
     # -- analysis: windowed real-DFT split over [prev_hop | frame]
-    spec2 = s["prev_hop"] @ W["dft"][:HOP] + frame @ W["dft"][HOP:]
+    spec2 = (s["prev_hop"].to(P.dtype).float() @ P.w["dft"][:HOP]
+             + frame.to(P.dtype).float() @ P.w["dft"][HOP:])
     spec_re = spec2[:, :FPAD]
     spec_im = spec2[:, FPAD:]
     ns["prev_hop"] = frame
 
     # -- features (feat_erb / feat_cplx with exponential norms)
     power = spec_re * spec_re + spec_im * spec_im  # [S, 512]
-    erb_db = 10.0 * torch.log10(power @ W["erb_fwd"] + 1e-10)  # [S, 32]
+    erb_db = 10.0 * torch.log10(mmf(power, "erb_fwd") + 1e-10)  # [S, 32]
     a = st.alpha
     new_mean = erb_db * (1.0 - a) + s["mean"] * a
     feat_erb = (erb_db - new_mean) / 40.0
@@ -424,49 +471,51 @@ def _frame_step(W: Dict[str, torch.Tensor], st: CellStatics, s: Dict[str, torch.
     cur_re = spec_re[:, :BLK] * lane_mask
     cur_im = spec_im[:, :BLK] * lane_mask
 
-    # -- conv frontend (dense folds, windows split per context frame)
+    # -- conv frontend (dense folds, windows split per context frame); the
+    # trunk's activations are in the operand type
     erb_win = torch.cat([erb_a, erb_b, feat_erb], dim=-1)  # [S, 96]
-    e0 = relu(erb_win @ W["e0_w"] + W["e0_b"])        # [S, 512]
-    e1 = relu(e0 @ W["e1_w"] + W["e1_b"])             # [S, 256]
-    e2 = relu(e1 @ W["e2_w"] + W["e2_b"])             # [S, 128]
-    e3 = relu(e2 @ W["e3_w"] + W["e3_b"])             # [S, 128] (F,C) flat
-    c0 = relu(fs_a @ W["c0w_t0"] + fs_b @ W["c0w_t1"]
-              + fs_cur @ W["c0w_t2"] + W["c0_b"])     # [S, 2048] (C,F) padded
-    c1 = relu(c0 @ W["c1_w"] + W["c1_b"])             # [S, 768] (F,C) flat
-    cemb = relu(c1 @ W["gl_w"])                       # [S, 128]
+    e0 = relu(mm(erb_win, "e0_w") + W["e0_b"])        # [S, 512]
+    e1 = relu(mm(e0, "e1_w") + W["e1_b"])             # [S, 256]
+    e2 = relu(mm(e1, "e2_w") + W["e2_b"])             # [S, 128]
+    e3 = relu(mm(e2, "e3_w") + W["e3_b"])             # [S, 128] (F,C) flat
+    c0 = relu(mm(fs_a, "c0w_t0") + mm(fs_b, "c0w_t1")
+              + mm(fs_cur, "c0w_t2") + W["c0_b"])     # [S, 2048] (C,F) padded
+    c1 = relu(mm(c0, "c1_w") + W["c1_b"])             # [S, 768] (F,C) flat
+    cemb = relu(mm(c1, "gl_w"))                       # [S, 128]
     emb = e3 + cemb
 
     # -- encoder GRU + lsnr head
-    xin = relu(emb @ W["enc_lin_in"])
-    gi = xin @ W["enc_wih"] + W["enc_bih"]
-    enc_h = _gru_cell(s["enc_h"], gi, W["enc_whh"], W["enc_bhh"])
+    xin = relu(mm(emb, "enc_lin_in"))
+    gi = mm(xin, "enc_wih") + W["enc_bih"]
+    enc_h = _gru_cell(s["enc_h"], gi, mm(s["enc_h"], "enc_whh"), W["enc_bhh"])
     ns["enc_h"] = enc_h
-    emb = relu(enc_h @ W["enc_lin_out"])              # [S, 128]
-    lsnr = torch.sigmoid(emb @ W["lsnr_w"] + W["lsnr_b"])
-    lsnr = lsnr * (st.lsnr_max - st.lsnr_min) + st.lsnr_min  # [S, 1]
+    emb = relu(mm(enc_h, "enc_lin_out"))              # [S, 128]
+    lsnr = torch.sigmoid(mmf(emb, "lsnr_w") + W["lsnr_b"])
+    lsnr = lsnr * (st.lsnr_max - st.lsnr_min) + st.lsnr_min  # [S, 1] float32
 
     # -- erb decoder (p_demb permutation folded into dec_lin_out)
-    xdec = relu(emb @ W["dec_lin_in"])
-    gid = xdec @ W["dec_wih"] + W["dec_bih"]
-    dec_h = _gru_cell(s["dec_h"], gid, W["dec_whh"], W["dec_bhh"])
+    xdec = relu(mm(emb, "dec_lin_in"))
+    gid = mm(xdec, "dec_wih") + W["dec_bih"]
+    dec_h = _gru_cell(s["dec_h"], gid, mm(s["dec_h"], "dec_whh"), W["dec_bhh"])
     ns["dec_h"] = dec_h
-    demb_cf = relu(dec_h @ W["dec_lin_out"])          # [S, 128] (C,F) flat
-    d3 = relu((relu(e3 @ W["p3_w"] + W["p3_b"]) + demb_cf) @ W["t3_w"] + W["t3_b"])
-    d2 = relu((relu(e2 @ W["p2_w"] + W["p2_b"]) + d3) @ W["t2_w"] + W["t2_b"])
-    d1 = relu((relu(e1 @ W["p1_w"] + W["p1_b"]) + d2) @ W["t1_w"] + W["t1_b"])
+    demb_cf = relu(mm(dec_h, "dec_lin_out"))          # [S, 128] (C,F) flat
+    d3 = relu(mm(relu(mm(e3, "p3_w") + W["p3_b"]) + demb_cf, "t3_w") + W["t3_b"])
+    d2 = relu(mm(relu(mm(e2, "p2_w") + W["p2_b"]) + d3, "t2_w") + W["t2_b"])
+    d1 = relu(mm(relu(mm(e1, "p1_w") + W["p1_b"]) + d2, "t1_w") + W["t1_b"])
     m = torch.sigmoid(
-        (relu(e0 @ W["p0_w"] + W["p0_b"]) + d1) @ W["out_w"] + W["out_b"]
-    )  # [S, 32]
+        mmf(relu(mm(e0, "p0_w") + W["p0_b"]) + d1, "out_w") + W["out_b"]
+    )  # [S, 32] float32
 
     # -- df decoder (3-layer GRU; coefficient heads in (n, ri, f) blocks)
-    h_in = relu(emb @ W["df_lin_in"])
+    h_in = relu(mm(emb, "df_lin_in"))
     for li in range(3):
-        gil = h_in @ W[f"df_wih{li}"] + W[f"df_bih{li}"]
-        h_in = _gru_cell(s[f"dfh{li}"], gil, W[f"df_whh{li}"], W[f"df_bhh{li}"])
+        gil = mm(h_in, f"df_wih{li}") + W[f"df_bih{li}"]
+        h_in = _gru_cell(s[f"dfh{li}"], gil, mm(s[f"dfh{li}"], f"df_whh{li}"),
+                         W[f"df_bhh{li}"])
         ns[f"dfh{li}"] = h_in
-    coefs_t = torch.tanh(h_in @ W["df_out_w"])  # [S, O*2*BLK]
-    c0v = c0.reshape(n_rows, _CH, BLK)
-    cp = torch.einsum("co,scf->osf", W["convp_co"], c0v)  # [O*2, S, BLK]
+    coefs_t = torch.tanh(mmf(h_in, "df_out_w"))  # [S, O*2*BLK] float32
+    c0v = c0.reshape(n_rows, _CH, BLK).float()
+    cp = torch.einsum("co,scf->osf", P.w["convp_co"], c0v)  # [O*2, S, BLK]
 
     # -- deep filter MAC: ring frames 0..3 and the current frame as tap 4
     y_re = torch.zeros((n_rows, BLK), dtype=torch.float32, device=frame.device)
@@ -485,14 +534,14 @@ def _frame_step(W: Dict[str, torch.Tensor], st: CellStatics, s: Dict[str, torch.
     for n in range(3):
         ns[f"r{n}_re"], ns[f"r{n}_im"] = s[f"r{n+1}_re"], s[f"r{n+1}_im"]
     ns["r3_re"], ns["r3_im"] = cur_re, cur_im
-    return _frame_tail(W, st, ns, s, frame, m, lsnr, y_re, y_im, spec_re, spec_im)
+    return _frame_tail(W, P, st, ns, s, frame, m, lsnr, y_re, y_im, spec_re, spec_im)
 
 
-def _frame_tail(W, st: CellStatics, ns, s, frame, m, lsnr, y_re, y_im, spec_re, spec_im):
+def _frame_tail(W, P, st: CellStatics, ns, s, frame, m, lsnr, y_re, y_im, spec_re, spec_im):
     """Post-model stages: ERB mask, post-filter, LSNR gating, atten-lim,
     silence skip, split-iDFT synthesis + overlap-add."""
     nb_df = st.nb_df
-    bin_gains = m @ W["erb_inv"]  # [S, 512]
+    bin_gains = P.mmf(m, "erb_inv")  # [S, 512]
     sm_re = spec_re * bin_gains
     sm_im = spec_im * bin_gains
     se_re = torch.cat([y_re[:, :nb_df], sm_re[:, nb_df:]], dim=-1)
@@ -536,25 +585,29 @@ def _frame_tail(W, st: CellStatics, ns, s, frame, m, lsnr, y_re, y_im, spec_re, 
 
     # -- synthesis: windowed iDFT as separate re/im products against the
     # row-rescaled transposed DFT matrix, then overlap-add
-    x = ((se_re * W["imult"]) @ W["dft"][:, :FPAD].T
-         + (se_im * W["imult"]) @ W["dft"][:, FPAD:].T)  # [S, 960]
+    x = ((se_re * W["imult"]).to(P.dtype).float() @ P.w["dft"][:, :FPAD].T
+         + (se_im * W["imult"]).to(P.dtype).float() @ P.w["dft"][:, FPAD:].T)  # [S, 960]
     out = x[:, :HOP] + s["smem"]
     ns["smem"] = x[:, HOP:]
     return ns, out
 
 
 def cell_process_plain(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
-                       weights: Dict[str, torch.Tensor], statics: CellStatics
+                       weights: Dict[str, torch.Tensor], statics: CellStatics,
+                       products: type = _Products
                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Plain PyTorch version of the kernel: a Python loop over the frames of
-    audio [S, T]. Returns (new flat carry, enhanced audio [S, T])."""
+    audio [S, T]. Returns (new flat carry, enhanced audio [S, T]).
+    `products`: the class of the products (`whole_cell_check` swaps in
+    variants that sum or round differently)."""
     s, t = audio.shape
     if t % HOP:
         raise ValueError("cell_process needs whole hops")
     st = _carry_split(carry)
+    P = products(weights)
     outs = []
     for f in range(t // HOP):
-        st, o = _frame_step(weights, statics, st, audio[:, f * HOP: (f + 1) * HOP])
+        st, o = _frame_step(weights, P, statics, st, audio[:, f * HOP: (f + 1) * HOP])
         outs.append(o)
     new_carry = {k: v.contiguous() for k, v in _carry_join(st).items()}
     out = torch.cat(outs, dim=-1) if outs else audio.new_zeros((s, 0))
@@ -623,12 +676,16 @@ def _check_inputs(audio, carry, weights):
     if t % HOP:
         raise ValueError("cell_process needs whole hops")
     dev = audio.device
-    want = [("audio", audio, (s, t))]
-    want += [(f"carry[{k!r}]", carry[k], (s, d)) for k, d in CKEYS]
-    want += [(f"weights[{k!r}]", weights[k], WSHAPES[k]) for k in WKEYS]
-    for name, x, shape in want:
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
+    mdtype = weights["dft"].dtype
+    if mdtype not in MATMUL_DTYPES:
+        raise TypeError(f"weights['dft'] must be float32 or bfloat16, got {mdtype}")
+    f32 = torch.float32
+    want = [("audio", audio, (s, t), f32)]
+    want += [(f"carry[{k!r}]", carry[k], (s, d), f32) for k, d in CKEYS]
+    want += [(f"weights[{k!r}]", weights[k], WSHAPES[k], weight_dtype(k, mdtype)) for k in WKEYS]
+    for name, x, shape, dtype in want:
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
         if x.device != dev:
@@ -641,13 +698,15 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     """Run the whole cell over audio [S, T], T a whole number of hops.
 
     carry: dict of [S, d] float32 arrays (keys and widths per CKEYS);
-    weights, statics: from `build_cell_weights`. Returns (new carry,
-    enhanced audio [S, T]).
+    weights, statics: from `build_cell_weights`, float32 or bfloat16
+    operands. Returns (new carry, enhanced audio [S, T]).
 
     CPU tensors run `cell_process_plain`. CUDA tensors launch the kernel
-    once for all frames (counting one launch in `cell_process.launches` and
-    the frames in `cell_process.frames`, and leaving the kernel's per-stage
-    cycle counts in `cell_process.stage_clocks`) or raise. Two designs of
+    once for all frames (counting one launch in `cell_process.launches`, and
+    in `cell_process.bf16_launches` too for a bfloat16 weight set, the frames
+    in `cell_process.frames`, and leaving the kernel's per-stage cycle counts
+    in `cell_process.stage_clocks`) or raise. Each design has a build for
+    each operand type. Two designs of
     the kernel exist and `_kernel_choice` picks one from S and the card, with
     no argument for the caller: for few streams every product is cut over
     all multiprocessors (`whole_cell_plan.plan`; a cooperative launch, one
@@ -682,7 +741,8 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
                 st.alpha, 1.0 - st.alpha, st.lsnr_min, st.lsnr_max, st.pf_beta,
                 st.silence_thresh, st.atten_lim, st.gate_lsnr_min, st.gate_lsnr_max_erb,
                 st.gate_lsnr_max_df),
-            flags=(int(st.mask_pf), int(st.lsnr_gating), int(st.silence_frames)),
+            flags=(int(st.mask_pf), int(st.lsnr_gating), int(st.silence_frames),
+                   int(weights["dft"].dtype == torch.bfloat16)),
             stream=torch.cuda.current_stream(device).cuda_stream,
         )
         design = _kernel_choice(s, n_sm)
@@ -694,6 +754,7 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
             + (" (the card refused the cooperative launch of one block per multiprocessor)"
                if err in (720, 801) else ""))
     cell_process.launches += 1
+    cell_process.bf16_launches += int(weights["dft"].dtype == torch.bfloat16)
     cell_process.frames += n_frames
     cell_process.stage_clocks = clocks
     cell_process.stage_names = STAGES[design]
@@ -748,6 +809,7 @@ def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, sc
 
 
 cell_process.launches = 0  # type: ignore[attr-defined]
+cell_process.bf16_launches = 0  # type: ignore[attr-defined]
 cell_process.frames = 0  # type: ignore[attr-defined]
 # after a launch: int64 device tensor of the SM cycles the kernel's first
 # block spent in each stage of the frame over the call (read after a
@@ -768,7 +830,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     pp, pf = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float)
     fn = lib.dfn_whole_cell
-    fn.argtypes = [p, p, pp, pp, pp, i, p, p, p, i, p, p, i, i, i, pf, i, i, i, p]
+    fn.argtypes = [p, p, pp, pp, pp, i, p, p, p, i, p, p, i, i, i, pf, i, i, i, i, p]
     fn.restype = ctypes.c_int
     lib.dfn_whole_cell_threads.argtypes = []
     lib.dfn_whole_cell_threads.restype = ctypes.c_int
@@ -780,7 +842,7 @@ def _bind_rows(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     pp, pf = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float)
     fn = lib.dfn_whole_cell_rows
-    fn.argtypes = [p, p, pp, pp, pp, i, p, p, i, i, i, i, pf, i, i, i, p]
+    fn.argtypes = [p, p, pp, pp, pp, i, p, p, i, i, i, i, pf, i, i, i, i, p]
     fn.restype = ctypes.c_int
     for count in (lib.dfn_whole_cell_rows_scratch_floats, lib.dfn_whole_cell_rows_stages):
         count.argtypes = []

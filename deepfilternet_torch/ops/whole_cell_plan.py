@@ -15,6 +15,12 @@ no job reads what another job of its phase writes.
 Activations and state live in a global scratch `[tiles, SCR, RT]` (feature
 major inside a tile of 64 streams, so that a K-chunk of a product's input is
 one contiguous copy).
+
+With a bfloat16 weight set the kernel rounds each job's result where the
+plain version's `mm` does (`rnd`, and `kseg` for df_conv0's three window
+products, each rounded before they are added), and a product's input unless
+only trunk products (`R_TRUNK`, whose results are rounded) wrote its columns
+(the job's `J_XRND`); `run_plan` does the same.
 """
 
 from __future__ import annotations
@@ -54,10 +60,16 @@ SCR = _o
 (T_GEMM, T_CARRY_IN, T_FRAME0, T_ADVANCE, T_LSNR, T_CARRY_OUT) = range(6)
 (EP_STD, EP_SPEC, EP_ERBNORM, EP_GRU, EP_TAIL, EP_OLA) = range(6)
 (ACT_NONE, ACT_RELU, ACT_SIGMOID, ACT_TANH) = range(4)
+# where a product's result is rounded with a bfloat16 weight set, as the
+# kernel's `Rnd` enum: never (float32 sum, the plain version's `mmf`); the sum
+# only, the bias then added in float32 (h @ w_hh, whose bias joins the GRU
+# gates); or the sum, then the bias add and the addend add (the model trunk,
+# `mm` with its bfloat16 adds)
+(R_F32, R_SUM, R_TRUNK) = range(3)
 # fields of a job row, as the kernel's `JobField` enum
 (J_TYPE, J_BEGIN, J_UNITS, J_XOFF, J_K, J_W, J_NCAT, J_CSTRIDE, J_CW, J_SLICES, J_BIAS, J_ACT,
- J_ADD, J_Y, J_YRAW, J_EP, J_H, J_GH, J_KG, J_AUX) = range(20)
-JOB_INTS = 20
+ J_ADD, J_Y, J_YRAW, J_EP, J_H, J_GH, J_KG, J_AUX, J_RND, J_KSEG, J_XRND) = range(23)
+JOB_INTS = 23
 PHASE_INTS = 3   # first job, jobs, units
 (H_PHASES, H_JOBS, H_TILES, H_FRAME_PHASES, H_PRE, H_SEGS, H_LAY, H_SCR) = range(8)
 HEADER_INTS = 8
@@ -73,7 +85,9 @@ class Gemm(NamedTuple):
     in the weight (re | im of the DFT, the three gates of a GRU, the two hops
     of the synthesis frame): a unit owns the same `cw` columns of every
     group, so its epilogue sees them together. x, y, add, yraw, h, gh are
-    scratch columns (name, or (name, offset))."""
+    scratch columns (name, or (name, offset)). `rnd`: where a bfloat16
+    weight set rounds the result (R_*); `kseg`: K rows of each input segment
+    whose product is rounded before the segments are added (0: one sum)."""
 
     name: str
     x: object
@@ -90,6 +104,8 @@ class Gemm(NamedTuple):
     cat_stride: int = 0
     h: object = None
     gh: object = None
+    rnd: int = R_TRUNK
+    kseg: int = 0
 
 
 class Packed(NamedTuple):
@@ -129,16 +145,19 @@ def frame_phases() -> List[Tuple[str, list]]:
     earlier phase (or the last frame) wrote; jobs of one phase write disjoint
     scratch columns and none reads what another of the same phase writes."""
     R, SG, TH = ACT_RELU, ACT_SIGMOID, ACT_TANH
-    gh = [Gemm("enc_whh", "enc_h", HID, ("enc_whh",), 768, "gh_enc", "enc_bhh"),
-          Gemm("dec_whh", "dec_h", HID, ("dec_whh",), 768, "gh_dec", "dec_bhh")]
+    F32 = R_F32
+    gh = [Gemm("enc_whh", "enc_h", HID, ("enc_whh",), 768, "gh_enc", "enc_bhh", rnd=R_SUM),
+          Gemm("dec_whh", "dec_h", HID, ("dec_whh",), 768, "gh_dec", "dec_bhh", rnd=R_SUM)]
     gh += [Gemm(f"df_whh{i}", ("df_h", HID * i), HID, (f"df_whh{i}",), 768,
-                ("gh_df", 768 * i), f"df_bhh{i}") for i in range(3)]
+                ("gh_df", 768 * i), f"df_bhh{i}", rnd=R_SUM) for i in range(3)]
     return [
         ("analysis DFT, h @ w_hh", [
-            Gemm("dft", "buf", 960, ("dft",), FPAD, ep=EP_SPEC, ncat=2, cat_stride=FPAD)] + gh),
+            Gemm("dft", "buf", 960, ("dft",), FPAD, ep=EP_SPEC, ncat=2, cat_stride=FPAD,
+                 rnd=F32)] + gh),
         ("erb bands, df_conv0", [
-            Gemm("erb_fwd", "pow", FPAD, ("erb_fwd",), NB_ERB, ep=EP_ERBNORM),
-            Gemm("c0", "fswin", 576, ("c0w_t0", "c0w_t1", "c0w_t2"), 2048, "c0", "c0_b", R)]),
+            Gemm("erb_fwd", "pow", FPAD, ("erb_fwd",), NB_ERB, ep=EP_ERBNORM, rnd=F32),
+            Gemm("c0", "fswin", 576, ("c0w_t0", "c0w_t1", "c0w_t2"), 2048, "c0", "c0_b", R,
+                 kseg=2 * NB_DF)]),
         ("e0, df_conv1", [
             Gemm("e0", "erbwin", 96, ("e0_w",), 512, "e0", "e0_b", R),
             Gemm("c1", "c0", 2048, ("c1_w",), 768, "c1", "c1_b", R)]),
@@ -175,13 +194,15 @@ def frame_phases() -> List[Tuple[str, list]]:
         ("convt2, df_out", [
             Gemm("t2", "pa2", 128, ("t2_w",), 256, "pa1", "t2_b", R, add="p1"),
             Gemm("df_out", ("df_h", 2 * HID), HID, ("df_out_w",), ORDER * 2 * BLK, "coef", None,
-                 TH)]),
+                 TH, rnd=F32)]),
         ("convt1", [Gemm("t1", "pa1", 256, ("t1_w",), 512, "pa0", "t1_b", R, add="p0")]),
-        ("conv_out mask", [Gemm("out", "pa0", 512, ("out_w",), NB_ERB, "mask", "out_b", SG)]),
+        ("conv_out mask", [Gemm("out", "pa0", 512, ("out_w",), NB_ERB, "mask", "out_b", SG,
+                                rnd=F32)]),
         ("mask gains, DF MAC, tail", [Gemm("erb_inv", "mask", NB_ERB, ("erb_inv",), FPAD,
-                                           ep=EP_TAIL)]),
+                                           ep=EP_TAIL, rnd=F32)]),
         ("synthesis, overlap-add, advance", [
-            Gemm("synthesis", "se", 2 * FPAD, ("dft_t",), HOP, ep=EP_OLA, ncat=2, cat_stride=HOP),
+            Gemm("synthesis", "se", 2 * FPAD, ("dft_t",), HOP, ep=EP_OLA, ncat=2, cat_stride=HOP,
+                 rnd=F32),
             Elementwise("advance", T_ADVANCE, EW_CHUNKS)]),
     ]
 
@@ -209,6 +230,24 @@ CARRY_SEGMENTS: List[Tuple[str, int, int, int]] = [
     ("df_h", 0, 768, OFF["df_h"]),
     ("ring_re", 0, 512, OFF["ring_re"]), ("ring_im", 0, 512, OFF["ring_im"]),
 ]
+
+
+def _trunk_columns(phases) -> set:
+    """Scratch columns only trunk products write: their values are bfloat16
+    already, so a product reading nothing else need not round its input."""
+    trunk, other = set(), set()
+    for _, jobs in phases:
+        for j in jobs:
+            if not isinstance(j, Gemm):
+                continue
+            cols = set()
+            for ref in (j.y, j.yraw):
+                if ref is not None:
+                    cols.update(range(_col(ref), _col(ref) + j.n))
+            (trunk if j.ep == EP_STD and j.rnd == R_TRUNK else other).update(cols)
+    for _, _, n, so in CARRY_SEGMENTS:
+        other.update(range(so, so + n))
+    return trunk - other
 
 
 def _widths(job: Gemm) -> List[int]:
@@ -281,6 +320,7 @@ def plan(s: int, n_blocks: int):
     packing, pack_floats = [], 0
     frame = frame_phases()
     phases = PRE_PHASES + frame + [POST_PHASE]
+    exact = _trunk_columns(frame)
     ph_rows, job_rows, info_ph = [], [], []
     for pi, (_, jobs) in enumerate(phases):
         gemms = [j for j in jobs if isinstance(j, Gemm)]
@@ -291,13 +331,15 @@ def plan(s: int, n_blocks: int):
             if isinstance(j, Gemm):
                 cw = cws[j.name]
                 kg = _k_groups(cw * j.ncat)
-                assert j.k % 32 == 0, j.name
+                assert j.k % 32 == 0 and j.kseg % KC == 0 and (j.kseg == 0 or j.k % j.kseg == 0), \
+                    j.name
                 units = (j.n // cw) * tiles
                 packing.append(Packed(j.w, j.k, j.ncat, j.cat_stride, j.n, cw, pack_floats))
                 r[:] = [T_GEMM, begin, units, _col(j.x), j.k, pack_floats, j.ncat,
                         j.cat_stride, cw, j.n // cw, wid[j.bias] if j.bias else -1, j.act,
                         _col(j.add), _col(j.y), _col(j.yraw), j.ep, _col(j.h), _col(j.gh), kg,
-                        _micro_cols(cw * j.ncat)]
+                        _micro_cols(cw * j.ncat), j.rnd, j.kseg,
+                        int(not set(range(_col(j.x), _col(j.x) + j.k)) <= exact)]
                 pack_floats += j.k * j.ncat * j.n
                 rows.append((j.name, cw, kg, units))
             else:
@@ -326,10 +368,12 @@ def pack_weights(weights: Dict[str, torch.Tensor], info: dict) -> torch.Tensor:
     K rows of its `ncat * cw` columns), one after the other in one buffer. A
     unit's K-chunk is then one contiguous copy, and no block reads narrow
     strips of wide rows. The synthesis product's weight is `dft` transposed.
-    The weight set itself is left as it is (it compares with the JAX package
-    key by key); this is a private copy of the kernel wrapper."""
+    The buffer has the products' operand type (`dft`'s: float32 or bfloat16;
+    offsets count elements). The weight set itself is left as it is (it
+    compares with the JAX package key by key); this is a private copy of the
+    kernel wrapper."""
     dev = weights["dft"].device
-    out = torch.empty((info["pack_floats"],), dtype=torch.float32, device=dev)
+    out = torch.empty((info["pack_floats"],), dtype=weights["dft"].dtype, device=dev)
     for pk in info["packing"]:
         w = torch.cat([weights["dft"].T if k == "dft_t" else weights[k] for k in pk.keys], dim=0)
         assert w.shape[0] == pk.k
@@ -420,7 +464,8 @@ def run_plan(table: np.ndarray, audio: torch.Tensor, carry: Dict[str, torch.Tens
              hazards: Optional[list] = None):
     """Execute a plan table on the CPU: every phase in order, every job whole
     (all its units at once) on its weight from the packed buffer
-    (`pack_weights`), every epilogue as the kernel writes it. Returns
+    (`pack_weights`), every epilogue as the kernel writes it, and with a
+    bfloat16 buffer every rounding as the kernel rounds. Returns
     (new carry, enhanced audio) like `cell_process`. `hazards` collects
     (phase, job a, job b) for every pair of jobs of one phase where a reads
     or writes columns that b writes."""
@@ -430,7 +475,14 @@ def run_plan(table: np.ndarray, audio: torch.Tensor, carry: Dict[str, torch.Tens
     L = {name: int(t.lay[i]) for i, (name, _) in enumerate(LAYOUT)}
     s, total = audio.shape
     n_frames = total // HOP
-    W = [weights[k] for k in WKEYS]
+    W = [weights[k].float() for k in WKEYS]
+    wf = dict(zip(WKEYS, W))
+    bf16 = packed.dtype == torch.bfloat16
+    packed = packed.float()
+
+    def rb(v):  # a result rounded to the operand type
+        return v.to(torch.bfloat16).float() if bf16 else v
+
     sc = _Scratch(s)
     out = torch.zeros_like(audio)
     new_carry = {k: torch.zeros_like(v) for k, v in carry.items()}
@@ -457,16 +509,32 @@ def run_plan(table: np.ndarray, audio: torch.Tensor, carry: Dict[str, torch.Tens
         n = int(j[J_CW]) * int(j[J_SLICES])
         w = unpack_weight(packed, j)
         x = sc.rd(int(j[J_XOFF]), k)
-        cats = [x @ w[:, c] for c in range(ncat)]
+        if j[J_XRND]:  # else trunk products wrote it in the operand type
+            x = rb(x)
+        rnd = int(j[J_RND]) if bf16 else R_F32
+        kseg = int(j[J_KSEG]) if bf16 else 0
+        if kseg:  # each segment's product rounded, then added with rounding
+            cats = []
+            for c in range(ncat):
+                tot = None
+                for k0 in range(0, k, kseg):
+                    part = rb(x[:, k0: k0 + kseg] @ w[k0: k0 + kseg, c])
+                    tot = part if tot is None else rb(tot + part)
+                cats.append(tot)
+        else:
+            cats = [x @ w[:, c] for c in range(ncat)]
+        if rnd != R_F32:
+            cats = [rb(v) for v in cats]
         bias = W[int(j[J_BIAS])].reshape(-1) if j[J_BIAS] >= 0 else None
+        trunk = rb if rnd == R_TRUNK else (lambda v: v)
         ep = int(j[J_EP])
         if ep == EP_STD:
-            v = cats[0] if bias is None else cats[0] + bias[:n]
+            v = cats[0] if bias is None else trunk(cats[0] + bias[:n])
             v = _act(v, int(j[J_ACT]))
             if j[J_YRAW] >= 0:
                 sc.wr(int(j[J_YRAW]), v)
             if j[J_ADD] >= 0:
-                v = v + sc.rd(int(j[J_ADD]), n)
+                v = trunk(v + sc.rd(int(j[J_ADD]), n))
             sc.wr(int(j[J_Y]), v)
         elif ep == EP_SPEC:
             re, im = cats
@@ -485,7 +553,7 @@ def run_plan(table: np.ndarray, audio: torch.Tensor, carry: Dict[str, torch.Tens
             sc.wr(L["mean"], mean)
             sc.wr(L["erbwin"] + 64, (db - mean) / 40.0)
         elif ep == EP_GRU:
-            gi = [cats[c] + bias[c * HID: c * HID + n] for c in range(3)]
+            gi = [trunk(cats[c] + bias[c * HID: c * HID + n]) for c in range(3)]
             gh = [sc.rd(int(j[J_GH]) + c * HID, n) for c in range(3)]
             h = sc.rd(int(j[J_H]), n)
             r = torch.sigmoid(gi[0] + gh[0])
@@ -502,8 +570,8 @@ def run_plan(table: np.ndarray, audio: torch.Tensor, carry: Dict[str, torch.Tens
             ring_re = sc.rd(L["ring_re"], 4 * BLK).reshape(s, 4, BLK)
             ring_im = sc.rd(L["ring_im"], 4 * BLK).reshape(s, 4, BLK)
             coef = sc.rd(L["coef"], ORDER * 2 * BLK).reshape(s, ORDER * 2, BLK)
-            cp = torch.einsum("co,scf->sof", weights["convp_co"], c0)
-            cb = weights["convp_b"][0]
+            cp = torch.einsum("co,scf->sof", wf["convp_co"], c0)
+            cb = wf["convp_b"][0]
             y_re = torch.zeros((s, BLK))
             y_im = torch.zeros((s, BLK))
             for n_ in range(ORDER):
@@ -541,8 +609,8 @@ def run_plan(table: np.ndarray, audio: torch.Tensor, carry: Dict[str, torch.Tens
             mute = sc.rd(L["mute"], 1) != 0
             se_re = torch.where(mute, torch.zeros_like(se_re), se_re)
             se_im = torch.where(mute, torch.zeros_like(se_im), se_im)
-            sc.wr(L["se"], se_re * weights["imult"])
-            sc.wr(L["se"] + FPAD, se_im * weights["imult"])
+            sc.wr(L["se"], se_re * wf["imult"])
+            sc.wr(L["se"] + FPAD, se_im * wf["imult"])
         elif ep == EP_OLA:
             out[:, f * HOP: (f + 1) * HOP] = cats[0] + sc.rd(L["smem"], HOP)
             sc.wr(L["smem"], cats[1])
@@ -565,8 +633,8 @@ def run_plan(table: np.ndarray, audio: torch.Tensor, carry: Dict[str, torch.Tens
             elif ty == T_ADVANCE:
                 frame_in(f + 1, True)
             elif ty == T_LSNR:
-                e = sc.rd(L["emb2"], 128)
-                ls = torch.sigmoid(e @ weights["lsnr_w"] + weights["lsnr_b"])
+                e = rb(sc.rd(L["emb2"], 128))
+                ls = torch.sigmoid(e @ wf["lsnr_w"] + wf["lsnr_b"])
                 sc.wr(L["lsnr"], ls * (st.lsnr_max - st.lsnr_min) + st.lsnr_min)
             elif ty == T_CARRY_OUT:
                 for key, cs, n, so in t.segs:

@@ -14,6 +14,14 @@ frontend always goes through the kernel wrapper and the rest runs eagerly.
 `chunk_frames` frames at a time in the offline form (the model's
 `forward_chunk`): no loop over frames, and no frontend kernel.
 
+Reduced precision, as the JAX package's runtimes: `dtype=torch.bfloat16`
+casts the model's float32 parameters and batch-norm statistics once, keeps
+the model carry in bfloat16 except the DF ring (float32: it holds spectrum
+values), and runs the model on the features cast to bfloat16; the frontend,
+the norms, the runtime stages and the synthesis stay float32. `out_dtype`
+casts only the synthesized output (a capacity knob: bfloat16 halves the
+output buffer).
+
 API:
     rt = StreamingRuntime(model, df_state)       # from enhance.init_df
     carry = rt.init(n_streams)
@@ -23,6 +31,7 @@ API:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Tuple
 
 import numpy as np
@@ -71,14 +80,37 @@ class RuntimeParams(NamedTuple):
     n_channels: int = 1
 
 
+# model types the runtimes take (the JAX package's tests use these two)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _cast_floats(tree, dtype: torch.dtype):
+    """Every float32 leaf of a params / state tree (or NamedTuple carry) cast
+    to `dtype`; other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_floats(v, dtype) for v in tree]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_cast_floats(v, dtype) for v in tree))
+    return tree.to(dtype) if tree.dtype == torch.float32 else tree
+
+
 class StreamingRuntime:
     def __init__(self, model, df_state, params: RuntimeParams = RuntimeParams(),
-                 dtype: torch.dtype = torch.float32):
-        if dtype != torch.float32:
+                 dtype: torch.dtype = torch.float32, out_dtype: torch.dtype = None):
+        if dtype not in DTYPES:
             raise NotImplementedError(
-                "only float32 is ported; the reduced-precision runtime is a "
-                "later ROADMAP item"
-            )
+                f"dtype {dtype}: the runtimes take torch.float32 or torch.bfloat16")
+        if out_dtype is not None and not out_dtype.is_floating_point:
+            raise ValueError(f"out_dtype must be a floating type, got {out_dtype}")
+        self.dtype = dtype
+        self.out_dtype = out_dtype
+        if dtype != torch.float32:
+            # weights and batch-norm statistics cast once; the features are
+            # cast per frame
+            model = dataclasses.replace(model, params=_cast_floats(model.params, dtype),
+                                        state=_cast_floats(model.state, dtype), _cache={})
         self.model = model
         self.df_state = df_state
         self.device = model.device
@@ -108,8 +140,17 @@ class StreamingRuntime:
             mean_norm=rows(mean_norm_init(self.nb_erb)),
             unit_norm=rows(unit_norm_init(self.nb_df)),
             silence_ctr=torch.zeros((n_streams,), dtype=torch.int32, device=dev),
-            model=self.model.module.streaming_init(n_streams, self.cfg, device=dev),
+            model=self._init_model_carry(n_streams),
         )
+
+    def _init_model_carry(self, n_streams: int):
+        carry = self.model.module.streaming_init(n_streams, self.cfg, device=self.device)
+        if self.dtype == torch.float32:
+            return carry
+        # the DF ring holds spectrum values and stays float32, as the cell
+        # writes it back from a complex64 MAC
+        keep = {f: getattr(carry, f) for f in carry._fields if "ring" in f}
+        return _cast_floats(carry, self.dtype)._replace(**keep)
 
     # -- per-frame cell ------------------------------------------------------
 
@@ -126,10 +167,12 @@ class StreamingRuntime:
         feat_cplx_ri = torch.stack([fc_re, fc_im], dim=-1)
         spec = torch.complex(spec_re, spec_im)
         spec_ri = torch.stack([spec_re, spec_im], dim=-1)
+        dt = self.dtype
         mstate, (spec_e_ri, lsnr, mask) = self.model.module.streaming_cell(
             self.model.params, self.model.state, self.cfg, carry.model,
-            spec_ri, feat_erb, feat_cplx_ri,
+            spec_ri.to(dt), feat_erb.to(dt), feat_cplx_ri.to(dt),
         )
+        spec_e_ri, lsnr, mask = (x.to(torch.float32) for x in (spec_e_ri, lsnr, mask))
         spec_e = self._apply_runtime_stages(
             spec, torch.complex(spec_e_ri[..., 0], spec_e_ri[..., 1]), lsnr, mask
         )
@@ -145,7 +188,10 @@ class StreamingRuntime:
 
         smem, out = synthesis_step_ri(carry.synthesis_mem, spec_e.real, spec_e.imag,
                                       self.stft_cfg)
-        return StreamCarry(amem, smem, mn, un, ctr, mstate), out
+        return StreamCarry(amem, smem, mn, un, ctr, mstate), self._out(out)
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        return out if self.out_dtype is None else out.to(self.out_dtype)
 
     def _apply_runtime_stages(self, spec, spec_e, lsnr, mask):
         """Post-model RuntimeParams stages. spec/spec_e complex [S, F],
@@ -211,7 +257,8 @@ class StreamingRuntime:
         hop = self.stft_cfg.hop_size
         s, t = audio.shape
         frames = audio.reshape(s, n, hop).transpose(0, 1).contiguous()
-        out = torch.empty((n, s, hop), dtype=torch.float32, device=self.device)
+        out = torch.empty((n, s, hop), dtype=self.out_dtype or torch.float32,
+                          device=self.device)
         for i in range(n):
             carry, out[i] = self._cell(carry, frames[i])
         return carry, out.transpose(0, 1).reshape(s, t)
@@ -271,10 +318,13 @@ class ChunkedStreamingRuntime(StreamingRuntime):
         utrack = _ema_scan(torch.sqrt(power[..., :nb_df]), carry.unit_norm, alpha, axis=1)
         scale = torch.rsqrt(utrack)
         feat_spec = torch.stack([re[..., :nb_df] * scale, im[..., :nb_df] * scale], dim=-1)
+        dt = self.dtype
         mcarry, (spec_e_ri, lsnr, mask) = self.model.module.forward_chunk(
             self.model.params, self.model.state, self.cfg, carry.model,
-            torch.stack([re, im], dim=-1), (erb_db - mtrack) / 40.0, feat_spec,
+            torch.stack([re, im], dim=-1).to(dt), ((erb_db - mtrack) / 40.0).to(dt),
+            feat_spec.to(dt),
         )
+        spec_e_ri, lsnr, mask = (x.to(torch.float32) for x in (spec_e_ri, lsnr, mask))
         spec_e = self._apply_runtime_stages(
             torch.complex(re, im), torch.complex(spec_e_ri[..., 0], spec_e_ri[..., 1]),
             lsnr, mask,

@@ -99,17 +99,17 @@ def flat_to_carry(flat: Dict[str, torch.Tensor], like: StreamCarry) -> StreamCar
 class WholeCellStreamingRuntime(StreamingRuntime):
     """StreamingRuntime running the whole-cell kernel.
 
-    matmul_dtype: type of the matrix products' operands (weights and casts);
-        carried state stays float32. Only torch.float32 is ported, and it is
-        the default here (the JAX package defaults to bfloat16); any other
-        type raises NotImplementedError.
+    matmul_dtype: type of the matrix products' operands (weights and casts):
+        torch.bfloat16, the default, as the JAX package's; or torch.float32.
+        Carried state stays float32. Any other type raises
+        NotImplementedError.
     backend: "kernel" launches the CUDA kernel for a model on a CUDA device
         (on the CPU it runs the plain version, as every kernel wrapper of
         the package does); "plain" always runs the plain version.
     """
 
     def __init__(self, model, df_state, params: RuntimeParams = RuntimeParams(),
-                 matmul_dtype: torch.dtype = torch.float32, backend: str = "kernel"):
+                 matmul_dtype: torch.dtype = torch.bfloat16, backend: str = "kernel"):
         if backend not in ("kernel", "plain"):
             raise ValueError(f"backend must be 'kernel' or 'plain', got {backend!r}")
         if params.reduce_mask != "none" and params.n_channels > 1:

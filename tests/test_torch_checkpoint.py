@@ -115,20 +115,28 @@ def test_init_df_cpu_loads_demo_checkpoint():
 
 
 def test_port_imports_no_jax_at_run_time(tmp_path):
-    """A fresh interpreter loads the demo model and runs 3 frames per frame,
+    """A fresh interpreter loads the demo model and runs 3 frames per frame
+    (float32 and bfloat16), through the whole cell (its bfloat16 default),
     the offline enhance, the chunked runtime and the CLI, then no jax, optax
     or deepfilternet_tpu module may be loaded."""
     code = textwrap.dedent(f"""
         import os, sys
         import numpy as np
+        import torch
         from deepfilternet_torch.enhance import enhance, init_df, main
         from deepfilternet_torch.streaming import ChunkedStreamingRuntime, StreamingRuntime
+        from deepfilternet_torch.streaming_whole_cell import WholeCellStreamingRuntime
         from deepfilternet_torch.utils import save_audio
         model, df_state, _ = init_df("pretrained/dfn3_fixture_demo", device="cpu")
         rt = StreamingRuntime(model, df_state)
         audio = np.random.default_rng(0).standard_normal((2, 480 * 3)).astype(np.float32)
         _, out = rt.process(rt.init(2), audio)
         assert out.shape == (2, 1440)
+        brt = StreamingRuntime(model, df_state, dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+        assert brt.process(brt.init(2), audio)[1].dtype == torch.bfloat16
+        wrt = WholeCellStreamingRuntime(model, df_state)
+        assert wrt.weights["dft"].dtype == torch.bfloat16
+        assert wrt.process(wrt.init(2), audio)[1].shape == (2, 1440)
         assert enhance(model, df_state, audio, backend="offline").shape == (2, 1440)
         crt = ChunkedStreamingRuntime(model, df_state, chunk_frames=2)
         assert crt.process(crt.init(2), audio)[1].shape == (2, 1440)

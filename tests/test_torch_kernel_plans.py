@@ -50,8 +50,11 @@ def _fresh_port_config():
 
 @pytest.fixture(scope="module")
 def runtimes():
+    """float32 operands ("default", "stages") and bfloat16 ones ("bf16 ...")."""
     model, df_state, _ = init_df(MODEL_DIR, device="cpu")
-    return {name: WholeCellStreamingRuntime(model, df_state, RuntimeParams(**kw), backend="plain")
+    return {f"{prefix}{name}": WholeCellStreamingRuntime(
+                model, df_state, RuntimeParams(**kw), matmul_dtype=dtype, backend="plain")
+            for prefix, dtype in (("", torch.float32), ("bf16 ", torch.bfloat16))
             for name, kw in (("default", {}), ("stages", STAGES))}
 
 
@@ -247,13 +250,15 @@ def test_run_plan_reports_a_hazard(runtimes):
     assert any(pi == n_pre + 2 for pi, _, _ in hazards)
 
 
-def test_packed_weights_hold_every_product_and_leave_the_set_alone(runtimes):
-    rt = runtimes["default"]
+@pytest.mark.parametrize("pset", ["default", "bf16 default"])
+def test_packed_weights_hold_every_product_and_leave_the_set_alone(runtimes, pset):
+    rt = runtimes[pset]
     keys_before = list(rt.weights)
     for s in (64, 4096):
         table, info = wp.plan(s, N_SM)
         packed = wp.pack_weights(rt.weights, info)
-        assert packed.numel() == info["pack_floats"]
+        # in the products' operand type; offsets count elements
+        assert packed.numel() == info["pack_floats"] and packed.dtype == rt.weights["dft"].dtype
         jobs = [j for j in wp.decode(table).jobs if j[wp.J_TYPE] == wp.T_GEMM]
         assert len(jobs) == len(info["packing"])
         for j, pk in zip(jobs, info["packing"]):
@@ -284,7 +289,7 @@ def test_packed_weights_are_cached_per_weight_set_and_plan(runtimes):
     assert wc.packed_weights(rt.weights, 64, N_SM) is a
 
 
-@pytest.mark.parametrize("pset", ["default", "stages"])
+@pytest.mark.parametrize("pset", ["default", "stages", "bf16 default"])
 def test_hidden_products_first_is_bit_equal(runtimes, pset, monkeypatch):
     """The kernel computes every h @ w_hh of the frame in the frame's first
     phase, from last frame's state, beside the analysis DFT. In
@@ -302,23 +307,20 @@ def test_hidden_products_first_is_bit_equal(runtimes, pset, monkeypatch):
     own_step, own_cell = wc._frame_step, wc._gru_cell
     pre = {}
 
-    def frame_step(W_, st_, state, frame):
-        # the frame's five h @ w_hh, before anything else of the frame
+    def frame_step(W_, P_, st_, state, frame):
+        # the frame's five h @ w_hh, before anything else of the frame, found
+        # again by the layer's b_hh
         pre.clear()
-        for h_key, w_key in (("enc_h", "enc_whh"), ("dec_h", "dec_whh"), ("dfh0", "df_whh0"),
-                             ("dfh1", "df_whh1"), ("dfh2", "df_whh2")):
-            pre[id(W_[w_key])] = state[h_key] @ W_[w_key]
-        return own_step(W_, st_, state, frame)
+        for h_key, layer in (("enc_h", "enc_"), ("dec_h", "dec_"), ("dfh0", "df_"),
+                             ("dfh1", "df_"), ("dfh2", "df_")):
+            sfx = h_key[-1] if h_key.startswith("dfh") else ""
+            pre[id(W_[f"{layer}bhh{sfx}"])] = P_.mm(state[h_key], f"{layer}whh{sfx}")
+        return own_step(W_, P_, st_, state, frame)
 
-    def gru_cell(h, gi, ghw, b_hh):
-        gh = pre[id(ghw)]  # made at the top of the frame
-        i_r, i_z, i_n = gi.chunk(3, dim=-1)
-        h_r, h_z, h_n = gh.chunk(3, dim=-1)
-        b_r, b_z, b_n = b_hh.chunk(3, dim=-1)
-        r = torch.sigmoid(i_r + h_r + b_r)
-        z = torch.sigmoid(i_z + h_z + b_z)
-        n = torch.tanh(i_n + r * (h_n + b_n))
-        return (1.0 - z) * n + z * h
+    def gru_cell(h, gi, gh, b_hh):
+        made_first = pre[id(b_hh)]  # made at the top of the frame
+        assert torch.equal(made_first, gh)
+        return own_cell(h, gi, made_first, b_hh)
 
     monkeypatch.setattr(wc, "_frame_step", frame_step)
     monkeypatch.setattr(wc, "_gru_cell", gru_cell)

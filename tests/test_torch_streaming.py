@@ -155,11 +155,6 @@ def test_partial_hop_raises(port_rt):
         port_rt.process(port_rt.init(1), np.zeros((1, HOP * 2 + 7), np.float32))
 
 
-def test_reduced_precision_not_ported(models):
-    with pytest.raises(NotImplementedError):
-        StreamingRuntime(models[2], models[3], dtype=torch.bfloat16)
-
-
 def test_cpu_runtime_never_launches_the_kernel(port_rt):
     before = fused_analysis_frontend.launches
     port_rt.process(port_rt.init(1), np.ones((1, HOP * 2), np.float32))

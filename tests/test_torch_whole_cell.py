@@ -1,8 +1,10 @@
 """The port's whole-cell streaming path against the JAX package, on the CPU.
 
-Same seeded inputs through both packages, float32 on both sides, small
-sizes (3 streams, 8 frames), for the bundled demo checkpoint and for a
-random-init JAX model carried across with `params_from_numpy`:
+Same seeded inputs through both packages, float32 on both sides (the
+runtime is asked for float32 operands; its bfloat16 default is held to the
+JAX package in `tests/test_torch_reduced_precision.py`), small sizes (3
+streams, 8 frames), for the bundled demo checkpoint and for a random-init JAX
+model carried across with `params_from_numpy`:
 
   * the dense conv folds (`build_fused`) and the kernel's weight set
     (`build_cell_weights`) key by key, 1e-5;
@@ -149,7 +151,8 @@ def test_build_cell_weights_matches_jax(models, pset):
     jm, jd, tm, td = models
     jrt = j_sp.PallasStreamingRuntime(jm, jd, JRuntimeParams(**PARAM_SETS[pset]),
                                       matmul_dtype=jnp.float32, interpret=True)
-    rt = WholeCellStreamingRuntime(tm, td, RuntimeParams(**PARAM_SETS[pset]), backend="plain")
+    rt = WholeCellStreamingRuntime(tm, td, RuntimeParams(**PARAM_SETS[pset]),
+                                   matmul_dtype=torch.float32, backend="plain")
     assert wc.WKEYS == j_cell.WKEYS and wc.CKEYS == j_cell.CKEYS
     assert (wc.FPAD, wc.BLK) == (j_cell.FPAD, j_cell.BLK)
     for k in wc.WKEYS:
@@ -208,7 +211,7 @@ def test_cell_process_plain_matches_jax_kernel(models, audio):
     Pallas kernel in interpret mode and against cell_process_xla."""
     jm, jd, tm, td = models
     jrt = j_sp.PallasStreamingRuntime(jm, jd, matmul_dtype=jnp.float32, interpret=True)
-    rt = WholeCellStreamingRuntime(tm, td, backend="plain")
+    rt = WholeCellStreamingRuntime(tm, td, matmul_dtype=torch.float32, backend="plain")
     carry = _seeded_flat_carry(S, seed=5)
     before = (wc.cell_process.launches, wc.cell_process.frames)
     got_c, got = wc.cell_process(
@@ -244,7 +247,8 @@ def test_runtime_matches_jax_runtimes(models, audio, pset):
     frames = FRAMES if pset == "default" else 4
     x = audio[:, : frames * HOP]
     jparams = JRuntimeParams(**PARAM_SETS[pset])
-    rt = WholeCellStreamingRuntime(tm, td, RuntimeParams(**PARAM_SETS[pset]), backend="plain")
+    rt = WholeCellStreamingRuntime(tm, td, RuntimeParams(**PARAM_SETS[pset]),
+                                   matmul_dtype=torch.float32, backend="plain")
     carry, got = rt.process(rt.init(S), x)
     assert got.shape == x.shape and torch.isfinite(got).all()
     jrts = {
@@ -275,7 +279,8 @@ def test_runtime_matches_port_per_frame_runtime(models, audio, pset):
     rc, ref = ref_rt.process(ref_rt.init(S), audio)
     before = (wc.cell_process.launches, wc.cell_process.frames)
     for backend in ("kernel", "plain"):
-        rt = WholeCellStreamingRuntime(tm, td, params, backend=backend)
+        rt = WholeCellStreamingRuntime(tm, td, params, matmul_dtype=torch.float32,
+                                       backend=backend)
         c, got = rt.process(rt.init(S), audio)
         np.testing.assert_allclose(got.numpy(), ref.numpy(), **RT_TOL)
         for f in c.model._fields:
@@ -288,7 +293,7 @@ def test_runtime_matches_port_per_frame_runtime(models, audio, pset):
 def test_chunk_continuity(all_models, audio, splits):
     """Calls that continue from the carry equal one call over all frames."""
     _, _, tm, td = all_models["demo"]
-    rt = WholeCellStreamingRuntime(tm, td, backend="plain")
+    rt = WholeCellStreamingRuntime(tm, td, matmul_dtype=torch.float32, backend="plain")
     c_full, full = rt.process(rt.init(S), audio)
     c, outs = rt.init(S), []
     for lo, hi in splits:
@@ -304,7 +309,7 @@ def test_silence_skip(all_models):
     """Quiet frames count up across calls and mute the output after
     silence_skip_frames; a loud frame resets the counter; as the JAX runtime."""
     jm, jd, tm, td = all_models["demo"]
-    rt = WholeCellStreamingRuntime(tm, td, backend="plain")
+    rt = WholeCellStreamingRuntime(tm, td, matmul_dtype=torch.float32, backend="plain")
     z = np.zeros((2, FRAMES * HOP), np.float32)
     c, o1 = rt.process(rt.init(2), z[:, : 3 * HOP])
     assert c.silence_ctr.tolist() == [3, 3]
@@ -328,7 +333,6 @@ def _construct(all_models, **kw):
 
 @pytest.mark.parametrize("case, exc", [
     ("reduce_mask", NotImplementedError),
-    ("bfloat16", NotImplementedError),
     ("float16", NotImplementedError),
     ("run_df_false", NotImplementedError),
     ("backend", ValueError),
@@ -339,8 +343,8 @@ def test_unsupported_raises(all_models, case, exc):
     with pytest.raises(exc):
         if case == "reduce_mask":
             _construct(all_models, params=RuntimeParams(reduce_mask="max", n_channels=2))
-        elif case in ("bfloat16", "float16"):
-            _construct(all_models, matmul_dtype=getattr(torch, case))
+        elif case == "float16":
+            _construct(all_models, matmul_dtype=torch.float16)
         elif case == "run_df_false":
             mask_only = dataclasses.replace(tm, cfg=dict(tm.cfg, run_df=False))
             WholeCellStreamingRuntime(mask_only, td)
@@ -406,7 +410,7 @@ def test_cuda_kernel_matches_plain(cuda_device, s):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tm, td, _ = init_df(MODEL_DIR, device=cuda_device)
-    rt = WholeCellStreamingRuntime(tm, td, RuntimeParams(**STAGES))
+    rt = WholeCellStreamingRuntime(tm, td, RuntimeParams(**STAGES), matmul_dtype=torch.float32)
     rng = np.random.default_rng(s)
     x = torch.from_numpy((rng.standard_normal((s, FRAMES * HOP)) * 0.1).astype(np.float32))
     x = x.to(cuda_device)
