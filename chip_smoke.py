@@ -6,7 +6,8 @@
 Phases, each of which raises (and so exits non-zero) on any failed check:
 
   1. device  - needs CUDA; prints the card's name and power limit;
-  2. build   - compiles every CUDA kernel from deepfilternet_torch/csrc/;
+  2. build   - compiles every CUDA kernel from deepfilternet_torch/csrc/, and
+               counts each kernel's tensor-core (HMMA) instructions;
   3. kernels - each kernel against its plain PyTorch version on the card at
                the main path's shapes (and others), with its time, the plain
                version's, a library yardstick's (where one PyTorch call
@@ -14,7 +15,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                work, at the main path's shape and at S=4096; the whole-cell
                kernel in both of its designs (every product cut over all
                multiprocessors; a tile of stream rows a block, built for 4 and
-               8 rows), also where a block walks over several units or tiles;
+               8 rows, and 16 at bfloat16), also where a block walks over
+               several units or tiles;
   4. main    - streaming DFN3 with the bundled demo checkpoint: 64 streams
                x 2 s through StreamingRuntime.process (one frontend kernel
                launch per frame), held against the same run on the CPU, then
@@ -33,9 +35,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                against itself in two calls; the CLI once. These paths launch
                neither kernel (cuFFT, cuDNN and cuBLAS do their work), which
                the launch counts show. Wall times and RTF are information;
-  6. reduced precision - the whole-cell kernel's bfloat16 build against its
-               plain bfloat16 version in both designs, and its times with
-               their bounds; StreamingRuntime(dtype=bfloat16) on the main
+  6. reduced precision - the whole-cell kernel's bfloat16 build (on the
+               tensor cores) against its plain bfloat16 version in both
+               designs, and its times with their bounds; StreamingRuntime(dtype=bfloat16) on the main
                path's 64 x 2 s (K1 once a frame) against the same streams on
                the CPU, ChunkedStreamingRuntime(dtype=bfloat16), out_dtype;
                WholeCellStreamingRuntime with its default bfloat16 operands
@@ -330,29 +332,31 @@ def compare_cell(tag, got, ref, rel_tol, mean_tol=None):
 def k2_design(design, rows=None):
     """Inside the block `cell_process` launches the named design of the kernel
     ("units": every product cut over all multiprocessors; "rows": a tile of
-    stream rows a block, with `rows` 4 or 8 a block) whatever S is, so that
+    stream rows a block, with `rows` 4, 8 or (bfloat16) 16 a block) whatever S
+    is, so that
     every build can be checked and timed at one S. None leaves the wrapper's
     own choice."""
     from deepfilternet_torch.ops import whole_cell
 
     own = whole_cell._kernel_choice, whole_cell._tile_rows
     if design is not None:
-        whole_cell._kernel_choice = lambda s, n_sm: design
+        whole_cell._kernel_choice = lambda *args: design
     if rows is not None:
-        whole_cell._tile_rows = lambda s, n_sm: rows
+        whole_cell._tile_rows = lambda *args: rows
     try:
         yield
     finally:
         whole_cell._kernel_choice, whole_cell._tile_rows = own
 
 
-def own_k2_design(s):
-    """(design, rows a block or None) the wrapper picks at S streams."""
+def own_k2_design(s, bf16):
+    """(design, rows a block or None) the wrapper picks at S streams for the
+    float32 or the bfloat16 build."""
     from deepfilternet_torch.ops.whole_cell import _kernel_choice, _tile_rows
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    design = _kernel_choice(s, n_sm)
-    return design, (_tile_rows(s, n_sm) if design == "rows" else None)
+    design = _kernel_choice(s, n_sm, bf16)
+    return design, (_tile_rows(s, n_sm, bf16) if design == "rows" else None)
 
 
 def design_name(design, rows):
@@ -361,12 +365,15 @@ def design_name(design, rows):
 
 # (streams, frames compared, design, rows a block; None: the wrapper's choice:
 # "units" up to 8 tiles of 64 streams on 132 multiprocessors, else "rows" with
-# 4 rows up to 4 x the card's multiprocessors, else 8). 1100 streams are 18
-# tiles of 64 (the last ragged), 138 of 8 and 275 of 4: more units or tiles
-# than blocks in every design, so a block walks over several.
+# 4 rows up to 4 x the card's multiprocessors, else 8, or 16 for bfloat16
+# beyond 8 x). 1100 streams are 18 tiles of 64 (the last ragged), 138 of 8,
+# 69 of 16 and 275 of 4: more units or tiles than blocks in every design but
+# 16 rows, so a block walks over several.
 K2_CASES = ((1, 8, None, None), (37, 8, None, None), (64, 8, None, None),
             (37, 8, "rows", 4), (64, 8, "rows", 8), (1100, 2, None, None),
             (1100, 2, "rows", 4), (1100, 2, "units", None))
+# the bfloat16 build's 16 rows a block (two n8 tiles of the tensor cores)
+K2_BF16_CASES = ((37, 8, "rows", 16), (64, 8, "rows", 16), (1100, 2, "rows", 16))
 
 
 def k2_bounds(dtype):
@@ -387,18 +394,19 @@ def k2_bounds(dtype):
 
 
 def check_bf16_bounds(tag, x, carry, W, st):
-    """The plain version with products that sum in float64 (a right kernel
-    in another order) and with each wrong rounding of `whole_cell_check`,
-    against the plain version, each frame from the plain version's carry and
-    all frames from `carry`: the first must stay within BF16_BOUNDS, every
-    wrong one must exceed them in both spans."""
+    """The plain version with products that sum in another order (float64;
+    the tensor cores' order of the kernel's bfloat16 builds) and with each
+    wrong rounding of `whole_cell_check`, against the plain version, each
+    frame from the plain version's carry and all frames from `carry`: the
+    right ones must stay within BF16_BOUNDS, every wrong one must exceed them
+    in both spans."""
     from deepfilternet_torch.ops import whole_cell_check as wcc
     from deepfilternet_torch.ops.whole_cell import cell_process_plain
 
     readings = []
     ref = cell_process_plain(x, carry, W, st)
-    for products in (wcc.Float64Sums,) + wcc.WRONG:
-        right = products is wcc.Float64Sums
+    for products in wcc.RIGHT + wcc.WRONG:
+        right = products in wcc.RIGHT
         variant = lambda x1, c1: cell_process_plain(x1, c1, W, st, products)  # noqa: E731
         for span, errs in (("one frame", wcc.frame_by_frame(variant, x, carry, W, st)),
                            ("frames", wcc.cell_errors(variant(x, carry), ref))):
@@ -410,7 +418,7 @@ def check_bf16_bounds(tag, x, carry, W, st):
             readings.append(f"{products.__name__} {span} {top:.2e} / {mean:.2e}")
     print(f"K2 bfloat16 bounds {dict(wcc.BF16_BOUNDS)} ({tag}), plain variants against the "
           "plain version on the card (largest / mean error of the worst output): "
-          + "; ".join(readings) + f"; {wcc.Float64Sums.__name__} within, "
+          + "; ".join(readings) + f"; {', '.join(c.__name__ for c in wcc.RIGHT)} within, "
           + ", ".join(c.__name__ for c in wcc.WRONG) + " beyond in both spans")
 
 
@@ -436,6 +444,7 @@ def check_whole_cell(dev, card, model, df_state, dtype):
         return dict(carry, audio=audio)
 
     bounds = k2_bounds(dtype)
+    bf16 = dtype == torch.bfloat16
     tol_max, tol_mean = bounds["frames"]
     worst = 0.0
     for stages in ({}, K2_RUNTIME_STAGES):
@@ -443,7 +452,7 @@ def check_whole_cell(dev, card, model, df_state, dtype):
                                        matmul_dtype=dtype)
         W, st = rt.weights, rt.statics
         label = f"{dtype_name(dtype)}, " + ("runtime stages on" if stages else "default params")
-        for s, frames, design, rows in K2_CASES:
+        for s, frames, design, rows in K2_CASES + (K2_BF16_CASES if bf16 else ()):
             x = seeded_audio(s, 4 + frames, seed=100 + s).to(dev)
             # a non-trivial carry: 4 frames through the plain version first
             carry, _ = cell_process_plain(x[:, : 4 * HOP].contiguous(),
@@ -451,7 +460,7 @@ def check_whole_cell(dev, card, model, df_state, dtype):
             xc = x[:, 4 * HOP:].contiguous()
             ref = outputs(cell_process_plain(xc, carry, W, st))
             with k2_design(design, rows):
-                used = design_name(*own_k2_design(s))
+                used = design_name(*own_k2_design(s, bf16))
                 got = outputs(cell_process(xc, carry, W, st))
                 # each frame alone, from the carry the plain version reaches
                 each = frame_by_frame(lambda x1, c1: cell_process(x1, c1, W, st), xc, carry,
@@ -469,7 +478,7 @@ def check_whole_cell(dev, card, model, df_state, dtype):
             if out_of_bounds(each, bounds["one frame"]):
                 fail(f"K2 {tag}, each frame from the plain carry: {each} beyond "
                      f"{bounds['one frame']}")
-            if dtype == torch.bfloat16 and (s, design) == (64, None):
+            if bf16 and (s, design) == (64, None):
                 check_bf16_bounds(label, xc, carry, W, st)
             cerr, _, _ = compare_cell(tag + " two calls",
                                       dict(c2, audio=torch.cat([o1, o2], 1)), got, 1e-5)
@@ -552,17 +561,18 @@ def time_whole_cell(dev, card, rt, s, frames):
     version and the card's bound for the same work, at the runtime's operand
     type. No single PyTorch call computes this function, so it has no library
     time. The bound of bfloat16 work takes its operations at the bfloat16
-    tensor-core rate; the bound at the float32 FMA rate the kernel uses is
-    printed beside it."""
+    tensor-core rate, the rate of the unit its build multiplies on."""
     from deepfilternet_torch.ops.whole_cell import cell_process, cell_process_plain
     from deepfilternet_torch.streaming_whole_cell import carry_to_flat
 
     x = seeded_audio(s, frames, seed=7).to(dev)
     carry = carry_to_flat(rt.init(s))
     W, st = rt.weights, rt.statics
-    own = own_k2_design(s)
+    bf16 = W["dft"].dtype == torch.bfloat16
+    own = own_k2_design(s, bf16)
     # the designs the wrapper did not pick here, timed beside its choice
-    others = [d for d in (("units", None), ("rows", 4), ("rows", 8)) if d != own]
+    designs = (("units", None), ("rows", 4), ("rows", 8)) + ((("rows", 16),) if bf16 else ())
+    others = [d for d in designs if d != own]
 
     def forced(design, rows):
         def run():
@@ -580,22 +590,18 @@ def time_whole_cell(dev, card, rt, s, frames):
     t = {k: float(np.median(v)) for k, v in times.items()}
     flops, nbytes = whole_cell_work(W, s, frames)
     peak_flops, _, peak_bf16, peak_bw = peaks(card)
-    bf16 = W["dft"].dtype == torch.bfloat16
     peak_type = peak_bf16 if bf16 else peak_flops
     t_ops, t_bytes = flops / peak_type * 1e3, nbytes / peak_bw * 1e3
-    t_fma = flops / peak_flops * 1e3
     bound_ms = max(t_ops, t_bytes)
     rest = "".join(f", {k} {v / frames:.4f} ms" for k, v in t.items()
                    if k not in ("kernel", "plain"))
-    fma = (f"; at the float32 FMA rate the kernel uses {max(t_fma, t_bytes) / frames:.4f} ms, "
-           f"kernel at {max(t_fma, t_bytes) / t['kernel']:.1%} of it") if bf16 else ""
     print(f"K2 S={s} x {frames} frames in one call, {dtype_name(W['dft'].dtype)} operands, on "
           f"{card}, per frame: kernel (design {design_name(*own)}) {t['kernel'] / frames:.4f} ms, "
           f"plain {t['plain'] / frames:.4f} ms{rest}, no single library call; bound "
           f"{bound_ms / frames:.4f} ms ({flops / frames / 1e9:.3f} GFLOP at "
           f"{peak_type / 1e12:.1f} TFLOP/s {'bfloat16 tensor cores' if bf16 else 'float32'} = "
           f"{t_ops / frames:.4f} ms; {nbytes / 1e6:.2f} MB a call at {peak_bw / 1e12:.2f} TB/s = "
-          f"{t_bytes:.4f} ms a call); kernel at {bound_ms / t['kernel']:.1%} of the bound{fma}; "
+          f"{t_bytes:.4f} ms a call); kernel at {bound_ms / t['kernel']:.1%} of the bound; "
           f"per call: kernel {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, bound "
           f"{bound_ms:.3f} ms")
     # where a frame's time goes: SM cycles of the kernel's first block per stage
@@ -608,9 +614,41 @@ def time_whole_cell(dev, card, rt, s, frames):
     print(f"K2 S={s} x {frames} frames, design {design_name(*own)}, "
           f"{clocks.sum() / frames:.0f} cycles a frame in the first block, share by stage: "
           + "; ".join(f"{name} {c / clocks.sum():.1%}" for name, c in zip(names, clocks)))
+    if own[0] == "units":
+        rates = units_read_rates(s, bf16, clocks / frames)
+        print(f"K2 S={s} units, the first block's reads from L2 a frame by phase (input tiles "
+              "and weight slices of its units, from the plan) at its cycles: "
+              + "; ".join(f"{name} {kb:.1f} KB {r:.1f} B/clock" for name, kb, r in rates))
     return dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound_ms,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None, frames_per_launch=frames, design=design_name(*own))
+
+
+def units_read_rates(s, bf16, cycles):
+    """(phase, KB, bytes a clock) that block 0 of the units design reads from
+    L2 in each phase of a frame: for each of its units (unit u of a phase
+    goes to block u mod the block count) the input tile's K rows of 64
+    streams in float32 and its weight slice as packed, over block 0's cycles
+    in that phase."""
+    from deepfilternet_torch.ops import whole_cell_plan as wp
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    table, _ = wp.cached_plan(s, n_sm, bf16)
+    t = wp.decode(table)
+    n_pre = int(t.header[wp.H_PRE])
+    out = []
+    for i, name in enumerate(wp.STAGES[:-1]):
+        first, count, _ = (int(v) for v in t.phases[n_pre + i])
+        nbytes = 0
+        for j in t.jobs[first: first + count]:
+            if j[wp.J_TYPE] != wp.T_GEMM:
+                continue
+            cols = wp.packed_cols(int(j[wp.J_NCAT] * j[wp.J_CW]), bf16)
+            per_unit = int(j[wp.J_K]) * (wp.RT * 4 + cols * (2 if bf16 else 4))
+            begin, units = int(j[wp.J_BEGIN]), int(j[wp.J_UNITS])
+            nbytes += per_unit * sum(1 for u in range(begin, begin + units) if u % n_sm == 0)
+        out.append((name, nbytes / 1e3, nbytes / max(float(cycles[i]), 1.0)))
+    return out
 
 
 # -- phase 4: the main path --------------------------------------------------
@@ -1034,6 +1072,33 @@ def reduced_precision_path(dev, card, model, df_state, cpu_model, cpu_state, aud
     return k2b
 
 
+def hmma_counts(path):
+    """{kernel: HMMA instructions in its SASS} of a built library, from
+    `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
+    name is shortened to its function, operand type and row count."""
+    import re
+
+    from deepfilternet_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+([a-z_]+kernel|[a-z_]+frontend[a-z_]*)", mangled)
+            rows = re.search(r"ILi(\d+)E", mangled)
+            name = ((base.group(1) if base else mangled)
+                    + (" bfloat16" if "__nv_bfloat16" in mangled else "")
+                    + (f" R={rows.group(1)}" if rows else ""))
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1062,6 +1127,14 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
+    # every product of the bfloat16 builds runs on the tensor cores
+    for name in kernels.SOURCES:
+        counts = hmma_counts(kernels.library_path(name))
+        print(f"  {name}: HMMA instructions in the SASS (cuobjdump -sass): "
+              + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        bare = [k for k, v in counts.items() if "bfloat16" in k and v == 0]
+        if bare:
+            fail(f"bfloat16 kernels without tensor-core instructions: {bare}")
 
     from deepfilternet_torch.enhance import init_df
 

@@ -11,14 +11,20 @@
 // attenuation limit, the RMS silence counter and mute, and the iDFT synthesis
 // with overlap-add. The carry (11 arrays, CKEYS order) is read once at the
 // start of the call and written once at its end. Every matrix product of the
-// frame is computed here, in float32 FMAs on the CUDA cores.
+// frame is computed here: in float32 FMAs on the CUDA cores (float32 build),
+// or on the tensor cores (bfloat16 build, mma.sync m16n8k16).
 //
 // What bounds it: a frame is about 7.2 M multiply-adds a stream (8.1 M at the
-// padded widths the weights are stored at) against 28 MB of float32 weights,
-// which sit in the 50 MB L2 after the first frame. With few streams the
-// limit is the chain of dependent products: each must be spread over the
-// whole card to be short, and each then ends in a grid-wide barrier. With
-// many streams it is the float32 FMA rate.
+// padded widths the weights are stored at) against 28 MB of float32 weights
+// (14 MB bfloat16), which sit in the 50 MB L2 after the first frame. With few
+// streams the limit is the chain of dependent products: each must be spread
+// over the whole card to be short, and each then ends in a grid-wide barrier.
+// With many streams it is the float32 FMA rate in the float32 build. The
+// bfloat16 build's products take the tensor cores a small share of that
+// time; it is bound by the fixed cost of each phase (the grid barrier, the
+// first chunk's copy from L2, the epilogue's loads), which is the same in
+// both builds: at 64 streams a block reads its units' bytes at 2-14 of the
+// ~27 bytes a clock it could.
 //
 // What the design does about it:
 //   * one persistent block of 256 threads per multiprocessor, launched
@@ -41,10 +47,11 @@
 //     copies are issued, and cp.async from every thread stalls the threads at
 //     that rate; so a unit streams its input chunk and weight slice through a
 //     ring of shared-memory stages filled by bulk copies (the TMA engine, one
-//     warp issuing, an mbarrier a stage), which run while all warps multiply; a thread owns 8 rows x 8 columns
-//     (8 x 2 in narrow slices) and a share of each chunk's K rows, and the
-//     shares are added in shared memory in a fixed order, so results do not
-//     depend on timing;
+//     warp issuing, an mbarrier a stage), which run while all warps multiply.
+//     float32: a thread owns 8 rows x 8 columns (8 x 2 in narrow slices) and a
+//     share of each chunk's K rows; bfloat16: a warp owns one k16 step of each
+//     chunk for half the tile's rows (MmaTile). The shares are added in shared
+//     memory in a fixed order, so results do not depend on timing;
 //   * a unit owns whole groups of columns that belong together (re and im of
 //     a bin; the three gates of a GRU column), so the elementwise stages run
 //     in the product's epilogue: power / unit norm / complex features after
@@ -58,17 +65,23 @@
 //     barriers (stage_clocks), so a run can say where a frame's time goes.
 //
 // Two builds of the kernel, by the weights' type (the TPU kernel's mdtype):
-// float32, and bfloat16, the JAX package's default. The bfloat16 build reads
-// the packed weights, biases and small vectors as bfloat16 (imult and convp_b
-// stay float32), so a unit's K-chunk moves half the weight bytes through the
-// ring; it rounds a product's input to bfloat16 as it leaves shared memory
-// (unless trunk products wrote it, rounded already), multiplies the widened
-// values in float32 FMAs (a product of two
-// bfloat16 values is exact in float32), and rounds each result where the
+// float32, and bfloat16, the JAX package's default. The bfloat16 build runs
+// every product on the tensor cores, as the TPU kernel runs it on its MXU:
+// mma.sync m16n8k16, bfloat16 x bfloat16 -> float32. It reads the packed
+// weights (in B-fragment order, one 8-byte load a lane), biases and small
+// vectors as bfloat16 (imult and convp_b stay float32), so a unit's K-chunk
+// moves half the weight bytes through the ring. The A fragments are packed
+// from the float32 input stage by cvt.rn.bf16x2.f32, which is the rounding
+// of the input to bfloat16. The plan for this build (whole_cell_plan.plan,
+// bf16) packs each unit's weight slice in whole n8 tiles. How sums join: the
+// tensor core's accumulating adds truncate, so each warp takes one k16 step
+// at a time from zero and adds it to its float32 sums rounded to nearest;
+// the four K groups then add in group order in shared memory. The error
+// stays a float32 one, within what the bfloat16 gate allows
+// (ops/whole_cell_check.py, TensorCoreSums). Each result is rounded where the
 // plain version's `mm` rounds (the plan's Rnd field; df_conv0's three window
-// products each rounded before they are added). Gates, norms, the DF MAC, the
-// runtime stages and the carry stay float32. Tensor cores (mma.sync or wgmma
-// on bfloat16) are later work.
+// products each rounded before they are added). Gates, norms, the DF MAC,
+// the runtime stages and the carry stay float32.
 //
 // Measured times and the card they were taken on: PERF.md, kernel table.
 
@@ -117,13 +130,13 @@ enum Lay { L_BUF, L_SPEC, L_POW, L_ERBWIN, L_FSWIN, L_E0, L_E1, L_E2, L_E3, L_C0
 enum Hdr { H_PHASES, H_JOBS, H_TILES, H_FRAME_PHASES, H_PRE, H_SEGS, H_LAY, H_SCR, HEADER_INTS };
 enum JobField { J_TYPE, J_BEGIN, J_UNITS, J_XOFF, J_K, J_W, J_NCAT, J_CSTRIDE, J_CW, J_SLICES,
                 J_BIAS, J_ACT, J_ADD, J_Y, J_YRAW, J_EP, J_H, J_GH, J_KG, J_AUX, J_RND, J_KSEG,
-                J_XRND, JOB_INTS };
+                JOB_INTS };
 // J_W: the weight's offset in wpack, in elements; J_CSTRIDE: columns between
 // the groups in the unpacked weight (the host's bookkeeping); J_AUX: chunks
-// (elementwise), columns of a thread's register tile (product); J_RND, J_KSEG:
-// where the bfloat16 build rounds the result (Rnd), and the K rows of each
-// input segment whose product it rounds before adding (0: one sum); J_XRND:
-// whether it rounds the input (0 where trunk products wrote all of it)
+// (elementwise), columns of a thread's register tile (product, float32 build;
+// 0 in the bfloat16 build's plan); J_RND, J_KSEG: where the bfloat16 build
+// rounds the result (Rnd), and the K rows of each input segment whose product
+// it rounds before adding (0: one sum)
 constexpr int PHASE_INTS = 3;  // first job, jobs, units
 enum JobType { T_GEMM, T_CARRY_IN, T_FRAME0, T_ADVANCE, T_LSNR, T_CARRY_OUT };
 enum Epilogue { EP_STD, EP_SPEC, EP_ERBNORM, EP_GRU, EP_TAIL, EP_OLA };
@@ -165,9 +178,22 @@ __device__ __forceinline__ float wget(const float* p, int i) { return __ldg(p + 
 __device__ __forceinline__ float wget(const __nv_bfloat16* p, int i) {
   return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p) + i) << 16);
 }
-// two bfloat16 in one 32-bit word, widened: the lower half is element 0
-__device__ __forceinline__ float bf_lo(unsigned u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+// two floats rounded to bfloat16 (to nearest, ties to even) in one register,
+// `lo` in its lower half: a k-neighbour pair of an mma fragment
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+// c += A B on the tensor cores, m16n8k16, bfloat16 operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(  // not volatile: a pure function of its operands
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ float act_apply(float v, int act) {
   switch (act) {
@@ -249,11 +275,153 @@ struct Ctx {
   const float* sm_cb;  // convp_b
 };
 
+// The float32 build's share of a unit's product: a thread owns 8 rows x MC
+// columns of the tile (MC = 8 where the slice is wide enough: one byte of
+// shared memory read per multiply-add, which is what the multiprocessor can
+// feed; MC = 2 for narrow slices) and K group kgi's share of each chunk's K
+// rows, in float32 FMAs.
+template <int MC>
+struct FmaTile {
+  float acc[MC][8];
+  int kgi, rg, cg;
+  bool active;
+
+  __device__ FmaTile(int tid, int cnt, int kg_n) {
+    const int tpk = 8 * cnt / MC;  // threads of a K group: 8 row groups x cnt / MC column groups
+    kgi = tid / tpk;
+    const int idx = tid % tpk;
+    rg = idx & 7;
+    cg = idx >> 3;
+    active = kgi < kg_n;
+    clear();
+  }
+  __device__ void clear() {
+#pragma unroll
+    for (int j = 0; j < MC; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
+  }
+  // the products of one stage: x [KC][RT], the weight slice [KC][cnt]
+  __device__ void mac(const float* xs, const float* ws, int len, int cnt, int kg_n) {
+    if (!active) return;
+    const int kper = len / kg_n;
+    const float* xp = xs + kgi * kper * RT + rg * 4;
+    const float* wq = ws + kgi * kper * cnt + cg * MC;
+#pragma unroll 2
+    for (int kk = 0; kk < kper; ++kk) {
+      const float4 xa = *reinterpret_cast<const float4*>(xp + kk * RT);
+      const float4 xb = *reinterpret_cast<const float4*>(xp + kk * RT + 32);
+      const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      float wv[MC];
+      if constexpr (MC == 8) {
+        const float4 wa = *reinterpret_cast<const float4*>(wq + kk * cnt);
+        const float4 wb = *reinterpret_cast<const float4*>(wq + kk * cnt + 4);
+        wv[0] = wa.x; wv[1] = wa.y; wv[2] = wa.z; wv[3] = wa.w;
+        wv[4] = wb.x; wv[5] = wb.y; wv[6] = wb.z; wv[7] = wb.w;
+      } else {
+        const float2 w2 = *reinterpret_cast<const float2*>(wq + kk * cnt);
+        wv[0] = w2.x; wv[1] = w2.y;
+      }
+#pragma unroll
+      for (int j = 0; j < MC; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(xv[i], wv[j], acc[j][i]);
+    }
+  }
+  // this K group's partial sums -> red[kgi][col][row]
+  __device__ void to_red(float* red, int cnt) const {
+    if (!active) return;
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+      float* r = red + (size_t)((kgi * cnt + cg * MC + j) * RT) + rg * 4;
+      *reinterpret_cast<float4*>(r) = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+      *reinterpret_cast<float4*>(r + 32) = make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
+    }
+  }
+};
+
+// The bfloat16 build's share of a unit's product, on the tensor cores
+// (mma.sync m16n8k16, bfloat16 x bfloat16 -> float32). Warp w multiplies the
+// k16 step ks = w / 2 of every chunk (its K group) for the 32 stream rows of
+// half pr = w % 2 of the tile, by all n8 tiles of the slice (a slice of 4 or 12
+// columns is packed with zero columns up to whole tiles). The A
+// fragments come from the float32 stage [KC][RT], two k rows packed by
+// cvt.rn.bf16x2.f32, which is the rounding of the input to bfloat16 (exact for
+// what trunk products wrote). A fragment row g of the half's first m16 tile is
+// stream row 4g, row g + 8 is 4g + 1, of its second tile 4g + 2 and 4g + 3:
+// one 16-byte load at (k, 4g) then serves both tiles, and the 8 lanes of a k
+// row read 128 bytes, so the loads meet no bank conflict. The B fragments come
+// from the slice packed in fragment order (whole_cell_plan.pack_weights), one
+// 8-byte load a lane. Each step's product is added to the warp's float32 sums
+// rounded to nearest; the tensor core's own accumulation, which truncates,
+// never spans more than one step.
+struct MmaTile {
+  static constexpr int NT = MAX_CNT / 8;
+  float acc[2][NT][4];
+  int pr, ks, lane;
+
+  __device__ MmaTile(int tid, int, int) {
+    const int warp = tid >> 5;
+    pr = warp & 1;
+    ks = warp >> 1;
+    lane = tid & 31;
+    clear();
+  }
+  __device__ void clear() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  }
+  __device__ void mac(const float* xs, const __nv_bfloat16* ws, int len, int cnt, int) {
+    if (ks * 16 >= len) return;  // a chunk of 32 rows has two k16 steps
+    const int g = lane >> 2, t = lane & 3, nt = (cnt + 7) / 8;
+    const float* xk = xs + (ks * 16 + 2 * t) * RT + 32 * pr + 4 * g;
+    const float4 v0 = *reinterpret_cast<const float4*>(xk);
+    const float4 v1 = *reinterpret_cast<const float4*>(xk + RT);
+    const float4 v8 = *reinterpret_cast<const float4*>(xk + 8 * RT);
+    const float4 v9 = *reinterpret_cast<const float4*>(xk + 9 * RT);
+    const unsigned a[2][4] = {
+        {pack_bf16(v0.x, v1.x), pack_bf16(v0.y, v1.y), pack_bf16(v8.x, v9.x), pack_bf16(v8.y, v9.y)},
+        {pack_bf16(v0.z, v1.z), pack_bf16(v0.w, v1.w), pack_bf16(v8.z, v9.z), pack_bf16(v8.w, v9.w)}};
+    const uint2* wb = reinterpret_cast<const uint2*>(ws) + ks * nt * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        const uint2 b = wb[j * 32];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};  // one step, then added rounded to nearest
+          mma_bf16(d, a[i], b.x, b.y);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][j][q] += d[q];
+        }
+      }
+    }
+  }
+  // this K group's partial sums -> red[ks][col][row]: a lane holds columns
+  // 8j + 2t and 8j + 2t + 1 of stream rows 32pr + 4g .. 4g + 3 (none of them
+  // where they are the zero padding of a slice of 4 or 12 columns)
+  __device__ void to_red(float* red, int cnt) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (8 * j + 2 * t < cnt) {
+        float* r = red + (size_t)((ks * cnt + 8 * j + 2 * t) * RT) + 32 * pr + 4 * g;
+        *reinterpret_cast<float4*>(r) =
+            make_float4(acc[0][j][0], acc[0][j][2], acc[1][j][0], acc[1][j][2]);
+        *reinterpret_cast<float4*>(r + RT) =
+            make_float4(acc[0][j][1], acc[0][j][3], acc[1][j][1], acc[1][j][3]);
+      }
+    }
+  }
+};
+
 // One unit of a product: tile `tile` of stream rows, column slice `slice`.
-// A thread owns 8 rows x MC columns of the tile (MC = 8 where the slice is
-// wide enough: one byte of shared memory read per multiply-add, which is what
-// the multiprocessor can feed; MC = 2 for narrow slices). WT: the weights'
-// type.
+// MC: the float32 build's register tile (FmaTile); the bfloat16 build
+// multiplies on the tensor cores (MmaTile). WT: the weights' type.
 template <int MC, typename WT>
 __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int tile, int slice,
                           int f) {
@@ -266,28 +434,25 @@ __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int t
   const int cw = J[J_CW], kg_n = J[J_KG], x_off = J[J_XOFF];
   const int cnt = ncat * cw;
   const int col0 = slice * cw;
-  const int tpk = 8 * cnt / MC;  // threads of a K group: 8 row groups x cnt / MC column groups
-  const int kgi = tid / tpk, idx = tid % tpk;
-  const int rg = idx & 7, cg = idx >> 3;
-  const bool active = kgi < kg_n;
   float* red = c.smem + NSTG * STAGE_FLOATS;
 
   const int n_chunks = (K + KC - 1) / KC;
-  // bfloat16: chunks of each input segment whose product is rounded on its
-  // own; whether the input needs rounding
+  // bfloat16: chunks of each input segment whose product is rounded on its own
   const int seg_chunks = BF && J[J_KSEG] > 0 ? J[J_KSEG] / KC : 0;
-  const bool round_x = BF && J[J_XRND] != 0;
 
   // Fill number q of the ring (counted over the whole launch, the same in
   // every thread) goes to stage q % NSTG; it is that stage's (q / NSTG)-th use.
   if (tid >= THREADS) {
     // ---- the copy warp (its first lane): two bulk copies (TMA) a chunk, the
     // input tile's K rows and the unit's weight slice, which the wrapper has
-    // packed contiguously ([slice][K][columns]). It runs ahead of the compute
-    // warps by the depth of the ring, into the block's next unit too.
+    // packed contiguously ([slice][K][columns], in fragment order for the
+    // bfloat16 build). It runs ahead of the compute warps by the depth of the
+    // ring, into the block's next unit too.
     if (tid == THREADS) {
+      // the slice's packed columns: whole n8 tiles in the bfloat16 build
+      const int wcols = BF ? (cnt + 7) & ~7 : cnt;
       const WT* wsl =
-          static_cast<const WT*>(p.wpack) + (size_t)J[J_W] + (size_t)slice * K * cnt;
+          static_cast<const WT*>(p.wpack) + (size_t)J[J_W] + (size_t)slice * K * wcols;
       for (int o = 0; o < n_chunks; ++o) {
         const unsigned q = fills + o;
         const int st = q % NSTG;
@@ -299,11 +464,11 @@ __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int t
         // the stage was last read by ordinary loads: order them before the
         // copy engine's writes
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        mbar_expect(c.full + st, (unsigned)(len * (RT * sizeof(float) + cnt * sizeof(WT))));
+        mbar_expect(c.full + st, (unsigned)(len * (RT * sizeof(float) + wcols * sizeof(WT))));
         bulk_copy(xs, sct + (size_t)(x_off + k0) * RT, (unsigned)(len * RT * sizeof(float)),
                   c.full + st);
-        // len is a multiple of 32 and cnt of 4: at least 256 bytes, 16-byte aligned
-        bulk_copy(xs + KC * RT, wsl + (size_t)k0 * cnt, (unsigned)(len * cnt * sizeof(WT)),
+        // len is a multiple of 32 and wcols of 4: at least 256 bytes, 16-byte aligned
+        bulk_copy(xs + KC * RT, wsl + (size_t)k0 * wcols, (unsigned)(len * wcols * sizeof(WT)),
                   c.full + st);
       }
     }
@@ -311,22 +476,9 @@ __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int t
     return;
   }
 
-  float acc[MC][8];
-#pragma unroll
-  for (int j = 0; j < MC; ++j)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
-  // K-group partial sums -> red[kg][col][row]
+  std::conditional_t<BF, MmaTile, FmaTile<MC>> prod(tid, cnt, kg_n);
   auto partials_to_red = [&]() {
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < MC; ++j) {
-        float* r = red + (size_t)((kgi * cnt + cg * MC + j) * RT) + rg * 4;
-        *reinterpret_cast<float4*>(r) = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-        *reinterpret_cast<float4*>(r + 32) =
-            make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
-      }
-    }
+    prod.to_red(red, cnt);
     compute_sync();
   };
   // bfloat16, segmented K: each thread keeps a running rounded total of its
@@ -337,52 +489,8 @@ __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int t
     const unsigned q = fills + o;
     const int st = q % NSTG;
     mbar_wait(c.full + st, (q / NSTG) & 1u);
-    // the chunk's products; ROUND: the input is rounded to the operand type
-    // here (an input that a trunk product wrote is in it already)
-    auto mac_chunk = [&](auto round) {
-      const float* xs = c.smem + st * STAGE_FLOATS;
-      const WT* ws = reinterpret_cast<const WT*>(xs + KC * RT);
-      const int kper = min(KC, K - o * KC) / kg_n;
-      const float* xp = xs + kgi * kper * RT + rg * 4;
-      const WT* wq = ws + kgi * kper * cnt + cg * MC;
-#pragma unroll 2
-      for (int kk = 0; kk < kper; ++kk) {
-        const float4 xa = *reinterpret_cast<const float4*>(xp + kk * RT);
-        const float4 xb = *reinterpret_cast<const float4*>(xp + kk * RT + 32);
-        float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-        float wv[MC];
-        if constexpr (BF) {
-          if constexpr (decltype(round)::value) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) xv[i] = bf16r(xv[i]);
-          }
-          if constexpr (MC == 8) {
-            const uint4 w8 = *reinterpret_cast<const uint4*>(wq + kk * cnt);
-            wv[0] = bf_lo(w8.x); wv[1] = bf_hi(w8.x); wv[2] = bf_lo(w8.y); wv[3] = bf_hi(w8.y);
-            wv[4] = bf_lo(w8.z); wv[5] = bf_hi(w8.z); wv[6] = bf_lo(w8.w); wv[7] = bf_hi(w8.w);
-          } else {
-            const unsigned w2 = *reinterpret_cast<const unsigned*>(wq + kk * cnt);
-            wv[0] = bf_lo(w2); wv[1] = bf_hi(w2);
-          }
-        } else if constexpr (MC == 8) {
-          const float4 wa = *reinterpret_cast<const float4*>(wq + kk * cnt);
-          const float4 wb = *reinterpret_cast<const float4*>(wq + kk * cnt + 4);
-          wv[0] = wa.x; wv[1] = wa.y; wv[2] = wa.z; wv[3] = wa.w;
-          wv[4] = wb.x; wv[5] = wb.y; wv[6] = wb.z; wv[7] = wb.w;
-        } else {
-          const float2 w2 = *reinterpret_cast<const float2*>(wq + kk * cnt);
-          wv[0] = w2.x; wv[1] = w2.y;
-        }
-#pragma unroll
-        for (int j = 0; j < MC; ++j)
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(xv[i], wv[j], acc[j][i]);
-      }
-    };
-    if (active) {
-      if (round_x) mac_chunk(std::true_type{});
-      else mac_chunk(std::false_type{});
-    }
+    const float* xs = c.smem + st * STAGE_FLOATS;
+    prod.mac(xs, reinterpret_cast<const WT*>(xs + KC * RT), min(KC, K - o * KC), cnt, kg_n);
     __syncwarp();
     if ((tid & 31) == 0) mbar_arrive(c.empty + st);  // this warp is done with the stage
     if (seg_chunks > 0 && (o + 1) % seg_chunks == 0) {
@@ -402,10 +510,7 @@ __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int t
         }
       }
       compute_sync();
-#pragma unroll
-      for (int j = 0; j < MC; ++j)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
+      prod.clear();
     }
   }
   fills += n_chunks;
@@ -754,7 +859,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Para
       const int tile = local % tiles, part = local / tiles;
       switch (J[J_TYPE]) {
         case T_GEMM:
-          if (J[J_AUX] == 8) gemm_unit<8, WT>(c, fills, J, tile, part, f);
+          if constexpr (kBf16<WT>) gemm_unit<8, WT>(c, fills, J, tile, part, f);  // MC unused
+          else if (J[J_AUX] == 8) gemm_unit<8, WT>(c, fills, J, tile, part, f);
           else gemm_unit<2, WT>(c, fills, J, tile, part, f);
           break;
         case T_CARRY_IN: carry_unit(c, tile, part, J[J_AUX], false); break;

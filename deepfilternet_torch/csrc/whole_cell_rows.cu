@@ -11,7 +11,8 @@
 // attenuation limit, the RMS silence counter and mute, and the iDFT synthesis
 // with overlap-add. The carry (11 arrays, CKEYS order) is read once at the
 // start of a tile of streams and written once at its end. Every matrix product
-// of the frame is computed here, in float32 FMAs on the CUDA cores.
+// of the frame is computed here: in float32 FMAs on the CUDA cores (float32
+// build), or on the tensor cores (bfloat16 build, mma.sync m16n8k16).
 //
 // This is the row-tile design: one persistent block per tile of 4 or 8 stream
 // rows computes every product of the frame by itself. The wrapper launches it
@@ -23,11 +24,15 @@
 // padded widths the weights are stored at) against 28 MB of float32 weights
 // that every thread block must read once a frame, from L2, at the 27 bytes a
 // clock one multiprocessor gets from it. With 8 rows a block and all
-// multiprocessors busy the weight stream and the FMAs cost about the same.
+// multiprocessors busy the weight stream and the FMAs cost about the same in
+// the float32 build. In the bfloat16 build the tensor cores leave the weight
+// stream alone as the bound: 14.3 MB a tile and frame, which 16 rows a block
+// share among twice the streams.
 //
 // What the design does about it:
 //   * one persistent block of 512 threads per tile of R = 4 or 8 streams
-//     (template), looping over the call's frames; blocks beyond the number
+//     (template; 16 in the bfloat16 build), looping over the call's frames;
+//     blocks beyond the number
 //     of multiprocessors are folded into a loop over tiles, so the scratch
 //     is bounded by the card and not by S. The ragged last tile reads the
 //     last valid stream again for its missing rows and stores nothing for them;
@@ -50,16 +55,24 @@
 //   * thread 0 of block 0 adds up the SM cycles of each stage of the frame
 //     (stage_clocks), so a run can say where a frame's time goes.
 //
-// Two builds of each tile size, by the weights' type (the TPU kernel's
-// mdtype): float32, and bfloat16, the JAX package's default. The bfloat16
-// build reads every weight, bias and small vector as bfloat16 (imult and
-// convp_b stay float32), which halves the weight stream; it rounds each
-// product's input to bfloat16 as it stages it in shared memory, multiplies the
-// widened values in float32 FMAs (a product of two bfloat16 values is exact
-// in float32), and rounds each result where the plain version's `mm` rounds
-// (Rnd; df_conv0's three window products each rounded before they are
-// added). Gates, norms, the DF MAC, the runtime stages and the carry stay
-// float32.
+// Two builds, by the weights' type (the TPU kernel's mdtype): float32 (R = 4,
+// 8), and bfloat16 (R = 4, 8, 16), the JAX package's default. The bfloat16
+// build runs every product on the tensor cores, as the TPU kernel runs it on
+// its MXU (gemm_mma): y^T = W^T x^T with mma.sync m16n8k16, bfloat16 x
+// bfloat16 -> float32, A the weight from a copy the wrapper packs once per
+// weight set in A-fragment order (one 16-byte load a lane and step, in place
+// of widening loads), B the block's R streams staged as bfloat16 pairs by
+// cvt.rn.bf16x2.f32, which is the rounding of the input to bfloat16; the
+// synthesis product is one of them, against a packed dft^T. Biases and small
+// vectors are read as bfloat16 (imult and convp_b stay float32). How sums
+// join: the tensor core's accumulating adds truncate, so a chain of steps
+// never spans more than one 64-row chunk of K; chunks are added rounded to
+// nearest in K order, K slices in slice order. The error stays a float32
+// one, within what the bfloat16 gate allows (ops/whole_cell_check.py,
+// TensorCoreSums, which sums in this order). Each result is rounded where the
+// plain version's `mm` rounds (Rnd; df_conv0's three window products each
+// rounded before they are added). Gates, norms, the DF MAC, the runtime
+// stages and the carry stay float32.
 //
 // Measured times and the card they were taken on: PERF.md, kernel table.
 
@@ -103,6 +116,8 @@ enum WKey {
   W_DF_OUT_W, W_CONVP_CO, W_CONVP_B,
   N_WKEYS
 };
+
+constexpr int P_DFT_T = N_WKEYS;  // Params::pk's entry of the synthesis product
 
 // carry arrays, CKEYS order
 enum CKey { C_AMEM, C_SMEM, C_NORMS, C_SIL, C_ERB_CTX, C_SPEC_CTX, C_ENC_H, C_DEC_H,
@@ -163,6 +178,11 @@ struct Params {
   const float* cin[N_CKEYS];
   float* cout[N_CKEYS];
   const void* w[N_WKEYS];  // the weights' type but imult and convp_b, float32
+  // bfloat16 build: every product's weight in A-fragment order
+  // (whole_cell_plan.pack_rows_weights), and where each product starts in it
+  // by its first weight key (P_DFT_T: the synthesis product against dft^T)
+  const __nv_bfloat16* wpack;
+  int pk[N_WKEYS + 1];
   float* scratch;      // [gridDim.x, R, SCR]
   long long* stage_clocks;  // [N_STAGES] SM cycles of block 0 per stage, over the call
   int S, n_frames;
@@ -180,12 +200,6 @@ constexpr bool kBf16 = std::is_same<WT, __nv_bfloat16>::value;
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-// a product's input as the build multiplies it
-template <typename WT>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (kBf16<WT>) return bf16r(x);
-  return x;
-}
 // element i of a weight vector, widened to float
 __device__ __forceinline__ float wget(const float* p, int i) { return __ldg(p + i); }
 __device__ __forceinline__ float wget(const __nv_bfloat16* p, int i) {
@@ -200,6 +214,22 @@ __device__ __forceinline__ float4 wget4(const __nv_bfloat16* p) {
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
+// two floats rounded to bfloat16 (to nearest, ties to even) in one register,
+// `lo` in its lower half: a k-neighbour pair of an mma fragment
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+// c += A B on the tensor cores, m16n8k16, bfloat16 operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a, unsigned b0,
+                                         unsigned b1) {
+  asm(  // not volatile: a pure function of its operands
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ float act_apply(float v, int act) {
   switch (act) {
@@ -211,12 +241,12 @@ __device__ __forceinline__ float act_apply(float v, int act) {
 }
 
 // acc[r][0..3] += x[r] * w4 over this thread's rows k0..k1 of one weight
-// segment. xs: staged x, [K][R]; w: this thread's 4 columns of row 0. The
-// weight rows come in batches of U 16-byte loads, the next batch in flight
-// while the current one is multiplied.
-template <int R, typename WT>
+// segment (float32 build). xs: staged x, [K][R]; w: this thread's 4 columns
+// of row 0. The weight rows come in batches of U 16-byte loads, the next
+// batch in flight while the current one is multiplied.
+template <int R>
 __device__ __forceinline__ void fma_rows(float (&acc)[R][4], const float* __restrict__ xs,
-                                         const WT* __restrict__ w, int ldw, int k0, int k1) {
+                                         const float* __restrict__ w, int ldw, int k0, int k1) {
   constexpr int U = UNROLL;
   auto load = [&](float4 (&wv)[U], int k) {
 #pragma unroll
@@ -289,96 +319,237 @@ __device__ __forceinline__ void finish4(float4 v, int col, const WT* __restrict_
   *reinterpret_cast<float4*>(y_row + col) = v;
 }
 
+// One finished value of row r, column col: as finish4 (bfloat16 build).
+__device__ __forceinline__ void finish1(float v, int col, const __nv_bfloat16* __restrict__ bias,
+                                        int act, int rnd, const float* addend_row, float* y_row) {
+  if (rnd != R_F32) v = bf16r(v);
+  if (bias != nullptr) {
+    v += wget(bias, col);
+    if (rnd == R_TRUNK) v = bf16r(v);
+  }
+  v = act_apply(v, act);
+  if (addend_row != nullptr) {
+    v += addend_row[col];
+    if (rnd == R_TRUNK) v = bf16r(v);
+  }
+  y_row[col] = v;
+}
+
+// The bfloat16 build's product, on the tensor cores (mma.sync m16n8k16,
+// bfloat16 x bfloat16 -> float32): y^T = W^T x^T. A is the weight, 16 output
+// columns x k16 a fragment, from the copy packed in fragment order
+// ([N / 16][K / 16][32 lanes][8], pack_rows_weights): one 16-byte load a lane
+// and step, a warp's 512 bytes contiguous. B is x^T, the block's R stream
+// rows as n8 tiles (R = 4 fills half of one, 16 two), staged in shared memory
+// as bfloat16 pairs [R8][K / 2][8 rows] by cvt.rn.bf16x2.f32, which is the
+// rounding of the input to bfloat16, so that a lane's fragment is two
+// conflict-free 4-byte loads. Steps accumulate on the tensor core (whose adds
+// truncate) in chains of at most 4, one 64-row chunk of K; the chains are
+// added rounded to nearest, in K order. A warp owns whole column tiles where
+// there are at least as many as warps, else a column tile and a K slice of
+// whole chunks, the slices then added in shared memory in slice order.
+// k_seg: with seg_round, K rows of each segment whose product is rounded
+// before it is added (whole column tiles only). Ends with a barrier.
+template <int R>
+__device__ __forceinline__ void gemm_mma(unsigned* sm_xb, float* sm_red, const float* x,
+                                         const __nv_bfloat16* __restrict__ wp, int K, int k_seg,
+                                         int N, const __nv_bfloat16* __restrict__ bias, int act,
+                                         int rnd, const float* addend, float* y, bool seg_round) {
+  constexpr int R8 = (R + 7) / 8;  // n8 tiles
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int KH = K / 2, KS = K / 16, MT = N / 16;
+  for (int i = tid; i < R8 * KH * 8; i += THREADS) {
+    const int n = (i / (KH * 8)) * 8 + (i & 7), kp = (i >> 3) % KH;
+    const float2 v = n < R ? *reinterpret_cast<const float2*>(x + (size_t)n * SCR + 2 * kp)
+                           : make_float2(0.f, 0.f);
+    sm_xb[i] = pack_bf16(v.x, v.y);
+  }
+  __syncthreads();
+
+  // tot[j] += the product of column tile mt over k16 steps s0..s1 for n8 tile
+  // j: a lane holds columns 16 mt + g (q = 0, 1) and + 8 (q = 2, 3) of
+  // streams 8j + 2t (q = 0, 2) and + 1 (q = 1, 3). The next chunk's A
+  // fragments are in flight while one is multiplied.
+  auto run = [&](int mt, int s0, int s1, float (&tot)[R8][4]) {
+    const uint4* ap = reinterpret_cast<const uint4*>(wp) + ((size_t)mt * KS + s0) * 32 + lane;
+    uint4 a[4];
+    auto load = [&](int c0) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c0 + u < s1) a[u] = __ldg(ap + (size_t)(c0 + u - s0) * 32);
+    };
+    load(s0);
+    for (int c0 = s0; c0 < s1; c0 += 4) {
+      uint4 cur[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) cur[u] = a[u];
+      if (c0 + 4 < s1) load(c0 + 4);
+      float ch[R8][4] = {};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (c0 + u < s1) {
+#pragma unroll
+          for (int j = 0; j < R8; ++j) {
+            const unsigned* b = sm_xb + ((size_t)j * KH + (c0 + u) * 8 + t) * 8 + g;
+            mma_bf16(ch[j], cur[u], b[0], b[4 * 8]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < R8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) tot[j][q] += ch[j][q];
+    }
+  };
+
+  if (MT >= NWARPS || seg_round) {
+    for (int mt = warp; mt < MT; mt += NWARPS) {
+      float tot[R8][4] = {};
+      if (seg_round) {  // each segment's sum rounded, then added with rounding
+        const int ss = k_seg / 16;
+        for (int s0 = 0; s0 < KS; s0 += ss) {
+          float part[R8][4] = {};
+          run(mt, s0, s0 + ss, part);
+#pragma unroll
+          for (int j = 0; j < R8; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              tot[j][q] = s0 == 0 ? bf16r(part[j][q]) : bf16r(tot[j][q] + bf16r(part[j][q]));
+        }
+      } else {
+        run(mt, 0, KS, tot);
+      }
+#pragma unroll
+      for (int j = 0; j < R8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = 8 * j + 2 * t + (q & 1), col = 16 * mt + g + 8 * (q >> 1);
+          if (r < R)
+            finish1(tot[j][q], col, bias, act, rnd, addend ? addend + (size_t)r * SCR : nullptr,
+                    y + (size_t)r * SCR);
+        }
+    }
+  } else {
+    const int ksl = NWARPS / MT;                      // K slices
+    const int kper = ((KS + ksl - 1) / ksl + 3) & ~3;  // whole chunks a slice
+    if (warp < MT * ksl) {
+      const int mt = warp % MT, sl = warp / MT;
+      const int s0 = min(sl * kper, KS), s1 = min(s0 + kper, KS);
+      float tot[R8][4] = {};
+      run(mt, s0, s1, tot);
+#pragma unroll
+      for (int j = 0; j < R8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = 8 * j + 2 * t + (q & 1), col = 16 * mt + g + 8 * (q >> 1);
+          if (r < R) sm_red[(size_t)(sl * R + r) * N + col] = tot[j][q];
+        }
+    }
+    __syncthreads();
+    const int CG = N / 4;
+    for (int e = tid; e < R * CG; e += THREADS) {
+      const int r = e / CG, c = e % CG;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int sl = 0; sl < ksl; ++sl) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(sm_red + ((size_t)(sl * R + r) * CG + c) * 4);
+        v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+      }
+      finish4<__nv_bfloat16>(v, 4 * c, bias, act, rnd,
+                             addend ? addend + (size_t)r * SCR : nullptr, y + (size_t)r * SCR);
+    }
+  }
+  __syncthreads();
+}
+
 // y[r, :N] = act(x[r, :K] @ [W0; W1; W2] + bias) + addend[r, :N] for the
 // block's R scratch rows (row stride SCR). x, y and addend are scratch
 // columns; the weight is up to three row segments of k_seg rows each, all
-// [k_seg, N] row-major; N % 4 == 0 and nseg * k_seg <= KMAX. The bfloat16
-// build rounds x as it stages it, and the result where `rnd` says; with
-// `seg_round` it rounds each segment's product before adding it (each thread
-// then sums whole columns, whatever N). The caller has a barrier between the writes of x (and addend)
-// and this call. Ends with a barrier, so the caller may read y and reuse the
-// shared buffers at once.
+// [k_seg, N] row-major (float32 build, in FMAs); N % 4 == 0 and nseg * k_seg
+// <= KMAX. The bfloat16 build multiplies on the tensor cores (gemm_mma): w0 is
+// then the product's packed copy, its segments one after the other; it
+// rounds x as it stages it, the result where `rnd` says, and with `seg_round`
+// each segment's product before adding it. The caller has a barrier between
+// the writes of x (and addend) and this call. Ends with a barrier, so the
+// caller may read y and reuse the shared buffers at once.
 template <int R, typename WT>
 __device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
                                   const WT* __restrict__ w0, const WT* __restrict__ w1,
                                   const WT* __restrict__ w2, int k_seg, int nseg, int N,
                                   const WT* __restrict__ bias, int act, int rnd,
                                   const float* addend, float* y, bool seg_round = false) {
-  const int tid = threadIdx.x;
-  const int K = k_seg * nseg;
-  for (int i = tid; i < K * R; i += THREADS) {
-    const int r = i % R, k = i / R;
-    sm_x[i] = operand<WT>(x[(size_t)r * SCR + k]);
-  }
-  __syncthreads();
-
-  const int CG = N / 4;  // column groups of 4
-  if (CG >= THREADS || (kBf16<WT> && seg_round)) {
-    for (int cg = tid; cg < CG; cg += THREADS) {
-      float acc[R][4] = {};
-      for (int s = 0; s < nseg; ++s) {
-        const WT* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
-        if (kBf16<WT> && seg_round) {  // this segment's sum rounded, then added with rounding
-          float part[R][4] = {};
-          fma_rows<R, WT>(part, sm_x + s * k_seg * R, w + 4 * cg, N, 0, k_seg);
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              acc[r][q] = s == 0 ? bf16r(part[r][q]) : bf16r(acc[r][q] + bf16r(part[r][q]));
-        } else {
-          fma_rows<R, WT>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, 0, k_seg);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        finish4<WT>(make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]), 4 * cg, bias, act,
-                    rnd, addend ? addend + (size_t)r * SCR : nullptr, y + (size_t)r * SCR);
-    }
+  if constexpr (kBf16<WT>) {
+    // w0: the product's packed copy, its segments one after the other
+    gemm_mma<R>(reinterpret_cast<unsigned*>(sm_x), sm_red, x, w0, k_seg * nseg, k_seg, N, bias,
+                act, rnd, addend, y, seg_round);
   } else {
-    const int ksl = THREADS / CG;  // K slices
-    const int cg = tid % CG, ks = tid / CG;
-    if (ks < ksl) {
-      float acc[R][4] = {};
-      const int kper = (k_seg + ksl - 1) / ksl;
-      const int k0 = min(ks * kper, k_seg), k1 = min(k0 + kper, k_seg);
-      for (int s = 0; s < nseg; ++s) {
-        const WT* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
-        fma_rows<R, WT>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, k0, k1);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        *reinterpret_cast<float4*>(sm_red + ((size_t)(ks * R + r) * CG + cg) * 4) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    const int tid = threadIdx.x;
+    const int K = k_seg * nseg;
+    for (int i = tid; i < K * R; i += THREADS) {
+      const int r = i % R, k = i / R;
+      sm_x[i] = x[(size_t)r * SCR + k];
     }
     __syncthreads();
-    for (int e = tid; e < R * CG; e += THREADS) {
-      const int r = e / CG, c = e % CG;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int s = 0; s < ksl; ++s) {
-        const float4 p =
-            *reinterpret_cast<const float4*>(sm_red + ((size_t)(s * R + r) * CG + c) * 4);
-        v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+
+    const int CG = N / 4;  // column groups of 4
+    if (CG >= THREADS) {
+      for (int cg = tid; cg < CG; cg += THREADS) {
+        float acc[R][4] = {};
+        for (int s = 0; s < nseg; ++s) {
+          const WT* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
+          fma_rows<R>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, 0, k_seg);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          finish4<WT>(make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]), 4 * cg, bias, act,
+                      rnd, addend ? addend + (size_t)r * SCR : nullptr, y + (size_t)r * SCR);
       }
-      finish4<WT>(v, 4 * c, bias, act, rnd, addend ? addend + (size_t)r * SCR : nullptr,
-                  y + (size_t)r * SCR);
+    } else {
+      const int ksl = THREADS / CG;  // K slices
+      const int cg = tid % CG, ks = tid / CG;
+      if (ks < ksl) {
+        float acc[R][4] = {};
+        const int kper = (k_seg + ksl - 1) / ksl;
+        const int k0 = min(ks * kper, k_seg), k1 = min(k0 + kper, k_seg);
+        for (int s = 0; s < nseg; ++s) {
+          const WT* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
+          fma_rows<R>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, k0, k1);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          *reinterpret_cast<float4*>(sm_red + ((size_t)(ks * R + r) * CG + cg) * 4) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      }
+      __syncthreads();
+      for (int e = tid; e < R * CG; e += THREADS) {
+        const int r = e / CG, c = e % CG;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s = 0; s < ksl; ++s) {
+          const float4 p =
+              *reinterpret_cast<const float4*>(sm_red + ((size_t)(s * R + r) * CG + c) * 4);
+          v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+        }
+        finish4<WT>(v, 4 * c, bias, act, rnd, addend ? addend + (size_t)r * SCR : nullptr,
+                    y + (size_t)r * SCR);
+      }
     }
+    __syncthreads();
   }
-  __syncthreads();
 }
 
 // y[r, j] = sum_k x[r, k] * w[j, k] for j < N, K = 1024: the product against
-// the transposed DFT matrix. One warp per output j; lanes stride k.
-template <int R, typename WT>
-__device__ __noinline__ void gemm_t(float* sm_x, const float* x, const WT* __restrict__ w, int N,
-                                    float* y) {
+// the transposed DFT matrix (float32 build; the bfloat16 build runs it through
+// gemm on its packed copy of dft^T). One warp per output j; lanes stride k.
+template <int R>
+__device__ __noinline__ void gemm_t(float* sm_x, const float* x, const float* __restrict__ w,
+                                    int N, float* y) {
   constexpr int K = 2 * FPAD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < R * K / 4; i += THREADS) {
     const int r = i / (K / 4), k4 = i % (K / 4);
     const float4 v = *reinterpret_cast<const float4*>(x + (size_t)r * SCR + 4 * k4);
-    reinterpret_cast<float4*>(sm_x)[i] =
-        make_float4(operand<WT>(v.x), operand<WT>(v.y), operand<WT>(v.z), operand<WT>(v.w));
+    reinterpret_cast<float4*>(sm_x)[i] = v;
   }
   __syncthreads();
   for (int j = warp; j < N; j += NWARPS) {
@@ -430,11 +601,23 @@ __device__ void gru_gate(float* sc, int o_h) {
   __syncthreads();
 }
 
+// shared memory of a build: a product's staged input (float32 [K][R], or
+// bfloat16 pairs [R8][K / 2][8]), then its K slices' partial sums
+template <int R, typename WT>
+__host__ __device__ constexpr int staged_floats() {
+  return kBf16<WT> ? (R + 7) / 8 * KMAX * 4 : KMAX * R;
+}
+template <int R, typename WT>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (staged_floats<R, WT>() + (kBf16<WT> ? NWARPS * 16 * R : THREADS * R * 4));
+}
+
 template <int R, typename WT>
 __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  float* sm_x = smem;                 // KMAX * R
-  float* sm_red = smem + KMAX * R;    // THREADS * R * 4
+  float* sm_x = smem;                                      // staged x
+  float* sm_red = smem + staged_floats<R, WT>();            // K slices' partial sums
   __shared__ float sm_co[CH * ORDER * 2];
   __shared__ float sm_cb[ORDER * 2];
   __shared__ float sm_lsnr[R];
@@ -447,6 +630,11 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
   float* sc = p.scratch + (size_t)blockIdx.x * R * SCR;
   // weight k in the build's type (imult and convp_b are float32 in both)
   auto W = [&](int k) { return static_cast<const WT*>(p.w[k]); };
+  // a product's weight: as it is (float32), or its packed copy (bfloat16)
+  auto P = [&](int k) -> const WT* {
+    if constexpr (kBf16<WT>) return p.wpack + p.pk[k];
+    else return W(k);
+  };
 
   for (int i = tid; i < CH * ORDER * 2; i += THREADS) sm_co[i] = wget(W(W_CONVP_CO), i);
   if (tid < ORDER * 2) sm_cb[tid] = static_cast<const float*>(p.w[W_CONVP_B])[tid];
@@ -530,7 +718,7 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
       __syncthreads();
       mark(ST_FRAME_IN);
       // ---- analysis: [prev_hop | frame] @ dft -> [re | im]
-      gemm<R, WT>(sm_x, sm_red, sc + O_BUF, W(W_DFT), nullptr, nullptr, FFT, 1, 2 * FPAD, nullptr,
+      gemm<R, WT>(sm_x, sm_red, sc + O_BUF, P(W_DFT), nullptr, nullptr, FFT, 1, 2 * FPAD, nullptr,
               ACT_NONE, R_F32, nullptr, sc + O_SPEC);
       mark(ST_ANALYSIS);
       // ---- power, unit norm, complex features of this frame
@@ -549,7 +737,7 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
         }
       }
       __syncthreads();
-      gemm<R, WT>(sm_x, sm_red, sc + O_POW, W(W_ERB_FWD), nullptr, nullptr, FPAD, 1, NB_ERB, nullptr,
+      gemm<R, WT>(sm_x, sm_red, sc + O_POW, P(W_ERB_FWD), nullptr, nullptr, FPAD, 1, NB_ERB, nullptr,
               ACT_NONE, R_F32, nullptr, sc + O_GAIN);
       for (int i = tid; i < R * NB_ERB; i += THREADS) {
         const int r = i / NB_ERB, e = i % NB_ERB;
@@ -562,33 +750,33 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
       __syncthreads();
       mark(ST_FEATURES);
       // ---- conv frontend (dense folds)
-      gemm<R, WT>(sm_x, sm_red, sc + O_ERBWIN, W(W_E0_W), nullptr, nullptr, 96, 1, 512, W(W_E0_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_ERBWIN, P(W_E0_W), nullptr, nullptr, 96, 1, 512, W(W_E0_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_E0);
-      gemm<R, WT>(sm_x, sm_red, sc + O_E0, W(W_E1_W), nullptr, nullptr, 512, 1, 256, W(W_E1_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_E0, P(W_E1_W), nullptr, nullptr, 512, 1, 256, W(W_E1_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_E1);
-      gemm<R, WT>(sm_x, sm_red, sc + O_E1, W(W_E2_W), nullptr, nullptr, 256, 1, 128, W(W_E2_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_E1, P(W_E2_W), nullptr, nullptr, 256, 1, 128, W(W_E2_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_E2);
-      gemm<R, WT>(sm_x, sm_red, sc + O_E2, W(W_E3_W), nullptr, nullptr, 128, 1, 128, W(W_E3_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_E2, P(W_E3_W), nullptr, nullptr, 128, 1, 128, W(W_E3_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_E3);
       mark(ST_ERB_CONVS);
-      gemm<R, WT>(sm_x, sm_red, sc + O_FSWIN, W(W_C0W_T0), W(W_C0W_T1), W(W_C0W_T2), 192, 3,
+      gemm<R, WT>(sm_x, sm_red, sc + O_FSWIN, P(W_C0W_T0), W(W_C0W_T1), W(W_C0W_T2), 192, 3,
               CH * BLK, W(W_C0_B), ACT_RELU, R_TRUNK, nullptr, sc + O_C0, true);
       mark(ST_DF_CONV0);
-      gemm<R, WT>(sm_x, sm_red, sc + O_C0, W(W_C1_W), nullptr, nullptr, CH * BLK, 1, 768, W(W_C1_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_C0, P(W_C1_W), nullptr, nullptr, CH * BLK, 1, 768, W(W_C1_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_C1);
       // emb = e3 + relu(c1 @ gl)
-      gemm<R, WT>(sm_x, sm_red, sc + O_C1, W(W_GL_W), nullptr, nullptr, 768, 1, 128, nullptr,
+      gemm<R, WT>(sm_x, sm_red, sc + O_C1, P(W_GL_W), nullptr, nullptr, 768, 1, 128, nullptr,
               ACT_RELU, R_TRUNK, sc + O_E3, sc + O_EMB);
       mark(ST_DF_CONV1);
       // ---- encoder GRU + LSNR head
-      gemm<R, WT>(sm_x, sm_red, sc + O_EMB, W(W_ENC_LIN_IN), nullptr, nullptr, 128, 1, HID, nullptr,
+      gemm<R, WT>(sm_x, sm_red, sc + O_EMB, P(W_ENC_LIN_IN), nullptr, nullptr, 128, 1, HID, nullptr,
               ACT_RELU, R_TRUNK, nullptr, sc + O_XIN);
-      gemm<R, WT>(sm_x, sm_red, sc + O_XIN, W(W_ENC_WIH), nullptr, nullptr, HID, 1, 3 * HID,
+      gemm<R, WT>(sm_x, sm_red, sc + O_XIN, P(W_ENC_WIH), nullptr, nullptr, HID, 1, 3 * HID,
               W(W_ENC_BIH), ACT_NONE, R_TRUNK, nullptr, sc + O_GI);
-      gemm<R, WT>(sm_x, sm_red, sc + O_ENC_H, W(W_ENC_WHH), nullptr, nullptr, HID, 1, 3 * HID,
+      gemm<R, WT>(sm_x, sm_red, sc + O_ENC_H, P(W_ENC_WHH), nullptr, nullptr, HID, 1, 3 * HID,
               W(W_ENC_BHH), ACT_NONE, R_SUM, nullptr, sc + O_GH);
       gru_gate<R>(sc, O_ENC_H);
-      gemm<R, WT>(sm_x, sm_red, sc + O_ENC_H, W(W_ENC_LIN_OUT), nullptr, nullptr, HID, 1, 128,
+      gemm<R, WT>(sm_x, sm_red, sc + O_ENC_H, P(W_ENC_LIN_OUT), nullptr, nullptr, HID, 1, 128,
               nullptr, ACT_RELU, R_TRUNK, nullptr, sc + O_EMB2);
       if (warp < R) {
         const float* e = sc + (size_t)warp * SCR + O_EMB2;
@@ -602,46 +790,46 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
       }
       mark(ST_ENC_GRU);
       // ---- ERB decoder
-      gemm<R, WT>(sm_x, sm_red, sc + O_EMB2, W(W_DEC_LIN_IN), nullptr, nullptr, 128, 1, HID, nullptr,
+      gemm<R, WT>(sm_x, sm_red, sc + O_EMB2, P(W_DEC_LIN_IN), nullptr, nullptr, 128, 1, HID, nullptr,
               ACT_RELU, R_TRUNK, nullptr, sc + O_XIN);
-      gemm<R, WT>(sm_x, sm_red, sc + O_XIN, W(W_DEC_WIH), nullptr, nullptr, HID, 1, 3 * HID,
+      gemm<R, WT>(sm_x, sm_red, sc + O_XIN, P(W_DEC_WIH), nullptr, nullptr, HID, 1, 3 * HID,
               W(W_DEC_BIH), ACT_NONE, R_TRUNK, nullptr, sc + O_GI);
-      gemm<R, WT>(sm_x, sm_red, sc + O_DEC_H, W(W_DEC_WHH), nullptr, nullptr, HID, 1, 3 * HID,
+      gemm<R, WT>(sm_x, sm_red, sc + O_DEC_H, P(W_DEC_WHH), nullptr, nullptr, HID, 1, 3 * HID,
               W(W_DEC_BHH), ACT_NONE, R_SUM, nullptr, sc + O_GH);
       gru_gate<R>(sc, O_DEC_H);
-      gemm<R, WT>(sm_x, sm_red, sc + O_DEC_H, W(W_DEC_LIN_OUT), nullptr, nullptr, HID, 1, 128,
+      gemm<R, WT>(sm_x, sm_red, sc + O_DEC_H, P(W_DEC_LIN_OUT), nullptr, nullptr, HID, 1, 128,
               nullptr, ACT_RELU, R_TRUNK, nullptr, sc + O_DEMB);
-      gemm<R, WT>(sm_x, sm_red, sc + O_E3, W(W_P3_W), nullptr, nullptr, 128, 1, 128, W(W_P3_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_E3, P(W_P3_W), nullptr, nullptr, 128, 1, 128, W(W_P3_B),
               ACT_RELU, R_TRUNK, sc + O_DEMB, sc + O_PA);
-      gemm<R, WT>(sm_x, sm_red, sc + O_PA, W(W_T3_W), nullptr, nullptr, 128, 1, 128, W(W_T3_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_PA, P(W_T3_W), nullptr, nullptr, 128, 1, 128, W(W_T3_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_PB);
-      gemm<R, WT>(sm_x, sm_red, sc + O_E2, W(W_P2_W), nullptr, nullptr, 128, 1, 128, W(W_P2_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_E2, P(W_P2_W), nullptr, nullptr, 128, 1, 128, W(W_P2_B),
               ACT_RELU, R_TRUNK, sc + O_PB, sc + O_PA);
-      gemm<R, WT>(sm_x, sm_red, sc + O_PA, W(W_T2_W), nullptr, nullptr, 128, 1, 256, W(W_T2_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_PA, P(W_T2_W), nullptr, nullptr, 128, 1, 256, W(W_T2_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_PB);
-      gemm<R, WT>(sm_x, sm_red, sc + O_E1, W(W_P1_W), nullptr, nullptr, 256, 1, 256, W(W_P1_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_E1, P(W_P1_W), nullptr, nullptr, 256, 1, 256, W(W_P1_B),
               ACT_RELU, R_TRUNK, sc + O_PB, sc + O_PA);
-      gemm<R, WT>(sm_x, sm_red, sc + O_PA, W(W_T1_W), nullptr, nullptr, 256, 1, 512, W(W_T1_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_PA, P(W_T1_W), nullptr, nullptr, 256, 1, 512, W(W_T1_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_PB);
-      gemm<R, WT>(sm_x, sm_red, sc + O_E0, W(W_P0_W), nullptr, nullptr, 512, 1, 512, W(W_P0_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_E0, P(W_P0_W), nullptr, nullptr, 512, 1, 512, W(W_P0_B),
               ACT_RELU, R_TRUNK, sc + O_PB, sc + O_PA);
-      gemm<R, WT>(sm_x, sm_red, sc + O_PA, W(W_OUT_W), nullptr, nullptr, 512, 1, NB_ERB, W(W_OUT_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_PA, P(W_OUT_W), nullptr, nullptr, 512, 1, NB_ERB, W(W_OUT_B),
               ACT_SIGMOID, R_F32, nullptr, sc + O_MASK);
       mark(ST_ERB_DECODER);
       // ---- DF decoder: 3-layer GRU, coefficient head
-      gemm<R, WT>(sm_x, sm_red, sc + O_EMB2, W(W_DF_LIN_IN), nullptr, nullptr, 128, 1, HID, nullptr,
+      gemm<R, WT>(sm_x, sm_red, sc + O_EMB2, P(W_DF_LIN_IN), nullptr, nullptr, 128, 1, HID, nullptr,
               ACT_RELU, R_TRUNK, nullptr, sc + O_XIN);
       for (int li = 0; li < 3; ++li) {
         const int o_in = li == 0 ? O_XIN : O_DF_H + (li - 1) * HID;
         const int o_h = O_DF_H + li * HID;
-        gemm<R, WT>(sm_x, sm_red, sc + o_in, W(W_DF_WIH0 + 4 * li), nullptr, nullptr, HID, 1, 3 * HID,
+        gemm<R, WT>(sm_x, sm_red, sc + o_in, P(W_DF_WIH0 + 4 * li), nullptr, nullptr, HID, 1, 3 * HID,
                 W(W_DF_BIH0 + 4 * li), ACT_NONE, R_TRUNK, nullptr, sc + O_GI);
-        gemm<R, WT>(sm_x, sm_red, sc + o_h, W(W_DF_WHH0 + 4 * li), nullptr, nullptr, HID, 1, 3 * HID,
+        gemm<R, WT>(sm_x, sm_red, sc + o_h, P(W_DF_WHH0 + 4 * li), nullptr, nullptr, HID, 1, 3 * HID,
                 W(W_DF_BHH0 + 4 * li), ACT_NONE, R_SUM, nullptr, sc + O_GH);
         gru_gate<R>(sc, o_h);
       }
       mark(ST_DF_GRU);
-      gemm<R, WT>(sm_x, sm_red, sc + O_DF_H + 2 * HID, W(W_DF_OUT_W), nullptr, nullptr, HID, 1,
+      gemm<R, WT>(sm_x, sm_red, sc + O_DF_H + 2 * HID, P(W_DF_OUT_W), nullptr, nullptr, HID, 1,
               ORDER * 2 * BLK, nullptr, ACT_TANH, R_F32, nullptr, sc + O_COEF);
       // ---- deep filter MAC: ring frames 0..3, the current frame as tap 4;
       // then the ring shifts. Pad lanes (f >= 96) of the current frame are 0.
@@ -683,7 +871,7 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
       __syncthreads();
       mark(ST_DF_COEF_MAC);
       // ---- ERB mask -> bin gains
-      gemm<R, WT>(sm_x, sm_red, sc + O_MASK, W(W_ERB_INV), nullptr, nullptr, NB_ERB, 1, FPAD, nullptr,
+      gemm<R, WT>(sm_x, sm_red, sc + O_MASK, P(W_ERB_INV), nullptr, nullptr, NB_ERB, 1, FPAD, nullptr,
               ACT_NONE, R_F32, nullptr, sc + O_GAIN);
       // ---- tail: post-filter, LSNR gating, atten-lim, mute, iDFT scaling
       for (int i = tid; i < R * FPAD; i += THREADS) {
@@ -729,7 +917,11 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
       __syncthreads();
       mark(ST_MASK_TAIL);
       // ---- synthesis: [se_re | se_im] @ dft^T, overlap-add
-      gemm_t<R, WT>(sm_x, sc + O_SE, W(W_DFT), FFT, sc + O_X);
+      if constexpr (kBf16<WT>)
+        gemm<R, WT>(sm_x, sm_red, sc + O_SE, p.wpack + p.pk[P_DFT_T], nullptr, nullptr, 2 * FPAD,
+                    1, FFT, nullptr, ACT_NONE, R_F32, nullptr, sc + O_X);
+      else
+        gemm_t<R>(sm_x, sc + O_SE, W(W_DFT), FFT, sc + O_X);
       for (int i = tid; i < R * HOP; i += THREADS) {
         const int r = i / HOP, c = i % HOP;
         float* row = sc + (size_t)r * SCR;
@@ -787,7 +979,7 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
 
 template <int R, typename WT>
 cudaError_t launch(const Params& p, int n_blocks, cudaStream_t stream) {
-  const size_t shmem = (size_t)(KMAX * R + THREADS * R * 4) * sizeof(float);
+  const size_t shmem = smem_bytes<R, WT>();
   cudaError_t err = cudaFuncSetAttribute(whole_cell_kernel<R, WT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return err;
@@ -808,16 +1000,19 @@ extern "C" int dfn_whole_cell_rows_stages() { return N_STAGES; }
 // pointers, WKEYS order) and scalars (alpha, 1 - alpha, lsnr_min, lsnr_max,
 // pf_beta, silence_thresh, atten_lim, gate_min, gate_max_erb, gate_max_df) are
 // host arrays; the weights are bfloat16 but imult and convp_b when `bf16`,
-// else all float32. scratch: n_blocks * rows *
+// else all float32. With `bf16`, wpack is the products' weights packed by
+// whole_cell_plan.pack_rows_weights (bfloat16, on the device) and pk the host
+// array of its n_weights + 1 offsets; else both are ignored. rows: 4 or 8, or
+// 16 with `bf16`. scratch: n_blocks * rows *
 // dfn_whole_cell_rows_scratch_floats() floats. stage_clocks:
 // dfn_whole_cell_rows_stages() int64 on the device, written by block 0.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* const* carry_in,
                                    void* const* carry_out, const void* const* weights,
-                                   int n_weights, void* scratch, void* stage_clocks, int S,
-                                   int n_frames, int rows, int n_blocks, const float* scalars,
-                                   int mask_pf, int lsnr_gating, int silence_frames, int bf16,
-                                   void* stream) {
+                                   int n_weights, const void* wpack, const int* pk, void* scratch,
+                                   void* stage_clocks, int S, int n_frames, int rows,
+                                   int n_blocks, const float* scalars, int mask_pf,
+                                   int lsnr_gating, int silence_frames, int bf16, void* stream) {
   if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -828,6 +1023,8 @@ extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* con
     p.cout[i] = static_cast<float*>(carry_out[i]);
   }
   for (int i = 0; i < N_WKEYS; ++i) p.w[i] = weights[i];
+  p.wpack = static_cast<const __nv_bfloat16*>(wpack);
+  for (int i = 0; i <= N_WKEYS; ++i) p.pk[i] = bf16 ? pk[i] : -1;
   p.scratch = static_cast<float*>(scratch);
   p.stage_clocks = static_cast<long long*>(stage_clocks);
   p.S = S;
@@ -842,6 +1039,7 @@ extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* con
   using bf = __nv_bfloat16;
   if (rows == 4) err = bf16 ? launch<4, bf>(p, n_blocks, st) : launch<4, float>(p, n_blocks, st);
   else if (rows == 8) err = bf16 ? launch<8, bf>(p, n_blocks, st) : launch<8, float>(p, n_blocks, st);
+  else if (rows == 16 && bf16) err = launch<16, bf>(p, n_blocks, st);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

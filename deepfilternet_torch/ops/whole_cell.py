@@ -22,7 +22,9 @@ runtime stages and the carry stay float32.
 
 Port of the TPU kernel `deepfilternet_tpu/ops/pallas_cell.py`
 (`cell_process`, kernel closure of `make_cell_kernel`). The CUDA kernel is
-`csrc/whole_cell.cu`; `cell_process_plain` is the same function as a Python
+`csrc/whole_cell.cu` (few streams) or `csrc/whole_cell_rows.cu` (many), each
+built for both operand types, the bfloat16 builds on the tensor cores;
+`cell_process_plain` is the same function as a Python
 loop over frames of plain tensor operations (the counterpart of the JAX
 package's `cell_process_xla`). `cell_process` runs the plain version for
 tensors on the CPU and launches the kernel for tensors on a CUDA device; it
@@ -618,18 +620,14 @@ def cell_process_plain(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
-# (ids of the weight tensors) -> (weak references to them, {plan: packed copy})
-_PACKED: Dict[Tuple[int, ...], Tuple[list, Dict[Tuple[int, int], torch.Tensor]]] = {}
+# (ids of the weight tensors) -> (weak references to them, {plan or "rows": packed copy})
+_PACKED: Dict[Tuple[int, ...], Tuple[list, dict]] = {}
 
 
-def packed_weights(weights: Dict[str, torch.Tensor], s: int, n_blocks: int) -> torch.Tensor:
-    """The kernel's private copy of the products' weights, packed by the
-    slices of the plan for (S, blocks) (`whole_cell_plan.pack_weights`; it
-    holds `dft` transposed for the synthesis product). Made once per weight
-    set and plan and kept while the set's tensors live (it is found again by
-    their identity, so a tensor edited in place afterwards is not seen); it
-    is no key of the weight set, which goes on comparing with the JAX package
-    key by key."""
+def _packed_copies(weights: Dict[str, torch.Tensor]) -> dict:
+    """The dict of packed copies kept for this weight set while its tensors
+    live (found again by their identity, so a tensor edited in place
+    afterwards is not seen)."""
     key = tuple(id(weights[k]) for k in WKEYS)
     hit = _PACKED.get(key)
     if hit is None or any(r() is not weights[k] for r, k in zip(hit[0], WKEYS)):
@@ -637,35 +635,63 @@ def packed_weights(weights: Dict[str, torch.Tensor], s: int, n_blocks: int) -> t
         refs[0] = weakref.ref(weights[WKEYS[0]], lambda _: _PACKED.pop(key, None))
         hit = (refs, {})
         _PACKED[key] = hit
+    return hit[1]
+
+
+def packed_weights(weights: Dict[str, torch.Tensor], s: int, n_blocks: int) -> torch.Tensor:
+    """The units design's private copy of the products' weights, packed by the
+    slices of the plan for (S, blocks) and the set's operand type
+    (`whole_cell_plan.pack_weights`; it holds `dft` transposed for the
+    synthesis product). Made once per weight set and plan; it is no key of
+    the weight set, which goes on comparing with the JAX package key by
+    key."""
+    copies = _packed_copies(weights)
     tiles = -(-s // plan.RT)
-    if (tiles, n_blocks) not in hit[1]:
-        _, info = plan.cached_plan(s, n_blocks)
-        hit[1][(tiles, n_blocks)] = plan.pack_weights(weights, info)
-    return hit[1][(tiles, n_blocks)]
+    if (tiles, n_blocks) not in copies:
+        _, info = plan.cached_plan(s, n_blocks, weights["dft"].dtype == torch.bfloat16)
+        copies[(tiles, n_blocks)] = plan.pack_weights(weights, info)
+    return copies[(tiles, n_blocks)]
+
+
+def packed_rows_weights(weights: Dict[str, torch.Tensor]):
+    """The rows design's bfloat16 copy of the products' weights in the tensor
+    cores' A-fragment order, and its offsets as a ctypes int array
+    (`whole_cell_plan.pack_rows_weights`). Made once per weight set."""
+    copies = _packed_copies(weights)
+    if "rows" not in copies:
+        packed, offsets = plan.pack_rows_weights(weights)
+        copies["rows"] = (packed, (ctypes.c_int * len(offsets))(*offsets))
+    return copies["rows"]
 
 
 # The units design wins while there are few tiles of 64 streams for the
-# card's multiprocessors; measured on an H100 (132 multiprocessors) it is
-# ahead up to 8 tiles, level at 12 and behind at 17 (PERF.md).
-_UNITS_SM_PER_TILE = 16
+# card's multiprocessors. Measured on an H100 (132 multiprocessors), by
+# operand type (bfloat16?): float32 ahead up to 8 tiles, level at 12 and
+# behind at 17; bfloat16 level with rows at 8 tiles and behind at 17
+# (PERF.md).
+_UNITS_SM_PER_TILE = {False: 16, True: 16}
 
 
-def _kernel_choice(s: int, n_sm: int) -> str:
-    """Which design runs S streams on a card of n_sm multiprocessors:
-    "units" (`csrc/whole_cell.cu`) or "rows" (`csrc/whole_cell_rows.cu`)."""
-    return "units" if -(-s // plan.RT) * _UNITS_SM_PER_TILE <= n_sm else "rows"
+def _kernel_choice(s: int, n_sm: int, bf16: bool = False) -> str:
+    """Which design runs S streams on a card of n_sm multiprocessors, for the
+    float32 or the bfloat16 build: "units" (`csrc/whole_cell.cu`) or "rows"
+    (`csrc/whole_cell_rows.cu`)."""
+    return "units" if -(-s // plan.RT) * _UNITS_SM_PER_TILE[bf16] <= n_sm else "rows"
 
 
-def _tile_rows(s: int, n_sm: int) -> int:
-    """Stream rows per thread block of the rows design (built for 4 and 8):
-    4 while that gives every tile a multiprocessor of its own, else 8, which
-    reads the weights once for twice the streams."""
-    return 4 if -(-s // 4) <= n_sm else 8
+def _tile_rows(s: int, n_sm: int, bf16: bool = False) -> int:
+    """Stream rows per thread block of the rows design (float32: built for 4
+    and 8; bfloat16 also 16): 4 while that gives every tile a multiprocessor
+    of its own, else 8, which reads the weights once for twice the streams;
+    bfloat16 takes 16 once tiles of 8 outnumber the multiprocessors."""
+    if -(-s // 4) <= n_sm:
+        return 4
+    return 16 if bf16 and -(-s // 8) > n_sm else 8
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_on_device(s: int, n_blocks: int, device: torch.device):
-    table, info = plan.cached_plan(s, n_blocks)
+def _plan_on_device(s: int, n_blocks: int, bf16: bool, device: torch.device):
+    table, info = plan.cached_plan(s, n_blocks, bf16)
     return torch.from_numpy(table).to(device), info
 
 
@@ -705,13 +731,15 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     once for all frames (counting one launch in `cell_process.launches`, and
     in `cell_process.bf16_launches` too for a bfloat16 weight set, the frames
     in `cell_process.frames`, and leaving the kernel's per-stage cycle counts
-    in `cell_process.stage_clocks`) or raise. Each design has a build for
-    each operand type. Two designs of
-    the kernel exist and `_kernel_choice` picks one from S and the card, with
-    no argument for the caller: for few streams every product is cut over
-    all multiprocessors (`whole_cell_plan.plan`; a cooperative launch, one
-    persistent block per multiprocessor), for many a block keeps a tile of
-    stream rows to itself. Any S works: both mask their ragged last tile.
+    in `cell_process.stage_clocks`) or raise. Two designs of the kernel
+    exist and `_kernel_choice` picks one from S, the card and the operand
+    type, with no argument for the caller: for few streams every product is
+    cut over all multiprocessors (`whole_cell_plan.plan`; a cooperative
+    launch, one persistent block per multiprocessor), for many a block keeps
+    a tile of stream rows to itself (`_tile_rows`). Each design has a build
+    for each operand type: float32 products in FMAs on the CUDA cores,
+    bfloat16 ones on the tensor cores (`mma.sync` m16n8k16). Any S works:
+    both mask their ragged last tile.
     """
     _check_inputs(audio, carry, weights)
     device = audio.device
@@ -745,7 +773,7 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
                    int(weights["dft"].dtype == torch.bfloat16)),
             stream=torch.cuda.current_stream(device).cuda_stream,
         )
-        design = _kernel_choice(s, n_sm)
+        design = _kernel_choice(s, n_sm, weights["dft"].dtype == torch.bfloat16)
         launch = _launch_units if design == "units" else _launch_rows
         err, clocks = launch(**args)
     if err != 0:
@@ -774,7 +802,7 @@ def _launch_units(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, s
     if lib.dfn_whole_cell_threads() != plan.THREADS:
         raise RuntimeError("the whole-cell kernel and its plan disagree on the block size")
     device = audio.device
-    table, info = _plan_on_device(s, n_sm, device)
+    table, info = _plan_on_device(s, n_sm, weights["dft"].dtype == torch.bfloat16, device)
     wpack = packed_weights(weights, s, n_sm)
     # zeroed: the columns nothing writes (pad lanes) are read as zeros
     scratch = torch.zeros(info["scratch_shape"], dtype=torch.float32, device=device)
@@ -790,12 +818,15 @@ def _launch_units(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, s
 def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, scalars, flags,
                  stream):
     """The design of `csrc/whole_cell_rows.cu`: one persistent block per tile
-    of 4 or 8 stream rows computes the whole frame by itself."""
+    of 4, 8 or (bfloat16) 16 stream rows computes the whole frame by itself.
+    The bfloat16 build reads the products' weights from their packed copy."""
     from deepfilternet_torch.kernels import load
 
     lib = _bind_rows(load("whole_cell_rows"))
     device = audio.device
-    rows = _tile_rows(s, n_sm)
+    bf16 = weights["dft"].dtype == torch.bfloat16
+    wpack, offsets = packed_rows_weights(weights) if bf16 else (None, None)
+    rows = _tile_rows(s, n_sm, bf16)
     # one persistent block per multiprocessor at most: each walks over its
     # tiles of `rows` streams, so the scratch stays small
     n_blocks = max(1, min(-(-s // rows), n_sm))
@@ -803,8 +834,9 @@ def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, sc
                           dtype=torch.float32, device=device)
     clocks = torch.empty((lib.dfn_whole_cell_rows_stages(),), dtype=torch.int64, device=device)
     err = lib.dfn_whole_cell_rows(
-        audio.data_ptr(), out.data_ptr(), c_in, c_out, w_ptrs, len(WKEYS), scratch.data_ptr(),
-        clocks.data_ptr(), s, n_frames, rows, n_blocks, scalars, *flags, stream)
+        audio.data_ptr(), out.data_ptr(), c_in, c_out, w_ptrs, len(WKEYS),
+        wpack.data_ptr() if bf16 else None, offsets, scratch.data_ptr(), clocks.data_ptr(), s,
+        n_frames, rows, n_blocks, scalars, *flags, stream)
     return err, clocks
 
 
@@ -842,7 +874,8 @@ def _bind_rows(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     pp, pf = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float)
     fn = lib.dfn_whole_cell_rows
-    fn.argtypes = [p, p, pp, pp, pp, i, p, p, i, i, i, i, pf, i, i, i, i, p]
+    fn.argtypes = [p, p, pp, pp, pp, i, p, ctypes.POINTER(ctypes.c_int), p, p, i, i, i, i, pf, i,
+                   i, i, i, p]
     fn.restype = ctypes.c_int
     for count in (lib.dfn_whole_cell_rows_scratch_floats, lib.dfn_whole_cell_rows_stages):
         count.argtypes = []

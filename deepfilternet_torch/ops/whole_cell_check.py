@@ -15,8 +15,9 @@ The mean error can: a right kernel leaves almost every value bit-equal
 over 8 frames), a wrong one moves nearly every value by rounding noise (at
 least 9.3e-4 and 2.9e-3). `BF16_BOUNDS` sits between the two;
 `tests/test_torch_reduced_precision.py` (whose `main` prints these figures,
-at 1, 8 and 37 streams) and `chip_smoke.py` show that `Float64Sums` meets
-it and each of `WRONG` exceeds it.
+at 1, 8 and 37 streams) and `chip_smoke.py` show that `Float64Sums` and
+`TensorCoreSums` (the order in which the CUDA kernel's bfloat16 builds sum on
+the tensor cores) meet it and each of `WRONG` exceeds it.
 
     errs = cell_errors(cell_process(x, c, W, st), cell_process_plain(x, c, W, st))
     bad = out_of_bounds(errs, BF16_BOUNDS["frames"])      # [] if it passes
@@ -45,6 +46,44 @@ class Float64Sums(_Products):
 
     def mmf(self, x: torch.Tensor, k: str) -> torch.Tensor:
         return (x.to(self.dtype).double() @ self.w[k].double()).float()
+
+
+def _truncated_f32(v: torch.Tensor) -> torch.Tensor:
+    """float64 values cut to float32 toward zero."""
+    r = v.float()
+    over = r.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+class TensorCoreSums(_Products):
+    """A right kernel that sums as the bfloat16 builds do on the tensor cores
+    (`mma.sync` m16n8k16, bfloat16 x bfloat16 -> float32): the 16 products of
+    a k16 step summed exactly; up to `CHAIN` steps (one 64-row chunk of K,
+    counted from the start of the product) accumulated from zero in float32,
+    each add cut toward zero as the tensor core's accumulating add is; the
+    chunks' sums joined by float32 adds rounded to nearest, in chunk order.
+    The rows design sums so; the units design's chains are one step long,
+    which truncates less."""
+
+    CHAIN = 4
+
+    def mmf(self, x: torch.Tensor, k: str) -> torch.Tensor:
+        xr, w = x.to(self.dtype).double(), self.w[k].double()
+        s, n, pad = xr.shape[0], w.shape[1], -xr.shape[1] % (16 * self.CHAIN)
+        xr = torch.nn.functional.pad(xr, (0, pad))
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+        steps = torch.einsum("sck,ckn->scn", xr.reshape(s, -1, 16), w.reshape(-1, 16, n))
+        steps = steps.reshape(s, -1, self.CHAIN, n)
+        acc = torch.zeros_like(steps[:, :, 0])
+        for i in range(self.CHAIN):
+            acc = _truncated_f32(acc + steps[:, :, i]).double()
+        total = acc[:, 0].float()
+        for c in range(1, acc.shape[1]):
+            total = total + acc[:, c].float()
+        return total
+
+
+RIGHT = (Float64Sums, TensorCoreSums)
 
 
 class Unrounded(_Products):

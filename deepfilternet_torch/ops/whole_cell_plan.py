@@ -16,11 +16,19 @@ Activations and state live in a global scratch `[tiles, SCR, RT]` (feature
 major inside a tile of 64 streams, so that a K-chunk of a product's input is
 one contiguous copy).
 
-With a bfloat16 weight set the kernel rounds each job's result where the
-plain version's `mm` does (`rnd`, and `kseg` for df_conv0's three window
-products, each rounded before they are added), and a product's input unless
-only trunk products (`R_TRUNK`, whose results are rounded) wrote its columns
-(the job's `J_XRND`); `run_plan` does the same.
+The bfloat16 build has a plan of its own (`plan(..., bf16=True)`): it
+multiplies on the tensor cores (`mma.sync` m16n8k16), so its K groups are
+the four k16 steps of a chunk, and a unit's weight slice is packed in the
+order of the B fragments the lanes load, in whole n8 tiles (`pack_weights`;
+a slice of 4 or 12 columns is padded with zeros, so that the bfloat16 build
+cuts the products into as many units as the float32 one). The kernel rounds each product's input to
+bfloat16 as it packs the A fragments, and each job's result where the plain
+version's `mm` does (`rnd`, and `kseg` for df_conv0's three window products,
+each rounded before they are added); `run_plan` does the same.
+
+The rows design (`csrc/whole_cell_rows.cu`) has no plan; its bfloat16 build
+reads every product's weight from a copy packed in the order of the A
+fragments (`pack_rows_weights`).
 """
 
 from __future__ import annotations
@@ -68,8 +76,8 @@ SCR = _o
 (R_F32, R_SUM, R_TRUNK) = range(3)
 # fields of a job row, as the kernel's `JobField` enum
 (J_TYPE, J_BEGIN, J_UNITS, J_XOFF, J_K, J_W, J_NCAT, J_CSTRIDE, J_CW, J_SLICES, J_BIAS, J_ACT,
- J_ADD, J_Y, J_YRAW, J_EP, J_H, J_GH, J_KG, J_AUX, J_RND, J_KSEG, J_XRND) = range(23)
-JOB_INTS = 23
+ J_ADD, J_Y, J_YRAW, J_EP, J_H, J_GH, J_KG, J_AUX, J_RND, J_KSEG) = range(22)
+JOB_INTS = 22
 PHASE_INTS = 3   # first job, jobs, units
 (H_PHASES, H_JOBS, H_TILES, H_FRAME_PHASES, H_PRE, H_SEGS, H_LAY, H_SCR) = range(8)
 HEADER_INTS = 8
@@ -232,27 +240,16 @@ CARRY_SEGMENTS: List[Tuple[str, int, int, int]] = [
 ]
 
 
-def _trunk_columns(phases) -> set:
-    """Scratch columns only trunk products write: their values are bfloat16
-    already, so a product reading nothing else need not round its input."""
-    trunk, other = set(), set()
-    for _, jobs in phases:
-        for j in jobs:
-            if not isinstance(j, Gemm):
-                continue
-            cols = set()
-            for ref in (j.y, j.yraw):
-                if ref is not None:
-                    cols.update(range(_col(ref), _col(ref) + j.n))
-            (trunk if j.ep == EP_STD and j.rnd == R_TRUNK else other).update(cols)
-    for _, _, n, so in CARRY_SEGMENTS:
-        other.update(range(so, so + n))
-    return trunk - other
-
-
 def _widths(job: Gemm) -> List[int]:
     """Slice widths (columns of each group) a unit of this job may own."""
     return [cw for cw in (4, 8, 16, 32, 64) if job.n % cw == 0 and job.ncat * cw <= MAX_CNT]
+
+
+def packed_cols(cnt: int, bf16: bool) -> int:
+    """Columns of a unit's packed weight slice: its own, or in the bfloat16
+    build whole n8 tiles of the tensor cores (a slice of 4 or 12 columns is
+    padded with zero columns, which the kernel multiplies and never stores)."""
+    return -(-cnt // 8) * 8 if bf16 else cnt
 
 
 def _micro_cols(cnt: int) -> int:
@@ -261,10 +258,15 @@ def _micro_cols(cnt: int) -> int:
     return 8 if cnt % 8 == 0 and cnt >= 16 else 2
 
 
+# the bfloat16 build's K groups: warp w multiplies the k16 step w // 2 of
+# every chunk (for the rows of half w % 2 of the tile)
+MMA_K_GROUPS = KC // 16
+
+
 def _k_groups(cnt: int) -> int:
-    """Thread groups that split a chunk's K rows: a group is 8 row groups x
-    cnt / micro-tile columns; a power of two, so that it divides a chunk of
-    32 rows."""
+    """Thread groups that split a chunk's K rows in the float32 build: a
+    group is 8 row groups x cnt / micro-tile columns; a power of two, so that
+    it divides a chunk of 32 rows."""
     per_group = 8 * cnt // _micro_cols(cnt)
     kg = 1
     while kg * 2 * per_group <= THREADS and kg < 16:
@@ -283,14 +285,15 @@ def _choose_widths(gemms: List[Gemm], tiles: int, n_blocks: int) -> List[int]:
     shares and keeping the one whose busiest block is done first."""
     if not gemms:
         return []
-    total = sum(_unit_cost(j, _widths(j)[-1]) * (j.n // _widths(j)[-1]) for j in gemms) * tiles
+    widths = [_widths(j) for j in gemms]
+    total = sum(_unit_cost(j, w[-1]) * (j.n // w[-1]) for j, w in zip(gemms, widths)) * tiles
     best = None
     for f in (0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0, 16.0, 1e9):
         share = total / n_blocks * f
         cws = []
-        for j in gemms:
-            ok = [cw for cw in _widths(j) if _unit_cost(j, cw) <= share]
-            cws.append(ok[-1] if ok else _widths(j)[0])
+        for j, w in zip(gemms, widths):
+            ok = [cw for cw in w if _unit_cost(j, cw) <= share]
+            cws.append(ok[-1] if ok else w[0])
         load = np.zeros(n_blocks)
         u = 0
         for j, cw in zip(gemms, cws):
@@ -304,15 +307,15 @@ def _choose_widths(gemms: List[Gemm], tiles: int, n_blocks: int) -> List[int]:
     return best[1]
 
 
-def plan(s: int, n_blocks: int):
+def plan(s: int, n_blocks: int, bf16: bool = False):
     """The plan for S streams on n_blocks persistent blocks (one per
-    multiprocessor).
+    multiprocessor), for the float32 build or (`bf16`) the bfloat16 one.
 
     Returns (table, info): `table` the int32 array the kernel reads (header,
     scratch offsets, carry segments, phases, jobs), `info` a dict with
     `tiles`, `blocks`, `scratch_shape`, `n_stages`, `phases` (per phase a
     list of (job name, cw, kg, units)) and `packing`, `pack_floats` for
-    `pack_weights`."""
+    `pack_weights`; `bf16`."""
     from deepfilternet_torch.ops.whole_cell import WKEYS
 
     tiles = -(-s // RT)
@@ -320,7 +323,6 @@ def plan(s: int, n_blocks: int):
     packing, pack_floats = [], 0
     frame = frame_phases()
     phases = PRE_PHASES + frame + [POST_PHASE]
-    exact = _trunk_columns(frame)
     ph_rows, job_rows, info_ph = [], [], []
     for pi, (_, jobs) in enumerate(phases):
         gemms = [j for j in jobs if isinstance(j, Gemm)]
@@ -330,7 +332,9 @@ def plan(s: int, n_blocks: int):
             r = [0] * JOB_INTS
             if isinstance(j, Gemm):
                 cw = cws[j.name]
-                kg = _k_groups(cw * j.ncat)
+                # the float32 build's register tile; 0: the bfloat16 build's mma
+                kg, mc = ((MMA_K_GROUPS, 0) if bf16 else
+                          (_k_groups(cw * j.ncat), _micro_cols(cw * j.ncat)))
                 assert j.k % 32 == 0 and j.kseg % KC == 0 and (j.kseg == 0 or j.k % j.kseg == 0), \
                     j.name
                 units = (j.n // cw) * tiles
@@ -338,9 +342,8 @@ def plan(s: int, n_blocks: int):
                 r[:] = [T_GEMM, begin, units, _col(j.x), j.k, pack_floats, j.ncat,
                         j.cat_stride, cw, j.n // cw, wid[j.bias] if j.bias else -1, j.act,
                         _col(j.add), _col(j.y), _col(j.yraw), j.ep, _col(j.h), _col(j.gh), kg,
-                        _micro_cols(cw * j.ncat), j.rnd, j.kseg,
-                        int(not set(range(_col(j.x), _col(j.x) + j.k)) <= exact)]
-                pack_floats += j.k * j.ncat * j.n
+                        mc, j.rnd, j.kseg]
+                pack_floats += units // tiles * j.k * packed_cols(cw * j.ncat, bf16)
                 rows.append((j.name, cw, kg, units))
             else:
                 units = j.chunks * tiles
@@ -358,8 +361,29 @@ def plan(s: int, n_blocks: int):
                        np.int32)
     info = dict(tiles=tiles, blocks=n_blocks, scratch_shape=(tiles, SCR, RT),
                 n_stages=len(STAGES), phases=info_ph, packing=packing,
-                pack_floats=pack_floats)
+                pack_floats=pack_floats, bf16=bf16)
     return table, info
+
+
+def _fragment_order(rows: int, cols: int, regs: int) -> torch.Tensor:
+    """Where each value an m16n8k16 operand fragment holds lies in its
+    [16 (k), cols] block: lane l (g = l // 4, t = l % 4) holds `regs` 32-bit
+    registers of two k-neighbours each, at k = 2t (+1) for the even register
+    pairs and 2t + 8 (+9) for the odd ones, and at column g, or g + 8 in the
+    A fragment's registers 1 and 3 (`rows` = 16; the B fragment has 8
+    columns). Returns the block's flat indices in lane order, `regs` * 2
+    values a lane."""
+    e = torch.arange(2 * regs)[None]
+    g, t = torch.arange(32)[:, None] // 4, torch.arange(32)[:, None] % 4
+    k = 2 * t + (e & 1) + 8 * (e >> (2 if rows == 16 else 1))
+    col = g + (8 * ((e >> 1) & 1) if rows == 16 else 0)
+    return (k * cols + col).reshape(-1)
+
+
+# B fragment of a k16 x n8 block (units: the weight slice's columns);
+# A fragment of an m16 x k16 block of W^T (rows: 16 output columns)
+B_ORDER = _fragment_order(8, 8, 2)
+A_ORDER = _fragment_order(16, 16, 4)
 
 
 def pack_weights(weights: Dict[str, torch.Tensor], info: dict) -> torch.Tensor:
@@ -368,11 +392,17 @@ def pack_weights(weights: Dict[str, torch.Tensor], info: dict) -> torch.Tensor:
     K rows of its `ncat * cw` columns), one after the other in one buffer. A
     unit's K-chunk is then one contiguous copy, and no block reads narrow
     strips of wide rows. The synthesis product's weight is `dft` transposed.
+    For the bfloat16 plan each slice's [K, cnt], padded with zero columns to
+    whole n8 tiles (`packed_cols`), is in the order of the tensor cores' B
+    fragments instead: `[K / 16][n8 tiles][32 lanes][4]`, so that a lane's
+    fragment of a (k16 step, n8 tile) is one 8-byte load.
     The buffer has the products' operand type (`dft`'s: float32 or bfloat16;
     offsets count elements). The weight set itself is left as it is (it
     compares with the JAX package key by key); this is a private copy of the
     kernel wrapper."""
     dev = weights["dft"].device
+    if info["bf16"] and weights["dft"].dtype != torch.bfloat16:
+        raise TypeError("the bfloat16 plan packs bfloat16 weights only")
     out = torch.empty((info["pack_floats"],), dtype=weights["dft"].dtype, device=dev)
     for pk in info["packing"]:
         w = torch.cat([weights["dft"].T if k == "dft_t" else weights[k] for k in pk.keys], dim=0)
@@ -380,6 +410,12 @@ def pack_weights(weights: Dict[str, torch.Tensor], info: dict) -> torch.Tensor:
         cats = torch.stack([w[:, c * pk.cat_stride: c * pk.cat_stride + pk.n]
                             for c in range(pk.ncat)], dim=1)          # [K, ncat, n]
         tiled = cats.reshape(pk.k, pk.ncat, pk.n // pk.cw, pk.cw).permute(2, 0, 1, 3)
+        if info["bf16"]:
+            cnt = pk.ncat * pk.cw
+            cp = packed_cols(cnt, True)
+            tiled = torch.nn.functional.pad(tiled.reshape(-1, pk.k, cnt), (0, cp - cnt))
+            blocks = tiled.reshape(-1, pk.k // 16, 16, cp // 8, 8).permute(0, 1, 3, 2, 4)
+            tiled = blocks.reshape(-1, pk.k // 16, cp // 8, 128)[..., B_ORDER.to(dev)]
         out[pk.offset: pk.offset + tiled.numel()] = tiled.reshape(-1)
     return out
 
@@ -388,14 +424,54 @@ def unpack_weight(packed: torch.Tensor, job: np.ndarray) -> torch.Tensor:
     """A product job's weight as [K, ncat, n], read back from the packed
     buffer the way the kernel addresses it (for the tests and `run_plan`)."""
     k, ncat, cw, n_slices = (int(job[i]) for i in (J_K, J_NCAT, J_CW, J_SLICES))
-    off = int(job[J_W])
-    t = packed[off: off + n_slices * k * ncat * cw].reshape(n_slices, k, ncat, cw)
+    off, cnt = int(job[J_W]), ncat * cw
+    if int(job[J_AUX]) == 0:  # the bfloat16 plan: B fragment order, whole n8 tiles
+        cp = packed_cols(cnt, True)
+        frag = packed[off: off + n_slices * k * cp].reshape(n_slices, k // 16, cp // 8, 128)
+        blocks = torch.empty_like(frag)
+        blocks[..., B_ORDER.to(packed.device)] = frag
+        t = blocks.reshape(n_slices, k // 16, cp // 8, 16, 8).permute(0, 1, 3, 2, 4)
+        t = t.reshape(n_slices, k, cp)[..., :cnt]
+    else:
+        t = packed[off: off + n_slices * k * cnt]
+    t = t.reshape(n_slices, k, ncat, cw)
     return t.permute(1, 2, 0, 3).reshape(k, ncat, n_slices * cw)
 
 
+# the rows design's products, each a tuple of weight keys stacked along K
+# (df_conv0's three window products are one product of three segments)
+ROWS_PRODUCTS: Tuple[Tuple[str, ...], ...] = tuple(
+    j.w for _, jobs in frame_phases() for j in jobs if isinstance(j, Gemm))
+
+
+def pack_rows_weights(weights: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, List[int]]:
+    """The bfloat16 rows build's copy of every product's weight W [K, N], in
+    the order of the tensor cores' A fragments of W^T: `[N / 16][K / 16][32
+    lanes][8]`, so that a lane's fragment of (16 output columns, k16 step)
+    is one 16-byte load and a warp walks a column tile's K steps through
+    contiguous memory. Returns (buffer, offsets): offsets[i] is where the
+    product whose first key is WKEYS[i] starts (index len(WKEYS): the
+    synthesis product against `dft` transposed), -1 for the keys that start
+    none."""
+    from deepfilternet_torch.ops.whole_cell import WKEYS
+
+    if weights["dft"].dtype != torch.bfloat16:
+        raise TypeError("the rows design packs bfloat16 weights only")
+    dev = weights["dft"].device
+    offsets, parts, off = [-1] * (len(WKEYS) + 1), [], 0
+    for keys in ROWS_PRODUCTS:
+        w = torch.cat([weights["dft"].T if k == "dft_t" else weights[k] for k in keys], dim=0)
+        k, n = w.shape
+        blocks = w.reshape(k // 16, 16, n // 16, 16).permute(2, 0, 1, 3)
+        parts.append(blocks.reshape(n // 16, k // 16, 256)[..., A_ORDER.to(dev)].reshape(-1))
+        offsets[len(WKEYS) if keys == ("dft_t",) else WKEYS.index(keys[0])] = off
+        off += k * n
+    return torch.cat(parts), offsets
+
+
 @functools.lru_cache(maxsize=None)
-def cached_plan(s: int, n_blocks: int):
-    return plan(s, n_blocks)
+def cached_plan(s: int, n_blocks: int, bf16: bool = False):
+    return plan(s, n_blocks, bf16)
 
 
 class Table(NamedTuple):
@@ -478,7 +554,6 @@ def run_plan(table: np.ndarray, audio: torch.Tensor, carry: Dict[str, torch.Tens
     W = [weights[k].float() for k in WKEYS]
     wf = dict(zip(WKEYS, W))
     bf16 = packed.dtype == torch.bfloat16
-    packed = packed.float()
 
     def rb(v):  # a result rounded to the operand type
         return v.to(torch.bfloat16).float() if bf16 else v
@@ -507,10 +582,8 @@ def run_plan(table: np.ndarray, audio: torch.Tensor, carry: Dict[str, torch.Tens
     def gemm(j, f):
         k, ncat = int(j[J_K]), int(j[J_NCAT])
         n = int(j[J_CW]) * int(j[J_SLICES])
-        w = unpack_weight(packed, j)
-        x = sc.rd(int(j[J_XOFF]), k)
-        if j[J_XRND]:  # else trunk products wrote it in the operand type
-            x = rb(x)
+        w = unpack_weight(packed, j).float()
+        x = rb(sc.rd(int(j[J_XOFF]), k))  # trunk products' values are exact in it
         rnd = int(j[J_RND]) if bf16 else R_F32
         kseg = int(j[J_KSEG]) if bf16 else 0
         if kseg:  # each segment's product rounded, then added with rounding

@@ -11,7 +11,10 @@ held against their plain versions on the card by `chip_smoke.py`.
     no job touching what another job of its phase writes); the plan executed
     with plain tensor operations against `cell_process_plain`; the packed
     weights, including the transposed DFT of the synthesis product; the
-    reordering of `h @ w_hh` that the plan relies on.
+    reordering of `h @ w_hh` that the plan relies on;
+  * K2's bfloat16 builds on the tensor cores: the design and row choices by
+    operand type, the bfloat16 plan, and the units' B-fragment and the rows'
+    A-fragment packs read back lane by lane as the kernels address them.
 """
 
 import numpy as np
@@ -329,3 +332,139 @@ def test_hidden_products_first_is_bit_equal(runtimes, pset, monkeypatch):
     assert torch.equal(got_o, ref_o)
     for k in ref_c:
         assert torch.equal(got_c[k], ref_c[k]), k
+
+
+# -- K2's bfloat16 build: tensor-core plans and packs -------------------------
+
+
+@pytest.mark.parametrize("s", STREAMS)
+def test_kernel_choice_and_rows_by_operand_type(s):
+    """The bfloat16 build's choices: the same design crossover as float32
+    (units up to 8 tiles of 64 streams), and rows of 16 a block once tiles of
+    8 outnumber the multiprocessors; float32 never takes 16."""
+    tiles = -(-s // wp.RT)
+    assert wc._kernel_choice(s, N_SM, True) == ("units" if tiles <= 8 else "rows")
+    want = 4 if -(-s // 4) <= N_SM else (8 if -(-s // 8) <= N_SM else 16)
+    assert wc._tile_rows(s, N_SM, True) == want
+    assert wc._tile_rows(s, N_SM, False) == min(want, 8) == wc._tile_rows(s, N_SM)
+
+
+@pytest.mark.parametrize("s", STREAMS)
+def test_bf16_plan_packs_whole_n8_tiles(s):
+    """The bfloat16 plan: the float32 plan's jobs, phases, slices and units
+    (a slice of 4 or 12 columns stays, so the epilogues keep their
+    parallelism), four K groups (the k16 steps of a chunk) and no register
+    tile; every unit's packed weight slice is whole n8 tiles of the tensor
+    cores, ncat x cw padded to a multiple of 8, and the packed products lie
+    one after the other."""
+    table, info = wp.plan(s, N_SM, bf16=True)
+    table32, info32 = wp.plan(s, N_SM)
+    t, t32 = wp.decode(table), wp.decode(table32)
+    assert info["bf16"] and not info32["bf16"] and len(table) <= 3072
+    assert (t.phases == t32.phases).all()
+    fields = [f for f in range(wp.JOB_INTS) if f not in (wp.J_W, wp.J_KG, wp.J_AUX)]
+    assert (t.jobs[:, fields] == t32.jobs[:, fields]).all()
+    off = 0
+    for j in t.jobs:
+        if j[wp.J_TYPE] != wp.T_GEMM:
+            continue
+        cnt = int(j[wp.J_NCAT] * j[wp.J_CW])
+        cp = wp.packed_cols(cnt, True)
+        assert cp % 8 == 0 and cnt <= cp < cnt + 8 and cp <= wp.MAX_CNT
+        assert int(j[wp.J_KG]) == wp.MMA_K_GROUPS == 4 and int(j[wp.J_AUX]) == 0
+        assert int(j[wp.J_W]) == off
+        off += int(j[wp.J_SLICES]) * int(j[wp.J_K]) * cp
+    assert off == info["pack_floats"]
+
+
+def test_bf16_plan_spreads_small_s_over_the_card():
+    """Restricted to n8 tiles, the bfloat16 plan still cuts the big products
+    at S = 64 into about one unit a multiprocessor."""
+    _, info = wp.plan(64, N_SM, bf16=True)
+    units = {name: n for ph in info["phases"] for name, _, _, n in ph}
+    assert units["dft"] + 5 * units["enc_whh"] <= N_SM
+    assert units["c0"] >= 64 and units["c1"] >= 64 and units["synthesis"] >= 64
+
+
+def _lanes():
+    lane = np.arange(32)
+    return lane // 4, lane % 4
+
+
+@pytest.mark.parametrize("s", [64, 4096])
+def test_bf16_units_pack_read_lane_by_lane(runtimes, s):
+    """The units' bfloat16 pack read the way the kernel's lanes load it: the
+    B fragment of (unit slice, k16 step, n8 tile) is lane l's 4 values at
+    ((step * tiles + tile) * 32 + l) * 4 of the slice, holding k rows 2t,
+    2t + 1, 2t + 8, 2t + 9 of the step and column g of the tile (g = l // 4,
+    t = l % 4); each equals the weight there, or 0 past the slice's own
+    columns."""
+    rt = runtimes["bf16 default"]
+    table, info = wp.plan(s, N_SM, bf16=True)
+    packed = wp.pack_weights(rt.weights, info)
+    assert packed.dtype == torch.bfloat16 and packed.numel() == info["pack_floats"]
+    buf = packed.float().numpy()
+    g, t = _lanes()
+    jobs = [j for j in wp.decode(table).jobs if j[wp.J_TYPE] == wp.T_GEMM]
+    for j, pk in zip(jobs, info["packing"]):
+        w = torch.cat([rt.weights["dft"].T if k == "dft_t" else rt.weights[k]
+                       for k in pk.keys], dim=0).float().numpy()
+        k, ncat, cw, n_slices = (int(j[i]) for i in (wp.J_K, wp.J_NCAT, wp.J_CW, wp.J_SLICES))
+        cnt, stride = ncat * cw, int(j[wp.J_CSTRIDE])
+        tiles = -(-cnt // 8)
+        for sl in range(n_slices):
+            base = int(j[wp.J_W]) + sl * k * tiles * 8
+            for e in range(4):
+                kk = 2 * t + (e & 1) + 8 * (e >> 1)                       # [32]
+                step, tile = np.meshgrid(np.arange(k // 16), np.arange(tiles), indexing="ij")
+                addr = base + ((step[..., None] * tiles + tile[..., None]) * 32
+                               + np.arange(32)) * 4 + e
+                c = tile[..., None] * 8 + g                               # column in the slice
+                col = (c // cw) * stride + sl * cw + c % cw
+                col = np.minimum(col, w.shape[1] - 1)                     # pad: any column
+                want = np.where(c < cnt, w[step[..., None] * 16 + kk, col], 0.0)
+                assert np.array_equal(buf[addr], want), (pk.keys, sl, e)
+
+
+def test_bf16_rows_pack_read_lane_by_lane(runtimes):
+    """The rows design's bfloat16 pack read the way the kernel's lanes load
+    it: the A fragment of (16 output columns mt, k16 step) is lane l's 8
+    values at ((mt * K / 16 + step) * 32 + l) * 8 of the product, holding
+    column g (values 0, 1, 4, 5) and g + 8 (2, 3, 6, 7) at k rows 2t, 2t + 1
+    (0-3) and 2t + 8, 2t + 9 (4-7) of the step; each equals the weight. Every
+    product of the plan is there once, df_conv0's three segments stacked."""
+    rt = runtimes["bf16 default"]
+    packed, offsets = wp.pack_rows_weights(rt.weights)
+    assert packed.dtype == torch.bfloat16 and len(offsets) == len(wc.WKEYS) + 1
+    buf = packed.float().numpy()
+    g, t = _lanes()
+    total = 0
+    for keys in wp.ROWS_PRODUCTS:
+        w = torch.cat([rt.weights["dft"].T if k == "dft_t" else rt.weights[k]
+                       for k in keys], dim=0).float().numpy()
+        k, n = w.shape
+        off = offsets[len(wc.WKEYS) if keys == ("dft_t",) else wc.WKEYS.index(keys[0])]
+        assert off % 8 == 0
+        mt, step = np.meshgrid(np.arange(n // 16), np.arange(k // 16), indexing="ij")
+        for e in range(8):
+            kk = 2 * t + (e & 1) + 8 * (e >> 2)
+            col = mt[..., None] * 16 + g + 8 * ((e >> 1) & 1)
+            addr = off + ((mt[..., None] * (k // 16) + step[..., None]) * 32
+                          + np.arange(32)) * 8 + e
+            assert np.array_equal(buf[addr], w[step[..., None] * 16 + kk, col]), (keys, e)
+        total += k * n
+    assert total == packed.numel()
+    assert {keys for keys in wp.ROWS_PRODUCTS} >= {("c0w_t0", "c0w_t1", "c0w_t2"), ("dft_t",)}
+    assert sum(o >= 0 for o in offsets) == len(wp.ROWS_PRODUCTS)
+
+
+def test_rows_and_units_copies_are_cached_per_weight_set(runtimes):
+    rt = runtimes["bf16 default"]
+    a = wc.packed_rows_weights(rt.weights)
+    assert wc.packed_rows_weights(rt.weights) is a
+    u = wc.packed_weights(rt.weights, 64, N_SM)
+    assert u.dtype == torch.bfloat16 and wc.packed_weights(rt.weights, 64, N_SM) is u
+    with pytest.raises(TypeError):
+        wp.pack_rows_weights(runtimes["default"].weights)
+    with pytest.raises(TypeError):
+        wp.pack_weights(runtimes["default"].weights, wp.plan(64, N_SM, bf16=True)[1])

@@ -403,10 +403,12 @@ def test_cell_process_plain_bf16_matches_jax_pallas_interpret(all_models):
         assert err <= TOL_CELL, name
 
 
-def plan_errors(models, pset, s):
-    """run_plan (the kernel's schedule, with its rounding points) against
-    cell_process_plain, both at bf16, from a non-initial carry with a silent
-    stretch: {output: error}, and the hazards found."""
+def plan_errors(models, pset, s, bf16_plan=False):
+    """run_plan (the kernel's schedule, with its rounding points; the float32
+    build's plan, or with `bf16_plan` the bfloat16 build's, whose weights are
+    packed in fragment order) against cell_process_plain, both at bf16, from a
+    non-initial carry with a silent stretch: {output: error}, and the hazards
+    found."""
     _, _, tm, td = models
     rt = WholeCellStreamingRuntime(tm, td, RuntimeParams(**PARAM_SETS[pset]), backend="plain")
     frames = 6
@@ -416,7 +418,7 @@ def plan_errors(models, pset, s):
                                      rt.weights, rt.statics)
     xc = x[:, 4 * HOP:].contiguous()
     ref_c, ref = wc.cell_process_plain(xc, carry, rt.weights, rt.statics)
-    table, info = wp.plan(s, 132)
+    table, info = wp.plan(s, 132, bf16=bf16_plan)
     packed = wp.pack_weights(rt.weights, info)
     assert packed.dtype == BF16
     hazards = []
@@ -430,6 +432,18 @@ def plan_errors(models, pset, s):
 @pytest.mark.parametrize("s", [3, 70])
 def test_run_plan_bf16_matches_cell_process_plain(all_models, pset, s):
     errs, hazards = plan_errors(all_models["demo"], pset, s)
+    assert hazards == []
+    for name, err in errs.items():
+        assert err <= TOL_PLAN, name
+
+
+@pytest.mark.parametrize("pset", list(PARAM_SETS))
+@pytest.mark.parametrize("s", [3, 70])
+def test_run_plan_on_the_bf16_plan_matches_cell_process_plain(all_models, pset, s):
+    """The bfloat16 build's own plan (n8-tile widths, B-fragment packing) run
+    on the CPU, as test_run_plan_bf16_matches_cell_process_plain runs the
+    float32 one."""
+    errs, hazards = plan_errors(all_models["demo"], pset, s, bf16_plan=True)
     assert hazards == []
     for name, err in errs.items():
         assert err <= TOL_PLAN, name
@@ -459,6 +473,33 @@ def test_bf16_gate_passes_another_sum_order(all_models, pset, s):
     the bounds the CUDA kernel's bfloat16 build is held to."""
     for span, errs in gate_errors(all_models["demo"], pset, s, wcc.Float64Sums).items():
         assert wcc.out_of_bounds(errs, wcc.BF16_BOUNDS[span]) == [], span
+
+
+@pytest.mark.parametrize("pset", list(PARAM_SETS))
+@pytest.mark.parametrize("s", [8, 37])
+def test_bf16_gate_passes_the_tensor_core_sum_order(all_models, pset, s):
+    """The order in which the CUDA kernel's bfloat16 builds sum on the tensor
+    cores (`TensorCoreSums`: exact k16 steps, truncating float32 chains of up
+    to one 64-row chunk, chunks joined rounded to nearest) stays within the
+    bounds the kernel is held to."""
+    for span, errs in gate_errors(all_models["demo"], pset, s, wcc.TensorCoreSums).items():
+        assert wcc.out_of_bounds(errs, wcc.BF16_BOUNDS[span]) == [], span
+
+
+def test_tensor_core_sums_truncate_within_a_chunk_and_round_between():
+    """`TensorCoreSums` on a hand-made product: within a 64-row chunk the
+    chain's adds cut toward zero, chunks are added rounded to nearest. 1 + 3 *
+    2^-25 is 3/4 of a float32 unit above 1."""
+    w = {"dft": torch.zeros((2, 2), dtype=BF16), "m": torch.ones((128, 1), dtype=BF16)}
+    p = wcc.TensorCoreSums(w)
+    x = torch.zeros((1, 128))
+    x[0, 0] = 1.0                               # k16 step 0 of chunk 0
+    x[0, 16], x[0, 17] = 2.0 ** -24, 2.0 ** -25  # step 1, summed exactly
+    assert float(p.mmf(x, "m")) == 1.0          # cut, where rounding gives 1 + 2^-23
+    y = torch.zeros((1, 128))
+    y[0, 0] = 1.0                               # chunk 0
+    y[0, 64], y[0, 65] = 2.0 ** -24, 2.0 ** -25  # chunk 1
+    assert float(p.mmf(y, "m")) == 1.0 + 2.0 ** -23  # the chunks' join rounds
 
 
 @pytest.mark.parametrize("pset", list(PARAM_SETS))
@@ -559,6 +600,29 @@ def test_cuda_bf16_kernel_matches_plain(cuda_device, s):
     assert wcc.out_of_bounds(errs, wcc.BF16_BOUNDS["one frame"]) == []
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("design, rows", [("rows", 16), ("rows", 8), ("units", None)])
+@pytest.mark.parametrize("s", [37, 70])
+def test_cuda_bf16_kernel_designs_match_plain(cuda_device, monkeypatch, s, design, rows):
+    """Each design of the bfloat16 build, forced whatever S (the rows design
+    with 16 stream rows a block, two n8 tiles of the tensor cores; with 8; the
+    units design), against the plain bfloat16 version within `BF16_BOUNDS`,
+    8 frames and each frame from the plain version's carry."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    monkeypatch.setattr(wc, "_kernel_choice", lambda *a: design)
+    if rows is not None:
+        monkeypatch.setattr(wc, "_tile_rows", lambda *a: rows)
+    tm, td, _ = init_df(MODEL_DIR, device=cuda_device)
+    rt = WholeCellStreamingRuntime(tm, td, RuntimeParams(**STAGES))
+    x = torch.from_numpy(seeded_audio(s, s)).to(cuda_device)
+    carry = {k: torch.from_numpy(v).to(cuda_device) for k, v in _seeded_flat_carry(s, 3).items()}
+    W, st = rt.weights, rt.statics
+    errs = wcc.cell_errors(wc.cell_process(x, carry, W, st), wc.cell_process_plain(x, carry, W, st))
+    assert wcc.out_of_bounds(errs, wcc.BF16_BOUNDS["frames"]) == []
+    errs = wcc.frame_by_frame(lambda x1, c1: wc.cell_process(x1, c1, W, st), x, carry, W, st)
+    assert wcc.out_of_bounds(errs, wcc.BF16_BOUNDS["one frame"]) == []
+
+
 # -- the worst errors, for PERF.md ----------------------------------------------
 
 
@@ -601,7 +665,7 @@ def main():
     gate = {}
     for pset in PARAM_SETS:
         for s in (1, 8, 37):
-            for products in (wcc.Float64Sums,) + wcc.WRONG:
+            for products in wcc.RIGHT + wcc.WRONG:
                 for span, errs in gate_errors(all_m["demo"], pset, s, products).items():
                     top, mean = wcc.worst(errs)
                     key = (products.__name__, span)
