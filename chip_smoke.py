@@ -43,7 +43,17 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                WholeCellStreamingRuntime with its default bfloat16 operands
                (one K2 launch, counted apart) against the per-frame bfloat16
                run, the float32 whole-cell run and itself in two calls, then
-               one frame a call.
+               one frame a call;
+  7. serving - StreamServer on the card, 64 slots, each tick one replay of a
+               CUDA graph that holds one K1 launch: 16 and then 64 concurrent
+               StreamClients over localhost stream 2 s each, one hop a
+               request, each held against StreamingRuntime.process of the
+               same audio on the card (phase 4) at 1e-5; graph replays equal
+               ticks, fewer than hops; the tick's device time
+               (measure_chip_tick, S=16 and 64), host time a tick, per-hop
+               round trip and hops a second beside the 10 ms hop; the server
+               over data_parallel_mesh() equal to the unsharded one; the
+               WebSocket bridge once (page, one hop).
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
@@ -1072,6 +1082,234 @@ def reduced_precision_path(dev, card, model, df_state, cpu_model, cpu_state, aud
     return k2b
 
 
+# -- phase 7: serving ---------------------------------------------------------
+
+SERVE_SLOTS = 64
+SERVE_HOPS = int(SECONDS * SR) // HOP  # each client streams 2 s, one hop a request
+
+
+CLIENT_PROCS = 4  # the clients run in processes of their own, apart from the server's
+
+
+def _client_group(port, audio, first, start_at):
+    """In a client process: one StreamClient thread a row of `audio`, each
+    connected, then streaming its row from wall-clock time `start_at` on, one
+    hop a request, each reply waited for. Returns (first row, outputs,
+    round-trip ms, errors)."""
+    import threading
+
+    from deepfilternet_torch.serve import StreamClient
+
+    n, hops = audio.shape[0], audio.shape[1] // HOP
+    outs, rtt, errors = [None] * n, np.zeros((n, hops)), []
+
+    def run(i):
+        try:
+            c = StreamClient(port=port, timeout=120)
+            try:
+                time.sleep(max(0.0, start_at - time.time()))
+                got = []
+                for k in range(hops):
+                    t0 = time.perf_counter()
+                    got.append(c.process_frame(audio[i, k * HOP: (k + 1) * HOP]))
+                    rtt[i, k] = (time.perf_counter() - t0) * 1e3
+                outs[i] = np.concatenate(got)
+            finally:
+                c.close()
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            errors.append(f"client {first + i}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if any(t.is_alive() for t in threads):
+        errors.append("clients still running after 300 s")
+    return first, None if errors else np.stack(outs), rtt, errors
+
+
+def _client_process_ready(_):
+    """Warms a client process: imports what its clients need."""
+    import deepfilternet_torch.serve  # noqa: F401
+
+    time.sleep(0.2)  # long enough that every process of the pool takes a task
+
+
+def serve_clients(pool, port, audio):
+    """Each row of `audio` [n, T] streamed by its own StreamClient thread,
+    one hop a request, each reply waited for, all starting together; the
+    threads run in the CLIENT_PROCS processes of `pool`, apart from the
+    server's, so the server's threads share no interpreter lock with them.
+    Returns (outputs [n, T], round-trip ms of every request [n, hops], wall
+    seconds from the common start to the last client's end)."""
+    groups = np.array_split(np.arange(audio.shape[0]), CLIENT_PROCS)
+    start_at = time.time() + 2.0  # every client connected by then
+    got = pool.starmap(_client_group, [(port, audio[g], int(g[0]), start_at) for g in groups])
+    wall = time.time() - start_at
+    errors = [e for _, _, _, errs in got for e in errs]
+    if errors:
+        fail(f"serving {audio.shape[0]} clients: {errors}")
+    return (np.concatenate([o for _, o, _, _ in got]), np.concatenate([r for _, _, r, _ in got]),
+            wall)
+
+
+def ws_round_trip(port, hop_audio):
+    """The demo page over HTTP, then one binary hop through a WebSocket;
+    returns (page bytes, the enhanced hop)."""
+    import base64
+    import socket
+    import struct
+
+    from deepfilternet_torch.serve_ws import read_ws_frame
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        s.sendall(b"GET / HTTP/1.1\r\nHost: x\r\n\r\n")
+        page = b""
+        while chunk := s.recv(65536):
+            page += chunk
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        key = base64.b64encode(os.urandom(16)).decode()
+        s.sendall((f"GET / HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\nConnection: Upgrade\r\n"
+                   f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n").encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            head += s.recv(4096)
+        if b" 101 " not in head.split(b"\r\n")[0]:
+            fail(f"WebSocket handshake refused: {head[:80]!r}")
+        payload = hop_audio.astype("<f4").tobytes()
+        mask = os.urandom(4)
+        masked = bytes(b ^ mask[i % 4] for i, b in enumerate(payload))
+        s.sendall(bytes([0x82, 0x80 | 126]) + struct.pack(">H", len(payload)) + mask + masked)
+        frame = read_ws_frame(s)
+        s.sendall(bytes([0x88, 0x80]) + mask)  # close
+    if frame is None or frame[0] != 0x2:
+        fail(f"WebSocket reply {frame and frame[0]}: not a binary frame")
+    return page, np.frombuffer(frame[1], "<f4")
+
+
+def serving_path(card, smi, model, df_state, audio, per_frame_out):
+    """Phase 7: StreamServer on the card (each tick one replay of a CUDA
+    graph that holds K1), driven by 16 and then 64 concurrent clients over
+    localhost, each client's output held against StreamingRuntime.process of
+    the same audio on the card (`per_frame_out`, phase 4) at 1e-5; the tick's
+    device and host times and the per-hop latency; the server over a
+    one-device mesh (the same output bit for bit) and over two shards of the
+    one card (within 1e-5), each with one replay a shard and tick; the
+    WebSocket bridge once.
+    Returns the graph replays of the client runs (each launches K1 once)."""
+    import multiprocessing as mp
+
+    with mp.get_context("spawn").Pool(CLIENT_PROCS) as pool:
+        pool.map(_client_process_ready, range(4 * CLIENT_PROCS), chunksize=1)
+        return _serving_path(pool, smi, model, df_state, audio[:, : SERVE_HOPS * HOP],
+                             per_frame_out[:, : SERVE_HOPS * HOP])
+
+
+def _serving_path(pool, smi, model, df_state, audio, ref):
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.parallel import Mesh, data_parallel_mesh
+    from deepfilternet_torch.serve import StreamServer
+    from deepfilternet_torch.serve_ws import WsBridge
+
+    k1.launches = k2.launches = 0
+    # a 16-slot server only for its tick's device time, built (and captured)
+    # before any server thread runs
+    small = StreamServer(model, df_state, port=0, max_streams=16)
+    t0 = time.perf_counter()
+    srv = StreamServer(model, df_state, port=0, max_streams=SERVE_SLOTS).start()
+    build_s = time.perf_counter() - t0
+    replays, outs16 = 0, None
+    try:
+        if srv.graph_captures != 1 or srv.k1_in_graph != [1]:
+            fail(f"server: {srv.graph_captures} graphs captured (want 1), K1 launches in the "
+                 f"graph {srv.k1_in_graph} (want [1])")
+        print(f"server ({MODEL_DIR}, float32, {SERVE_SLOTS} slots): built and captured in "
+              f"{build_s:.2f} s; graphs captured {srv.graph_captures}, K1 launches recorded in "
+              f"the graph {srv.k1_in_graph} (K1's counter over both servers' warm-up ticks "
+              f"and captures: {k1.launches})")
+        for n in (16, 64):
+            d0, f0, r0 = srv.dispatches, srv.frames_processed, srv.graph_replays
+            srv.tick_host_times.clear()
+            srv.dispatch_times.clear()
+            got, rtt, wall = serve_clients(pool, srv.port, audio[:n])
+            d, f, r = srv.dispatches - d0, srv.frames_processed - f0, srv.graph_replays - r0
+            err = float(np.abs(got - ref[:n]).max())
+            if not err <= 1e-5:
+                fail(f"server, {n} clients: max abs err {err:.3e} against "
+                     "StreamingRuntime.process on the card > 1e-5")
+            if not (r == d * srv.graph_captures and 0 < d < f and f == n * SERVE_HOPS):
+                fail(f"server, {n} clients: replays {r}, dispatches {d}, frames {f} (want "
+                     f"replays == dispatches < frames == {n * SERVE_HOPS})")
+            replays += r
+            if n == 16:
+                outs16 = got
+            host = np.asarray(srv.tick_host_times) * 1e3
+            fetch = np.asarray(srv.dispatch_times) * 1e3
+            p50, p99, worst = np.percentile(rtt, 50), np.percentile(rtt, 99), rtt.max()
+            print(f"server, {n} concurrent clients x {SERVE_HOPS} hops, one hop a request, on "
+                  f"{smi}: max abs err {err:.2e} against StreamingRuntime.process on the card "
+                  f"(tol 1e-5); {d} ticks = {r} graph replays for {f} hops ({f / d:.1f} hops a "
+                  f"tick); per-hop round trip median {p50:.3f} ms, p99 {p99:.3f} ms, worst "
+                  f"{worst:.3f} ms (host clock, client side); {f / wall:.0f} hops served a "
+                  f"second ({wall:.3f} s wall); host time a tick (batcher: rows filled, copy "
+                  f"in, replay, copy out enqueued) median {np.median(host):.3f} ms; tick submit "
+                  f"to output on the host median {np.median(fetch):.3f} ms; against the 10 ms "
+                  f"hop: p99 {'within' if p99 <= 10.0 else 'beyond'} it, worst "
+                  f"{'within' if worst <= 10.0 else 'beyond'} it (information only)")
+        tick64 = srv.measure_chip_tick(200)
+        tick16 = small.measure_chip_tick(200)
+        print(f"server tick on the device (measure_chip_tick: 200 chained graph replays, CUDA "
+              f"events, every slot active) on {smi}: S=64 {tick64:.4f} ms, S=16 {tick16:.4f} ms "
+              f"a tick, against the 10 ms hop")
+
+        bridge = WsBridge(srv, port=0).start()
+        try:
+            page, hop_out = ws_round_trip(bridge.port, audio[0, :HOP])
+        finally:
+            bridge.stop()
+        ws_err = float(np.abs(hop_out - ref[0, :HOP]).max()) if hop_out.size == HOP else np.inf
+        if b"200 OK" not in page or b"DeepFilterNet" not in page or not ws_err <= 1e-5:
+            fail(f"WebSocket bridge: page {page[:40]!r}, hop of {hop_out.size} samples, max abs "
+                 f"err {ws_err:.3e} against the first hop on the card (tol 1e-5)")
+        print(f"WebSocket bridge: demo page {len(page)} bytes over HTTP; one binary hop through "
+              f"a WebSocket, max abs err {ws_err:.2e} against the same hop on the card "
+              "(tol 1e-5)")
+    finally:
+        srv.stop()
+    if k2.launches:
+        fail(f"server path launched K2 {k2.launches} times")
+
+    # the one card as a mesh (same width: bit for bit), then 16 slots split
+    # into two shards of 8 on the one card (two graphs, both serving clients;
+    # narrower products: within 1e-5 of the reference), whose replays the
+    # server sums over its shards
+    halves = Mesh((torch.device("cuda", 0),) * 2)
+    for mesh, slots, want, tol, against in (
+            (data_parallel_mesh(), SERVE_SLOTS, outs16, 0.0, "the unsharded server"),
+            (halves, 16, ref[:16], 1e-5, "StreamingRuntime.process on the card")):
+        msrv = StreamServer(model, df_state, port=0, max_streams=slots, mesh=mesh).start()
+        try:
+            got, _, _ = serve_clients(pool, msrv.port, audio[:16])
+            diff = float(np.abs(got - want).max())
+            d, r = msrv.dispatches, msrv.graph_replays
+            shards = f"{mesh.size} shard(s) of {slots // mesh.size} slots"
+            if (msrv.graph_captures != mesh.size or msrv.k1_in_graph != [1] * mesh.size
+                    or not 0 < d or r != d * mesh.size or not diff <= tol):
+                fail(f"mesh server, {shards}: {msrv.graph_captures} graphs, K1 in them "
+                     f"{msrv.k1_in_graph}, {r} replays for {d} ticks (want {mesh.size} a tick), "
+                     f"max abs diff {diff:.3e} from {against} (tol {tol})")
+            replays += r
+        finally:
+            msrv.stop()
+        print(f"server over {shards} on {len(set(mesh.devices))} device(s), 16 clients: "
+              f"{msrv.graph_captures} graph(s), {r} replays for {d} ticks; max abs diff "
+              f"{diff:.2e} from {against} (tol {tol})")
+    print(f"serving path: K1 ran in {replays} graph replays (one launch each), K2 launches 0")
+    return replays
+
+
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
@@ -1155,6 +1393,9 @@ def main():
     k2b = reduced_precision_path(dev, card, model, df_state, cpu_model, cpu_state, audio, out,
                                  wc_out)
     print(f"phase 6 (reduced precision): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    k1["server_replays"] = serving_path(card, smi, model, df_state, audio, out)
+    print(f"phase 7 (serving): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

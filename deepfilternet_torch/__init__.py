@@ -8,7 +8,10 @@ Two hand-written CUDA kernels: the per-frame analysis frontend
 (`csrc/fused_frontend.cu`) under `StreamingRuntime`, and the whole streaming
 frame with the frame loop inside one launch (`csrc/whole_cell.cu`,
 `csrc/whole_cell_rows.cu`) under `WholeCellStreamingRuntime`; everything
-else is PyTorch.
+else is PyTorch. The stream server (`serve.py`, the JAX server's wire
+protocol; on a GPU each tick is one CUDA-graph replay), its WebSocket bridge
+(`serve_ws.py`), the terminal demo client (`scripts/demo_client.py`) and
+stream sharding over several devices (`parallel/`) sit on top.
 
     from deepfilternet_torch import init_df, enhance
     from deepfilternet_torch import StreamingRuntime, ChunkedStreamingRuntime

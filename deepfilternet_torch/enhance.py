@@ -11,8 +11,6 @@ The model is a (params, state, cfg, module) bundle on one device. Entry
 points run on the CUDA device unless the caller passes `device="cpu"`; with
 no GPU present they raise instead of falling back to the CPU. Delay
 compensation pads by n_fft and trims d = n_fft - hop, as in the JAX package.
-
-Not ported yet: stream sharding over several devices (`mesh`).
 """
 
 from __future__ import annotations
@@ -224,10 +222,10 @@ def enhance(
       * "scan": the per-frame StreamingRuntime (frame-exact vs "offline");
       * "auto": "scan" for batches of 16 rows or more, else "offline".
 
-    mesh: stream sharding over several devices is not ported yet; must be None.
+    mesh: a `parallel.Mesh`; the scan backend then splits the rows over its
+    devices (weights copied to each, no traffic between them); the rows must
+    divide over the devices.
     """
-    if mesh is not None:
-        raise NotImplementedError("stream sharding over a mesh is not ported yet")
     audio = np.atleast_2d(np.asarray(audio, np.float32))
     orig_len = audio.shape[-1]
     n_fft, hop = df_state.fft_size, df_state.hop_size
@@ -244,7 +242,7 @@ def enhance(
     if backend == "offline":
         out = _offline(model, df_state, audio, lim)
     elif backend == "scan":
-        rt = _get_scan_runtime(model, df_state)
+        rt = _get_scan_runtime(model, df_state, mesh)
         _, out = rt.process(rt.init(audio.shape[0]), audio)
         out = out.cpu().numpy()
         if lim > 0:
@@ -264,13 +262,20 @@ def enhance(
     return out
 
 
-def _get_scan_runtime(model: DfModel, df_state: DfState):
-    """One cached runtime per model; atten_lim is applied by the caller."""
+def _get_scan_runtime(model: DfModel, df_state: DfState, mesh=None):
+    """One cached runtime per model (and mesh); atten_lim is applied by the
+    caller."""
     from deepfilternet_torch.streaming import RuntimeParams, StreamingRuntime
 
-    if "scan_runtime" not in model._cache:
-        model._cache["scan_runtime"] = StreamingRuntime(model, df_state, RuntimeParams())
-    return model._cache["scan_runtime"]
+    key = "scan_runtime" if mesh is None else ("scan_runtime", mesh)
+    if key not in model._cache:
+        if mesh is None:
+            model._cache[key] = StreamingRuntime(model, df_state, RuntimeParams())
+        else:
+            from deepfilternet_torch.parallel.streams import ShardedStreamingRuntime
+
+            model._cache[key] = ShardedStreamingRuntime(model, df_state, mesh)
+    return model._cache[key]
 
 
 # ---------------------------------------------------------------------------

@@ -117,8 +117,9 @@ def test_init_df_cpu_loads_demo_checkpoint():
 def test_port_imports_no_jax_at_run_time(tmp_path):
     """A fresh interpreter loads the demo model and runs 3 frames per frame
     (float32 and bfloat16), through the whole cell (its bfloat16 default),
-    the offline enhance, the chunked runtime and the CLI, then no jax, optax
-    or deepfilternet_tpu module may be loaded."""
+    the offline enhance, the chunked runtime, the CLI, a stream server (one
+    round trip) and the sharded runtime, then no jax, optax or
+    deepfilternet_tpu module may be loaded."""
     code = textwrap.dedent(f"""
         import os, sys
         import numpy as np
@@ -127,6 +128,11 @@ def test_port_imports_no_jax_at_run_time(tmp_path):
         from deepfilternet_torch.streaming import ChunkedStreamingRuntime, StreamingRuntime
         from deepfilternet_torch.streaming_whole_cell import WholeCellStreamingRuntime
         from deepfilternet_torch.utils import save_audio
+        from deepfilternet_torch.parallel import Mesh
+        from deepfilternet_torch.parallel.streams import ShardedStreamingRuntime
+        from deepfilternet_torch.serve import StreamClient, StreamServer
+        from deepfilternet_torch.serve_ws import WsBridge
+        from deepfilternet_torch.scripts.demo_client import main as demo_main
         model, df_state, _ = init_df("pretrained/dfn3_fixture_demo", device="cpu")
         rt = StreamingRuntime(model, df_state)
         audio = np.random.default_rng(0).standard_normal((2, 480 * 3)).astype(np.float32)
@@ -143,6 +149,13 @@ def test_port_imports_no_jax_at_run_time(tmp_path):
         save_audio({str(tmp_path / "in.wav")!r}, audio[:1] * 0.1, 48000)
         main([{str(tmp_path / "in.wav")!r}, "-o", {str(tmp_path)!r}, "--device", "cpu"])
         assert os.path.isfile({str(tmp_path / "in_DeepFilterNet_TPU.wav")!r})
+        srv = StreamServer(model, df_state, port=0).start()
+        client = StreamClient(port=srv.port)
+        assert client.process_frame(audio[0, :960]).shape == (960,)
+        client.close()
+        srv.stop()
+        srt = ShardedStreamingRuntime(model, df_state, Mesh(("cpu", "cpu")))
+        assert srt.process(srt.init(2), audio)[1].shape == (2, 1440)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "optax", "deepfilternet_tpu"))
         print("LOADED", bad)
