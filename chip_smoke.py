@@ -53,7 +53,20 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                (measure_chip_tick, S=16 and 64), host time a tick, per-hop
                round trip and hops a second beside the 10 ms hop; the server
                over data_parallel_mesh() equal to the unsharded one; the
-               WebSocket bridge once (page, one hop).
+               WebSocket bridge once (page, one hop);
+  8. families - the DFN2 and DFN1 checkpoints (pretrained/dfn2_fixture_demo,
+               dfn1_fixture_demo) loaded on the card by init_df: enhance()
+               offline on [16, 2 s] against the CPU; StreamingRuntime on the
+               main path's 64 x 2 s against the CPU, K1 launched once a frame
+               and held against its plain version on the first frame;
+               enhance(backend="scan") against the offline output; the
+               chunked runtime against the per-frame output; DFN1 mask-only
+               (offline and per frame) against the CPU; a 16-slot DFN2 server
+               (K1 inside its graph) whose 4 clients in spawned processes
+               equal StreamingRuntime.process bit for bit. Then
+               DeepFilterNet-MF (seeded random weights at its default widths),
+               WF and MVDR: enhance() on [4, 2 s], and the forward on the same
+               features against the CPU.
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
@@ -664,7 +677,7 @@ def units_read_rates(s, bf16, cycles):
 # -- phase 4: the main path --------------------------------------------------
 
 
-def profile_frames(rt, audio, card):
+def profile_frames(rt, audio, card, label="main path"):
     """Where a frame's time goes: device busy share and the largest device
     ops, from torch.profiler over a short run (the profiler's own host cost
     inflates the wall time, so the busy share is a lower bound)."""
@@ -681,12 +694,12 @@ def profile_frames(rt, audio, card):
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        print("main path profile: the profiler recorded no device time (not measured)")
+        print(f"{label} profile: the profiler recorded no device time (not measured)")
         return
     busy_us = sum(e.self_device_time_total for e in dev)
     ops = sum(e.count for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"{'bfloat16 ' if getattr(rt, 'dtype', None) == torch.bfloat16 else ''}main path "
+    print(f"{'bfloat16 ' if getattr(rt, 'dtype', None) == torch.bfloat16 else ''}{label} "
           f"profile, S={s}, {n} frames, profiler on, {card}: wall "
           f"{wall_us / n:.1f} us/frame, device busy {busy_us / n:.1f} us/frame "
           f"({busy_us / wall_us:.1%}), {ops / n:.1f} device ops/frame; largest: "
@@ -1310,6 +1323,300 @@ def _serving_path(pool, smi, model, df_state, audio, ref):
     return replays
 
 
+# -- phase 8: the DFN2 and DFN1 families, and DeepFilterNet-MF ------------------
+
+FAMILIES = ("pretrained/dfn2_fixture_demo", "pretrained/dfn1_fixture_demo")
+FAMILY_ROWS = 16  # the offline and scan paths' rows
+SERVE8_SLOTS, SERVE8_SECONDS = 16, 1.0
+
+
+def k1_first_frame(rt, audio):
+    """K1 against its plain version on a runtime's first frame (the fresh
+    carry's memory and norm states, the first hop of every stream), each
+    output within 1e-5 of its largest value, as phase 3 holds it. Returns
+    the largest error over its tolerance."""
+    from deepfilternet_torch.ops.fused_frontend import (
+        fused_analysis_frontend,
+        fused_analysis_frontend_plain,
+    )
+
+    carry = rt.init(audio.shape[0])
+    frame = torch.from_numpy(np.ascontiguousarray(audio[:, :HOP])).to(rt.device)
+    args = (carry.analysis_mem, frame, carry.mean_norm, carry.unit_norm)
+    kw = dict(fft_size=rt.stft_cfg.fft_size, hop_size=rt.stft_cfg.hop_size, nb_erb=rt.nb_erb,
+              nb_df=rt.nb_df, min_nb_erb_freqs=rt.df_state.min_nb_erb_freqs, alpha=rt.alpha,
+              sr=rt.df_state.sr)
+    got = fused_analysis_frontend(*args, **kw)
+    ref = fused_analysis_frontend_plain(*args, **kw)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a, b in zip(got, ref):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"K1 on the first frame: shape {tuple(a.shape)} or non-finite values")
+        ratio = float((a - b).abs().max()) / (1e-5 * max(float(b.abs().max()), 1e-30))
+        worst = max(worst, ratio)
+    if worst > 1.0:
+        fail(f"K1 on the first frame: {worst:.2f} x its tolerance (1e-5 x max|plain|)")
+    return worst
+
+
+def family_path(card, smi, model_dir, audio, pool):
+    """One bundled checkpoint of another family (DFN2, DFN1) on the card:
+    offline enhance() on [16, 2 s] against the CPU; StreamingRuntime on the
+    main path's 64 x 2 s (K1 once a frame, counted) against the CPU, with K1
+    against its plain version on the first frame; enhance(backend="scan")
+    against the offline output; ChunkedStreamingRuntime against the per-frame
+    output; then, for DFN1, mask-only through the offline and per-frame
+    paths against the CPU, and for DFN2 a 16-slot server (its tick one CUDA
+    graph with K1 inside) against StreamingRuntime.process. Returns the
+    kernels line's entries for this family."""
+    from deepfilternet_torch.enhance import enhance, init_df
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.streaming import ChunkedStreamingRuntime, StreamingRuntime
+
+    model, df_state, suffix = init_df(model_dir)
+    cpu_model, cpu_state, _ = init_df(model_dir, device="cpu")
+    if model.device.type != "cuda":
+        fail(f"init_df({model_dir}) put the model on {model.device}")
+    fam = {"dfnet2": "DFN2", "dfnet1": "DFN1"}[model.module.__name__.rsplit(".", 1)[1]]
+    tag = f"{fam} ({model_dir}, {suffix})"
+    s, n_frames = audio.shape[0], audio.shape[1] // HOP
+    batch = audio[:FAMILY_ROWS]
+    entry = {}
+
+    # offline: the whole-utterance forward, neither kernel
+    enhance(model, df_state, batch)  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    off = enhance(model, df_state, batch)
+    wall = time.perf_counter() - t0
+    if off.shape != batch.shape or not np.isfinite(off).all() or k1.launches or k2.launches:
+        fail(f"{tag} offline: output {off.shape}, K1 {k1.launches}, K2 {k2.launches} launches")
+    err = scale_err(off, enhance(cpu_model, cpu_state, batch))
+    if not err <= 1e-4:
+        fail(f"{tag} offline vs the CPU: {err:.3e} of the largest value > 1e-4")
+    print(f"{tag} enhance() offline [{FAMILY_ROWS}, {SECONDS} s] on {card}: {wall:.3f} s wall, "
+          f"RTF {FAMILY_ROWS * SECONDS / wall:.1f}x (information only); vs the CPU "
+          f"{err:.3e} of the largest value (tol 1e-4); K1 and K2 launches 0")
+
+    # per frame: K1 once a frame
+    rt = StreamingRuntime(model, df_state)
+    k1_ratio = k1_first_frame(rt, audio)
+    rt.process(rt.init(s), audio[:, : 5 * HOP])  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    _, out_dev = rt.process(rt.init(s), audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    entry["launches"] = k1.launches
+    if k1.launches != n_frames:
+        fail(f"{tag} per frame: K1 launches {k1.launches} != frames {n_frames}")
+    out = out_dev.cpu().numpy()
+    cpu_rt = StreamingRuntime(cpu_model, cpu_state)
+    err = scale_err(out, cpu_rt.process(cpu_rt.init(s), audio)[1].numpy())
+    if out.shape != audio.shape or not np.isfinite(out).all() or not err <= 1e-4:
+        fail(f"{tag} per frame: output {out.shape}, vs the CPU {err:.3e} of the largest "
+             "value (tol 1e-4)")
+    print(f"{tag} StreamingRuntime.process S={s} x {SECONDS} s = {n_frames} frames on {card}: "
+          f"K1 launches {entry['launches']}, {wall:.3f} s wall, aggregate RTF "
+          f"{SECONDS * s / wall:.1f}x (information only); vs the CPU {err:.3e} of the largest "
+          f"value (tol 1e-4); K1 against its plain version on the first frame: "
+          f"{k1_ratio:.3f} x its tolerance (1e-5 x max|plain| an output)")
+    entry["max_abs_err_first_frame_over_tol"] = k1_ratio
+    profile_frames(rt, audio[:, : 20 * HOP], card, label=f"{fam} per-frame")
+
+    # scan backend: the per-frame runtime behind enhance()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    scan = enhance(model, df_state, batch, backend="scan")
+    wall = time.perf_counter() - t0
+    n_scan = (batch.shape[1] + df_state.fft_size) // HOP
+    err = float(np.abs(scan - off).max())
+    if k1.launches != n_scan or scan.shape != batch.shape or not err <= 1e-4:
+        fail(f"{tag} scan: K1 launches {k1.launches} (want {n_scan}), vs offline {err:.3e} "
+             "(tol 1e-4)")
+    print(f"{tag} enhance(backend='scan') [{FAMILY_ROWS}, {SECONDS} s]: K1 launches "
+          f"{n_scan}, {wall:.3f} s wall (information only); vs the offline output max abs err "
+          f"{err:.3e} (tol 1e-4)")
+
+    # chunked: forward_chunk, no K1
+    crt = ChunkedStreamingRuntime(model, df_state)
+    crt.process(crt.init(s), audio[:, : 20 * HOP])  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    _, cout = crt.process(crt.init(s), audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = float(np.abs(cout.cpu().numpy() - out).max())
+    if k1.launches or not err <= 1e-4:
+        fail(f"{tag} chunked: K1 launches {k1.launches}, vs per frame {err:.3e} (tol 1e-4)")
+    print(f"{tag} ChunkedStreamingRuntime S={s} x {SECONDS} s in chunks of {crt.chunk_frames} "
+          f"on {card}: {wall:.3f} s wall, aggregate RTF {SECONDS * s / wall:.1f}x (information "
+          f"only); vs the per-frame output max abs err {err:.3e} (tol 1e-4); K1 launches 0")
+
+    if fam == "DFN1":
+        mmodel, mstate, _ = init_df(model_dir, mask_only=True)
+        cmodel, cstate, _ = init_df(model_dir, mask_only=True, device="cpu")
+        moff = enhance(mmodel, mstate, batch)
+        e_off = scale_err(moff, enhance(cmodel, cstate, batch))
+        mrt, cmrt = StreamingRuntime(mmodel, mstate), StreamingRuntime(cmodel, cstate)
+        k1.launches = 0
+        mout = mrt.process(mrt.init(FAMILY_ROWS), batch)[1].cpu().numpy()
+        m_launches = k1.launches
+        e_pf = scale_err(mout, cmrt.process(cmrt.init(FAMILY_ROWS), batch)[1].numpy())
+        e_full = scale_err(moff, off)
+        if not (e_off <= 1e-4 and e_pf <= 1e-4 and m_launches == n_frames and e_full > 1e-3):
+            fail(f"{tag} mask-only: offline {e_off:.3e}, per frame {e_pf:.3e} vs the CPU "
+                 f"(tol 1e-4), K1 {m_launches} (want {n_frames}), {e_full:.3e} from the full "
+                 "model (want > 1e-3)")
+        print(f"{tag} mask-only (init_df(mask_only=True)) [{FAMILY_ROWS}, {SECONDS} s]: "
+              f"offline vs the CPU {e_off:.3e}, per frame vs the CPU {e_pf:.3e} of the largest "
+              f"value (tol 1e-4), K1 launches {m_launches}; {e_full:.3e} from the full model")
+    else:
+        entry.update(served_family(tag, smi, model, df_state, audio, pool))
+    return fam, entry
+
+
+def served_family(tag, smi, model, df_state, audio, pool):
+    """A 16-slot server of another family, each tick one CUDA-graph replay
+    holding K1: 4 clients in the spawned processes stream 1 s each, every one
+    bit for bit equal to StreamingRuntime.process of a 16-stream batch that
+    holds its audio (the same batch width as the graph)."""
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.serve import StreamServer
+    from deepfilternet_torch.streaming import StreamingRuntime
+
+    n, hops = CLIENT_PROCS, int(SERVE8_SECONDS * SR) // HOP
+    clip = np.ascontiguousarray(audio[:n, : hops * HOP])
+    rows = np.zeros((SERVE8_SLOTS, clip.shape[1]), np.float32)
+    rows[:n] = clip
+    rt = StreamingRuntime(model, df_state)
+    ref = rt.process(rt.init(SERVE8_SLOTS), rows)[1].cpu().numpy()[:n]
+    k1.launches = k2.launches = 0
+    srv = StreamServer(model, df_state, port=0, max_streams=SERVE8_SLOTS).start()
+    try:
+        got, rtt, wall = serve_clients(pool, srv.port, clip)
+        d, f, r = srv.dispatches, srv.frames_processed, srv.graph_replays
+        diff = float(np.abs(got - ref).max())
+        if (srv.graph_captures != 1 or srv.k1_in_graph != [1] or diff != 0.0
+                or not (r == d and 0 < d < f and f == n * hops) or k2.launches):
+            fail(f"{tag} server: {srv.graph_captures} graphs, K1 in the graph "
+                 f"{srv.k1_in_graph}, {r} replays for {d} ticks and {f} hops, max abs diff "
+                 f"{diff:.3e} from StreamingRuntime.process (want 0), K2 {k2.launches}")
+    finally:
+        srv.stop()
+    print(f"{tag} server, {SERVE8_SLOTS} slots, {n} clients x {hops} hops in {CLIENT_PROCS} "
+          f"processes on {smi}: every client bit for bit equal to StreamingRuntime.process; "
+          f"{d} ticks = {r} graph replays for {f} hops, K1 launches recorded in the graph "
+          f"{srv.k1_in_graph}; round trip median {np.percentile(rtt, 50):.3f} ms, p99 "
+          f"{np.percentile(rtt, 99):.3f} ms, {wall:.3f} s wall (information only)")
+    return {"server_replays": r, "k1_in_graph": srv.k1_in_graph == [1]}
+
+
+def mvdr_cancellation(ifc, cov, order):
+    """A bin and frame's cancellation factor of MVDR's denominator
+    Re(ifc^H R ifc): the sum of its terms' magnitudes over its magnitude
+    (float64, from the MF heads' outputs). Rounding errors of the terms reach
+    the filter weights multiplied by it."""
+    b, t, f, _ = ifc.shape
+    ifc = ifc.astype(np.float64).reshape(b, t, f, order, 2)
+    cov = cov.astype(np.float64).reshape(b, t, f, order, order, 2)
+    ifc_c, cov_c = ifc[..., 0] + 1j * ifc[..., 1], cov[..., 0] + 1j * cov[..., 1]
+    den = np.einsum("...n,...nm,...m->...", np.conj(ifc_c), cov_c, ifc_c).real
+    mag = np.einsum("...n,...nm,...m->...", np.abs(ifc_c), np.abs(cov_c), np.abs(ifc_c))
+    return mag / np.maximum(np.abs(den), 1e-300)
+
+
+# MVDR divides by Re(ifc^H R ifc). With untrained weights R is no covariance,
+# and on the main path's audio that sum cancels by a factor of 8 at the median
+# bin and up to 8e5 at the worst: there the rounding of two correct float32
+# runs is multiplied up (the port against JAX on the CPU, same features: 4.0e-3
+# of the largest value over all bins, 1.8e-7 over the 96% of bins that cancel
+# by at most 100). The low band is held at 1e-4 on the bins that cancel by at
+# most MVDR_MAX_CANCELLATION (at least 90% of them); the whole output's error
+# is printed.
+MVDR_MAX_CANCELLATION = 100.0
+
+
+def mf_path(card, audio):
+    """DeepFilterNet-MF, WF and MVDR, at ModelParamsMF's default widths with
+    init_df's seeded random weights (the repo has no MF checkpoint):
+    enhance() on the card on [4, 2 s] (wall, finite output), then the offline
+    forward on the same features on the card against the CPU, each output at
+    1e-4 of its largest value (MVDR's low band: MVDR_MAX_CANCELLATION)."""
+    from deepfilternet_torch.config import config
+    from deepfilternet_torch.enhance import df_features, enhance, init_df
+
+    x = audio[:4]
+    for method in ("WF", "MVDR"):
+        config.reset()
+        config.set("MFOP_METHOD", method, section="deepfilternet")
+        try:
+            model, df_state, _ = init_df(model_name="deepfilternetmf")
+            cpu_model, cpu_state, _ = init_df(model_name="deepfilternetmf", device="cpu")
+        finally:
+            config.reset()
+        enhance(model, df_state, x)  # warm-up
+        t0 = time.perf_counter()
+        out = enhance(model, df_state, x)
+        wall = time.perf_counter() - t0
+        if out.shape != x.shape or not np.isfinite(out).all():
+            fail(f"MF {method}: enhance() output {out.shape} not finite / not {x.shape}")
+        feats = df_features(x, cpu_state, cpu_model.cfg["nb_df"], device="cpu")
+        ref = cpu_model.module.forward(cpu_model.params, cpu_model.state, cpu_model.cfg, *feats)[0]
+        got = model.module.forward(model.params, model.state, model.cfg,
+                                   *(f.to(model.device) for f in feats))[0]
+        ref = [v.numpy() for v in (ref[0], ref[1], ref[2], *ref[3])]
+        got = [v.cpu().numpy() for v in (got[0], got[1], got[2], *got[3])]
+        errs = {name: scale_err(g, r) for name, g, r in
+                zip(("spec_e", "mask", "lsnr", "ifc", "cov"), got, ref)}
+        nb_df = model.cfg["nb_df"]
+        scale = float(np.abs(ref[0]).max())
+        low = np.abs(got[0][..., :nb_df, :] - ref[0][..., :nb_df, :]).max(-1)
+        note = ""
+        if method == "MVDR":
+            well = (mvdr_cancellation(ref[3], ref[4], model.cfg["df_order"])
+                    <= MVDR_MAX_CANCELLATION)
+            gated = dict(errs, spec_e=max(float(low[well].max()) / scale,
+                                          float(np.abs(got[0][..., nb_df:, :]
+                                                       - ref[0][..., nb_df:, :]).max()) / scale))
+            if not well.mean() >= 0.9:
+                fail(f"MF MVDR: only {well.mean():.1%} of the low-band bins cancel by at most "
+                     f"{MVDR_MAX_CANCELLATION}")
+            note = (f"; spec_e over all bins {errs['spec_e']:.3e} (information: "
+                    f"{1 - well.mean():.2%} of the low-band bins cancel by more than "
+                    f"{MVDR_MAX_CANCELLATION:.0f}, gated on the rest)")
+        else:
+            gated = errs
+        bad = {k: v for k, v in gated.items() if not v <= 1e-4}
+        if bad:
+            fail(f"MF {method}: card vs CPU beyond 1e-4 of the largest value: {bad}")
+        print(f"MF {method} (deepfilternetmf, seeded random weights, published widths): "
+              f"enhance() [4, {SECONDS} s] on {card} {wall:.3f} s wall, RTF "
+              f"{4 * SECONDS / wall:.1f}x (information only); forward on the same features, "
+              "card vs CPU, of each output's largest value (tol 1e-4): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in gated.items()) + note)
+
+
+def families_path(card, smi, audio):
+    """Phase 8. Returns {family: its kernels-line entries}."""
+    import multiprocessing as mp
+
+    out = {}
+    with mp.get_context("spawn").Pool(CLIENT_PROCS) as pool:
+        pool.map(_client_process_ready, range(4 * CLIENT_PROCS), chunksize=1)
+        for model_dir in FAMILIES:
+            fam, entry = family_path(card, smi, model_dir, audio, pool)
+            out[fam] = entry
+    mf_path(card, audio)
+    return out
+
+
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
@@ -1396,6 +1703,12 @@ def main():
     t0 = time.perf_counter()
     k1["server_replays"] = serving_path(card, smi, model, df_state, audio, out)
     print(f"phase 7 (serving): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    for fam, entry in families_path(card, smi, audio).items():
+        # K1 on the other families' main paths: launches in their per-frame
+        # runs (200 frames), replays of the DFN2 server's graph
+        k1.update({f"{fam.lower()}_{k}": v for k, v in entry.items()})
+    print(f"phase 8 (DFN2, DFN1, DeepFilterNet-MF): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

@@ -1,10 +1,11 @@
 """Model zoo dispatch: `init_model(name)` resolves the MODEL config key
 (default deepfilternet3) and returns (params, state, cfg, module), where
-module exposes `streaming_init` and `streaming_cell`.
+module exposes `forward` and, but for DeepFilterNet-MF (offline only),
+`streaming_init`, `streaming_cell`, `forward_chunk` and `RUNTIME_DTYPES`
+(the model types the streaming runtimes take).
 
-Only DeepFilterNet3 is ported; the other families are ROADMAP item 9.
-`dfnet3_fused` holds its dense-folded streaming cell (`build_fused`,
-`FusedDfNet3`).
+`dfnet3_fused` holds DFN3's dense-folded streaming cell (`build_fused`,
+`FusedDfNet3`); `multiframe` the WF/MVDR filters of DeepFilterNet-MF.
 """
 
 from __future__ import annotations
@@ -18,16 +19,14 @@ from deepfilternet_torch.config import config
 
 _MODEL_MODULES = {
     "deepfilternet3": ("deepfilternet_torch.models.dfnet3", "init_dfnet3", "ModelParams3"),
+    "deepfilternet2": ("deepfilternet_torch.models.dfnet2", "init_dfnet2", "ModelParams2"),
+    "deepfilternet": ("deepfilternet_torch.models.dfnet1", "init_dfnet1", "ModelParams1"),
+    "deepfilternetmf": ("deepfilternet_torch.models.dfnetmf", "init_dfnetmf", "ModelParamsMF"),
 }
-_NOT_PORTED = ("deepfilternet2", "deepfilternet", "deepfilternetmf")
 
 
 def model_module(name: Optional[str] = None):
     name = (name or config("MODEL", default="deepfilternet3", section="train")).lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP: other model families)"
-        )
     if name not in _MODEL_MODULES:
         raise ValueError(f"Unknown model {name!r}; available: {sorted(_MODEL_MODULES)}")
     mod_name, init_name, params_name = _MODEL_MODULES[name]

@@ -47,6 +47,9 @@ from deepfilternet_torch.ops.erb import erb_fb_matrices, erb_fb_tensor, erb_widt
 
 PI = 3.1415926535897932384626433
 
+# model types the streaming runtimes take for this family
+RUNTIME_DTYPES = (torch.float32, torch.bfloat16)
+
 
 class ModelParams3(DfParams):
     """`deepfilternet` section hyperparameters; defaults equal the JAX

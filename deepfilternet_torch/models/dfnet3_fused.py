@@ -139,7 +139,9 @@ def e3_cf(e3_fc: torch.Tensor, ch: int, e: int) -> torch.Tensor:
 class FusedDfNet3:
     """Module-shaped adapter exposing streaming_init/streaming_cell with the
     fused dense-product forward; drop-in for `model.module` of
-    StreamingRuntime."""
+    StreamingRuntime, at float32 (its folded products are float32)."""
+
+    RUNTIME_DTYPES = (torch.float32,)
 
     def __init__(self, params: Dict, state: Dict, cfg: Dict):
         if cfg["df_pathway_kt"] != 1:

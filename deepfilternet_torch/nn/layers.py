@@ -16,6 +16,12 @@ running statistics): `*_apply` over a whole [B, C, T, F] or [B, T, I]
 sequence (causal time padding; a GRU stack is one `aten.gru` call, cuDNN on
 the card), and `*_step` over one frame for the streaming cell. Training
 (`train=True`) is not ported and raises.
+
+DFN1 and DFN2 add the grouped layers: `GroupedLinear` with its channel
+shuffle (params {"layers": [linear a group]}), `GroupedGRU` (a one-layer
+GRU a group and layer, shuffled between layers, carry [L*G, B, H/G]) and
+`SqueezedGRU`, whose skip feeds the GRU's input forward (the `_S` variant's
+feeds its raw input).
 """
 
 from __future__ import annotations
@@ -99,6 +105,13 @@ def batchnorm_apply(params: Params, state: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _conv_groups(in_ch: int, out_ch: int, kernel: Tuple[int, int], separable: bool) -> int:
+    """The reference Conv2dNormAct group rule: separable means groups =
+    gcd(in, out) on the main conv; a kernel-1 conv keeps its groups (a
+    grouped 1x1), only its extra pointwise conv is left out (`has_pw`)."""
+    return math.gcd(in_ch, out_ch) if separable else 1
+
+
 def init_conv2d_norm_act(
     gen: torch.Generator,
     in_ch: int,
@@ -111,13 +124,21 @@ def init_conv2d_norm_act(
     separable: bool = False,
     norm: bool = True,
     act: Optional[str] = "relu",
+    groups: Optional[int] = None,
+    lookahead: int = 0,
+    fupsample: int = 1,
+    force_pw: bool = False,
 ) -> Tuple[Params, Params, Dict]:
     """Returns (params, state, static_config), the config equal to the JAX
-    package's for the same arguments. The JAX package's DFN1-only options
-    (explicit groups, lookahead, frequency upsampling) are not ported."""
+    package's for the same arguments. `groups`, `lookahead`, `fupsample` and
+    `force_pw` are DeepFilterNet1's convkxf variants: an explicit group count
+    (default: the gcd rule), a time pad of (kT-1-lookahead, lookahead), a
+    nearest-neighbour frequency repeat before the conv, and the pointwise
+    conv kept for a grouped 1x1."""
     kernel = tuple(kernel)
-    groups = math.gcd(in_ch, out_ch) if separable else 1
-    has_pw = separable and groups > 1 and max(kernel) > 1
+    if groups is None:
+        groups = _conv_groups(in_ch, out_ch, kernel, separable)
+    has_pw = separable and groups > 1 and (max(kernel) > 1 or force_pw)
     fan_in = (in_ch // groups) * kernel[0] * kernel[1]
     params: Params = {
         "w": _kaiming_uniform(gen, (out_ch, in_ch // groups, kernel[0], kernel[1]), fan_in)
@@ -138,8 +159,8 @@ def init_conv2d_norm_act(
         act=act,
         norm=norm,
         transposed=False,
-        lookahead=0,
-        fupsample=1,
+        lookahead=lookahead,
+        fupsample=fupsample,
     )
     return params, state, cfg
 
@@ -170,13 +191,20 @@ def _no_training(train: bool):
             "training mode (batchnorm statistics, LSNR dropout) is not ported yet (ROADMAP)")
 
 
+def _fupsample(cfg, x):
+    """The nearest-neighbour frequency repeat of an upsampling conv."""
+    f = cfg.get("fupsample", 1)
+    return torch.repeat_interleave(x, f, dim=-1) if f > 1 else x
+
+
 def conv2d_norm_act_apply(params: Params, state: Params, cfg: Dict, x: torch.Tensor,
                           train: bool = False) -> Tuple[torch.Tensor, Params]:
-    """Whole sequence, causal in time: x [B, C, T, F] -> ([B, O, T, F'],
-    state unchanged)."""
+    """Whole sequence: x [B, C, T, F] -> ([B, O, T', F'], state unchanged),
+    causal in time but for `lookahead` frames (time pad (kT-1-la, la))."""
     _no_training(train)
-    x = F.pad(x, (0, 0, cfg["kernel"][0] - 1, 0))
-    out = _conv2d_raw(x, params["w"], cfg["groups"], cfg["fstride"],
+    kt, la = cfg["kernel"][0], cfg.get("lookahead", 0)
+    x = F.pad(x, (0, 0, max(kt - 1 - la, 0), la))
+    out = _conv2d_raw(_fupsample(cfg, x), params["w"], cfg["groups"], cfg["fstride"],
                       cfg["dilation"], cfg["fpad"])
     return _finish_seq(params, state, cfg, out), state
 
@@ -184,8 +212,8 @@ def conv2d_norm_act_apply(params: Params, state: Params, cfg: Dict, x: torch.Ten
 def conv2d_norm_act_step(params: Params, state: Params, cfg: Dict,
                          x_win: torch.Tensor) -> torch.Tensor:
     """One frame. x_win: [B, C, kT, F] (time window ending at the current
-    frame) -> [B, O, F']."""
-    out = _conv2d_raw(x_win, params["w"], cfg["groups"], cfg["fstride"],
+    frame) -> [B, O, F']; an upsampling conv repeats the window's bins."""
+    out = _conv2d_raw(_fupsample(cfg, x_win), params["w"], cfg["groups"], cfg["fstride"],
                       cfg["dilation"], cfg["fpad"])
     return _finish(params, state, cfg, out)
 
@@ -462,3 +490,157 @@ def _squeezed_out(params, cfg, act, x, out):
     elif cfg["skip"] == "groupedlinear":
         out = out + grouped_linear_apply(params["skip"], x)
     return out
+
+
+# ---------------------------------------------------------------------------
+# GroupedLinear: a linear layer (with bias) a group, then an optional channel
+# shuffle of the output
+# ---------------------------------------------------------------------------
+
+
+def init_grouped_linear_shuffle(gen: torch.Generator, in_dim: int, out_dim: int,
+                                groups: int = 1, shuffle: bool = True
+                                ) -> Tuple[Params, Dict]:
+    """Params {"layers": [linear a group]}, cfg {groups, shuffle}; a single
+    group never shuffles."""
+    if in_dim % groups or out_dim % groups:
+        raise ValueError("grouped linear widths must divide by the group count")
+    layers = [init_linear(gen, in_dim // groups, out_dim // groups) for _ in range(groups)]
+    return {"layers": layers}, dict(groups=groups, shuffle=shuffle and groups > 1)
+
+
+def _shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The channel shuffle of the last axis, as the reference's: viewed as
+    [..., H/G, G] and transposed to [..., G, H/G]."""
+    return x.reshape(x.shape[:-1] + (-1, groups)).transpose(-1, -2).reshape(x.shape)
+
+
+def grouped_linear_shuffle_apply(params: Params, cfg: Dict, x: torch.Tensor) -> torch.Tensor:
+    """x: [..., I] -> [..., H]."""
+    g = cfg["groups"]
+    isz = x.shape[-1] // g
+    out = torch.cat([linear_apply(lp, x[..., i * isz:(i + 1) * isz])
+                     for i, lp in enumerate(params["layers"])], dim=-1)
+    return _shuffle(out, g) if cfg["shuffle"] else out
+
+
+# ---------------------------------------------------------------------------
+# GroupedGRU: a GRU a group and layer, the channel shuffle between layers,
+# optionally the layers' outputs summed
+# ---------------------------------------------------------------------------
+
+
+def init_grouped_gru(gen: torch.Generator, input_size: int, hidden_size: int,
+                     num_layers: int = 1, groups: int = 4, shuffle: bool = True,
+                     add_outputs: bool = False) -> Tuple[Params, Dict]:
+    """Params {"layers": [[one-layer GRU a group] a layer]}; the carry is
+    [L*G, B, H/G], layer-major."""
+    if input_size % groups or hidden_size % groups:
+        raise ValueError("grouped GRU widths must divide by the group count")
+    layers = []
+    for li in range(num_layers):
+        isz = (input_size if li == 0 else hidden_size) // groups
+        layers.append([init_gru(gen, isz, hidden_size // groups, 1) for _ in range(groups)])
+    cfg = dict(groups=groups, shuffle=shuffle and groups > 1, add_outputs=add_outputs,
+               num_layers=num_layers, hidden_size=hidden_size // groups)
+    return {"layers": layers}, cfg
+
+
+def _grouped_layers(params: Params, cfg: Dict, x: torch.Tensor, run):
+    """The grouped stack over `x` [..., I]: run(li, gi, group params, group
+    input) -> (output, new hidden); returns (summed or last output, hiddens
+    in carry order)."""
+    g, n_layers = cfg["groups"], cfg["num_layers"]
+    cur, acc, hs = x, None, []
+    for li, layer in enumerate(params["layers"]):
+        isz = cur.shape[-1] // g
+        outs = []
+        for gi, gp in enumerate(layer):
+            o, h = run(li * g + gi, gp, cur[..., gi * isz:(gi + 1) * isz])
+            outs.append(o)
+            hs.append(h)
+        cur = torch.cat(outs, dim=-1)
+        if cfg["shuffle"] and li < n_layers - 1:
+            cur = _shuffle(cur, g)
+        acc = cur if acc is None or not cfg["add_outputs"] else acc + cur
+    return acc, hs
+
+
+def grouped_gru_apply(params: Params, cfg: Dict, x: torch.Tensor,
+                      h0: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole sequence. x: [B, T, I]; h0: [L*G, B, H/G] (default zeros).
+    Returns (out [B, T, H], hN [L*G, B, H/G]); each group's GRU is one
+    `aten.gru` call."""
+    def run(k, gp, xg):
+        out, h = gru_apply(gp, xg, None if h0 is None else h0[k:k + 1])
+        return out, h[0]
+
+    out, hs = _grouped_layers(params, cfg, x, run)
+    return out, torch.stack(hs, dim=0)
+
+
+def grouped_gru_step(params: Params, cfg: Dict, h: torch.Tensor, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame. x: [B, I]; h: [L*G, B, H/G]. Returns (h', out [B, H])."""
+    def run(k, gp, xg):
+        h_new, out = gru_step(gp, h[k:k + 1], xg)
+        return out, h_new[0]
+
+    out, hs = _grouped_layers(params, cfg, x, run)
+    return torch.stack(hs, dim=0), out
+
+
+# ---------------------------------------------------------------------------
+# SqueezedGRU (DFN2): grouped linear in -> GRU -> grouped linear out; the
+# skip is added to the GRU's output from its input (after linear_in), before
+# linear_out
+# ---------------------------------------------------------------------------
+
+
+def init_squeezed_gru(
+    gen: torch.Generator,
+    input_size: int,
+    hidden_size: int,
+    output_size: Optional[int] = None,
+    num_layers: int = 1,
+    linear_groups: int = 8,
+    skip: Optional[str] = None,  # None | "identity"
+    linear_act: Optional[str] = "identity",
+) -> Tuple[Params, Dict]:
+    params: Params = {
+        "linear_in": init_grouped_linear(gen, input_size, hidden_size, linear_groups),
+        "gru": init_gru(gen, hidden_size, hidden_size, num_layers),
+    }
+    if output_size is not None:
+        params["linear_out"] = init_grouped_linear(gen, hidden_size, output_size, linear_groups)
+    cfg = dict(skip=skip, linear_act=linear_act, num_layers=num_layers,
+               hidden_size=hidden_size)
+    return params, cfg
+
+
+def _squeezed_skip_out(params, cfg, act, xin, out):
+    if cfg["skip"] == "identity":
+        out = out + xin
+    if "linear_out" in params:
+        out = act(grouped_linear_apply(params["linear_out"], out))
+    return out
+
+
+def squeezed_gru_apply(params: Params, cfg: Dict, x: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole sequence. x: [B, T, I]; h0: [L, B, H]. Returns (out, hN)."""
+    act = ACT[cfg["linear_act"]]
+    xin = act(grouped_linear_apply(params["linear_in"], x))
+    out, h = gru_apply(params["gru"], xin, h0)
+    return _squeezed_skip_out(params, cfg, act, xin, out), h
+
+
+def squeezed_gru_step(params: Params, cfg: Dict, h: torch.Tensor, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame. x: [B, I]; h: [L, B, H]. Returns (h', out)."""
+    act = ACT[cfg["linear_act"]]
+    xin = act(grouped_linear_apply(params["linear_in"], x))
+    h_new, out = gru_step(params["gru"], h, xin)
+    return h_new, _squeezed_skip_out(params, cfg, act, xin, out)

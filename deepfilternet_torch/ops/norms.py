@@ -57,6 +57,15 @@ def erb_norm_step(
     return s, (x - s) / 40.0
 
 
+def unit_norm_step(
+    state: torch.Tensor, x: torch.Tensor, alpha: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame of the unit norm. x complex [..., F'], state [..., F'] ->
+    (state', x / sqrt(state'))."""
+    s = torch.abs(x) * (1.0 - alpha) + state * alpha
+    return s, x / torch.sqrt(s)
+
+
 # -- offline: the recurrence over whole signals ------------------------------
 
 # frames a block of the blocked scan

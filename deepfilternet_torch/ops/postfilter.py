@@ -1,5 +1,6 @@
-"""Valin-style perceptual post-filter (spectral form). Slightly
-over-attenuates noisy bins:
+"""Valin-style perceptual post-filter, in its spectral form (over the
+enhanced and the noisy spectra) and its mask form (over an ERB gain mask,
+DFN1/DFN2's `mask_pf`). Slightly over-attenuates noisy bins:
 
     g      = clamp(|e| / |x|, eps, 1)
     g_sin  = g * sin(pi * g / 2)
@@ -21,3 +22,9 @@ def post_filter(
     g_sin = g * torch.sin(g * (PI / 2.0))
     pf = (1.0 + beta) / (1.0 + beta * (g / g_sin) ** 2)
     return enhanced * pf.to(torch.float32)
+
+
+def post_filter_mask(mask: torch.Tensor, beta: float = 0.02, eps: float = 1e-12) -> torch.Tensor:
+    """Mask form: the same gain curve with g = mask."""
+    mask_sin = mask * torch.sin(PI * mask / 2.0)
+    return (1.0 + beta) * mask / (1.0 + beta * (mask / torch.clamp(mask_sin, min=eps)) ** 2)

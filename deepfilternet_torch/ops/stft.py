@@ -14,7 +14,9 @@ Offline, `stft` frames the whole signal and takes one batched rfft (cuFFT on
 the card); `istft` inverts with irfft, `istft_ri` with the iDFT matrices.
 The real DFT and its inverse as dense [N, F] / [F, N] matrices, with the
 window and wnorm folded in, are built in float64 and stored as float32; the
-per-frame steps and the chunked runtime multiply by them.
+re/im per-frame steps (`*_step_ri`) and the chunked runtime multiply by them.
+`analysis_step`/`synthesis_step` are the complex64 per-frame steps, by rfft
+and irfft, with the memories of `StftState`.
 """
 
 from __future__ import annotations
@@ -183,3 +185,43 @@ def synthesis_step_ri(
     shifted = torch.cat([state[..., hop:], zeros], dim=-1)
     new_state = shifted + x[..., hop:] if cfg.fft_size > hop else shifted
     return new_state, out
+
+
+# -- streaming steps on complex spectra --------------------------------------
+
+
+class StftState(NamedTuple):
+    """Per-stream STFT memories: analysis_mem [..., fft-hop] holds the last
+    input samples, synthesis_mem [..., fft-hop] the overlap-add tail still
+    in flight."""
+
+    analysis_mem: torch.Tensor
+    synthesis_mem: torch.Tensor
+
+
+def stft_state_init(batch_shape: Tuple[int, ...], cfg: Stft, device="cpu") -> StftState:
+    d = cfg.fft_size - cfg.hop_size
+    z = torch.zeros(tuple(batch_shape) + (d,), dtype=torch.float32, device=device)
+    return StftState(analysis_mem=z, synthesis_mem=z)
+
+
+def analysis_step(state: torch.Tensor, frame: torch.Tensor, cfg: Stft
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One hop of streaming analysis by rfft. state [..., fft-hop], frame
+    [..., hop] -> (new_state, spec [..., F] complex64)."""
+    buf = torch.cat([state, frame], dim=-1)
+    spec = torch.fft.rfft(buf * _window_tensor(cfg.fft_size, buf.device), dim=-1)
+    return buf[..., cfg.hop_size:], (spec * wnorm(cfg.fft_size, cfg.hop_size)).to(torch.complex64)
+
+
+def synthesis_step(state: torch.Tensor, spec: torch.Tensor, cfg: Stft
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One hop of streaming synthesis by irfft (x fft_size), windowed and
+    overlap-added. state [..., fft-hop], spec [..., F] complex ->
+    (new_state, out [..., hop])."""
+    fft, hop = cfg.fft_size, cfg.hop_size
+    x = torch.fft.irfft(spec, n=fft, dim=-1) * float(fft)
+    x = (x * _window_tensor(fft, spec.device)).to(torch.float32)
+    out = x[..., :hop] + state[..., :hop]
+    shifted = torch.cat([state[..., hop:], state.new_zeros(state.shape[:-1] + (hop,))], dim=-1)
+    return (shifted + x[..., hop:] if fft > hop else shifted), out

@@ -20,7 +20,8 @@ the model carry in bfloat16 except the DF ring (float32: it holds spectrum
 values), and runs the model on the features cast to bfloat16; the frontend,
 the norms, the runtime stages and the synthesis stay float32. `out_dtype`
 casts only the synthesized output (a capacity knob: bfloat16 halves the
-output buffer).
+output buffer). The model types a family takes are its module's
+`RUNTIME_DTYPES`: DFN3 both, DFN2 and DFN1 float32 (any other raises).
 
 API:
     rt = StreamingRuntime(model, df_state)       # from enhance.init_df
@@ -80,8 +81,9 @@ class RuntimeParams(NamedTuple):
     n_channels: int = 1
 
 
-# model types the runtimes take (the JAX package's tests use these two)
-DTYPES = (torch.float32, torch.bfloat16)
+def _module_name(module) -> str:
+    """A model module's name, or an adapter object's class name."""
+    return getattr(module, "__name__", type(module).__name__)
 
 
 def _cast_floats(tree, dtype: torch.dtype):
@@ -99,9 +101,14 @@ def _cast_floats(tree, dtype: torch.dtype):
 class StreamingRuntime:
     def __init__(self, model, df_state, params: RuntimeParams = RuntimeParams(),
                  dtype: torch.dtype = torch.float32, out_dtype: torch.dtype = None):
-        if dtype not in DTYPES:
+        # the model types each family's cell is held to JAX at: DFN3 float32
+        # and bfloat16, DFN1/DFN2 float32; DeepFilterNet-MF has no cell
+        taken = getattr(model.module, "RUNTIME_DTYPES", ())
+        if dtype not in taken:
             raise NotImplementedError(
-                f"dtype {dtype}: the runtimes take torch.float32 or torch.bfloat16")
+                f"dtype {dtype}: the streaming runtimes take {_module_name(model.module)} at "
+                f"{' or '.join(map(str, taken)) or 'no type (it has no streaming form)'} "
+                "(ROADMAP: the other families at bfloat16)")
         if out_dtype is not None and not out_dtype.is_floating_point:
             raise ValueError(f"out_dtype must be a floating type, got {out_dtype}")
         self.dtype = dtype
@@ -286,12 +293,12 @@ class ChunkedStreamingRuntime(StreamingRuntime):
 
     def __init__(self, model, df_state, params: RuntimeParams = RuntimeParams(),
                  dtype: torch.dtype = torch.float32, chunk_frames: int = 20):
-        super().__init__(model, df_state, params, dtype)
-        if not hasattr(self.model.module, "forward_chunk"):
+        if not hasattr(model.module, "forward_chunk"):
             raise NotImplementedError(
-                f"model module {self.model.module.__name__} has no forward_chunk; "
+                f"model module {_module_name(model.module)} has no forward_chunk; "
                 "use StreamingRuntime"
             )
+        super().__init__(model, df_state, params, dtype)
         if chunk_frames < 1:
             raise ValueError("chunk_frames must be at least 1")
         self.chunk_frames = chunk_frames

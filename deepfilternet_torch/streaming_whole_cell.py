@@ -31,6 +31,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from deepfilternet_torch.models import dfnet3
 from deepfilternet_torch.ops.whole_cell import (
     BLK,
     build_cell_weights,
@@ -110,6 +111,10 @@ class WholeCellStreamingRuntime(StreamingRuntime):
 
     def __init__(self, model, df_state, params: RuntimeParams = RuntimeParams(),
                  matmul_dtype: torch.dtype = torch.bfloat16, backend: str = "kernel"):
+        if model.module is not dfnet3:
+            raise NotImplementedError(
+                f"the whole-cell kernel runs DeepFilterNet3 only, not {model.module.__name__}; "
+                "use StreamingRuntime or ChunkedStreamingRuntime")
         if backend not in ("kernel", "plain"):
             raise ValueError(f"backend must be 'kernel' or 'plain', got {backend!r}")
         if params.reduce_mask != "none" and params.n_channels > 1:

@@ -91,9 +91,18 @@ def test_config_env_override_and_ini(tmp_path, monkeypatch):
 
 
 def test_other_model_families_not_ported():
-    for name in ("deepfilternet2", "deepfilternet", "deepfilternetmf"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_model(name)
+    """Every family of the JAX registry is ported now: each name resolves to
+    the port's module of the same role, with JAX's config keys; an unknown
+    name still raises."""
+    from deepfilternet_tpu.models import init_model as j_init_model
+
+    for name, mod in (("deepfilternet2", "dfnet2"), ("deepfilternet", "dfnet1"),
+                      ("deepfilternetmf", "dfnetmf")):
+        _, _, cfg, module = init_model(name)
+        _, _, j_cfg, j_module = j_init_model(name)
+        assert module.__name__ == f"deepfilternet_torch.models.{mod}"
+        assert j_module.__name__ == f"deepfilternet_tpu.models.{mod}"
+        assert cfg.keys() == j_cfg.keys()
     with pytest.raises(ValueError):
         init_model("nonsense")
 
@@ -118,8 +127,10 @@ def test_port_imports_no_jax_at_run_time(tmp_path):
     """A fresh interpreter loads the demo model and runs 3 frames per frame
     (float32 and bfloat16), through the whole cell (its bfloat16 default),
     the offline enhance, the chunked runtime, the CLI, a stream server (one
-    round trip) and the sharded runtime, then no jax, optax or
-    deepfilternet_tpu module may be loaded."""
+    round trip) and the sharded runtime; the DFN2 and DFN1 checkpoints per
+    frame and offline, DeepFilterNet-MF offline, with the converters
+    imported; then no jax, optax or deepfilternet_tpu module may be
+    loaded."""
     code = textwrap.dedent(f"""
         import os, sys
         import numpy as np
@@ -156,6 +167,16 @@ def test_port_imports_no_jax_at_run_time(tmp_path):
         srv.stop()
         srt = ShardedStreamingRuntime(model, df_state, Mesh(("cpu", "cpu")))
         assert srt.process(srt.init(2), audio)[1].shape == (2, 1440)
+        from deepfilternet_torch.checkpoint import convert_dfn1_state_dict, load_torch_checkpoint
+        for other in ("pretrained/dfn2_fixture_demo", "pretrained/dfn1_fixture_demo"):
+            m, d, _ = init_df(other, device="cpu")
+            ort = StreamingRuntime(m, d)
+            assert ort.process(ort.init(2), audio)[1].shape == (2, 1440)
+            assert enhance(m, d, audio).shape == (2, 1440)
+        from deepfilternet_torch.config import config
+        config.reset()  # a loaded model dir's keys (and the defaults read) stay set
+        m, d, _ = init_df(model_name="deepfilternetmf", device="cpu")
+        assert enhance(m, d, audio).shape == (2, 1440)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "optax", "deepfilternet_tpu"))
         print("LOADED", bad)

@@ -140,3 +140,67 @@ def test_post_filter():
     jo = j_pf.post_filter(jnp.asarray(noisy), jnp.asarray(enh), beta=0.02)
     to = t_pf.post_filter(_t(noisy), _t(enh), beta=0.02)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=1e-5)
+
+
+# -- the complex per-frame steps -------------------------------------------------
+
+
+def test_stft_state_init():
+    st = t_stft.stft_state_init((3,), STFT)
+    jst = j_stft.stft_state_init((3,), j_stft.Stft(sr=48000, fft_size=960, hop_size=480))
+    assert st._fields == jst._fields
+    for a, b in zip(st, jst):
+        assert tuple(a.shape) == b.shape and a.dtype == torch.float32 and not a.any()
+
+
+def test_complex_analysis_and_synthesis_steps_chained():
+    """analysis_step (rfft) and synthesis_step (irfft) hop by hop against
+    JAX's, memories and outputs at 1e-5, and against the port's own offline
+    stft at 1e-5."""
+    rng = np.random.default_rng(16)
+    jcfg = j_stft.Stft(sr=48000, fft_size=960, hop_size=480)
+    x = (rng.standard_normal((3, 480 * 6)) * 0.1).astype(np.float32)
+    ja, js = j_stft.stft_state_init((3,), jcfg)
+    ta, ts = t_stft.stft_state_init((3,), STFT)
+    specs = []
+    for i in range(6):
+        frame = x[:, i * 480:(i + 1) * 480]
+        ja, jspec = j_stft.analysis_step(ja, jnp.asarray(frame), jcfg)
+        ta, tspec = t_stft.analysis_step(ta, _t(frame), STFT)
+        assert tspec.dtype == torch.complex64
+        np.testing.assert_allclose(tspec.numpy(), np.asarray(jspec), rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+        js, jout = j_stft.synthesis_step(js, jspec, jcfg)
+        ts, tout = t_stft.synthesis_step(ts, tspec, STFT)
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-5)
+        specs.append(tspec)
+    np.testing.assert_allclose(torch.stack(specs, 1).numpy(),
+                               t_stft.stft(_t(x), STFT).numpy(), rtol=0, atol=1e-5)
+
+
+def test_unit_norm_step_chained():
+    """unit_norm_step frame by frame against JAX's and against the port's
+    offline unit_norm, 1e-5."""
+    rng = np.random.default_rng(17)
+    x = _cplx(rng, (40, 96)) * np.float32(0.01)
+    js = jnp.asarray(j_norms.unit_norm_init(96))
+    ts = _t(np.array(t_norms.unit_norm_init(96)))
+    outs = []
+    for t in range(40):
+        js, jo = j_norms.unit_norm_step(js, jnp.asarray(x[t]), 0.99)
+        ts, to = t_norms.unit_norm_step(ts, _t(x[t]), 0.99)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-5)
+        outs.append(to)
+    np.testing.assert_allclose(torch.stack(outs).numpy(),
+                               t_norms.unit_norm(_t(x), 0.99, axis=0).numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("beta", [0.02, 0.1])
+def test_post_filter_mask(beta):
+    m = np.random.default_rng(18).uniform(0.0, 1.0, (4, 7, 32)).astype(np.float32)
+    m[0, 0, :4] = (0.0, 1e-7, 1.0, 0.5)
+    np.testing.assert_allclose(t_pf.post_filter_mask(_t(m), beta).numpy(),
+                               np.asarray(j_pf.post_filter_mask(jnp.asarray(m), beta)),
+                               rtol=0, atol=1e-5)
