@@ -66,7 +66,18 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                equal StreamingRuntime.process bit for bit. Then
                DeepFilterNet-MF (seeded random weights at its default widths),
                WF and MVDR: enhance() on [4, 2 s], and the forward on the same
-               features against the CPU.
+               features against the CPU;
+  9. training - DFN3 from the demo checkpoint (init_model, read_cp) at its
+               published widths, the fixture-demo losses and the
+               multi-resolution loss: one train step on the card against the
+               same step on the CPU (B=4 x 3 s; every GRU weight must get a
+               gradient), 20 steps on one batch of 8 x 3 s (the loss must
+               fall; step time, profile line, peak memory), a NaN batch that
+               must change nothing, the trained weights through write_cp,
+               config.save and init_df into enhance() and StreamingRuntime
+               (K1 once a frame), a MASK_ONLY step; DFN2 and DFN1 from their
+               checkpoints and MF with seeded weights, a step each against the
+               CPU and 3 steps. Training launches neither kernel.
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
@@ -901,7 +912,11 @@ def profile_call(fn, label, card, audio_seconds):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a user annotation (the optimizer's step) spans its kernels on the
+    # device too: counted, it would count their time twice
+    spans = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in spans]
     if not dev:
         print(f"{label} profile: the profiler recorded no device time (not measured)")
         return
@@ -1617,6 +1632,360 @@ def families_path(card, smi, audio):
     return out
 
 
+# -- phase 9: training ------------------------------------------------------------
+
+# the fixture-demo loss stack (the JAX package's scripts/train_demo.py) and
+# the multi-resolution loss, whose time-domain round trip (loss_istft) and
+# hann STFTs then run on the card too; DfAlphaLoss for DFN2 and DFN1
+TRAIN_LOSS = (("SpectralLoss", "factor_magnitude", "100"),
+              ("SpectralLoss", "factor_complex", "100"), ("SpectralLoss", "gamma", "0.6"),
+              ("MaskLoss", "factor", "1"), ("LocalSnrLoss", "factor", "0.0005"),
+              ("MultiResSpecLoss", "factor", "500"),
+              ("MultiResSpecLoss", "fft_sizes", "256,512,1024"))
+TRAIN_SECONDS, FAMILY_TRAIN_SECONDS = 3.0, 2.0
+TRAIN_STEPS = 20
+
+
+def train_batch(df_state, nb_df, rows, seconds, seed, dev):
+    """Seeded harmonic-plus-noise speech as clean, seeded white noise added
+    at 0-10 dB SNR; spectra and features from the port's offline
+    df_features on `dev`, as the train step takes them."""
+    from deepfilternet_torch.enhance import df_features
+
+    clean = noisy_speech_like(rows, seconds, seed)
+    rng = np.random.default_rng(seed + 1000)
+    noise = rng.standard_normal(clean.shape)
+    snr_db = rng.uniform(0.0, 10.0, (rows, 1))
+    noise *= np.sqrt(np.mean(clean ** 2, 1, keepdims=True) / np.mean(noise ** 2, 1, keepdims=True)
+                     / 10 ** (snr_db / 10))
+    spec, feat_erb, feat_spec = df_features((clean + noise).astype(np.float32), df_state, nb_df,
+                                            device=dev)
+    clean_spec = df_features(clean, df_state, nb_df, device=dev)[0]
+    return {"noisy": spec, "clean": clean_spec, "feat_erb": feat_erb, "feat_spec": feat_spec}
+
+
+def train_model(model_dir=None, name=None, dev="cuda"):
+    """(params, state, cfg, module, df_state) through init_model, with a
+    bundled checkpoint's weights through read_cp (seeded random weights
+    without a directory), on `dev`; the loss stack set in the config."""
+    from deepfilternet_torch.checkpoint import params_from_numpy, read_cp
+    from deepfilternet_torch.config import config
+    from deepfilternet_torch.enhance import DfState
+    from deepfilternet_torch.models import init_model
+
+    config.reset()
+    if model_dir is not None:
+        config.load(os.path.join(model_dir, "config.ini"), allow_reload=True)
+    params, state, cfg, module = init_model(name, seed=7, device=dev)
+    if model_dir is not None:
+        payload = read_cp(os.path.join(model_dir, "checkpoints"), "best")
+        params, ckpt_state = params_from_numpy(payload["params"], payload["state"], dev)
+        state = ckpt_state or state
+    for section, key, value in TRAIN_LOSS + (("DfAlphaLoss", "factor", "1"),):
+        config.set(key, value, section=section)
+    df_state = DfState(nb_erb=cfg["nb_erb"],
+                       min_nb_erb_freqs=config("MIN_NB_ERB_FREQS", 2, int, section="DF"))
+    return params, state, cfg, module, df_state
+
+
+def train_loss(cfg, df_state):
+    from deepfilternet_torch.train.loss import Loss
+
+    return Loss(df_state.stft_cfg, df_state.erb_widths, cfg["nb_df"],
+                (cfg["lsnr_min"], cfg["lsnr_max"]))
+
+
+@contextlib.contextmanager
+def recorded_clip():
+    """Each train step's gradients as they reach the global-norm clip
+    (copies) and the norm it took, by wrapping the trainer's clip."""
+    from deepfilternet_torch.train import trainer
+
+    real, seen = trainer.clip_by_global_norm_, []
+
+    def record(grads, max_norm):
+        copies = [g.detach().clone() for g in grads]
+        norm = real(grads, max_norm)
+        seen.append((copies, float(norm)))
+        return norm
+
+    trainer.clip_by_global_norm_ = record
+    try:
+        yield seen
+    finally:
+        trainer.clip_by_global_norm_ = real
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted path, tensor) of every leaf, dict keys sorted: the trainer's
+    leaf order."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in named_leaves(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def grad_scales(params, grads):
+    """The scale each gradient leaf is held to: its largest |g|, but for a
+    1x1 per-channel conv weight [C, 1, 1, 1] under a batch norm, whose
+    gradient the norm cancels (the terms cancel but for a factor
+    eps / (w^2 var + eps), leaving mostly their rounding), its block's."""
+    leaves = named_leaves(params)
+    block = {}
+    for (path, _), g in zip(leaves, grads):
+        top = path.split(".")[0]
+        block[top] = max(block.get(top, 0.0), float(g.abs().max()))
+    return [block[path.split(".")[0]]
+            if tuple(t.shape[1:]) == (1, 1, 1) and "bn" in params[path.split(".")[0]]
+            else float(g.abs().max()) for (path, t), g in zip(leaves, grads)]
+
+
+def step_vs_cpu(tag, card, module, cfg, df_state, params, state, cpu_params, cpu_state, batch,
+                lr, wd):
+    """One train step on the card and on the CPU from the same numbers and
+    batch, through the port. Checks the loss (relative 1e-5), every gradient
+    leaf (1e-3 of its scale, `grad_scales`: cuDNN's convolutions and GRU sum
+    in another order), the batch-norm running statistics (1e-5 of
+    max(1, |x|)), the parameters after the step (within 2 lr: Adam's first
+    step is close to lr sign(g), and a near-zero gradient may round to the
+    other sign; 99.9% within 1e-6 + 1e-3 lr), and that every GRU weight leaf
+    has a gradient on the card. Returns the card's TrainState."""
+    from deepfilternet_torch.train.trainer import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    out = {}
+    for side, p, s, b in (("card", params, state, batch),
+                          ("cpu", cpu_params, cpu_state, {k: v.cpu() for k, v in batch.items()})):
+        with recorded_clip() as seen:
+            ts = init_train_state(p, s, make_optimizer())
+            ts, met = make_train_step(module, cfg, train_loss(cfg, df_state))(ts, b, lr, wd)
+        if not bool(met["finite"]) or len(seen) != 1:
+            fail(f"{tag} train step on the {side}: loss {float(met['loss'])}, not finite")
+        out[side] = (ts, met, seen[0][0])
+    (ts, met, grads), (cts, cmet, cgrads) = out["card"], out["cpu"]
+    loss_err = abs(float(met["loss"]) - float(cmet["loss"])) / abs(float(cmet["loss"]))
+    grad_err, dead = 0.0, []
+    for (path, _), g, cg, scale in zip(named_leaves(params), grads, cgrads,
+                                       grad_scales(cpu_params, cgrads)):
+        grad_err = max(grad_err, float((g.cpu() - cg).abs().max()) / max(scale, 1e-30))
+        if "gru" in path and not bool(g.abs().max() > 0):
+            dead.append(path)
+    bn_err = max(float((ts.model_state[k]["bn"][x].cpu() - v["bn"][x]).abs().max())
+                 / max(1.0, float(v["bn"][x].abs().max()))
+                 for k, v in cts.model_state.items() for x in ("mean", "var"))
+    d = torch.cat([(t.detach().cpu() - c.detach()).abs().ravel() for (_, t), (_, c)
+                   in zip(named_leaves(ts.params), named_leaves(cts.params))])
+    near = float((d <= 1e-6 + 1e-3 * lr).double().mean())
+    print(f"{tag} one train step, card vs CPU from the same weights and batch "
+          f"({tuple(batch['noisy'].shape)}), {card}: loss {float(met['loss']):.6f}, rel err "
+          f"{loss_err:.2e} (tol 1e-5); gradients {grad_err:.2e} of each leaf's scale (tol 1e-3, "
+          f"{len(grads)} leaves); batch-norm statistics {bn_err:.2e} (tol 1e-5); parameters after "
+          f"the step max {float(d.max()):.2e} (tol 2 lr = {2 * lr:.0e}), {near:.4%} within "
+          f"1e-6 + 1e-3 lr (want 99.9%); GRU leaves with a zero gradient on the card: {len(dead)}")
+    if dead:
+        fail(f"{tag}: GRU weights with an all-zero gradient on the card: {dead}")
+    if not (loss_err <= 1e-5 and grad_err <= 1e-3 and bn_err <= 1e-5
+            and float(d.max()) <= 2 * lr and near >= 0.999):
+        fail(f"{tag}: the card's train step is beyond its tolerance of the CPU's")
+    return ts, met
+
+
+def timed_steps(tag, card, smi, step, ts, batch, lr, wd, n):
+    """`n` steps on one batch: loss finite on each and falling, no NaN
+    skipped; median step time (CUDA events, each step ends in the host's
+    wait for its finite check), device busy share and ops a step (profiler),
+    peak memory. Returns the TrainState."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ts, met = step(ts, batch, lr, wd)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0] and ts.nan_count == 0):
+        fail(f"{tag}: {n} steps, losses {losses}, NaN skips {ts.nan_count}")
+    rows, frames = batch["noisy"].shape[:2]
+    print(f"{tag} {n} train steps on one batch [{rows}, {frames} frames] on {smi}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (falls: yes), NaN skips 0; step median "
+          f"{float(np.median(times)):.2f} ms (min {min(times):.2f}, max {max(times):.2f}; CUDA "
+          f"events), peak memory {peak:.2f} GiB")
+    holder = {}
+
+    def one():
+        holder["ts"] = step(ts, batch, lr, wd)[0]
+
+    profile_call(one, f"{tag} one train step", smi, rows * frames * HOP / SR)
+    return holder["ts"]
+
+
+def nan_guard(tag, step, ts, batch, lr, wd):
+    """A NaN batch: parameters, batch-norm state and the optimizer's state
+    dict stay bit for bit; nan_count goes up by one."""
+    bad = dict(batch, noisy=torch.full_like(batch["noisy"], float("nan")))
+    params = [t.detach().clone() for _, t in named_leaves(ts.params)]
+    before = ts.opt_state.state_dict()
+    opt = {i: {k: v.clone() if torch.is_tensor(v) else v for k, v in st.items()}
+           for i, st in before["state"].items()}
+    groups = [dict(g) for g in before["param_groups"]]
+    ts2, met = step(ts, bad, lr, wd)
+    after = ts2.opt_state.state_dict()
+    same = (not bool(met["finite"]) and ts2.nan_count == ts.nan_count + 1
+            and ts2.model_state is ts.model_state
+            and all(torch.equal(a, t) for a, (_, t) in zip(params, named_leaves(ts2.params)))
+            and after["param_groups"] == groups and after["state"].keys() == opt.keys()
+            and all(torch.equal(v, after["state"][i][k]) if torch.is_tensor(v)
+                    else v == after["state"][i][k] for i, st in opt.items() for k, v in st.items()))
+    print(f"{tag} a NaN batch: finite {bool(met['finite'])}, nan_count {ts.nan_count} -> "
+          f"{ts2.nan_count}; parameters, batch-norm state and optimizer state bit for bit "
+          f"unchanged: {'yes' if same else 'NO'}")
+    if not same:
+        fail(f"{tag}: the NaN guard changed the state")
+    return ts2
+
+
+def mask_only_step(tag, module, cfg, df_state, params, state, batch, lr, wd):
+    """One MASK_ONLY step (trainable_filter(mask_only=True)): every
+    DF-decoder leaf bit for bit unchanged, the others trained, and the clip
+    norm over all gradients, frozen ones included."""
+    from deepfilternet_torch.train.trainer import (
+        DF_DECODER_KEYS,
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+        trainable_filter,
+    )
+
+    ts = init_train_state(params, state, make_optimizer())
+    before = [t.detach().clone() for _, t in named_leaves(ts.params)]
+    step = make_train_step(module, cfg, train_loss(cfg, df_state),
+                           trainable=trainable_filter(mask_only=True))
+    with recorded_clip() as seen:
+        ts, met = step(ts, batch, lr, wd)
+    leaves = named_leaves(ts.params)
+    frozen = [p.split(".")[0] in DF_DECODER_KEYS for p, _ in leaves]
+    kept = [torch.equal(b, t) for b, (_, t) in zip(before, leaves)]
+    grads, norm = seen[0]
+    sq = [float((g.double() ** 2).sum()) for g in grads]
+    norm_all = float(np.sqrt(sum(sq)))
+    norm_trained = float(np.sqrt(sum(s for s, f in zip(sq, frozen) if not f)))
+    apart = abs(norm_all - norm_trained) > 2e-6 * norm_all
+    ok = (bool(met["finite"]) and len(grads) == len(leaves) and any(frozen)
+          and all(k for k, f in zip(kept, frozen) if f) and not all(k for k, f in zip(kept, frozen)
+                                                                   if not f)
+          and abs(norm - norm_all) <= 1e-6 * norm_all
+          and (not apart or abs(norm - norm_trained) > abs(norm - norm_all)))
+    print(f"{tag} MASK_ONLY step: {sum(frozen)} DF-decoder leaves bit for bit unchanged: "
+          f"{all(k for k, f in zip(kept, frozen) if f)}, {sum(not k for k in kept)} of "
+          f"{len(leaves)} leaves trained; clip norm {norm:.6f}, over all {len(grads)} gradients "
+          f"{norm_all:.6f} (float64), over the trained ones only {norm_trained:.6f}")
+    if not ok:
+        fail(f"{tag}: MASK_ONLY froze or clipped wrongly")
+
+
+def trained_inference(tag, card, ts, audio, k1_count, dev):
+    """The trained weights through the inference path: write_cp and
+    config.save into a model directory, init_df on it, enhance() offline
+    (pad=False) against StreamingRuntime.process (K1 once a frame) at 1e-4.
+    Returns K1's launches in the per-frame run."""
+    from deepfilternet_torch.checkpoint import write_cp
+    from deepfilternet_torch.config import config
+    from deepfilternet_torch.enhance import enhance, init_df
+    from deepfilternet_torch.streaming import StreamingRuntime
+
+    rows, n_frames = FAMILY_ROWS, audio.shape[1] // HOP
+    x = audio[:rows]
+    with tempfile.TemporaryDirectory() as model_dir:
+        write_cp(os.path.join(model_dir, "checkpoints"), ts.params, ts.model_state, ts.step,
+                 is_best=True)
+        config.save(os.path.join(model_dir, "config.ini"))
+        model, mstate, suffix = init_df(model_dir, device=dev)
+    same = all(torch.equal(a.detach(), b) for (_, a), (_, b)
+               in zip(named_leaves(ts.params), named_leaves(model.params)))
+    off = enhance(model, mstate, x, pad=False)
+    rt = StreamingRuntime(model, mstate)
+    k1_count.launches = 0
+    _, out = rt.process(rt.init(rows), x)
+    torch.cuda.synchronize()
+    launches = k1_count.launches
+    err = float(np.abs(out.cpu().numpy() - off).max())
+    print(f"{tag} trained weights written (write_cp, config.save) and loaded by init_df "
+          f"({suffix}), bit for bit: {same}; enhance() offline vs StreamingRuntime.process "
+          f"[{rows}, {x.shape[1] / SR} s] on {card}: max abs err {err:.3e} (tol 1e-4), K1 launches "
+          f"{launches} in {n_frames} frames")
+    if not (same and suffix == f"e{ts.step}" and np.isfinite(off).all() and err <= 1e-4
+            and launches == n_frames):
+        fail(f"{tag}: the trained model does not run through the inference path")
+    return launches
+
+
+def family_training(card, fam, model_dir, name, lr, wd, dev):
+    """DFN2/DFN1 from their bundled checkpoints, MF with seeded weights: one
+    step against the CPU, then 3 steps on the card at B=4 x 2 s, loss finite
+    and (DFN2, DFN1) the DF alpha's part present."""
+    from deepfilternet_torch.train.trainer import make_train_step
+
+    params, state, cfg, module, df_state = train_model(model_dir, name, dev=dev)
+    cpu_params, cpu_state, _, _, _ = train_model(model_dir, name, dev="cpu")
+    batch = train_batch(df_state, cfg["nb_df"], 4, FAMILY_TRAIN_SECONDS, seed=41, dev=dev)
+    ts, met = step_vs_cpu(fam, card, module, cfg, df_state, params, state, cpu_params, cpu_state,
+                          batch, lr, wd)
+    step = make_train_step(module, cfg, train_loss(cfg, df_state))
+    losses = [float(met["loss"])]
+    for _ in range(2):
+        ts, met = step(ts, batch, lr, wd)
+        losses.append(float(met["loss"]))
+    alpha = "df_alpha" in met
+    print(f"{fam} 3 train steps [4, {FAMILY_TRAIN_SECONDS} s] on {card}: losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; parts {sorted(k for k in met if k not in ('loss', 'finite'))}")
+    if not (np.all(np.isfinite(losses)) and alpha == (fam != "MF")):
+        fail(f"{fam}: losses {losses}, df_alpha part present: {alpha}")
+
+
+def training_path(card, smi, audio, dev="cuda"):
+    """Phase 9. Returns K1's launches in the trained model's per-frame run."""
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.train.trainer import load_opt_config, make_train_step
+
+    opt_cfg = load_opt_config()
+    lr, wd = opt_cfg["lr"], opt_cfg["weight_decay"]
+    params, state, cfg, module, df_state = train_model(MODEL_DIR, dev=dev)
+    cpu_params, cpu_state, _, _, _ = train_model(MODEL_DIR, dev="cpu")
+    tag = f"DFN3 ({MODEL_DIR})"
+    batch = train_batch(df_state, cfg["nb_df"], 4, TRAIN_SECONDS, seed=31, dev=dev)
+    step_vs_cpu(tag, card, module, cfg, df_state, params, state, cpu_params, cpu_state, batch,
+                lr, wd)
+
+    from deepfilternet_torch.train.trainer import init_train_state, make_optimizer
+
+    batch8 = train_batch(df_state, cfg["nb_df"], 8, TRAIN_SECONDS, seed=32, dev=dev)
+    step = make_train_step(module, cfg, train_loss(cfg, df_state))
+    ts = init_train_state(params, state, make_optimizer())
+    k1.launches = k2.launches = 0
+    ts = timed_steps(tag, card, smi, step, ts, batch8, lr, wd, TRAIN_STEPS)
+    print(f"{tag} training launches K1 {k1.launches} and K2 {k2.launches} times")
+    if k1.launches or k2.launches:
+        fail(f"{tag}: the train steps launched K1 {k1.launches}, K2 {k2.launches} times")
+    ts = nan_guard(tag, step, ts, batch8, lr, wd)
+    launches = trained_inference(tag, card, ts, audio, k1, dev)
+    mask_only_step(tag, module, cfg, df_state, params, state, batch, lr, wd)
+    for fam, model_dir, name in (("DFN2", "pretrained/dfn2_fixture_demo", None),
+                                 ("DFN1", "pretrained/dfn1_fixture_demo", None),
+                                 ("MF", None, "deepfilternetmf")):
+        family_training(card, fam, model_dir, name, lr, wd, dev)
+    return launches
+
+
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
@@ -1709,6 +2078,11 @@ def main():
         # runs (200 frames), replays of the DFN2 server's graph
         k1.update({f"{fam.lower()}_{k}": v for k, v in entry.items()})
     print(f"phase 8 (DFN2, DFN1, DeepFilterNet-MF): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    # K1 on the trained DFN3's per-frame run (200 frames): training hands over
+    # to the kernel path
+    k1["trained_dfn3_launches"] = training_path(card, smi, audio)
+    print(f"phase 9 (training): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

@@ -1,9 +1,12 @@
 """deepfilternet_torch: the PyTorch and CUDA port of deepfilternet_tpu.
 
-DeepFilterNet3 inference on an NVIDIA GPU, held against the JAX package on
-the same inputs: offline `enhance()` (and its CLI, `python -m
+DeepFilterNet inference and training on an NVIDIA GPU, held against the JAX
+package on the same inputs: offline `enhance()` (and its CLI, `python -m
 deepfilternet_torch.enhance`), the per-frame `StreamingRuntime`, the
-frame-parallel `ChunkedStreamingRuntime` and the `WholeCellStreamingRuntime`.
+frame-parallel `ChunkedStreamingRuntime` and the `WholeCellStreamingRuntime`
+for DFN3 (the first three also for DFN2 and DFN1; DeepFilterNet-MF offline),
+and the train step of all four families (`train/`: losses, an AdamW-amsgrad
+step with batch-norm statistics and a NaN guard; `checkpoint.write_cp`).
 Two hand-written CUDA kernels: the per-frame analysis frontend
 (`csrc/fused_frontend.cu`) under `StreamingRuntime`, and the whole streaming
 frame with the frame loop inside one launch (`csrc/whole_cell.cu`,

@@ -1,12 +1,20 @@
-"""Checkpoint reading and weight transfer into PyTorch tensors.
+"""Checkpoints, and weight transfer into PyTorch tensors.
 
-The JAX package stores checkpoints as pickles of numpy parameter/state trees
-(`model_<epoch>.ckpt[.best]` files under a checkpoint directory). The payload
-also pickles the optimizer state, whose classes live in `optax`; the port
-neither has nor needs it. `read_cp` therefore unpickles with a `find_class`
-that turns every `optax.*` class into an inert stub, and drops `opt_state`
-from the payload. `params_from_numpy` turns the numpy trees into tensor trees
-on a device, in the same nesting (dicts and lists) the JAX layers index.
+Both packages store checkpoints as pickles of numpy trees
+(`model_<epoch>.ckpt[.best]` files under a checkpoint directory, the
+reference's layout, df/checkpoint.py:21-188): "params", "state", "epoch",
+"extra" and, when given, "opt_state". `write_cp` writes that format (the
+port's opt_state is a numpy tree of a torch optimizer's `state_dict()`),
+keeps the newest `keep_n` files and one best; `log_best`, `read_best` and
+`check_patience` keep the `.best` history and the `.patience` count.
+
+A JAX checkpoint pickles its optimizer state with classes from `optax`,
+which the port neither has nor needs: `read_cp` unpickles with a
+`find_class` that turns every `optax.*` class into an inert stub and keeps
+"opt_state" only when it is a torch optimizer's (restore it with
+`optimizer_state_from_numpy`). `params_from_numpy` turns the numpy trees
+into tensor trees on a device, in the same nesting (dicts and lists) the
+JAX layers index.
 
 The converters (`convert_dfn3_state_dict`, `convert_dfn2_state_dict`,
 `convert_dfn1_state_dict`) turn a reference DeepFilterNet `state_dict()`
@@ -66,11 +74,62 @@ def _list_cps(ckpt_dir: str) -> List[Tuple[int, bool, str]]:
     return sorted(out)
 
 
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def write_cp(
+    ckpt_dir: str,
+    params: Any,
+    state: Any,
+    epoch: int,
+    opt_state: Any = None,
+    is_best: bool = False,
+    keep_n: int = 3,
+    extra: Optional[Dict] = None,
+) -> str:
+    """Write `model_<epoch>.ckpt[.best]` (tensors as numpy arrays; pass an
+    optimizer's `state_dict()` as opt_state), then `_cleanup`. Returns the
+    path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    payload = {
+        "params": _to_numpy(params),
+        "state": _to_numpy(state),
+        "epoch": epoch,
+        "extra": extra or {},
+    }
+    if opt_state is not None:
+        payload["opt_state"] = _to_numpy(opt_state)
+    path = os.path.join(ckpt_dir, f"model_{epoch}.ckpt{'.best' if is_best else ''}")
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    _cleanup(ckpt_dir, keep_n)
+    return path
+
+
+def _cleanup(ckpt_dir: str, keep_n: int):
+    """Keep the newest `keep_n` checkpoints (all for keep_n <= 0) and the
+    newest best one."""
+    cps = [c for c in _list_cps(ckpt_dir) if not c[1]]
+    for _, _, path in cps[:-keep_n] if keep_n > 0 else []:
+        os.remove(path)
+    best = [c for c in _list_cps(ckpt_dir) if c[1]]
+    for _, _, path in best[:-1]:
+        os.remove(path)
+
+
 def read_cp(ckpt_dir: str, which: str | int = "latest") -> Optional[Dict]:
     """Load a checkpoint; which: 'best' | 'latest' | epoch int.
 
-    Returns {"params", "state", "epoch", "extra"} with numpy trees, or None
-    when the directory holds no checkpoint.
+    Returns {"params", "state", "epoch", "extra"} with numpy trees, and
+    "opt_state" when the file holds a torch optimizer's; None when the
+    directory holds no checkpoint.
     """
     cps = _list_cps(ckpt_dir)
     if not cps:
@@ -88,7 +147,9 @@ def read_cp(ckpt_dir: str, which: str | int = "latest") -> Optional[Dict]:
         target = matching[-1]
     with open(target[2], "rb") as f:
         payload = _CheckpointUnpickler(f).load()
-    payload.pop("opt_state", None)
+    opt_state = payload.pop("opt_state", None)
+    if isinstance(opt_state, dict) and "param_groups" in opt_state:
+        payload["opt_state"] = opt_state
     return payload
 
 
@@ -104,6 +165,59 @@ def params_from_numpy(params: Any, state: Any, device) -> Tuple[Any, Any]:
     """Numpy parameter and state trees (as `read_cp` or the JAX package's
     `init_dfnet3` give them) -> the same trees of tensors on `device`."""
     return _to_torch(params, device), _to_torch(state, device)
+
+
+def optimizer_state_from_numpy(opt_state):
+    """`read_cp`'s "opt_state" -> the state dict a torch optimizer's
+    `load_state_dict` takes (it moves the tensors to its parameters): the
+    arrays become tensors, the other values stay."""
+    if isinstance(opt_state, dict):
+        return {k: optimizer_state_from_numpy(v) for k, v in opt_state.items()}
+    if isinstance(opt_state, (list, tuple)):
+        return type(opt_state)(optimizer_state_from_numpy(v) for v in opt_state)
+    if isinstance(opt_state, np.ndarray):
+        return torch.from_numpy(np.array(opt_state, copy=True))
+    return opt_state
+
+
+# -- best-metric and patience bookkeeping (df/checkpoint.py:119-188) ----------
+
+
+def log_best(ckpt_dir: str, epoch: int, metric: float):
+    with open(os.path.join(ckpt_dir, ".best"), "a") as f:
+        f.write(f"{epoch} {metric}\n")
+
+
+def read_best(ckpt_dir: str) -> Optional[Tuple[int, float]]:
+    """The last (epoch, metric) `log_best` wrote, or None."""
+    path = os.path.join(ckpt_dir, ".best")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        lines = [ln.split() for ln in f.read().splitlines() if ln.strip()]
+    if not lines:
+        return None
+    ep, met = lines[-1]
+    return int(ep), float(met)
+
+
+def check_patience(ckpt_dir: str, max_patience: int, new_metric: float,
+                   maximize: bool = True) -> bool:
+    """True while training should go on: counts consecutive epochs whose
+    metric does not beat the last best in a `.patience` file."""
+    path = os.path.join(ckpt_dir, ".patience")
+    best = read_best(ckpt_dir)
+    improved = best is None or (new_metric > best[1] if maximize else new_metric < best[1])
+    if improved:
+        count = 0
+    else:
+        count = 1
+        if os.path.isfile(path):
+            with open(path) as f:
+                count += int(f.read().strip())
+    with open(path, "w") as f:
+        f.write(str(count))
+    return count < max_patience
 
 
 # ---------------------------------------------------------------------------

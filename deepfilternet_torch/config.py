@@ -14,10 +14,34 @@ from __future__ import annotations
 import configparser
 import io
 import os
-from typing import Any, Optional, Type, Union
+import random
+import string
+from typing import Any, Callable, List, Optional, Type, Union
 
 _CONFIG_TRUE = ("true", "yes", "y", "1", "on")
 _CONFIG_FALSE = ("false", "no", "n", "0", "off")
+
+
+class CsvType:
+    """Cast a comma-separated string to a tuple of `inner` values."""
+
+    def __init__(self, inner: Callable[[str], Any] = str):
+        self.inner = inner
+
+    def __call__(self, value: Union[str, tuple, list]) -> tuple:
+        if isinstance(value, (tuple, list)):
+            return tuple(self.inner(v) if isinstance(v, str) else v for v in value)
+        items = [v.strip() for v in str(value).split(",") if v.strip() != ""]
+        return tuple(self.inner(v) for v in items)
+
+    def to_str(self, value) -> str:
+        if isinstance(value, (tuple, list)):
+            return ",".join(str(v) for v in value)
+        return str(value)
+
+
+# the reference's public name
+Csv = CsvType
 
 
 def _cast_bool(v: Union[str, bool]) -> bool:
@@ -33,7 +57,7 @@ def _cast_bool(v: Union[str, bool]) -> bool:
 
 class Config:
     """INI sections with typed reads, environment override and default
-    write-back."""
+    write-back; `save()` writes the file with every default read so far."""
 
     def __init__(self):
         self.reset()
@@ -57,10 +81,20 @@ class Config:
                 self.parser.set("deepfilternet", k, v)
             self.parser.remove_section("clc")
 
+    def use_defaults(self):
+        self.load(path=None, allow_defaults=True, allow_reload=True)
+
     def reset(self):
         self.parser = configparser.ConfigParser(interpolation=None)
         self.path: Optional[str] = None
         self.allow_defaults = True
+
+    def save(self, path: Optional[str] = None):
+        path = path or self.path
+        if path is None:
+            raise ValueError("No config path provided")
+        with open(path, "w") as f:
+            self.parser.write(f)
 
     def get(self, option: str, default: Any = None, cast: Type = str,
             section: str = "DF", save: bool = True) -> Any:
@@ -88,7 +122,11 @@ class Config:
         if sec is None:
             sec = section
             self.parser.add_section(sec)
-        self.parser.set(sec, option.lower(), str(value))
+        self.parser.set(sec, option.lower(),
+                        cast.to_str(value) if isinstance(cast, CsvType) else str(value))
+
+    def sections(self) -> List[str]:
+        return list(self.parser.sections())
 
     def tostr(self) -> str:
         buf = io.StringIO()
@@ -106,6 +144,8 @@ def config(option: str, default: Any = None, cast: Type = str,
 
 
 config.load = _config.load  # type: ignore[attr-defined]
+config.save = _config.save  # type: ignore[attr-defined]
+config.use_defaults = _config.use_defaults  # type: ignore[attr-defined]
 config.reset = _config.reset  # type: ignore[attr-defined]
 config.set = _config.set  # type: ignore[attr-defined]
 config.obj = _config  # type: ignore[attr-defined]
@@ -129,3 +169,7 @@ class DfParams:
         self.df_order: int = config("DF_ORDER", cast=int, default=5, section="DF")
         self.df_lookahead: int = config("DF_LOOKAHEAD", cast=int, default=0, section="DF")
         self.pad_mode: str = config("PAD_MODE", default="input", section="DF")
+
+
+def random_name(n: int = 6) -> str:
+    return "".join(random.choices(string.ascii_lowercase, k=n))

@@ -34,8 +34,12 @@ def model_module(name: Optional[str] = None):
     return mod, getattr(mod, init_name), getattr(mod, params_name)
 
 
-def init_model(name: Optional[str] = None, seed: int = 42, device="cpu"):
-    """Random weights from a torch generator seeded with `seed`."""
+def init_model(name: Optional[str] = None, seed: int = 42, device=None):
+    """Random weights from a torch generator seeded with `seed`, on `device`
+    (default: the CUDA device; raises when it is absent)."""
+    from deepfilternet_torch.enhance import resolve_device
+
     mod, init_fn, _ = model_module(name)
-    params, state, cfg = init_fn(torch.Generator().manual_seed(seed), device=device)
+    params, state, cfg = init_fn(torch.Generator().manual_seed(seed),
+                                 device=resolve_device(device))
     return params, state, cfg, mod

@@ -212,9 +212,10 @@ def _embed(params, L, e3, c1):
     return e3.transpose(1, 2).reshape(b, t, -1) + cemb
 
 
-def _mask(params, L, cfg, conv, emb, e3, e2, e1, e0):
+def _mask(params, L, cfg, conv, emb, e3, e2, e1, e0, train=False):
     """The ERB decoder over emb [B, T, H] and the encoder's outputs ->
-    mask [B, T, E]; `conv(name, x)` runs a decoder conv over the frames."""
+    mask [B, T, E]; `conv(name, x)` runs a decoder conv over the frames.
+    Training skips the post-filter, as JAX and the reference do."""
     demb = torch.relu(grouped_linear_shuffle_apply(params["dec_fc_emb"], L["dec_fc_emb"], emb))
     b, _, t, f4 = e3.shape
     demb = demb.reshape(b, t, -1, f4).transpose(1, 2)  # [B, C, T, E/4], channel-major
@@ -222,7 +223,7 @@ def _mask(params, L, cfg, conv, emb, e3, e2, e1, e0):
     d2 = conv("convt2", conv("conv2p", e2) + d3)
     d1 = conv("convt1", conv("conv1p", e1) + d2)
     m = conv("conv0_out", conv("conv0p", e0) + d1)[:, 0]
-    return post_filter_mask(m, cfg["pf_beta"]) if cfg["mask_pf"] else m
+    return post_filter_mask(m, cfg["pf_beta"]) if cfg["mask_pf"] and not train else m
 
 
 def _coefs(params, cfg, c, c0p):
@@ -245,12 +246,11 @@ def _ri(x: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
             feat_erb: torch.Tensor, feat_spec: torch.Tensor, train: bool = False):
-    """Offline forward, inference only (`train=True` raises). The I/O of
+    """Offline forward, `train=True` as dfnet2.forward's. The I/O of
     dfnet3.forward, with alpha [B, T, 1] as the 4th output."""
-    if train:
-        raise NotImplementedError("training is not ported yet (ROADMAP)")
     L = cfg["layers"]
-    conv = _seq_conv(params, state, L)
+    new_state = dict(state)
+    conv = _seq_conv(params, state, L, train, new_state)
     e0 = conv("erb_conv0", feat_erb[:, None])
     e1 = conv("erb_conv1", e0)
     e2 = conv("erb_conv2", e1)
@@ -260,7 +260,7 @@ def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
     emb, _ = grouped_gru_apply(params["enc_emb_gru"], L["enc_emb_gru"],
                                _embed(params, L, e3, c1))
     lsnr = _lsnr(params, cfg, emb)
-    m = _mask(params, L, cfg, conv, emb, e3, e2, e1, e0)
+    m = _mask(params, L, cfg, conv, emb, e3, e2, e1, e0, train)
     spec_m = torch.complex(spec[..., 0], spec[..., 1]) * (m @ _inv_fb(cfg, m.device))
 
     c, _ = grouped_gru_apply(params["df_gru"], L["df_gru"], emb)
@@ -273,7 +273,7 @@ def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
         out = torch.cat([lo, spec_m[..., nb_df:]], dim=-1)
     else:
         out = spec_m  # mask-only ablation: the ERB-masked spectrum
-    return (_ri(out), m, lsnr, alpha), state
+    return (_ri(out), m, lsnr, alpha), new_state
 
 
 # -- streaming ---------------------------------------------------------------------

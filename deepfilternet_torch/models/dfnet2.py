@@ -296,13 +296,13 @@ def _ri(x: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
             feat_erb: torch.Tensor, feat_spec: torch.Tensor, train: bool = False):
-    """Offline forward, inference only (`train=True` raises). The I/O of
-    dfnet3.forward, with alpha [B, T, 1] as the 4th output:
-    ((spec_e [B, T, F, 2], mask [B, T, E], lsnr [B, T, 1], alpha), state)."""
-    if train:
-        raise NotImplementedError("training is not ported yet (ROADMAP)")
+    """Offline forward. The I/O of dfnet3.forward, with alpha [B, T, 1] as
+    the 4th output: ((spec_e [B, T, F, 2], mask [B, T, E], lsnr [B, T, 1],
+    alpha), new_state). `train=True` as dfnet3.forward's, but the mask's
+    post-filter is skipped in training, as in JAX and the reference."""
     L = cfg["layers"]
-    conv = _seq_conv(params, state, L)
+    new_state = dict(state)
+    conv = _seq_conv(params, state, L, train, new_state)
     e0 = conv("erb_conv0", feat_erb[:, None])
     e1 = conv("erb_conv1", e0)
     e2 = conv("erb_conv2", e1)
@@ -314,7 +314,7 @@ def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
 
     demb, _ = _dec_emb(params, L, cfg, emb)
     m = _mask_pathway(conv, demb, e3, e2, e1, e0)  # [B, T, E]
-    if cfg["mask_pf"]:
+    if cfg["mask_pf"] and not train:
         m = post_filter_mask(m, cfg["pf_beta"])
     spec_m = torch.complex(spec[..., 0], spec[..., 1]) * (m @ _inv_fb(cfg, m.device))
 
@@ -328,7 +328,7 @@ def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
         filt = deep_filter_offline(out, coefs_c, nb_df, cfg["df_lookahead"])
         lo = _blend(cfg, out[..., :nb_df], filt[..., :nb_df], alpha)
         out = torch.cat([lo, out[..., nb_df:]], dim=-1)
-    return (_ri(out), m, lsnr, alpha), state
+    return (_ri(out), m, lsnr, alpha), new_state
 
 
 # -- streaming ---------------------------------------------------------------------

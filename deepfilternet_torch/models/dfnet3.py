@@ -207,13 +207,17 @@ def _tree_to(tree, device):
 # ---------------------------------------------------------------------------
 
 
-def _seq_conv(params, state, L):
+def _seq_conv(params, state, L, train=False, new_state=None):
     """name, x [B, C, T, F] -> the named (transposed) conv block over the
-    whole sequence."""
+    whole sequence. In training each block's new batchnorm state goes into
+    `new_state` under its name."""
     def conv(name, x):
         fn = (conv_transpose2d_norm_act_apply if L[name].get("transposed")
               else conv2d_norm_act_apply)
-        return fn(params[name], state.get(name, {}), L[name], x)[0]
+        out, st = fn(params[name], state.get(name, {}), L[name], x, train)
+        if new_state is not None and name in state:
+            new_state[name] = st
+        return out
     return conv
 
 
@@ -232,10 +236,9 @@ def _embed(params, cfg, e3, c1):
     return torch.cat([emb, cemb], -1) if cfg["enc_concat"] else emb + cemb
 
 
-def _encoder(params, state, L, cfg, feat_erb, feat_spec):
+def _encoder(params, conv, L, cfg, feat_erb, feat_spec):
     """feat_erb [B, 1, T, E], feat_spec [B, 2, T, F'] -> (e0, e1, e2, e3,
-    emb, c0, lsnr)."""
-    conv = _seq_conv(params, state, L)
+    emb, c0, lsnr); `conv` runs the conv blocks (`_seq_conv`)."""
     e0 = conv("erb_conv0", feat_erb)
     e1 = conv("erb_conv1", e0)
     e2 = conv("erb_conv2", e1)
@@ -257,9 +260,9 @@ def _mask_pathway(conv, demb, e3, e2, e1, e0):
     return conv("conv0_out", conv("conv0p", e0) + d1)[:, 0]
 
 
-def _erb_decoder(params, state, L, cfg, emb, e3, e2, e1, e0):
+def _erb_decoder(params, conv, L, cfg, emb, e3, e2, e1, e0):
     demb, _ = squeezed_gru_s_apply(params["dec_emb_gru"], L["dec_emb_gru"], emb)
-    return _mask_pathway(_seq_conv(params, state, L), demb, e3, e2, e1, e0)
+    return _mask_pathway(conv, demb, e3, e2, e1, e0)
 
 
 def _df_skip(params, cfg, c, emb):
@@ -278,9 +281,9 @@ def _df_coefs(params, cfg, c, c0p):
     return coefs.reshape(b, t, cfg["nb_df"], cfg["df_order"] * 2) + c0p.permute(0, 2, 3, 1)
 
 
-def _df_decoder(params, state, L, cfg, emb, c0):
+def _df_decoder(params, conv, L, cfg, emb, c0):
     c, _ = squeezed_gru_s_apply(params["df_gru"], L["df_gru"], emb)
-    c0p = _seq_conv(params, state, L)("df_convp", c0)
+    c0p = conv("df_convp", c0)
     return _df_coefs(params, cfg, _df_skip(params, cfg, c, emb), c0p)
 
 
@@ -313,22 +316,34 @@ def forward(
     feat_spec: torch.Tensor,
     train: bool = False,
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], Dict]:
-    """Offline forward, inference only (`train=True` raises).
+    """Offline forward.
 
     Args (real-valued, re/im split):
         spec:      [B, T, F, 2] noisy spectrum.
         feat_erb:  [B, T, E] normalized ERB features.
         feat_spec: [B, T, F', 2] unit-normalized complex features.
     Returns ((spec_e [B, T, F, 2], mask [B, T, E], lsnr [B, T, 1],
-              df_coefs [B, O, T, F', 2]), state).
+              df_coefs [B, O, T, F', 2]), new_state).
+
+    `train=True` is the training forward: batchnorm normalizes with the
+    batch's statistics and the returned state holds the new running
+    statistics (a new dict; `state` is left as it was), and with
+    `lsnr_dropout` frames predicted below -10 dB LSNR get a zero mask and
+    zero DF coefficients. The post-filter, when on, runs in training too.
     """
-    if train:
-        raise NotImplementedError("training is not ported yet (ROADMAP)")
     L = cfg["layers"]
+    new_state = dict(state)
+    conv = _seq_conv(params, state, L, train, new_state)
     e0, e1, e2, e3, emb, c0, lsnr = _encoder(
-        params, state, L, cfg, feat_erb[:, None], torch.movedim(feat_spec, -1, 1))
-    mask = _erb_decoder(params, state, L, cfg, emb, e3, e2, e1, e0)  # [B, T, E]
-    coefs = _df_decoder(params, state, L, cfg, emb, c0)  # [B, T, F', O*2]
+        params, conv, L, cfg, feat_erb[:, None], torch.movedim(feat_spec, -1, 1))
+    mask = _erb_decoder(params, conv, L, cfg, emb, e3, e2, e1, e0)  # [B, T, E]
+    coefs = _df_decoder(params, conv, L, cfg, emb, c0)  # [B, T, F', O*2]
+    if train and cfg.get("lsnr_dropout", False):
+        # the reference runs the decoders on the active frames only; the
+        # same result, computed everywhere and masked per frame
+        active = (lsnr[..., 0] > -10.0).to(mask.dtype)  # [B, T]
+        mask = mask * active[:, :, None]
+        coefs = coefs * active[:, :, None, None]
 
     nb_df = cfg["nb_df"]
     spec_c = torch.complex(spec[..., 0], spec[..., 1])  # [B, T, F]
@@ -344,7 +359,7 @@ def forward(
     if cfg["mask_pf"]:
         spec_e = _post_filter(cfg, spec_e, spec_c)
     spec_e_ri = torch.stack([spec_e.real, spec_e.imag], dim=-1)
-    return (spec_e_ri, mask, lsnr, coefs_ri.permute(0, 3, 1, 2, 4)), state
+    return (spec_e_ri, mask, lsnr, coefs_ri.permute(0, 3, 1, 2, 4)), new_state
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,6 @@ from deepfilternet_torch.models import dfnet3
 from deepfilternet_torch.models.dfnet3 import ModelParams3, _tree_to
 from deepfilternet_torch.models.multiframe import mf_mvdr, mf_wf
 from deepfilternet_torch.nn import (
-    conv2d_norm_act_apply,
     grouped_linear_apply,
     init_conv2d_norm_act,
     init_grouped_linear,
@@ -68,14 +67,15 @@ def init_dfnetmf(generator: torch.Generator, p: Optional[ModelParamsMF] = None,
 
 def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
             feat_erb: torch.Tensor, feat_spec: torch.Tensor, train: bool = False):
-    """Offline forward, inference only (`train=True` raises). The I/O of
+    """Offline forward, `train=True` for training (dfnet3.forward's
+    batchnorm statistics; no LSNR dropout, as JAX's). The I/O of
     dfnet3.forward, with (ifc, cov) as the 4th output."""
-    if train:
-        raise NotImplementedError("training is not ported yet (ROADMAP)")
     L = cfg["layers"]
+    new_state = dict(state)
+    conv = dfnet3._seq_conv(params, state, L, train, new_state)
     e0, e1, e2, e3, emb, c0, lsnr = dfnet3._encoder(
-        params, state, L, cfg, feat_erb[:, None], torch.movedim(feat_spec, -1, 1))
-    mask = dfnet3._erb_decoder(params, state, L, cfg, emb, e3, e2, e1, e0)  # [B, T, E]
+        params, conv, L, cfg, feat_erb[:, None], torch.movedim(feat_spec, -1, 1))
+    mask = dfnet3._erb_decoder(params, conv, L, cfg, emb, e3, e2, e1, e0)  # [B, T, E]
     spec_c = torch.complex(spec[..., 0], spec[..., 1])
     spec_m = spec_c * (mask @ dfnet3._inv_fb(cfg, mask.device))
 
@@ -86,9 +86,7 @@ def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
 
     def head(name, width):
         lin = grouped_linear_apply(params[f"{name}_out"], c).reshape(b, t, nb_df, width)
-        convp, _ = conv2d_norm_act_apply(params[f"{name}_convp"], state.get(f"{name}_convp", {}),
-                                         L[f"{name}_convp"], c0)
-        return lin + convp.permute(0, 2, 3, 1)  # [B, T, F', width]
+        return lin + conv(f"{name}_convp", c0).permute(0, 2, 3, 1)  # [B, T, F', width]
 
     ifc, cov = head("ifc", o * 2), head("cov", o * o * 2)
     ifc_r = ifc.reshape(b, t, nb_df, o, 2)
@@ -102,4 +100,4 @@ def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
     else:
         spec_e = spec_m  # mask-only ablation: the multi-frame filter is skipped
     spec_e_ri = torch.stack([spec_e.real, spec_e.imag], dim=-1)
-    return (spec_e_ri, mask, lsnr, (ifc, cov)), state
+    return (spec_e_ri, mask, lsnr, (ifc, cov)), new_state

@@ -11,11 +11,14 @@ modules' layout, so the same checkpoint feeds both packages:
   * grouped linear weight [G, I/G, H/G]
   * batchnorm params scale/bias, state mean/var [C]
 
-Two forms of each layer, both in inference mode (batchnorm reads its
-running statistics): `*_apply` over a whole [B, C, T, F] or [B, T, I]
+Two forms of each layer: `*_apply` over a whole [B, C, T, F] or [B, T, I]
 sequence (causal time padding; a GRU stack is one `aten.gru` call, cuDNN on
-the card), and `*_step` over one frame for the streaming cell. Training
-(`train=True`) is not ported and raises.
+the card), and `*_step` over one frame for the streaming cell, always in
+inference mode (batchnorm reads its running statistics). The conv blocks'
+`*_apply` take `train=True` for training: batchnorm then normalizes with
+the batch's statistics and returns updated running statistics, as the JAX
+layers do. A GRU runs in cuDNN's training mode whenever autograd needs its
+backward.
 
 DFN1 and DFN2 add the grouped layers: `GroupedLinear` with its channel
 shuffle (params {"layers": [linear a group]}), `GroupedGRU` (a one-layer
@@ -77,7 +80,7 @@ ACT = {
 
 
 # ---------------------------------------------------------------------------
-# batch norm 2d (eval)
+# batch norm 2d
 # ---------------------------------------------------------------------------
 
 
@@ -86,18 +89,34 @@ def init_batchnorm(c: int) -> Tuple[Params, Params]:
             {"mean": torch.zeros(c), "var": torch.ones(c)})
 
 
-def batchnorm_apply(params: Params, state: Params, x: torch.Tensor,
-                    eps: float = 1e-5) -> Tuple[torch.Tensor, Params]:
-    """Eval mode: x [B, C, T, F] normalized per channel with the running
-    statistics. Returns (out, state), the state unchanged."""
-    var = state["var"] + _rounded(eps, state["var"].dtype)
-    # in float32, rounded once: torch's own bfloat16 rsqrt rounds twice on
-    # short tensors and moves a quarter of the values by one unit in the last
-    # place
-    inv = torch.rsqrt(var.float()).to(var.dtype)
-    out = (x - state["mean"][None, :, None, None]) * inv[None, :, None, None]
+def batchnorm_apply(params: Params, state: Params, x: torch.Tensor, train: bool = False,
+                    momentum: float = 0.1, eps: float = 1e-5) -> Tuple[torch.Tensor, Params]:
+    """x [B, C, T, F] normalized per channel. Returns (out, state).
+
+    Eval: the running statistics normalize, the state is returned as it is.
+    Train: the batch's mean and biased variance over (B, T, F) normalize;
+    the new state (a new dict, the input left as it was) moves the running
+    statistics by `momentum` towards the batch's mean and unbiased
+    variance, outside autograd."""
+    if train:
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        with torch.no_grad():
+            new_state = {
+                "mean": (1 - momentum) * state["mean"] + momentum * mean,
+                "var": (1 - momentum) * state["var"] + momentum * (var * n / max(n - 1, 1)),
+            }
+        inv = torch.rsqrt(var + eps)
+    else:
+        mean, new_state = state["mean"], state
+        var = state["var"] + _rounded(eps, state["var"].dtype)
+        # in float32, rounded once: torch's own bfloat16 rsqrt rounds twice
+        # on short tensors and moves a quarter of the values by one unit in
+        # the last place
+        inv = torch.rsqrt(var.float()).to(var.dtype)
+    out = (x - mean[None, :, None, None]) * inv[None, :, None, None]
     out = out * params["scale"][None, :, None, None] + params["bias"][None, :, None, None]
-    return out, state
+    return out, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -170,25 +189,21 @@ def _conv2d_raw(x, w, groups, fstride, dilation, fpad):
                     dilation=(1, dilation), groups=groups)
 
 
-def _finish_seq(params, state, cfg, out):
-    """Bias, pointwise conv, eval batchnorm and activation on [B, O, T, F']."""
+def _finish_seq(params, state, cfg, out, train=False):
+    """Bias, pointwise conv, batchnorm and activation on [B, O, T, F'].
+    Returns (out, state with the batchnorm's new state)."""
     if "b" in params:
         out = out + params["b"][None, :, None, None]
     if "pw" in params:
         out = F.conv2d(out, params["pw"])
     if cfg["norm"]:
-        out, _ = batchnorm_apply(params["bn"], state["bn"], out)
-    return ACT[cfg["act"]](out)
+        out, bn = batchnorm_apply(params["bn"], state["bn"], out, train)
+        state = dict(state, bn=bn) if train else state
+    return ACT[cfg["act"]](out), state
 
 
 def _finish(params, state, cfg, out):
-    return _finish_seq(params, state, cfg, out)[:, :, 0, :]
-
-
-def _no_training(train: bool):
-    if train:
-        raise NotImplementedError(
-            "training mode (batchnorm statistics, LSNR dropout) is not ported yet (ROADMAP)")
+    return _finish_seq(params, state, cfg, out)[0][:, :, 0, :]
 
 
 def _fupsample(cfg, x):
@@ -199,14 +214,14 @@ def _fupsample(cfg, x):
 
 def conv2d_norm_act_apply(params: Params, state: Params, cfg: Dict, x: torch.Tensor,
                           train: bool = False) -> Tuple[torch.Tensor, Params]:
-    """Whole sequence: x [B, C, T, F] -> ([B, O, T', F'], state unchanged),
-    causal in time but for `lookahead` frames (time pad (kT-1-la, la))."""
-    _no_training(train)
+    """Whole sequence: x [B, C, T, F] -> ([B, O, T', F'], state), causal in
+    time but for `lookahead` frames (time pad (kT-1-la, la)); the state is
+    new only in training (`batchnorm_apply`)."""
     kt, la = cfg["kernel"][0], cfg.get("lookahead", 0)
     x = F.pad(x, (0, 0, max(kt - 1 - la, 0), la))
     out = _conv2d_raw(_fupsample(cfg, x), params["w"], cfg["groups"], cfg["fstride"],
                       cfg["dilation"], cfg["fpad"])
-    return _finish_seq(params, state, cfg, out), state
+    return _finish_seq(params, state, cfg, out, train)
 
 
 def conv2d_norm_act_step(params: Params, state: Params, cfg: Dict,
@@ -292,12 +307,11 @@ def conv_transpose2d_norm_act_apply(params: Params, state: Params, cfg: Dict,
                                     x: torch.Tensor, train: bool = False
                                     ) -> Tuple[torch.Tensor, Params]:
     """Whole sequence, causal in time: x [B, C, T, F] -> ([B, O, T,
-    F*fstride], state unchanged)."""
-    _no_training(train)
+    F*fstride], state), the state new only in training."""
     x = F.pad(x, (0, 0, cfg["kernel"][0] - 1, 0))
     out = _conv_transpose2d_raw(x, params["w"], cfg["groups"], cfg["fstride"],
                                 cfg["kernel"], cfg["fpad"], cfg["dilation"])
-    return _finish_seq(params, state, cfg, out), state
+    return _finish_seq(params, state, cfg, out, train)
 
 
 def conv_transpose2d_norm_act_step(params: Params, state: Params, cfg: Dict,
@@ -382,17 +396,32 @@ def gru_apply(params: Params, x: torch.Tensor, h0: Optional[torch.Tensor] = None
 
     The stack is one `aten.gru` call (cuDNN on the card, ATen on the CPU):
     the same gate form as `_gru_cell`, with b_hn inside r * (W_hn h + b_hn).
+    It runs in training mode when autograd needs its backward (cuDNN has
+    none for an inference-mode call).
     """
     layers = params["layers"]
     hidden = layers[0]["w_hh"].shape[1]
     if h0 is None:
         h0 = x.new_zeros((len(layers), x.shape[0], hidden))
     weights = [lp[k] for lp in layers for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    weights_grad = torch.is_grad_enabled() and any(w.requires_grad for w in weights)
+    train = weights_grad or (torch.is_grad_enabled() and (x.requires_grad or h0.requires_grad))
     if x.is_cuda and torch._use_cudnn_rnn_flatten_weight():
-        weights = _cudnn_gru_weights(weights, len(layers), hidden)
+        flatten = _cudnn_gru_leaves if weights_grad else _cudnn_gru_weights
+        weights = flatten(weights, len(layers), hidden)
     out, h_n = torch.ops.aten.gru.input(x, h0.contiguous(), weights, True, len(layers),
-                                        0.0, False, False, True)
+                                        0.0, train, False, True)
     return out, h_n
+
+
+def _cudnn_flatten(weights, n_layers: int, hidden: int):
+    """Point each tensor into one new buffer in cuDNN's layout, values kept."""
+    from torch.backends.cudnn import rnn as cudnn_rnn
+
+    with torch.no_grad():
+        torch._cudnn_rnn_flatten_weight(
+            weights, 4, weights[0].shape[1], cudnn_rnn.get_cudnn_mode("GRU"),
+            hidden, 0, n_layers, True, False)
 
 
 # cuDNN's one-buffer copy of a GRU stack's weights, found again by the stack's
@@ -405,20 +434,32 @@ def _cudnn_gru_weights(weights, n_layers: int, hidden: int):
     layout, made once per weight set (checked by identity and version; a
     bfloat16 runtime's cast parameters are a set of their own). With
     separate tensors cuDNN copies them into such a buffer at every call, and
-    warns each time."""
-    from torch.backends.cudnn import rnn as cudnn_rnn
-
+    warns each time. Inference only: autograd does not reach the copy."""
     stamp = tuple((id(w), w._version) for w in weights)
     hit = _CUDNN_GRU.get(weights[0])
     if hit is None or hit[0] != stamp:
         flat = [w.detach().clone() for w in weights]
-        with torch.no_grad():
-            torch._cudnn_rnn_flatten_weight(
-                flat, 4, weights[0].shape[1], cudnn_rnn.get_cudnn_mode("GRU"),
-                hidden, 0, n_layers, True, False)
+        _cudnn_flatten(flat, n_layers, hidden)
         hit = (stamp, flat)
         _CUDNN_GRU[weights[0]] = hit
     return hit[1]
+
+
+# the stacks whose own weight tensors were moved into one buffer, by the
+# stack's first tensor, with the identities of all of them
+_CUDNN_GRU_LEAVES = WeakIdKeyDictionary()
+
+
+def _cudnn_gru_leaves(weights, n_layers: int, hidden: int):
+    """The stack's own weight tensors, moved once into one buffer in cuDNN's
+    layout (what `nn.GRU.flatten_parameters` does), so that autograd reaches
+    them and cuDNN copies nothing per call; updating them in place (an
+    optimizer step) keeps them there."""
+    stamp = tuple(id(w) for w in weights)
+    if _CUDNN_GRU_LEAVES.get(weights[0]) != stamp:
+        _cudnn_flatten(weights, n_layers, hidden)
+        _CUDNN_GRU_LEAVES[weights[0]] = stamp
+    return weights
 
 
 def gru_step(params: Params, h: torch.Tensor, x: torch.Tensor

@@ -98,13 +98,13 @@ def test_other_model_families_not_ported():
 
     for name, mod in (("deepfilternet2", "dfnet2"), ("deepfilternet", "dfnet1"),
                       ("deepfilternetmf", "dfnetmf")):
-        _, _, cfg, module = init_model(name)
+        _, _, cfg, module = init_model(name, device="cpu")
         _, _, j_cfg, j_module = j_init_model(name)
         assert module.__name__ == f"deepfilternet_torch.models.{mod}"
         assert j_module.__name__ == f"deepfilternet_tpu.models.{mod}"
         assert cfg.keys() == j_cfg.keys()
     with pytest.raises(ValueError):
-        init_model("nonsense")
+        init_model("nonsense", device="cpu")
 
 
 def test_init_df_without_device_needs_cuda(monkeypatch):

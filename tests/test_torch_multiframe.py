@@ -205,6 +205,6 @@ def test_dfnetmf_mask_only_and_registry():
     model = (jp, js, dict(jcfg, run_df=False), tp, ts, dict(tcfg, run_df=False))
     check_forward(j_dfnetmf, t_dfnetmf, model, rand_inputs(11, 1, 5, jcfg),
                   names=("spec_e", "mask", "lsnr"))
-    _, _, cfg, mod = init_model("deepfilternetmf")
+    _, _, cfg, mod = init_model("deepfilternetmf", device="cpu")
     assert mod is t_dfnetmf and cfg["generation"] == "mf"
     assert not hasattr(mod, "streaming_cell")

@@ -5,8 +5,10 @@ Same seeded inputs through both packages, float32 on both sides:
   * per op at 1e-5: `frame_signal`, `stft`, `istft`, `istft_ri`, the blocked
     `_ema_scan` and the norms over it, the feature functions, `df_features`,
     `deep_filter_offline` (lookahead 0 and 2), every `*_apply` layer of the
-    demo checkpoint and `gru_apply` with and without `h0`;
-  * model and pipeline at 1e-4: `forward` on the demo checkpoint and on
+    demo checkpoint (the conv blocks also in training mode, with their new
+    batch-norm statistics) and `gru_apply` with and without `h0`;
+  * model and pipeline at 1e-4: `forward` on the demo checkpoint (also
+    `train=True`, its new batch-norm state at 1e-5) and on
     random-init JAX models carried across (DF lookahead 2, post-filter,
     mask only, a DF pathway kernel of 5 frames), `enhance` with the offline
     and the auto backend, the offline output against the port's own per-frame
@@ -250,12 +252,50 @@ def test_conv_apply(demo, name):
     _close(t_out, j_out)
 
 
-def test_training_mode_raises(demo):
-    _, _, cfg, tp, ts = demo
-    x = torch.zeros((1, 1, 3, 32))
-    with pytest.raises(NotImplementedError, match="training"):
-        tnn.conv2d_norm_act_apply(tp["erb_conv0"], ts["erb_conv0"], cfg["layers"]["erb_conv0"],
-                                  x, train=True)
+@pytest.mark.parametrize("name", CONVS + CONVTS)
+def test_conv_apply_training(demo, name):
+    """Training mode: the batch's statistics normalize, and the new running
+    statistics equal JAX's; the input state is left as it was."""
+    jp, js, cfg, tp, ts = demo
+    lc = cfg["layers"][name]
+    w = jp[name]["w"]
+    c_in = w.shape[0] if lc.get("transposed") else w.shape[1] * lc["groups"]
+    x = np.random.default_rng(14).standard_normal((2, c_in, 6, CONV_F[name])).astype(np.float32)
+    j_fn, t_fn = ((jnn.conv_transpose2d_norm_act_apply, tnn.conv_transpose2d_norm_act_apply)
+                  if lc.get("transposed") else
+                  (jnn.conv2d_norm_act_apply, tnn.conv2d_norm_act_apply))
+    state = ts.get(name, {})
+    before = {k: v.clone() for k, v in state.get("bn", {}).items()}
+    j_out, j_st = j_fn(jp[name], js.get(name, {}), lc, jnp.asarray(x), True)
+    t_out, t_st = t_fn(tp[name], state, lc, torch.from_numpy(x), train=True)
+    _close(t_out, j_out)
+    assert set(t_st) == set(j_st)
+    for k in before:
+        _close(t_st["bn"][k], j_st["bn"][k])
+        assert torch.equal(state["bn"][k], before[k])
+
+
+def test_training_mode_raises(models):
+    """DFN3's training forward on the demo checkpoint: every output and the
+    new batch-norm state equal JAX's, at 1e-4 and 1e-5."""
+    from deepfilternet_tpu.models import dfnet3 as j_dfnet3
+
+    from deepfilternet_torch.models import dfnet3 as t_dfnet3
+
+    jm, jd, tm, _ = models
+    inputs = _forward_inputs(jd, frames=20)
+    ref, j_state = j_dfnet3.forward(jm.params, jm.state, jm.cfg, *map(jnp.asarray, inputs),
+                                    train=True)
+    got, t_state = t_dfnet3.forward(tm.params, tm.state, tm.cfg, *map(torch.from_numpy, inputs),
+                                    train=True)
+    for name, g, r in zip(("spec_e", "mask", "lsnr", "df_coefs"), got, ref):
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(_np(g), np.asarray(r), rtol=0, atol=1e-4, err_msg=name)
+    assert set(t_state) == set(j_state) == set(tm.state)
+    for name, st in j_state.items():
+        for k in ("mean", "var"):
+            _close(t_state[name]["bn"][k], st["bn"][k])
+            assert not torch.equal(t_state[name]["bn"][k], tm.state[name]["bn"][k])
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
@@ -301,11 +341,12 @@ def _check_forward(jm, tm, inputs):
 
 
 def test_forward_demo(models):
+    """Inference: the JAX outputs, and the state handed back unchanged."""
     jm, jd, tm, _ = models
     _check_forward(jm, tm, _forward_inputs(jd))
-    with pytest.raises(NotImplementedError):
-        tm.module.forward(tm.params, tm.state, tm.cfg,
-                          *map(torch.from_numpy, _forward_inputs(jd, frames=3)), train=True)
+    _, state = tm.module.forward(tm.params, tm.state, tm.cfg,
+                                 *map(torch.from_numpy, _forward_inputs(jd, frames=3)))
+    assert set(state) == set(tm.state) and all(state[k] is tm.state[k] for k in state)
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
