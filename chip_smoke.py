@@ -77,7 +77,20 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                config.save and init_df into enhance() and StreamingRuntime
                (K1 once a frame), a MASK_ONLY step; DFN2 and DFN1 from their
                checkpoints and MF with seeded weights, a step each against the
-               CPU and 3 steps. Training launches neither kernel.
+               CPU and 3 steps. Training launches neither kernel;
+ 10. corpus    - the data engine and train/run.py: the native data library
+               built and held against scipy; speech (64 x 5 s), noise
+               (32 x 10 s), RIR (8 x 0.5 s) and validation (16 x 5 s) corpora
+               written by the port's prepare_data (its own HDF5 writer: the
+               card's machine has no h5py) and read back bit for bit; one
+               epoch of DataLoader(FdDataset(TdDataset)) at 1 and 4 workers,
+               batch for batch equal, its features against the port's torch
+               stft/erb_feat/spec_feat on the card; the first batch's step
+               card vs CPU; train() from the demo checkpoint (as epoch 0) for
+               an epoch, then a resumed epoch under the profiler. Step time
+               inside train() against a batch held on the card, the host's
+               time between steps, busy share, epoch wall, loader samples a
+               second and peak memory are information; K1 and K2 read 0.
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
@@ -1986,6 +1999,296 @@ def training_path(card, smi, audio, dev="cuda"):
     return launches
 
 
+# -- phase 10: corpus training ------------------------------------------------------
+
+# (clips, seconds) of each corpus file; "valid" is a speech file of its own
+CORPUS = {"speech": (64, 5.0), "noise": (32, 10.0), "rir": (8, 0.5), "valid": (16, 5.0)}
+# the demo's config.ini, with these [train] and [distortion] keys and the
+# loss stack of phase 9
+CORPUS_TRAIN = (("train", "MAX_EPOCHS", "2"), ("train", "BATCH_SIZE", "8"),
+                ("train", "MAX_SAMPLE_LEN_S", "3"), ("train", "EARLY_STOPPING_PATIENCE", "5"),
+                ("distortion", "p_reverb", "0.2"))
+CORPUS_WORKERS, CORPUS_BATCH, PRELOADED_STEPS = 4, 8, 5
+
+
+def write_corpus(root):
+    """Seeded WAVs (phase 9's harmonic-plus-noise speech, amplitude-modulated
+    white noise, decaying-noise RIRs) written by the port's save_audio and
+    turned into int16 corpora by the port's prepare_data (its own HDF5
+    writer); then every key read back through Hdf5Dataset, which must give
+    prepare_data's int16 samples bit for bit. Returns the samples' bytes."""
+    from deepfilternet_torch.data.hdf5 import Hdf5Dataset
+    from deepfilternet_torch.scripts.prepare_data import prepare, sanitize_key
+    from deepfilternet_torch.utils.audio_io import load_audio, save_audio
+
+    wav = os.path.join(root, "wav")
+    os.makedirs(wav)
+    rng = np.random.default_rng(100)
+    nbytes = 0
+    for seed, (name, (n, seconds)) in enumerate(CORPUS.items()):
+        t = np.arange(int(seconds * SR)) / SR
+        if name in ("speech", "valid"):
+            clips = noisy_speech_like(n, seconds, seed=200 + seed)
+        elif name == "noise":
+            clips = (rng.standard_normal((n, t.size)) * rng.uniform(0.02, 0.2, (n, 1))
+                     * (1.0 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.1, 2.0, (n, 1)) * t)))
+        else:
+            clips = (rng.standard_normal((n, t.size)) * 0.5
+                     * np.exp(-t / rng.uniform(0.03, 0.15, (n, 1))))
+        paths = []
+        for i, x in enumerate(clips):
+            paths.append(os.path.join(wav, f"{name}_{i:03d}.wav"))
+            save_audio(paths[-1], x, SR)
+        path = os.path.join(root, f"{name}.hdf5")
+        group = "speech" if name == "valid" else name
+        prepare(group, path, paths)
+        ds = Hdf5Dataset(path)
+        for p in paths:
+            audio, _ = load_audio(p)
+            want = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
+            got = ds.read(group, sanitize_key(p))
+            if not np.array_equal(got, want.astype(np.float32) / 32768.0):
+                fail(f"corpus {name}: {p} does not read back bit for bit")
+            nbytes += want.nbytes
+        ds.close()
+    with open(os.path.join(root, "dataset.cfg"), "w") as f:
+        rest = [["noise.hdf5", 1], ["rir.hdf5", 1]]
+        json.dump({"train": [["speech.hdf5", 1]] + rest, "valid": [["valid.hdf5", 1]] + rest,
+                   "test": [["valid.hdf5", 1]] + rest}, f)
+    return nbytes
+
+
+def corpus_loader_check(smi, root, nb_erb, nb_df, dev):
+    """One epoch of DataLoader(FdDataset(TdDataset)) at 1 and CORPUS_WORKERS
+    workers, as train() builds it: batches bit for bit equal, samples a
+    second; FdDataset's features against the port's torch stft, erb_feat and
+    spec_feat on `dev` (1e-5, 1e-4, 1e-4, as the JAX package's own data
+    tests hold its numpy features). Returns (the first batch, samples a
+    second at CORPUS_WORKERS)."""
+    from deepfilternet_torch.data.dataloader import DataLoader
+    from deepfilternet_torch.data.dataset import DatasetConfig, FdDataset, TdDataset
+    from deepfilternet_torch.ops.features import erb_feat, spec_feat
+    from deepfilternet_torch.ops.stft import Stft, stft
+
+    cfgs = DatasetConfig.open(os.path.join(root, "dataset.cfg")).split("train")
+    td = TdDataset(root, cfgs, "train", sr=SR, max_len_s=3.0, p_reverb=0.2, seed=42)
+    fd = FdDataset(td, 960, HOP, nb_erb, nb_df)
+    epochs, rates = {}, {}
+    for workers in (1, CORPUS_WORKERS):
+        loader = DataLoader(fd, CORPUS_BATCH, num_workers=workers, drop_last=True)
+        t0 = time.perf_counter()
+        epochs[workers] = list(loader.iter_epoch("train", 0))
+        rates[workers] = len(epochs[workers]) * CORPUS_BATCH / (time.perf_counter() - t0)
+    fields = ("speech", "noisy", "spec_clean", "spec_noisy", "feat_erb", "feat_spec", "lengths",
+              "max_freq", "snr", "gain", "ids")
+    same = len(epochs[1]) == len(epochs[CORPUS_WORKERS]) == len(td) // CORPUS_BATCH and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for a, b in zip(epochs[1], epochs[CORPUS_WORKERS]) for f in fields)
+    first = epochs[CORPUS_WORKERS][0]
+    cfg = Stft(sr=SR, fft_size=960, hop_size=HOP)
+    spec = stft(torch.from_numpy(first.noisy).to(dev), cfg)
+    errs = (float((spec.cpu() - torch.from_numpy(first.spec_noisy)).abs().max()),
+            float((erb_feat(spec, fd.widths, fd.alpha).cpu()
+                   - torch.from_numpy(first.feat_erb)).abs().max()),
+            float((spec_feat(spec, nb_df, fd.alpha).cpu()
+                   - torch.from_numpy(first.feat_spec)).abs().max()))
+    print(f"corpus loader, one epoch of {len(td)} samples x 3 s in batches of {CORPUS_BATCH} "
+          f"(host numpy, {os.cpu_count()} host cores): {rates[1]:.1f} samples/s at 1 worker, "
+          f"{rates[CORPUS_WORKERS]:.1f} at {CORPUS_WORKERS}; batches bit for bit equal: {same}; "
+          f"FdDataset against the port's stft / erb_feat / spec_feat on {smi}: {errs[0]:.2e} "
+          f"(tol 1e-5) / {errs[1]:.2e} (tol 1e-4) / {errs[2]:.2e} (tol 1e-4)")
+    if not (same and errs[0] <= 1e-5 and errs[1] <= 1e-4 and errs[2] <= 1e-4):
+        fail("the corpus loader's batches or features are wrong")
+    return first, rates[CORPUS_WORKERS]
+
+
+@contextlib.contextmanager
+def timed_run_steps():
+    """Each step train() takes: its device time (CUDA events; the step ends
+    in the host's wait for its finite check), its loss, and the host clock
+    at its start and end (between two steps the host waits for the loader
+    and copies the batch to the card)."""
+    from deepfilternet_torch.train import run
+
+    real, log = run.make_train_step, []
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(ts, batch, lr, wd):
+            t0 = time.perf_counter()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ts, met = step(ts, batch, lr, wd)
+            end.record()
+            end.synchronize()
+            log.append({"ms": start.elapsed_time(end), "t0": t0, "t1": time.perf_counter(),
+                        "loss": float(met["loss"])})
+            return ts, met
+
+        return timed
+
+    run.make_train_step = make
+    try:
+        yield log
+    finally:
+        run.make_train_step = real
+
+
+def run_train(label, *args, **kwargs):
+    """train() with its standard output captured and echoed with `label`.
+    Returns (test loss, the lines it printed)."""
+    import io
+
+    from deepfilternet_torch.train.run import train
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, test_loss = train(*args, **kwargs)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"  {label}: {line}")
+    return test_loss, lines
+
+
+def corpus_training_path(card, smi, dev="cuda"):
+    """Phase 10. Returns the launches of K1 and K2 over the train() calls."""
+    from deepfilternet_torch.checkpoint import read_cp, write_cp
+    from deepfilternet_torch.config import config
+    from deepfilternet_torch.data import _native
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.train.run import batch_to_arrays, to_device
+    from deepfilternet_torch.train.trainer import (
+        init_train_state,
+        load_opt_config,
+        make_optimizer,
+        make_train_step,
+    )
+    from scipy.signal import lfilter
+
+    # the native data library: built from native/, never the scipy fallback
+    t0 = time.perf_counter()
+    if not _native.available():
+        fail("native/libdfdata.so did not build (make -C native)")
+    x = np.random.default_rng(3).standard_normal(48000).astype(np.float32)
+    coefs = np.array([[0.2, 0.4, 0.2, 1.0, -0.6, 0.3], [1.0, -1.9, 0.95, 1.0, -1.8, 0.85]])
+    want = x
+    for c in coefs:  # the wrapper's plain version: lfilter a section, float32 between
+        want = lfilter(c[:3] / c[3], [1.0, c[4] / c[3], c[5] / c[3]],
+                       want.astype(np.float64)).astype(np.float32)
+    err = float(np.abs(_native.biquad_chain(x, coefs) - want).max())
+    print(f"native data library built in {time.perf_counter() - t0:.1f} s; biquad_chain of 2 "
+          f"sections on 48000 samples against scipy's lfilter: {err:.2e} (tol 1e-6)")
+    if err > 1e-6:
+        fail("biquad_chain disagrees with lfilter")
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        nbytes = write_corpus(root)
+        print(f"corpus written by the port's prepare_data (no h5py) and read back bit for bit "
+              f"through Hdf5Dataset: " + ", ".join(f"{k} {n} x {s} s" for k, (n, s) in
+                                                   CORPUS.items())
+              + f"; {nbytes / 1e6:.1f} MB of int16 samples, "
+              f"{sum(os.path.getsize(os.path.join(root, f'{k}.hdf5')) for k in CORPUS) / 1e6:.1f}"
+              f" MB of HDF5; {time.perf_counter() - t0:.1f} s wall")
+
+        params, state, cfg, module, df_state = train_model(MODEL_DIR, dev=dev)
+        first, loader_rate = corpus_loader_check(smi, root, cfg["nb_erb"], cfg["nb_df"], dev)
+
+        # the first corpus batch: one step card against CPU, then steps on the
+        # batch held on the card (the train step without the loader)
+        opt_cfg = load_opt_config()
+        lr, wd = opt_cfg["lr"], opt_cfg["weight_decay"]
+        batch = to_device(batch_to_arrays(first), dev)
+        cpu_params, cpu_state, _, _, _ = train_model(MODEL_DIR, dev="cpu")
+        step_vs_cpu("DFN3 first corpus batch", card, module, cfg, df_state, params, state,
+                    cpu_params, cpu_state, batch, lr, wd)
+        step = make_train_step(module, cfg, train_loss(cfg, df_state))
+        ts = init_train_state(params, state, make_optimizer())
+        pre = []
+        for _ in range(PRELOADED_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ts, _ = step(ts, batch, lr, wd)
+            end.record()
+            end.synchronize()
+            pre.append(start.elapsed_time(end))
+
+        # train(): the demo's config and checkpoint (as epoch 0) in base_dir
+        base = os.path.join(root, "run")
+        config.reset()
+        config.load(os.path.join(MODEL_DIR, "config.ini"), allow_reload=True)
+        for section, key, value in CORPUS_TRAIN + TRAIN_LOSS:
+            config.set(key, value, section=section)
+        os.makedirs(base)
+        config.save(os.path.join(base, "config.ini"))
+        demo = read_cp(os.path.join(MODEL_DIR, "checkpoints"), "best")
+        write_cp(os.path.join(base, "checkpoints"), demo["params"], demo["state"], 0,
+                 is_best=True)
+        ds_cfg = os.path.join(root, "dataset.cfg")
+        k1.launches = k2.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with timed_run_steps() as log:
+            test_loss, lines = run_train("train()", ds_cfg, root, base,
+                                         num_workers=CORPUS_WORKERS)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ckpts = sorted(os.listdir(os.path.join(base, "checkpoints")))
+        best = open(os.path.join(base, "checkpoints", ".best")).read().split()
+        summary = os.listdir(os.path.join(base, "summaries", "epoch_1"))
+        n_steps = CORPUS["speech"][0] // CORPUS_BATCH
+        ok = (len(log) == n_steps and np.all(np.isfinite([e["loss"] for e in log]))
+              and np.isfinite(test_loss) and "Resuming from epoch 0" in lines
+              and any(c.startswith("model_1.ckpt") for c in ckpts)
+              and best[:1] == ["1"] and np.isfinite(float(best[1]))
+              and all(any(n.startswith(f"0_{kind}_snr") and n.endswith(".wav") for n in summary)
+                      for kind in ("noisy", "clean", "enh")))
+        print(f"train() from the demo checkpoint (epoch 0) over the corpus on {smi}: epoch 1 in "
+              f"{len(log)} steps [{CORPUS_BATCH}, 3 s], losses {log[0]['loss']:.4f} .. "
+              f"{log[-1]['loss']:.4f}, valid {float(best[1]):.4f}, test {test_loss:.4f}; "
+              f"checkpoints {ckpts}, .best {best}; summaries {sorted(summary)[:3]}...; "
+              f"wall {wall:.1f} s, peak memory {peak:.2f} GiB")
+        if not ok:
+            fail("train() over the corpus did not train, evaluate or write as it should")
+        steps_ms = [e["ms"] for e in log]
+        gaps_ms = [(b["t0"] - a["t1"]) * 1e3 for a, b in zip(log, log[1:])]
+        epoch_s = log[-1]["t1"] - log[0]["t0"]
+        print(f"train() step median {np.median(steps_ms):.2f} ms (min {min(steps_ms):.2f}, max "
+              f"{max(steps_ms):.2f}; CUDA events) against {np.median(pre):.2f} ms on the first "
+              f"batch held on the card ({PRELOADED_STEPS} steps, min {min(pre):.2f}); host time "
+              f"between steps (the loader's wait, batch_to_arrays, the copy to the card) median "
+              f"{np.median(gaps_ms):.2f} ms, max {max(gaps_ms):.2f}; epoch {epoch_s:.2f} s for "
+              f"{len(log) * CORPUS_BATCH} samples ({len(log) * CORPUS_BATCH / epoch_s:.1f} "
+              f"samples/s trained); loader alone {loader_rate:.1f} samples/s at "
+              f"{CORPUS_WORKERS} workers; {smi}")
+
+        # resume: one more epoch, profiled
+        held = {}
+
+        def resume():
+            held["test"], held["lines"] = run_train("train(max_epochs=3)", ds_cfg, root, base,
+                                                    max_epochs=3, num_workers=CORPUS_WORKERS)
+
+        with timed_run_steps() as log2:
+            profile_call(resume, "train(max_epochs=3), one epoch resumed, profiled", smi,
+                         (n_steps + 4) * CORPUS_BATCH * 3.0)
+        epochs = {int(line.split()[1].rstrip(":")) for line in held["lines"]
+                  if line.startswith("epoch ")}
+        resumed = "Resuming from epoch 1" in held["lines"]
+        print(f"resumed: 'Resuming from epoch 1' printed: {resumed}; epochs run "
+              f"{sorted(epochs)}, {len(log2)} steps, test {held['test']:.4f}; train() launches "
+              f"K1 {k1.launches} and K2 {k2.launches} times")
+        if not (resumed and epochs == {2}
+                and len(log2) == n_steps and np.isfinite(held["test"])
+                and os.path.isdir(os.path.join(base, "summaries", "epoch_2"))):
+            fail("train(max_epochs=3) did not resume at epoch 2")
+        if k1.launches or k2.launches:
+            fail(f"train() launched K1 {k1.launches}, K2 {k2.launches} times")
+        return k1.launches, k2.launches
+
+
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
@@ -2083,6 +2386,11 @@ def main():
     # to the kernel path
     k1["trained_dfn3_launches"] = training_path(card, smi, audio)
     print(f"phase 9 (training): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    # K1 and K2 over train(): the corpus training loop reaches neither
+    k1["train_run_launches"], k2["train_run_launches"] = corpus_training_path(card, smi)
+    k2b["train_run_launches"] = k2["train_run_launches"]
+    print(f"phase 10 (corpus training): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

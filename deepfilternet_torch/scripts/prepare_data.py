@@ -1,0 +1,124 @@
+"""Create training HDF5 datasets from audio files, the port's copy of
+`deepfilternet_tpu.scripts.prepare_data`, written by the port's own HDF5
+writer (`data/h5file.py`), so it runs where h5py is not installed.
+
+Reference: df/scripts/prepare_data.py: one HDF5 per corpus with a group per
+content type (speech|noise|rir), root attrs sr/max_freq/codec/dtype/db_name/
+db_id, one gzip-2 dataset per input file with an `n_samples` attr. PCM int16
+or float32 (vorbis/flac *reading* is supported by the data engine through
+the native decoders; encoding is not vendored — store PCM).
+
+The JAX script opens an existing file in mode "a". This one reads an
+existing file, merges the new files into their group (a key written again
+replaces the old one) and rewrites the whole file: every other group,
+dataset and attribute is kept with its values, the root attributes are set
+anew. The new file is written beside the old one and then renamed over it.
+
+Usage:
+    python -m deepfilternet_torch.scripts.prepare_data speech out.hdf5 \
+        file1.wav file2.wav ... [--sr 48000] [--dtype int16]
+    python -m deepfilternet_torch.scripts.prepare_data noise out.hdf5 --glob 'dir/*.wav'
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob as globmod
+import os
+import time
+
+import numpy as np
+
+from deepfilternet_torch.data.h5file import Dataset, Group, H5File, H5Writer
+from deepfilternet_torch.utils.audio_io import load_audio, resample
+
+def sanitize_key(path: str) -> str:
+    return path.strip("/").replace("/", "_").replace("\\", "_")
+
+
+def _copy(src: Group, dst: H5Writer, path: str, skip: set):
+    """Copy a group's attributes and members (but the keys in `skip`) into
+    the writer."""
+    dst.require_group(path)
+    for name, value in src.attrs.items():
+        dst.set_attr(path, name, value)
+    for key in src.keys():
+        if f"{path}/{key}".strip("/") in skip:
+            continue
+        obj = src[key]
+        if isinstance(obj, Dataset):
+            dst.create_dataset(f"{path}/{key}", obj[...], attrs=obj.attrs)
+        else:
+            _copy(obj, dst, f"{path}/{key}", skip)
+
+
+def prepare(
+    content: str,
+    output: str,
+    files: list,
+    sr: int = 48000,
+    dtype: str = "int16",
+    max_freq: int | None = None,
+    mono: bool = False,
+):
+    assert content in ("speech", "noise", "rir")
+    assert dtype in ("int16", "float32")
+    tmp = f"{output}.tmp{os.getpid()}"
+    try:
+        with H5Writer(tmp) as w:
+            keys = [sanitize_key(p) for p in files]
+            if os.path.isfile(output):
+                with H5File(output) as old:
+                    _copy(old["/"], w, "", {f"{content}/{k}" for k in keys})
+            w.set_attr("/", "sr", sr)
+            w.set_attr("/", "max_freq", max_freq or sr // 2)
+            w.set_attr("/", "codec", "pcm")
+            w.set_attr("/", "dtype", dtype)
+            w.set_attr("/", "db_name", os.path.basename(output))
+            w.set_attr("/", "db_id", int(time.time()))
+            w.require_group(content)
+            # a key written twice keeps the later file, as JAX's `del grp[key]`
+            for key, path in dict(zip(keys, files)).items():
+                audio, fsr = load_audio(path)
+                if fsr != sr:
+                    audio = resample(audio, fsr, sr)
+                if mono and audio.shape[0] > 1:
+                    audio = audio.mean(axis=0, keepdims=True)
+                if dtype == "int16":
+                    data = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
+                else:
+                    data = audio.astype(np.float32)
+                # gzip-2 chunks of every channel and one second at 48 kHz
+                w.create_dataset(f"{content}/{key}", data,
+                                 attrs={"n_samples": np.array([audio.shape[-1]])})
+            n_written = len(files)
+        os.replace(tmp, output)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    print(f"Wrote {n_written} {content} samples to {output}")
+    return n_written
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Create a DeepFilterNet HDF5 dataset")
+    parser.add_argument("content", choices=["speech", "noise", "rir"])
+    parser.add_argument("output")
+    parser.add_argument("files", nargs="*")
+    parser.add_argument("--glob", default=None)
+    parser.add_argument("--sr", type=int, default=48000)
+    parser.add_argument("--dtype", default="int16", choices=["int16", "float32"])
+    parser.add_argument("--max-freq", type=int, default=None)
+    parser.add_argument("--mono", action="store_true")
+    args = parser.parse_args(argv)
+    files = list(args.files)
+    if args.glob:
+        files += sorted(globmod.glob(args.glob))
+    if not files:
+        parser.error("no input files")
+    prepare(args.content, args.output, files, sr=args.sr, dtype=args.dtype,
+            max_freq=args.max_freq, mono=args.mono)
+
+
+if __name__ == "__main__":
+    main()
