@@ -87,10 +87,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                batch for batch equal, its features against the port's torch
                stft/erb_feat/spec_feat on the card; the first batch's step
                card vs CPU; train() from the demo checkpoint (as epoch 0) for
-               an epoch, then a resumed epoch under the profiler. Step time
+               an epoch, then a resumed epoch under the profiler, which must
+               start after the newest epoch written (a best one). Step time
                inside train() against a batch held on the card, the host's
                time between steps, busy share, epoch wall, loader samples a
-               second and peak memory are information; K1 and K2 read 0.
+               second and peak memory are information; K1 and K2 read 0;
+ 11. evaluation - 16 seeded (noisy, clean) pairs of 5 s (speech-like, white
+               and babble-like noise at 0-10 dB) scored by eval_dir on the
+               card with DFN3 from the demo checkpoint and every metric (STOI,
+               SI-SDR, SNRseg, fwSNRseg, LLR, WSS, PESQ wb and nb, composite)
+               in a pool of 4 spawned workers, then on the CPU: the enhanced
+               audio and each file's metrics held card against CPU, the CSV;
+               the DNS naming; dnsmos raises; test_df writes goldens into a
+               copy of the demo directory and asserts them on the card and on
+               the CPU; libdf_compat card against CPU; hdf5_tool's five
+               commands on a prepare_data corpus; model_summary. The metric
+               pool's wall at 1 and 4 workers, enhance a file and the scoring
+               rate are information; K1 and K2 read 0.
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
@@ -2224,8 +2237,7 @@ def corpus_training_path(card, smi, dev="cuda"):
         os.makedirs(base)
         config.save(os.path.join(base, "config.ini"))
         demo = read_cp(os.path.join(MODEL_DIR, "checkpoints"), "best")
-        write_cp(os.path.join(base, "checkpoints"), demo["params"], demo["state"], 0,
-                 is_best=True)
+        write_cp(os.path.join(base, "checkpoints"), demo["params"], demo["state"], 0)
         ds_cfg = os.path.join(root, "dataset.cfg")
         k1.launches = k2.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -2264,7 +2276,9 @@ def corpus_training_path(card, smi, dev="cuda"):
               f"samples/s trained); loader alone {loader_rate:.1f} samples/s at "
               f"{CORPUS_WORKERS} workers; {smi}")
 
-        # resume: one more epoch, profiled
+        # resume: one more epoch, profiled; it starts after the newest epoch
+        # written, best or not
+        last = max(int(c.split("_")[1].split(".")[0]) for c in ckpts if c.startswith("model_"))
         held = {}
 
         def resume():
@@ -2276,17 +2290,391 @@ def corpus_training_path(card, smi, dev="cuda"):
                          (n_steps + 4) * CORPUS_BATCH * 3.0)
         epochs = {int(line.split()[1].rstrip(":")) for line in held["lines"]
                   if line.startswith("epoch ")}
-        resumed = "Resuming from epoch 1" in held["lines"]
-        print(f"resumed: 'Resuming from epoch 1' printed: {resumed}; epochs run "
-              f"{sorted(epochs)}, {len(log2)} steps, test {held['test']:.4f}; train() launches "
-              f"K1 {k1.launches} and K2 {k2.launches} times")
-        if not (resumed and epochs == {2}
+        resumed = f"Resuming from epoch {last}" in held["lines"]
+        print(f"resumed after the newest epoch written ({last}; 'Resuming from epoch {last}' "
+              f"printed: {resumed}); epochs run {sorted(epochs)}, {len(log2)} steps, test "
+              f"{held['test']:.4f}; train() launches K1 {k1.launches} and K2 {k2.launches} times")
+        if not (resumed and last == 1 and epochs == {2}
                 and len(log2) == n_steps and np.isfinite(held["test"])
                 and os.path.isdir(os.path.join(base, "summaries", "epoch_2"))):
             fail("train(max_epochs=3) did not resume at epoch 2")
         if k1.launches or k2.launches:
             fail(f"train() launched K1 {k1.launches}, K2 {k2.launches} times")
         return k1.launches, k2.launches
+
+
+# -- phase 11: evaluation ------------------------------------------------------------
+
+# (noisy, clean) pairs of EVAL_SECONDS at 48 kHz under plain names, and
+# EVAL_DNS_PAIRS more under DNS names; the metric pool's workers
+EVAL_PAIRS, EVAL_DNS_PAIRS, EVAL_SECONDS, EVAL_WORKERS = 16, 4, 5.0, 4
+EVAL_METRICS = ("stoi", "sisdr", "snrseg", "fwsnrseg", "llr", "wss", "pesq", "pesq-nb",
+                "composite")
+# card against CPU: each metric of a file within 1e-3 absolute, but the
+# PESQ-based ones and WSS within bounds measured on the CPU: the largest move
+# over these 16 pairs when white noise at 1e-4 of the enhanced audio's
+# largest value (the bound the audio itself is held to) is added to it, six
+# seeds, the demo checkpoint (`PYTHONPATH=. python tests/test_torch_eval.py`):
+# 7.47e-4 (csig) and 3.11e-2 (WSS, whose spectral-slope weights step on small
+# changes of the audio: 2.70e-3 already at 1e-6), rounded up
+PESQ_KEYS = ("pesq_wb", "pesq_nb", "pesq", "csig", "cbak", "covl")
+PESQ_TOL, WSS_TOL = 8e-4, 4e-2
+# the hdf5_tool corpus: clip lengths in seconds (12 clips)
+TOOL_CLIPS = (0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 0.75, 1.25, 1.75, 2.25, 2.75, 3.25)
+
+
+def write_eval_pairs(root):
+    """Seeded pairs written with the port's save_audio: the clean side the
+    script's harmonic-plus-noise speech, the noisy side that plus seeded white
+    and babble-like noise (six other such voices, amplitude-modulated) at
+    0-10 dB SNR. Returns {"noisy", "clean", "dns_noisy", "dns_clean": dir}."""
+    from deepfilternet_torch.utils.audio_io import save_audio
+
+    n = EVAL_PAIRS + EVAL_DNS_PAIRS
+    clean = noisy_speech_like(n, EVAL_SECONDS, seed=300).astype(np.float64)
+    rng = np.random.default_rng(301)
+    t = np.arange(clean.shape[1]) / SR
+    babble = sum(noisy_speech_like(n, EVAL_SECONDS, seed=310 + i)
+                 * (1.0 + np.sin(2 * np.pi * rng.uniform(2.0, 5.0, (n, 1)) * t))
+                 for i in range(6))
+    white = rng.standard_normal(clean.shape)
+    share = rng.uniform(0.0, 1.0, (n, 1))
+    noise = share * white / white.std(1, keepdims=True) + (1 - share) * babble / babble.std(
+        1, keepdims=True)
+    snr = rng.uniform(0.0, 10.0, (n, 1))
+    noisy = clean + noise * np.sqrt((clean ** 2).mean(1, keepdims=True)
+                                    / ((noise ** 2).mean(1, keepdims=True) * 10 ** (snr / 10)))
+    dirs = {k: os.path.join(root, k) for k in ("noisy", "clean", "dns_noisy", "dns_clean")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i in range(n):
+        if i < EVAL_PAIRS:
+            save_audio(os.path.join(dirs["noisy"], f"pair_{i:02d}.wav"), noisy[i], SR)
+            save_audio(os.path.join(dirs["clean"], f"pair_{i:02d}.wav"), clean[i], SR)
+        else:
+            k = 100 + i
+            save_audio(os.path.join(dirs["dns_noisy"], f"synthetic_snr{int(snr[i, 0])}_fileid_{k}"
+                                    ".wav"), noisy[i], SR)
+            save_audio(os.path.join(dirs["dns_clean"], f"clean_fileid_{k}.wav"), clean[i], SR)
+    # files --dns must not pair: no file id, a file id without its clean file
+    save_audio(os.path.join(dirs["dns_noisy"], "no_id.wav"), noisy[0, :SR], SR)
+    save_audio(os.path.join(dirs["dns_noisy"], "synthetic_fileid_9.wav"), noisy[0, :SR], SR)
+    return dirs
+
+
+@contextlib.contextmanager
+def recorded_enhance():
+    """The port's enhance(), each call's output and wall time recorded
+    (evaluation_loop and test_df import it at each call). Its output is on
+    the host, so the device's work is done when it returns."""
+    from deepfilternet_torch import enhance as mod
+
+    real, log = mod.enhance, []
+
+    def record(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        log.append((out, time.perf_counter() - t0))
+        return out
+
+    mod.enhance = record
+    try:
+        yield log
+    finally:
+        mod.enhance = real
+
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output captured; returns (its result or
+    its SystemExit code, the lines it printed)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            res = fn(*args)
+        except SystemExit as e:
+            res = e.code
+    return res, out.getvalue().splitlines()
+
+
+def read_csv(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def eval_dir_runs(smi, dirs, dev):
+    """eval_dir.main over the plain pairs on `dev` and on the CPU, every
+    metric, EVAL_WORKERS workers, a CSV each: means finite, 16 rows and every
+    key; card against CPU the enhanced audio (1e-4 of its largest value) and
+    each file's metrics. Returns the card run's {"wall", "enh", "enh_s"}."""
+    from deepfilternet_torch.scripts import eval_dir
+
+    args = ["-m", MODEL_DIR, "--noisy-dir", dirs["noisy"], "--clean-dir", dirs["clean"],
+            "--metrics", ",".join(EVAL_METRICS), "--workers", str(EVAL_WORKERS)]
+    runs = []
+    for where in (dev, "cpu"):
+        path = os.path.join(os.path.dirname(dirs["noisy"]), f"{where}.csv")
+        with recorded_enhance() as log:
+            t0 = time.perf_counter()
+            means, _ = quiet(eval_dir.main, args + ["--csv", path, "--device", str(where)])
+            wall = time.perf_counter() - t0
+        rows = read_csv(path)
+        runs.append({"means": means, "rows": rows, "wall": wall,
+                     "enh": [o for o, _ in log], "enh_s": [s for _, s in log]})
+        keys = sorted(means)
+        ok = (len(keys) == 13 and all(np.isfinite(v) for v in means.values())
+              and rows[0] == ["file"] + keys and len(rows) == EVAL_PAIRS + 1
+              and all(len(r) == len(keys) + 1 and all(r) for r in rows[1:])
+              and len(log) == EVAL_PAIRS)
+        print(f"eval_dir on {where} ({EVAL_PAIRS} pairs x {EVAL_SECONDS} s, {EVAL_WORKERS} "
+              f"workers): wall {wall:.1f} s; means "
+              + ", ".join(f"{k} {means[k]:.4f}" for k in keys))
+        if not ok:
+            fail(f"eval_dir on {where}: means, CSV or enhance calls are wrong")
+    card, cpu = runs
+    audio_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                    for a, b in zip(card["enh"], cpu["enh"]))
+    keys = card["rows"][0][1:]
+    worst = {k: max(abs(float(a[j]) - float(b[j])) for a, b in zip(card["rows"][1:],
+                                                                    cpu["rows"][1:]))
+             for j, k in enumerate(keys, 1)}
+    tol = {k: PESQ_TOL if k in PESQ_KEYS else WSS_TOL if k == "wss" else 1e-3 for k in keys}
+    bad = [k for k, v in worst.items() if v > tol[k]]
+    print(f"eval_dir card against CPU on {smi}: enhanced audio {audio_err:.2e} of its largest "
+          f"value (tol 1e-4); each file's metrics, largest difference: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" (tol 1e-3; {', '.join(PESQ_KEYS)}: {PESQ_TOL}; wss: {WSS_TOL})")
+    if audio_err > 1e-4 or bad:
+        fail(f"eval_dir on the card disagrees with the CPU: audio {audio_err:.2e}, {bad}")
+    return card
+
+
+def eval_checks(smi, dirs, card):
+    """--dns pairs exactly the DNS files; dnsmos raises; the metric pool's
+    wall at 1 and EVAL_WORKERS workers on the card run's enhanced audio, and
+    at EVAL_WORKERS with one OpenBLAS thread a worker (the spawned workers
+    inherit the environment). Returns {label: metric wall in s}."""
+    from deepfilternet_torch.enhance import DfState
+    from deepfilternet_torch.eval.evaluation import compute_metrics, evaluation_loop
+    from deepfilternet_torch.scripts import eval_dir
+
+    dns = eval_dir.pair_files(dirs["dns_noisy"], dirs["dns_clean"], dns=True)
+    want = sorted(os.path.join(dirs["dns_noisy"], f) for f in os.listdir(dirs["dns_noisy"])
+                  if "snr" in f)
+    means, lines = quiet(eval_dir.main, ["-m", MODEL_DIR, "--noisy-dir", dirs["dns_noisy"],
+                                         "--clean-dir", dirs["dns_clean"], "--dns",
+                                         "--metrics", "sisdr", "--workers", "1", "--device",
+                                         "cpu"])
+    try:
+        compute_metrics(np.ones(SR, np.float32), np.ones(SR, np.float32), SR, ("dnsmos",))
+        dnsmos = False
+    except RuntimeError:
+        dnsmos = True
+    print(f"eval_dir --dns paired {len(dns)} files ({EVAL_DNS_PAIRS} DNS pairs, 2 decoys): "
+          f"{[os.path.basename(n) for n, _ in dns]}, sisdr {means['sisdr']:.4f}; dnsmos raises "
+          f"RuntimeError: {dnsmos}")
+    if [n for n, _ in dns] != want or len(dns) != EVAL_DNS_PAIRS or not dnsmos:
+        fail("eval_dir's DNS pairing or the dnsmos stub is wrong")
+    pairs = eval_dir.pair_files(dirs["noisy"], dirs["clean"])
+    walls = {}
+    for label, workers, blas in (("1 worker", 1, None), (f"{EVAL_WORKERS}", EVAL_WORKERS, None),
+                                 (f"{EVAL_WORKERS} with OPENBLAS_NUM_THREADS=1", EVAL_WORKERS,
+                                  "1")):
+        replay = iter(card["enh"])
+        old = os.environ.get("OPENBLAS_NUM_THREADS")
+        if blas is not None:
+            os.environ["OPENBLAS_NUM_THREADS"] = blas
+        try:
+            t0 = time.perf_counter()
+            means = evaluation_loop(None, DfState(), [n for n, _ in pairs],
+                                    [c for _, c in pairs], metrics=EVAL_METRICS,
+                                    n_workers=workers, enhance_fn=lambda audio: next(replay))
+            walls[label] = time.perf_counter() - t0
+        finally:
+            if old is None:
+                os.environ.pop("OPENBLAS_NUM_THREADS", None)
+            else:
+                os.environ["OPENBLAS_NUM_THREADS"] = old
+        if not all(np.isfinite(v) for v in means.values()):
+            fail(f"evaluation_loop at {label} gave a non-finite mean")
+    return walls
+
+
+def test_df_runs(smi, dirs, dev):
+    """test_df on a copy of the demo directory: goldens written on the card,
+    asserted on the card and on the CPU (each exits 0); each metric's CPU
+    value against the card's golden."""
+    import shutil
+
+    from deepfilternet_torch.scripts import test_df
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "model")
+        shutil.copytree(MODEL_DIR, model)
+        os.remove(os.path.join(model, "golden_metrics.json"))
+        io_args = ["--noisy", os.path.join(dirs["noisy"], "pair_00.wav"),
+                   "--clean", os.path.join(dirs["clean"], "pair_00.wav")]
+        codes = [quiet(test_df.main, [model] + io_args + extra)[0]
+                 for extra in (["--update-golden", "--device", str(dev)],
+                               ["--device", str(dev)], ["--device", "cpu"])]
+        with open(os.path.join(model, "golden_metrics.json")) as f:
+            golden = json.load(f)
+        got = test_df.eval_model(model, *io_args[1::2], device="cpu")
+    diffs = {k: abs(got[k] - golden[k]) for k in got}
+    print(f"test_df on a copy of {MODEL_DIR}: --update-golden on {dev}, then assert on {dev} "
+          f"and on the CPU: exit codes {codes}; CPU against the card's goldens: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()) + f"; {smi}")
+    if codes != [0, 0, 0] or set(got) != set(golden) - {"_pesq_scale"}:
+        fail("test_df did not write and reproduce its goldens")
+
+
+def libdf_compat_check(smi, dev):
+    """libdf_compat on the card against the CPU: DF(48000, 960, 480) analysis
+    and synthesis of 1 s, erb, erb_norm and unit_norm on that spectrum (1e-5;
+    erb in dB plus two float32 ulps of the value), synthesis(analysis(x)) as
+    x delayed by n_fft - hop (1e-4)."""
+    from deepfilternet_torch import libdf_compat as ldf
+
+    x = noisy_speech_like(2, 1.0, seed=320)
+    dfs = {where: ldf.DF(SR, 960, HOP, device=where) for where in (dev, "cpu")}
+    spec = {w: d.analysis(x) for w, d in dfs.items()}
+    widths = dfs["cpu"].erb_widths()
+    out = {w: d.synthesis(spec["cpu"]) for w, d in dfs.items()}
+    erb = {w: ldf.erb(spec["cpu"], widths, device=w) for w in dfs}
+    norm = {w: ldf.erb_norm(erb["cpu"], 0.99, device=w) for w in dfs}
+    unit = {w: ldf.unit_norm(spec["cpu"][..., :96], 0.99, device=w) for w in dfs}
+    errs = {name: float(np.abs(v[dev] - v["cpu"]).max())
+            for name, v in (("analysis", spec), ("synthesis", out), ("erb_norm", norm),
+                            ("unit_norm", unit))}
+    erb_excess = float((np.abs(erb[dev] - erb["cpu"]) - 2.4e-7 * np.abs(erb["cpu"])).max())
+    d = 960 - HOP
+    delay = float(np.abs(dfs[dev].synthesis(spec[dev])[:, d:] - x[:, :-d]).max())
+    types = (spec[dev].dtype == np.complex64 and spec[dev].shape == (2, SR // HOP, 481)
+             and widths.dtype == np.uint64)
+    print(f"libdf_compat on {smi} against the CPU: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol 1e-5); erb beyond 2 ulps {erb_excess:.2e} (tol 1e-5); synthesis(analysis(x)) "
+          f"against x delayed by {d}: {delay:.2e} (tol 1e-4); complex64 / uint64: {types}")
+    if max(errs.values()) > 1e-5 or erb_excess > 1e-5 or delay > 1e-4 or not types:
+        fail("libdf_compat on the card disagrees with the CPU")
+
+
+def hdf5_tool_check(root):
+    """hdf5_tool over a corpus the port's prepare_data writes (12 clips):
+    list; sample (the wav holds Hdf5Dataset.read's clip as save_audio scales
+    it); split 0.8,0.1,0.1 (the key sets partition the corpus, every key bit
+    for bit with its attributes); trim; fix of a copy whose n_samples were
+    written wrong."""
+    from deepfilternet_torch.data.h5file import H5File, H5Writer
+    from deepfilternet_torch.data.hdf5 import Hdf5Dataset
+    from deepfilternet_torch.scripts import hdf5_tool
+    from deepfilternet_torch.scripts.prepare_data import prepare
+    from deepfilternet_torch.utils.audio_io import load_audio, save_audio
+
+    paths = []
+    for i, seconds in enumerate(TOOL_CLIPS):
+        paths.append(os.path.join(root, f"tool_{i:02d}.wav"))
+        save_audio(paths[-1], noisy_speech_like(1, seconds, seed=330 + i)[0], SR)
+    corpus = os.path.join(root, "tool.hdf5")
+    quiet(prepare, "speech", corpus, paths)
+    with H5File(corpus) as f:
+        src = {k: (f["speech"][k][...], dict(f["speech"][k].attrs)) for k in f["speech"].keys()}
+
+    def same(f, k):
+        data, attrs = src[k]
+        d = f["speech"][k]
+        return (d.dtype == data.dtype and np.array_equal(d[...], data)
+                and {a: np.asarray(v).tolist() for a, v in d.attrs.items()}
+                == {a: np.asarray(v).tolist() for a, v in attrs.items()})
+
+    _, listed = quiet(hdf5_tool.main, ["list", corpus, "--max-keys", "12"])
+    key = sorted(src)[3]
+    wav = os.path.join(root, "sample.wav")
+    quiet(hdf5_tool.main, ["sample", corpus, wav, "--key", key])
+    ds = Hdf5Dataset(corpus)
+    clip = ds.read("speech", key)
+    ds.close()
+    got, _ = load_audio(wav)
+    sample_ok = np.array_equal(np.round(got * 32768), np.round(np.clip(clip, -1, 1) * 32767.0))
+    os.makedirs(os.path.join(root, "split"))
+    quiet(hdf5_tool.main, ["split", corpus, os.path.join(root, "split"), "--ratios", "0.8,0.1,0.1"])
+    parts, split_ok = [], True
+    for part in ("train", "valid", "test"):
+        with H5File(os.path.join(root, "split", f"tool_{part}.hdf5")) as f:
+            parts.append(f["speech"].keys())
+            split_ok &= all(same(f, k) for k in parts[-1])
+    keys = [k for p in parts for k in p]
+    split_ok &= sorted(keys) == sorted(src) and [len(p) for p in parts] == [9, 1, 2]
+    trimmed = os.path.join(root, "trim.hdf5")
+    _, trim_lines = quiet(hdf5_tool.main, ["trim", corpus, trimmed, "--max-len-s", "2"])
+    with H5File(trimmed) as f:
+        kept = f["speech"].keys()
+        trim_ok = (sorted(kept) == sorted(k for k in src if src[k][0].shape[-1] <= 2 * SR)
+                   and all(same(f, k) for k in kept))
+    broken = os.path.join(root, "broken.hdf5")
+    with H5Writer(broken) as w, H5File(corpus) as f:
+        for name, value in f.attrs.items():
+            w.set_attr("/", name, value)
+        for i, (k, (data, attrs)) in enumerate(sorted(src.items())):
+            w.create_dataset(f"speech/{k}", data, attrs=dict(
+                attrs, n_ch=1, **({"n_samples": np.array([7])} if i % 2 else {})))
+    _, fix_lines = quiet(hdf5_tool.main, ["fix", broken])
+    with H5File(broken) as f:
+        fix_ok = all(int(f["speech"][k].attrs["n_samples"]) == src[k][0].shape[-1]
+                     and int(f["speech"][k].attrs["n_channels"]) == 1
+                     and "n_ch" not in f["speech"][k].attrs
+                     and np.array_equal(f["speech"][k][...], src[k][0]) for k in src)
+    print(f"hdf5_tool on a {len(src)}-clip corpus from prepare_data: list '{listed[1].strip()}'; "
+          f"sample {key} as save_audio scales Hdf5Dataset.read's clip: {sample_ok}; split "
+          f"{[len(p) for p in parts]}, a partition, bit for bit: {split_ok}; trim "
+          f"'{trim_lines[-1]}', bit for bit: {trim_ok}; fix '{fix_lines[-1]}', n_samples and "
+          f"n_channels right, n_ch gone: {fix_ok}")
+    if not (listed[1].strip().startswith("[speech] 12 keys") and sample_ok and split_ok
+            and trim_ok and fix_ok):
+        fail("hdf5_tool's commands are wrong")
+
+
+def evaluation_path(card, smi, dev="cuda"):
+    """Phase 11. Returns the launches of K1 and K2 over it."""
+    from deepfilternet_torch.checkpoint import read_cp
+    from deepfilternet_torch.enhance import init_df
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.utils.logger import count_params, model_summary
+
+    t_phase = time.perf_counter()
+    k1.launches = k2.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        dirs = write_eval_pairs(root)
+        run = eval_dir_runs(smi, dirs, dev)
+        walls = eval_checks(smi, dirs, run)
+        test_df_runs(smi, dirs, dev)
+        libdf_compat_check(smi, dev)
+        hdf5_tool_check(root)
+    model, _, _ = init_df(MODEL_DIR, device=dev)
+    n_ckpt = sum(np.asarray(v).size for _, v in
+                 named_leaves(read_cp(os.path.join(MODEL_DIR, "checkpoints"), "best")["params"]))
+    print(f"{model_summary(model.params, model.cfg)}; count_params {count_params(model.params)}, "
+          f"the checkpoint's leaves {n_ckpt}")
+    if count_params(model.params) != n_ckpt:
+        fail("count_params disagrees with the checkpoint")
+    phase = time.perf_counter() - t_phase
+    enh = run["enh_s"]
+    scored = EVAL_PAIRS * EVAL_SECONDS
+    print(f"evaluation timings on {smi}: enhance a file ({EVAL_SECONDS} s) median "
+          f"{np.median(enh) * 1e3:.1f} ms (first {enh[0] * 1e3:.1f}, max {max(enh) * 1e3:.1f}); "
+          f"metric pool over {EVAL_PAIRS} files "
+          + ", ".join(f"{v:.2f} s at {k}" for k, v in walls.items()) + "; eval_dir on the card "
+          f"{scored / run['wall']:.1f} audio seconds scored a wall second, the host's metrics "
+          f"(wall less enhance) {1 - sum(enh) / run['wall']:.1%} of its {run['wall']:.1f} s; "
+          f"phase {phase:.1f} s, metric passes {sum(walls.values()) / phase:.1%} of it; "
+          f"K1 launches {k1.launches}, K2 {k2.launches}")
+    if k1.launches or k2.launches:
+        fail(f"evaluation launched K1 {k1.launches}, K2 {k2.launches} times")
+    return k1.launches, k2.launches
 
 
 def hmma_counts(path):
@@ -2391,6 +2779,11 @@ def main():
     k1["train_run_launches"], k2["train_run_launches"] = corpus_training_path(card, smi)
     k2b["train_run_launches"] = k2["train_run_launches"]
     print(f"phase 10 (corpus training): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    # K1 and K2 over the evaluation: the offline enhance reaches neither
+    k1["eval_launches"], k2["eval_launches"] = evaluation_path(card, smi)
+    k2b["eval_launches"] = k2["eval_launches"]
+    print(f"phase 11 (evaluation): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

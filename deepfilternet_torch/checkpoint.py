@@ -1,8 +1,9 @@
 """Checkpoints, and weight transfer into PyTorch tensors.
 
 Both packages store checkpoints as pickles of numpy trees
-(`model_<epoch>.ckpt[.best]` files under a checkpoint directory, the
-reference's layout, df/checkpoint.py:21-188): "params", "state", "epoch",
+(`model_<epoch>.ckpt` files under a checkpoint directory, and a
+`model_<epoch>.ckpt.best` copy of a best epoch: the reference's layout,
+df/checkpoint.py:21-188): "params", "state", "epoch",
 "extra" and, when given, "opt_state". `write_cp` writes that format (the
 port's opt_state is a numpy tree of a torch optimizer's `state_dict()`),
 keeps the newest `keep_n` files and one best; `log_best`, `read_best` and
@@ -94,9 +95,11 @@ def write_cp(
     keep_n: int = 3,
     extra: Optional[Dict] = None,
 ) -> str:
-    """Write `model_<epoch>.ckpt[.best]` (tensors as numpy arrays; pass an
-    optimizer's `state_dict()` as opt_state), then `_cleanup`. Returns the
-    path."""
+    """Write `model_<epoch>.ckpt` (tensors as numpy arrays; pass an
+    optimizer's `state_dict()` as opt_state) and, for a best epoch, the same
+    bytes as `model_<epoch>.ckpt.best`, as the reference does; then
+    `_cleanup`. So `read_cp(..., "latest")` finds every epoch written, best
+    or not. Returns the path of the plain file."""
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "params": _to_numpy(params),
@@ -106,9 +109,11 @@ def write_cp(
     }
     if opt_state is not None:
         payload["opt_state"] = _to_numpy(opt_state)
-    path = os.path.join(ckpt_dir, f"model_{epoch}.ckpt{'.best' if is_best else ''}")
-    with open(path, "wb") as f:
-        pickle.dump(payload, f)
+    path = os.path.join(ckpt_dir, f"model_{epoch}.ckpt")
+    data = pickle.dumps(payload)
+    for name in (path, path + ".best") if is_best else (path,):
+        with open(name, "wb") as f:
+            f.write(data)
     _cleanup(ckpt_dir, keep_n)
     return path
 

@@ -860,3 +860,21 @@ class H5Writer:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def copy_group(src: Group, dst: H5Writer, path: str = "", skip=frozenset()):
+    """Copy a group's attributes and members (but the paths in `skip`,
+    relative to the root and without a leading "/") into the writer at
+    `path`: every dataset with its values, type and attributes, rewritten in
+    the writer's chunks."""
+    dst.require_group(path)
+    for name, value in src.attrs.items():
+        dst.set_attr(path, name, value)
+    for key in src.keys():
+        if f"{path}/{key}".strip("/") in skip:
+            continue
+        obj = src[key]
+        if isinstance(obj, Dataset):
+            dst.create_dataset(f"{path}/{key}", obj[...], attrs=obj.attrs)
+        else:
+            copy_group(obj, dst, f"{path}/{key}", skip)

@@ -29,27 +29,11 @@ import time
 
 import numpy as np
 
-from deepfilternet_torch.data.h5file import Dataset, Group, H5File, H5Writer
+from deepfilternet_torch.data.h5file import H5File, H5Writer, copy_group
 from deepfilternet_torch.utils.audio_io import load_audio, resample
 
 def sanitize_key(path: str) -> str:
     return path.strip("/").replace("/", "_").replace("\\", "_")
-
-
-def _copy(src: Group, dst: H5Writer, path: str, skip: set):
-    """Copy a group's attributes and members (but the keys in `skip`) into
-    the writer."""
-    dst.require_group(path)
-    for name, value in src.attrs.items():
-        dst.set_attr(path, name, value)
-    for key in src.keys():
-        if f"{path}/{key}".strip("/") in skip:
-            continue
-        obj = src[key]
-        if isinstance(obj, Dataset):
-            dst.create_dataset(f"{path}/{key}", obj[...], attrs=obj.attrs)
-        else:
-            _copy(obj, dst, f"{path}/{key}", skip)
 
 
 def prepare(
@@ -69,7 +53,7 @@ def prepare(
             keys = [sanitize_key(p) for p in files]
             if os.path.isfile(output):
                 with H5File(output) as old:
-                    _copy(old["/"], w, "", {f"{content}/{k}" for k in keys})
+                    copy_group(old["/"], w, "", {f"{content}/{k}" for k in keys})
             w.set_attr("/", "sr", sr)
             w.set_attr("/", "max_freq", max_freq or sr // 2)
             w.set_attr("/", "codec", "pcm")

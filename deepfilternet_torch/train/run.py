@@ -68,6 +68,21 @@ def _dump_nan_batch(base_dir, batch, epoch, bi, sr):
                    batch.speech[i], sr)
 
 
+def best_and_patience(ckpt_dir: str, epoch: int, valid_loss: float, patience: int):
+    """(is_best, go_on) after an epoch: the loss is held against the best of
+    the earlier epochs, first by `check_patience` (the count resets on an
+    epoch that beats them all and rises on one that does not), then by the
+    best log, which a best epoch joins (df/train.py: best-if-improved, then
+    patience against the earlier best)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    best = read_best(ckpt_dir)
+    is_best = best is None or valid_loss < best[1]
+    go_on = check_patience(ckpt_dir, patience, valid_loss, maximize=False)
+    if is_best:
+        log_best(ckpt_dir, epoch, valid_loss)
+    return is_best, go_on
+
+
 def _complex(ri: torch.Tensor) -> torch.Tensor:
     return torch.complex(ri[..., 0], ri[..., 1])
 
@@ -313,13 +328,10 @@ def train(
                                epoch, sr, dev)
         valid_loss = run_eval("valid", epoch)
         print(f"epoch {epoch}: valid loss {valid_loss:.4f}")
-        best = read_best(ckpt_dir)
-        is_best = best is None or valid_loss < best[1]
+        is_best, go_on = best_and_patience(ckpt_dir, epoch, valid_loss, patience)
         write_cp(ckpt_dir, ts.params, ts.model_state, epoch, opt_state=None,
                  is_best=is_best)
-        if is_best:
-            log_best(ckpt_dir, epoch, valid_loss)
-        if not check_patience(ckpt_dir, patience, valid_loss, maximize=False):
+        if not go_on:
             print("Early stopping triggered")
             break
         if should_stop:

@@ -127,15 +127,31 @@ def _names(d):
     return sorted(n for n in os.listdir(d) if n.startswith("model_"))
 
 
+def _reference_names(calls, keep_n):
+    """The files the reference keeps after `calls` of (epoch, is_best): every
+    epoch as `model_<e>.ckpt`, the newest `keep_n` of them (all for
+    keep_n <= 0), and a `.best` copy of the newest best epoch."""
+    plain = [e for e, _ in calls]
+    plain = plain[-keep_n:] if keep_n > 0 else plain
+    best = [e for e, b in calls if b][-1:]
+    return sorted([f"model_{e}.ckpt" for e in plain] + [f"model_{e}.ckpt.best" for e in best])
+
+
 def test_cleanup_keeps_newest_and_one_best(tmp_path):
+    """The port writes every epoch as `model_<e>.ckpt` and a best one also as
+    `.best` (the reference; JAX's writer keeps a best epoch only as `.best`),
+    with `_cleanup`'s rules: the newest keep_n plain files and the newest
+    best. The two packages' listings agree once the best is no longer among
+    the newest plain files."""
     params, state = _trees(4)
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
     calls = [(1, False), (2, True), (3, False), (4, False), (5, True), (6, False), (7, False)]
-    for epoch, best in calls:
+    for i, (epoch, best) in enumerate(calls):
         jc.write_cp(jdir, params, state, epoch, is_best=best, keep_n=2)
         tc.write_cp(tdir, params, state, epoch, is_best=best, keep_n=2)
-        assert _names(tdir) == _names(jdir)
-    assert _names(tdir) == ["model_5.ckpt.best", "model_6.ckpt", "model_7.ckpt"]
+        assert _names(tdir) == _reference_names(calls[:i + 1], 2)
+    assert _names(tdir) == _names(jdir) == ["model_5.ckpt.best", "model_6.ckpt",
+                                            "model_7.ckpt"]
     for epoch in range(8, 11):
         jc.write_cp(jdir, params, state, epoch, keep_n=0)
         tc.write_cp(tdir, params, state, epoch, keep_n=0)
@@ -162,3 +178,25 @@ def test_best_and_patience(tmp_path):
                 tc.log_best(tdir, epoch, metric)
             assert tc.read_best(tdir) == jc.read_best(jdir)
     assert tc.read_best(tdir) == (6, 0.5)
+
+
+@pytest.mark.parametrize("calls", [
+    [(0, False), (1, True)],
+    [(0, False), (1, True), (2, False), (3, True)],
+    [(0, True), (1, False), (2, True), (3, True)],
+    [(0, False), (1, False), (2, True), (3, False)],
+])
+def test_latest_is_the_newest_epoch_in_both_readers(tmp_path, calls):
+    """On a directory the port writes, `read_cp(dir, "latest")` of both
+    packages returns the newest epoch written, best or not, with that
+    epoch's weights; "best" the newest best one."""
+    d = str(tmp_path)
+    for epoch, best in calls:
+        params, state = _trees(20 + epoch)
+        tc.write_cp(d, params, state, epoch, is_best=best, keep_n=2)
+    newest, best = calls[-1][0], [e for e, b in calls if b][-1]
+    t_latest, j_latest = tc.read_cp(d, "latest"), jc.read_cp(d, "latest")
+    assert t_latest["epoch"] == j_latest["epoch"] == newest
+    _assert_tree_equal(t_latest["params"], _trees(20 + newest)[0])
+    _assert_tree_equal(jax.tree.map(np.asarray, j_latest["params"]), _trees(20 + newest)[0])
+    assert tc.read_cp(d, "best")["epoch"] == jc.read_cp(d, "best")["epoch"] == best
