@@ -2677,6 +2677,306 @@ def evaluation_path(card, smi, dev="cuda"):
     return k1.launches, k2.launches
 
 
+# -- phase 12: DFN2/DFN1 at bfloat16, the export, the demo trainers -----------------
+
+DEMO_CORPUS = {"clean": (1, 3.0), "noise_flac": (4, 3.0)}  # clips, seconds
+DEMO_BUDGET_S, DEMO_RESUME_S, TRIAL_BUDGET_S = 4.0, 1.0, 2.0
+
+
+def family_bf16(card, smi, model_dir, audio):
+    """A DFN2 or DFN1 checkpoint at bfloat16 on the card: StreamingRuntime(
+    dtype=bfloat16) on the main path's 64 x 2 s (K1 once a frame, counted, and
+    held against its plain version on the first frame) against the same 4
+    streams in bfloat16 on the CPU (0.05) and the card's float32 run
+    (BF16_DRIFT_TOL), its carry's types; ChunkedStreamingRuntime(dtype=
+    bfloat16) against it (BF16_DRIFT_TOL, no K1); out_dtype=bfloat16 once.
+    Returns (family, K1's launches)."""
+    from deepfilternet_torch.enhance import init_df
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.streaming import ChunkedStreamingRuntime, StreamingRuntime
+
+    bf16 = torch.bfloat16
+    model, df_state, suffix = init_df(model_dir)
+    cpu_model, cpu_state, _ = init_df(model_dir, device="cpu")
+    fam = {"dfnet2": "DFN2", "dfnet1": "DFN1"}[model.module.__name__.rsplit(".", 1)[1]]
+    tag = f"{fam} ({model_dir}, {suffix}) bfloat16"
+    s, n_frames = audio.shape[0], audio.shape[1] // HOP
+    rt32 = StreamingRuntime(model, df_state)
+    f32 = rt32.process(rt32.init(s), audio)[1].cpu().numpy()
+
+    rt = StreamingRuntime(model, df_state, dtype=bf16)
+    k1_ratio = k1_first_frame(rt, audio)
+    rt.process(rt.init(s), audio[:, : 5 * HOP])  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    carry, out_dev = rt.process(rt.init(s), audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k1.launches
+    if launches != n_frames or k2.launches:
+        fail(f"{tag} per frame: K1 launches {launches} (want {n_frames}), K2 {k2.launches}")
+    out = out_dev.cpu().numpy()
+    if out.shape != audio.shape or out_dev.dtype != torch.float32 or not np.isfinite(out).all():
+        fail(f"{tag} per-frame output {out.shape} {out_dev.dtype} malformed")
+    kinds = {f: getattr(carry.model, f).dtype for f in carry.model._fields}
+    want = {f: torch.float32 if "ring" in f else bf16 for f in kinds}
+    if kinds != want:
+        fail(f"{tag} carry types {kinds}")
+    cpu_rt = StreamingRuntime(cpu_model, cpu_state, dtype=bf16)
+    ref = cpu_rt.process(cpu_rt.init(4), audio[:4])[1].numpy()
+    e_cpu, e_f32 = scale_err(out[:4], ref), scale_err(out, f32)
+    if not (e_cpu <= 0.05 and e_f32 <= BF16_DRIFT_TOL):
+        fail(f"{tag} per frame: vs the CPU {e_cpu:.3e} (tol 0.05), vs float32 {e_f32:.3e} "
+             f"(tol {BF16_DRIFT_TOL}) of the largest value")
+    print(f"{tag} StreamingRuntime(dtype=bfloat16).process S={s} x {SECONDS} s = {n_frames} "
+          f"frames on {smi}: K1 launches {launches}, {wall:.3f} s wall "
+          f"({wall / n_frames * 1e3:.2f} ms a frame), aggregate RTF {SECONDS * s / wall:.1f}x "
+          f"(information only); vs the same 4 streams in bfloat16 on the CPU {e_cpu:.3e} of the "
+          f"largest value (tol 0.05), vs the card's float32 run {e_f32:.3e} (tol "
+          f"{BF16_DRIFT_TOL}); carry {sum(t == bf16 for t in kinds.values())} bfloat16 leaves, "
+          f"{sum(t == torch.float32 for t in kinds.values())} float32; K1 against its plain "
+          f"version on the first frame {k1_ratio:.3f} x its tolerance")
+    profile_frames(rt, audio[:, : 20 * HOP], smi, label=f"{fam} per-frame")
+
+    crt = ChunkedStreamingRuntime(model, df_state, dtype=bf16)
+    crt.process(crt.init(s), audio[:, : 20 * HOP])  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    c_out = crt.process(crt.init(s), audio)[1].cpu().numpy()
+    c_wall = time.perf_counter() - t0
+    e_pf = scale_err(c_out, out)
+    if k1.launches or k2.launches or not (np.isfinite(c_out).all() and e_pf <= BF16_DRIFT_TOL):
+        fail(f"{tag} chunked: K1 {k1.launches}, K2 {k2.launches} launches, vs per frame "
+             f"{e_pf:.3e} (tol {BF16_DRIFT_TOL})")
+    print(f"{tag} ChunkedStreamingRuntime(dtype=bfloat16) S={s} x {SECONDS} s in chunks of "
+          f"{crt.chunk_frames}: {c_wall:.3f} s wall (information only); vs the per-frame "
+          f"bfloat16 run {e_pf:.3e} of the largest value (tol {BF16_DRIFT_TOL}); K1 and K2 "
+          "launches 0")
+
+    short = audio[:, : 20 * HOP]
+    o_rt = StreamingRuntime(model, df_state, dtype=bf16, out_dtype=bf16)
+    o_b = o_rt.process(o_rt.init(s), short)[1]
+    o_f = rt.process(rt.init(s), short)[1]
+    if o_b.dtype != bf16 or not torch.equal(o_b, o_f.to(bf16)):
+        fail(f"{tag}: out_dtype=bfloat16 is not the bfloat16 model's output cast")
+    print(f"{tag} StreamingRuntime(dtype=out_dtype=bfloat16): the output cast, bit for bit, "
+          "20 frames")
+    return fam, launches
+
+
+def export_path(card, smi, root):
+    """export_model of the DFN3 and DFN2 checkpoints on the card; both
+    programs of each archive played on the card on seeded features against
+    the eager forward and streaming cell on the card (1e-5 of the largest
+    value); init_df(archive) and enhance() on [1, 2 s] against init_df(dir).
+    Returns the K1 and K2 launches over the exports."""
+    from deepfilternet_torch.config import config
+    from deepfilternet_torch.enhance import enhance, init_df
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.scripts.export import export_model, load_exported
+
+    k1.launches = k2.launches = 0
+    x1 = noisy_speech_like(1, SECONDS, seed=12)
+    for model_dir in (MODEL_DIR, FAMILIES[0]):
+        path = os.path.join(root, os.path.basename(model_dir) + ".tar.gz")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            export_model(model_dir, path)
+        wall = time.perf_counter() - t0
+        model, df_state, _ = init_df(model_dir)
+        cfg = model.cfg
+        rng = np.random.default_rng(12)
+        x = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+             for shape in ((1, 10, cfg["freq_bins"], 2), (1, 10, cfg["nb_erb"]),
+                           (1, 10, cfg["nb_df"], 2))]
+        off = load_exported(path, "offline.pt2")
+        cell = load_exported(path, "streaming_cell.pt2")
+        with torch.no_grad():
+            got = off(*x)
+            (spec_e, m, lsnr, _), _ = model.module.forward(model.params, model.state, cfg, *x)
+            e_off = max(scale_err(a.cpu().numpy(), b.cpu().numpy())
+                        for a, b in zip(got, (spec_e, m, lsnr)))
+            carry = ref_carry = model.module.streaming_init(1, cfg, device=model.device)
+            e_cell = 0.0
+            for i in range(3):
+                frame = [a[:, i] for a in x]
+                carry, o = cell(carry, *frame)
+                ref_carry, r = model.module.streaming_cell(model.params, model.state, cfg,
+                                                           ref_carry, *frame)
+                e_cell = max([e_cell] + [scale_err(a.cpu().numpy(), b.cpu().numpy())
+                                         for a, b in zip(list(carry) + list(o),
+                                                         list(ref_carry) + list(r))
+                                         if b.numel()])
+        a_model, a_state, a_suffix = init_df(path)
+        same = enhance(a_model, a_state, x1)
+        direct = enhance(model, df_state, x1)
+        e_arc = scale_err(same, direct)
+        config.reset()
+        if not (e_off <= 1e-5 and e_cell <= 1e-5 and e_arc <= 1e-6
+                and a_model.device.type == "cuda"):
+            fail(f"export of {model_dir}: offline program {e_off:.3e}, cell {e_cell:.3e} "
+                 f"(tol 1e-5), enhance from the archive {e_arc:.3e} (tol 1e-6)")
+        print(f"export_model({model_dir}) on {smi}: {wall:.2f} s wall, archive "
+              f"{os.path.getsize(path) / 2**20:.1f} MiB; offline.pt2 [1, 10 frames] against the "
+              f"eager forward on the card {e_off:.3e}, streaming_cell.pt2 over 3 frames against "
+              f"the eager cell {e_cell:.3e} of the largest value (tol 1e-5); init_df(archive) "
+              f"({a_suffix}) enhance() [1, {SECONDS} s] against init_df(dir) {e_arc:.3e} "
+              "(tol 1e-6)")
+    return k1.launches, k2.launches
+
+
+def write_demo_corpus(root):
+    """The demo trainers' corpus: clean.hdf5 and noise_flac.hdf5, seeded WAVs
+    written by the port's prepare_data."""
+    from deepfilternet_torch.scripts.prepare_data import prepare
+    from deepfilternet_torch.utils.audio_io import save_audio
+
+    rng = np.random.default_rng(300)
+    for name, (n, seconds) in DEMO_CORPUS.items():
+        if name == "clean":
+            clips = noisy_speech_like(n, seconds, seed=301) * 0.5
+        else:
+            t = np.arange(int(seconds * SR)) / SR
+            clips = (rng.standard_normal((n, t.size)) * rng.uniform(0.02, 0.2, (n, 1))
+                     * (1.0 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.1, 2.0, (n, 1)) * t)))
+        paths = []
+        for i, x in enumerate(clips):
+            paths.append(os.path.join(root, f"{name}_{i}.wav"))
+            save_audio(paths[-1], x, SR)
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            prepare("speech" if name == "clean" else "noise",
+                    os.path.join(root, f"{name}.hdf5"), paths)
+
+
+def captured(fn, *args, **kwargs):
+    """fn's standard output as a string (fn's own result dropped)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args, **kwargs)
+    return buf.getvalue()
+
+
+def demo_training_path(card, smi, root, audio):
+    """train_demo on a copy of the DFN3 demo checkpoint over a seeded corpus
+    (DEMO_POOLS=2): the loss falls, a best checkpoint is written and a second
+    call resumes from it; the trained model through StreamingRuntime on the
+    main path's 64 x 2 s (K1 once a frame); overfit_trial writes its
+    checkpoint and SI-SDR line. Returns (K1 and K2 launches over the two
+    trainers, K1's launches on the trained model's per-frame run)."""
+    import re
+    import shutil
+
+    from deepfilternet_torch.checkpoint import read_cp
+    from deepfilternet_torch.config import config
+    from deepfilternet_torch.enhance import init_df
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.scripts import overfit_trial, train_demo
+    from deepfilternet_torch.streaming import StreamingRuntime
+
+    assets = os.path.join(root, "assets")
+    os.makedirs(assets)
+    write_demo_corpus(assets)
+    demo = os.path.join(root, "demo")
+    shutil.copytree(MODEL_DIR, demo)
+    old_env = {k: os.environ.get(k) for k in ("DEMO_ASSETS", "DEMO_POOLS")}
+    os.environ.update(DEMO_ASSETS=assets, DEMO_POOLS="2")
+    k1.launches = k2.launches = 0
+    try:
+        t0 = time.perf_counter()
+        first = captured(train_demo.main, demo, budget_s=DEMO_BUDGET_S)
+        wall = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(os.path.join(demo, "checkpoints")))
+        second = captured(train_demo.main, demo, budget_s=DEMO_RESUME_S)
+    finally:
+        for k, v in old_env.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+    pattern = r"steps (\d+)->(\d+) \(kept (\d+)\), loss ([\d.]+) -> ([\d.]+|inf), ([\d.]+) steps/s"
+    steps, resumed = re.search(pattern, first), re.search(pattern, second)
+    sisdr = re.search(r"train-set si_sdr .*", first)
+    if not (steps and resumed and sisdr):
+        fail(f"train_demo printed no steps or SI-SDR line:\n{first}\n{second}")
+    s0, n, kept, l0, best, rate = (float(v) for v in steps.groups())
+    ok = (n - s0 >= 20 and best < l0 and kept > s0
+          and f"model_{int(kept)}.ckpt.best" in ckpts
+          and f"resumed from step {int(kept)}" in second and "restarting" not in second)
+    print(f"train_demo on a copy of {MODEL_DIR} over a {DEMO_CORPUS} corpus (DEMO_POOLS=2, "
+          f"batch 8 x 3 s) on {smi}: steps {int(s0)}->{int(n)} in {DEMO_BUDGET_S} s of budget "
+          f"({wall:.1f} s wall with the pool), {rate:.2f} steps/s, loss (first 3) {l0:.4f} -> "
+          f"best window {best:.4f} (falls: {best < l0}), kept step {int(kept)}; checkpoints "
+          f"{ckpts}; {sisdr.group(0)}; the second call resumed from step {int(kept)}: "
+          f"{f'resumed from step {int(kept)}' in second}")
+    if not ok:
+        fail(f"train_demo: the loss did not fall, no best checkpoint or no resume:\n{first}\n"
+             f"{second}")
+
+    trial = os.path.join(root, "trial")
+    t0 = time.perf_counter()
+    out = captured(overfit_trial.main, budget_s=TRIAL_BUDGET_S, ckpt_dir=trial,
+                   assets_dir=assets)
+    wall = time.perf_counter() - t0
+    t_steps = re.search(r"steps (\d+)->(\d+), loss ([\d.]+) -> ([\d.]+), ([\d.]+) steps/s", out)
+    t_sisdr = re.search(r"si_sdr noisy=.*", out)
+    payload = read_cp(trial)
+    if not (t_steps and t_sisdr and payload and "opt_state" in payload
+            and payload["epoch"] == int(t_steps.group(2))):
+        fail(f"overfit_trial: no checkpoint with its optimizer state, or no SI-SDR line:\n{out}")
+    print(f"overfit_trial (DFN3 init_model seed 0, batch 8 x 3 s) on {smi}: steps "
+          f"{t_steps.group(1)}->{t_steps.group(2)} in {TRIAL_BUDGET_S} s of budget ({wall:.1f} s "
+          f"wall), {t_steps.group(5)} steps/s, loss {t_steps.group(3)} -> {t_steps.group(4)}; "
+          f"{t_sisdr.group(0)}; checkpoint epoch {payload['epoch']} with its optimizer state")
+    trainer_k1, trainer_k2 = k1.launches, k2.launches
+
+    model, df_state, suffix = init_df(demo)
+    config.reset()
+    rt = StreamingRuntime(model, df_state)
+    s, n_frames = audio.shape
+    n_frames //= HOP
+    k1.launches = 0
+    o = rt.process(rt.init(s), audio)[1].cpu().numpy()
+    trained = k1.launches
+    if trained != n_frames or not np.isfinite(o).all() or suffix != f"e{resumed.group(3)}":
+        fail(f"the demo-trained model ({suffix}) through StreamingRuntime: K1 {trained} "
+             f"(want {n_frames}), finite {np.isfinite(o).all()}")
+    print(f"the demo-trained model (init_df, {suffix}) through StreamingRuntime S={s} x "
+          f"{SECONDS} s: K1 launches {trained} in {n_frames} frames, finite output")
+    return trainer_k1, trainer_k2, trained
+
+
+def families_bf16_export_demo_path(card, smi, audio):
+    """Phase 12. The ASR loss (train/asr_loss.py) is not driven here: the
+    card's machine has no transformers, and so no torch Whisper. Returns the
+    kernels line's entries: {"K1": {...}, "K2": {...}}."""
+    k1e, k2e = {}, {}
+    t0 = time.perf_counter()
+    for model_dir in FAMILIES:
+        fam, launches = family_bf16(card, smi, model_dir, audio)
+        k1e[f"{fam.lower()}_bf16_launches"] = launches
+    t_bf16 = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        k1e["export_launches"], k2e["export_launches"] = export_path(card, smi, root)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (k1e["demo_training_launches"], k2e["demo_training_launches"],
+         k1e["demo_trained_launches"]) = demo_training_path(card, smi, root, audio)
+        t_demo = time.perf_counter() - t0
+    print(f"phase 12 parts on {smi}: DFN2/DFN1 bfloat16 {t_bf16:.1f} s, export "
+          f"{t_export:.1f} s, demo trainers {t_demo:.1f} s; K1 launches over the exports "
+          f"{k1e['export_launches']}, over the trainers {k1e['demo_training_launches']}; K2 "
+          f"{k2e['export_launches']}, {k2e['demo_training_launches']}")
+    if (k1e["export_launches"] or k2e["export_launches"] or k1e["demo_training_launches"]
+            or k2e["demo_training_launches"]):
+        fail("the export or the demo trainers launched a kernel")
+    return {"K1": k1e, "K2": k2e}
+
+
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
@@ -2784,6 +3084,15 @@ def main():
     k1["eval_launches"], k2["eval_launches"] = evaluation_path(card, smi)
     k2b["eval_launches"] = k2["eval_launches"]
     print(f"phase 11 (evaluation): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    # K1 once a frame on DFN2/DFN1 at bfloat16 and on the demo-trained model;
+    # K1 and K2 over the export and the demo trainers, which reach neither
+    entries = families_bf16_export_demo_path(card, smi, audio)
+    k1.update(entries["K1"])
+    k2.update(entries["K2"])
+    k2b.update(entries["K2"])
+    print(f"phase 12 (DFN2/DFN1 bfloat16, export, demo trainers): "
+          f"{time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

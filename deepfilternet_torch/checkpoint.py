@@ -133,8 +133,9 @@ def read_cp(ckpt_dir: str, which: str | int = "latest") -> Optional[Dict]:
     """Load a checkpoint; which: 'best' | 'latest' | epoch int.
 
     Returns {"params", "state", "epoch", "extra"} with numpy trees, and
-    "opt_state" when the file holds a torch optimizer's; None when the
-    directory holds no checkpoint.
+    "opt_state" when the file holds a torch optimizer's ("opt_state_dropped":
+    True when it holds another optimizer's state); None when the directory
+    holds no checkpoint.
     """
     cps = _list_cps(ckpt_dir)
     if not cps:
@@ -155,6 +156,8 @@ def read_cp(ckpt_dir: str, which: str | int = "latest") -> Optional[Dict]:
     opt_state = payload.pop("opt_state", None)
     if isinstance(opt_state, dict) and "param_groups" in opt_state:
         payload["opt_state"] = opt_state
+    elif opt_state is not None:
+        payload["opt_state_dropped"] = True
     return payload
 
 

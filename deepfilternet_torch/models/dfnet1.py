@@ -16,7 +16,8 @@ nearest-neighbour frequency repeat and a stride-1 conv (the reference's
 convkxf "upsample" mode). Three forms, with the JAX package's parameter
 tree: `forward`, `streaming_cell` with its carry `StreamState1` (every
 encoder conv of time kernel 2 keeps its input frame), and `forward_chunk`.
-The runtimes take this family at float32 only (`RUNTIME_DTYPES`).
+The runtimes take this family at float32 and bfloat16 (`RUNTIME_DTYPES`),
+widening a bfloat16 spectrum, mask and DF coefficients where JAX promotes.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 
 from deepfilternet_torch.config import DfParams, config
-from deepfilternet_torch.models.dfnet3 import _inv_fb, _lsnr, _seq_conv, _tree_to
+from deepfilternet_torch.models.dfnet2 import _masked
+from deepfilternet_torch.models.dfnet3 import _complex, _lsnr, _seq_conv, _tree_to
 from deepfilternet_torch.nn import (
     conv2d_norm_act_step,
     conv_transpose2d_norm_act_step,
@@ -40,13 +42,14 @@ from deepfilternet_torch.nn import (
     init_grouped_linear_shuffle,
     init_linear,
     linear_apply,
+    sigmoid,
 )
 from deepfilternet_torch.ops.df_op import deep_filter, deep_filter_offline
 from deepfilternet_torch.ops.erb import erb_fb_matrices, erb_widths
 from deepfilternet_torch.ops.postfilter import post_filter_mask
 
 # model types the streaming runtimes take for this family
-RUNTIME_DTYPES = (torch.float32,)
+RUNTIME_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class ModelParams1(DfParams):
@@ -233,8 +236,7 @@ def _coefs(params, cfg, c, c0p):
     order, nb_df = cfg["df_order"], cfg["nb_df"]
     coefs = torch.tanh(linear_apply(params["df_out"], c))
     coefs = coefs.reshape(b, t, order * 2, nb_df) + c0p.transpose(1, 2)
-    coefs = coefs.reshape(b, t, order, 2, nb_df)
-    return torch.complex(coefs[..., 0, :], coefs[..., 1, :])
+    return _complex(coefs.reshape(b, t, order, 2, nb_df).movedim(-1, -2))
 
 
 def _ri(x: torch.Tensor) -> torch.Tensor:
@@ -261,10 +263,10 @@ def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
                                _embed(params, L, e3, c1))
     lsnr = _lsnr(params, cfg, emb)
     m = _mask(params, L, cfg, conv, emb, e3, e2, e1, e0, train)
-    spec_m = torch.complex(spec[..., 0], spec[..., 1]) * (m @ _inv_fb(cfg, m.device))
+    spec_m = _masked(cfg, spec, m)
 
     c, _ = grouped_gru_apply(params["df_gru"], L["df_gru"], emb)
-    alpha = torch.sigmoid(linear_apply(params["df_fc_a"], c))
+    alpha = sigmoid(linear_apply(params["df_fc_a"], c))
     coefs_c = _coefs(params, cfg, c, conv("df_convp", c0)).transpose(1, 2)  # [B,O,T,F']
     nb_df = cfg["nb_df"]
     if cfg.get("run_df", True):
@@ -354,11 +356,10 @@ def streaming_cell(params: Dict, state: Dict, cfg: Dict, carry: StreamState1,
 
     m = _mask(params, L, cfg, one, emb[:, None], e3[:, :, None], e2[:, :, None],
               e1[:, :, None], e0[:, :, None])[:, 0]
-    spec_c = torch.complex(spec_ri[..., 0], spec_ri[..., 1])
-    spec_m = spec_c * (m @ _inv_fb(cfg, m.device))
+    spec_m = _masked(cfg, spec_ri, m)
 
     df_h, c = grouped_gru_step(params["df_gru"], L["df_gru"], carry.df_gru_h, emb)
-    alpha = torch.sigmoid(linear_apply(params["df_fc_a"], c))
+    alpha = sigmoid(linear_apply(params["df_fc_a"], c))
     coefs_c = _coefs(params, cfg, c[:, None], one("df_convp", c0[:, :, None]))[:, 0]
 
     ring = torch.complex(carry.df_ring_re, carry.df_ring_im)
@@ -426,10 +427,10 @@ def forward_chunk(params: Dict, state: Dict, cfg: Dict, carry: StreamState1,
                                    _embed(params, L, e3, c1), carry.enc_gru_h)
     lsnr = _lsnr(params, cfg, emb)
     m = _mask(params, L, cfg, conv, emb, e3, e2, e1, e0)
-    spec_m = torch.complex(spec[..., 0], spec[..., 1]) * (m @ _inv_fb(cfg, m.device))
+    spec_m = _masked(cfg, spec, m)
 
     c, df_h = grouped_gru_apply(params["df_gru"], L["df_gru"], emb, carry.df_gru_h)
-    alpha = torch.sigmoid(linear_apply(params["df_fc_a"], c))  # [B, T, 1]
+    alpha = sigmoid(linear_apply(params["df_fc_a"], c))  # [B, T, 1]
     coefs_c = _coefs(params, cfg, c, conv("df_convp", c0))  # [B, T, O, F']
 
     ring = torch.complex(carry.df_ring_re, carry.df_ring_im)

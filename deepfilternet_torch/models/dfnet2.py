@@ -11,8 +11,9 @@ JAX package's `models/dfnet2.py`: `forward` over whole utterances,
 `streaming_cell` over one frame with an explicit carry (`StreamState2`), and
 `forward_chunk`, a chunk of frames in the offline form that starts from and
 returns that carry. Streaming needs df_n_iter == 1, the released
-configuration. The runtimes take this family at float32 only
-(`RUNTIME_DTYPES`).
+configuration. The runtimes take this family at float32 and bfloat16
+(`RUNTIME_DTYPES`); at bfloat16 the spectrum, the mask's bin gains and the
+DF coefficients are widened to complex64 where JAX's promotion widens them.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from deepfilternet_torch.nn import (
     init_linear,
     init_squeezed_gru,
     linear_apply,
+    sigmoid,
     squeezed_gru_apply,
     squeezed_gru_step,
 )
@@ -55,7 +57,7 @@ from deepfilternet_torch.ops.erb import erb_fb_matrices, erb_widths
 from deepfilternet_torch.ops.postfilter import post_filter_mask
 
 # model types the streaming runtimes take for this family
-RUNTIME_DTYPES = (torch.float32,)
+RUNTIME_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class ModelParams2(DfParams):
@@ -260,7 +262,7 @@ def _dec_emb(params, L, cfg, emb, h0=None):
 def _df_head(params, cfg, c, emb):
     """The DF GRU's output c [..., H] -> (c with its skip, alpha [..., 1])."""
     c = _df_skip(params, cfg, c, emb)
-    return c, torch.sigmoid(linear_apply(params["df_fc_a"], c))
+    return c, sigmoid(linear_apply(params["df_fc_a"], c))
 
 
 def _coefs(params, cfg, c, c0p):
@@ -291,6 +293,13 @@ def _ri(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([x.real, x.imag], dim=-1)
 
 
+def _masked(cfg, spec_ri, m):
+    """spec_ri [..., F, 2] times the mask's bin gains, complex64: a bfloat16
+    spectrum and mask are widened first, as JAX promotes `re + 1j * im` and
+    a bfloat16 @ float32 product."""
+    return _complex(spec_ri) * (m.float() @ _inv_fb(cfg, m.device))
+
+
 # -- offline forward -------------------------------------------------------------
 
 
@@ -316,7 +325,7 @@ def forward(params: Dict, state: Dict, cfg: Dict, spec: torch.Tensor,
     m = _mask_pathway(conv, demb, e3, e2, e1, e0)  # [B, T, E]
     if cfg["mask_pf"] and not train:
         m = post_filter_mask(m, cfg["pf_beta"])
-    spec_m = torch.complex(spec[..., 0], spec[..., 1]) * (m @ _inv_fb(cfg, m.device))
+    spec_m = _masked(cfg, spec, m)
 
     c, _ = _gru_apply(params, L, "df_gru", cfg, emb)
     c, alpha = _df_head(params, cfg, c, emb)
@@ -421,8 +430,7 @@ def streaming_cell(params: Dict, state: Dict, cfg: Dict, carry: StreamState2,
                       win(e3), win(e2), win(e1), win(e0))[:, 0]  # [B, E]
     if cfg["mask_pf"]:
         m = post_filter_mask(m, cfg["pf_beta"])
-    spec_c = torch.complex(spec_ri[..., 0], spec_ri[..., 1])
-    spec_m = spec_c * (m @ _inv_fb(cfg, m.device))
+    spec_m = _masked(cfg, spec_ri, m)
 
     df_h, c = _gru_step(params, L, "df_gru", cfg, carry.df_gru_h, emb)
     c, alpha = _df_head(params, cfg, c, emb)  # alpha [B, 1]
@@ -489,8 +497,7 @@ def forward_chunk(params: Dict, state: Dict, cfg: Dict, carry: StreamState2,
     m = _mask_pathway(conv, demb, e3, e2, e1, e0)
     if cfg["mask_pf"]:
         m = post_filter_mask(m, cfg["pf_beta"])
-    spec_c = torch.complex(spec[..., 0], spec[..., 1])
-    spec_m = spec_c * (m @ _inv_fb(cfg, m.device))
+    spec_m = _masked(cfg, spec, m)
 
     c, df_h = _gru_apply(params, L, "df_gru", cfg, emb, carry.df_gru_h)
     c, alpha = _df_head(params, cfg, c, emb)  # alpha [B, T, 1]

@@ -406,7 +406,10 @@ def gru_apply(params: Params, x: torch.Tensor, h0: Optional[torch.Tensor] = None
     weights = [lp[k] for lp in layers for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
     weights_grad = torch.is_grad_enabled() and any(w.requires_grad for w in weights)
     train = weights_grad or (torch.is_grad_enabled() and (x.requires_grad or h0.requires_grad))
-    if x.is_cuda and torch._use_cudnn_rnn_flatten_weight():
+    # under tracing (`torch.export`) the weights go in unflattened: a flat
+    # copy made there would be the tracer's placeholder, and cached
+    if (x.is_cuda and torch._use_cudnn_rnn_flatten_weight()
+            and not torch.compiler.is_compiling()):
         flatten = _cudnn_gru_leaves if weights_grad else _cudnn_gru_weights
         weights = flatten(weights, len(layers), hidden)
     out, h_n = torch.ops.aten.gru.input(x, h0.contiguous(), weights, True, len(layers),

@@ -93,9 +93,20 @@ def erb_fb_matrices(
 
 
 @lru_cache(maxsize=None)
+def _erb_fb_tensor_cached(widths: Tuple[int, ...], device: torch.device,
+                          inverse: bool) -> torch.Tensor:
+    return torch.tensor(erb_fb_matrices(widths, normalized=True, inverse=inverse),
+                        device=device)
+
+
 def erb_fb_tensor(widths: Tuple[int, ...], device: torch.device,
                   inverse: bool = False) -> torch.Tensor:
     """`erb_fb_matrices(widths, normalized=True, inverse)` as a tensor on
-    `device`, made once per device."""
-    return torch.tensor(erb_fb_matrices(widths, normalized=True, inverse=inverse),
-                        device=device)
+    `device`, made once per device in eager use. Under tracing
+    (`torch.export`, `torch.compile`) it is made anew and never cached: a
+    tensor made there is the tracer's placeholder, which a later trace or
+    eager call must not find."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(erb_fb_matrices(widths, normalized=True, inverse=inverse),
+                            device=device)
+    return _erb_fb_tensor_cached(widths, device, inverse)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from deepfilternet_torch.nn.layers import _rounded
+
 PI = 3.1415926535897932384626433
 
 
@@ -25,6 +27,10 @@ def post_filter(
 
 
 def post_filter_mask(mask: torch.Tensor, beta: float = 0.02, eps: float = 1e-12) -> torch.Tensor:
-    """Mask form: the same gain curve with g = mask."""
-    mask_sin = mask * torch.sin(PI * mask / 2.0)
-    return (1.0 + beta) * mask / (1.0 + beta * (mask / torch.clamp(mask_sin, min=eps)) ** 2)
+    """Mask form: the same gain curve with g = mask, its constants rounded
+    to the mask's type (a bfloat16 mask: DFN1/DFN2 at bfloat16)."""
+    dt = mask.dtype
+    mask_sin = mask * torch.sin(_rounded(PI, dt) * mask / 2.0)
+    return (_rounded(1.0 + beta, dt) * mask
+            / (1.0 + _rounded(beta, dt)
+               * (mask / torch.clamp(mask_sin, min=_rounded(eps, dt))) ** 2))

@@ -21,7 +21,8 @@ values), and runs the model on the features cast to bfloat16; the frontend,
 the norms, the runtime stages and the synthesis stay float32. `out_dtype`
 casts only the synthesized output (a capacity knob: bfloat16 halves the
 output buffer). The model types a family takes are its module's
-`RUNTIME_DTYPES`: DFN3 both, DFN2 and DFN1 float32 (any other raises).
+`RUNTIME_DTYPES`: DFN3, DFN2 and DFN1 float32 and bfloat16; DeepFilterNet-MF
+none (it has no streaming form); any other type raises.
 
 API:
     rt = StreamingRuntime(model, df_state)       # from enhance.init_df
@@ -101,14 +102,13 @@ def _cast_floats(tree, dtype: torch.dtype):
 class StreamingRuntime:
     def __init__(self, model, df_state, params: RuntimeParams = RuntimeParams(),
                  dtype: torch.dtype = torch.float32, out_dtype: torch.dtype = None):
-        # the model types each family's cell is held to JAX at: DFN3 float32
-        # and bfloat16, DFN1/DFN2 float32; DeepFilterNet-MF has no cell
+        # the model types each family's cell is held to JAX at: DFN3, DFN2
+        # and DFN1 float32 and bfloat16; DeepFilterNet-MF has no cell
         taken = getattr(model.module, "RUNTIME_DTYPES", ())
         if dtype not in taken:
             raise NotImplementedError(
                 f"dtype {dtype}: the streaming runtimes take {_module_name(model.module)} at "
-                f"{' or '.join(map(str, taken)) or 'no type (it has no streaming form)'} "
-                "(ROADMAP: the other families at bfloat16)")
+                f"{' or '.join(map(str, taken)) or 'no type (it has no streaming form)'}")
         if out_dtype is not None and not out_dtype.is_floating_point:
             raise ValueError(f"out_dtype must be a floating type, got {out_dtype}")
         self.dtype = dtype

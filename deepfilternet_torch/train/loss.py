@@ -6,8 +6,9 @@ with the same config sections, keys and defaults ([MaskLoss],
 [DfAlphaLoss], [train] TD_LOSS_ISTFT). Autograd differentiates them; the
 one custom gradient is `safe_angle`'s.
 
-ASRLoss (Whisper-embedding distillation) is not ported: `Loss` raises
-`NotImplementedError` when [ASRLoss] factor > 0 or a model is passed.
+ASRLoss (Whisper-embedding distillation, `train/asr_loss.py`) joins when
+[ASRLoss] factor > 0 or a Whisper model is passed; it needs local torch
+Whisper weights ([ASRLoss] MODEL), which are not vendored.
 """
 
 from __future__ import annotations
@@ -308,9 +309,19 @@ class Loss:
         self.td_istft = c("TD_LOSS_ISTFT", "torch", str, section="train")
         if self.td_istft not in ("torch", "exact"):
             raise ValueError(f"TD_LOSS_ISTFT must be 'torch' or 'exact', not {self.td_istft!r}")
-        if c("factor", 0.0, float, section="ASRLoss") > 0 or asr_model is not None:
-            raise NotImplementedError(
-                "ASRLoss is not ported (ROADMAP.md section 1, training: train/asr_loss.py)")
+        asrl_f = c("factor", 0.0, float, section="ASRLoss")
+        self.asr_loss = None
+        if asrl_f > 0 or asr_model is not None:
+            from deepfilternet_torch.train.asr_loss import ASRLoss
+
+            self.asr_loss = ASRLoss(
+                sr=stft_cfg.sr,
+                factor=asrl_f,
+                factor_lm=c("factor_lm", 1.0, float, section="ASRLoss"),
+                loss_lm=c("loss_lm", "CrossEntropy", str, section="ASRLoss"),
+                model=c("model", "", str, section="ASRLoss"),
+                whisper_model=asr_model,
+            )
 
     def __call__(
         self,
@@ -350,7 +361,7 @@ class Loss:
                 enhanced, clean, gamma=self.sl_gamma, factor_magnitude=self.sl_fm,
                 factor_complex=self.sl_fc, factor_under=self.sl_fu,
             )
-        if self.mrsl_f > 0 or self.sdrl_f != 0:
+        if self.mrsl_f > 0 or self.sdrl_f != 0 or self.asr_loss is not None:
             if self.td_istft == "torch":
                 win = _window_tensor(p.fft_size, dev)
                 enhanced_td = loss_istft(enhanced, p.fft_size, p.hop_size, win)
@@ -376,6 +387,8 @@ class Loss:
                 df_alpha, lsnr_gt, factor=self.dfalpha_f,
                 lsnr_thresh=self.dfalpha_thresh, lsnr_min=self.dfalpha_min,
             )
+        if self.asr_loss is not None:
+            losses["asr"] = self.asr_loss(enhanced_td, clean_td)
         total = clean.real.new_zeros(())
         for v in losses.values():
             total = total + v

@@ -15,7 +15,7 @@
     offline and scan, `StreamingRuntime` (against JAX's with
     `use_pallas=True`) and `ChunkedStreamingRuntime` at 1e-4, mask-only
     against JAX's `init_df(mask_only=True)`, the CLI within one int16 step;
-  * the runtimes this family is not taken by (bfloat16, the whole cell)
+  * the runtimes this family is not taken by (float16, the whole cell)
     raise NotImplementedError.
 """
 
@@ -194,8 +194,11 @@ def test_fixture_cli_matches_jax_cli(tmp_path):
 
 def test_fixture_refused_by_bf16_and_whole_cell_runtimes(fixture):
     _, _, tm, td = fixture
+    # bfloat16 is taken since the family's cell is held to JAX's at it
+    # (tests/test_torch_families_bf16.py); any other reduced type is not
     for cls in (StreamingRuntime, ChunkedStreamingRuntime):
+        assert cls(tm, td, dtype=torch.bfloat16).dtype == torch.bfloat16
         with pytest.raises(NotImplementedError, match="dfnet1"):
-            cls(tm, td, dtype=torch.bfloat16)
+            cls(tm, td, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="DeepFilterNet3 only"):
         WholeCellStreamingRuntime(tm, td, matmul_dtype=torch.float32, backend="plain")

@@ -216,15 +216,18 @@ def test_loss_aggregator(name):
 
 
 def test_asr_loss_is_refused():
+    """ASRLoss without Whisper weights is refused, as JAX's: none named, or
+    a path that does not exist (the loss itself: test_torch_asr_loss.py)."""
     t_config.reset()
     t_config.set("factor", "1", section="ASRLoss")
     try:
         with pytest.raises(NotImplementedError, match="ASRLoss"):
             tl.Loss(t_stft.Stft(48000, 960, 480), WIDTHS, 96, (-15, 35))
+        t_config.set("model", "/nonexistent/whisper", section="ASRLoss")
+        with pytest.raises(NotImplementedError, match="ASRLoss"):
+            tl.Loss(t_stft.Stft(48000, 960, 480), WIDTHS, 96, (-15, 35))
     finally:
         t_config.reset()
-    with pytest.raises(NotImplementedError, match="ASRLoss"):
-        tl.Loss(t_stft.Stft(48000, 960, 480), WIDTHS, 96, (-15, 35), asr_model=object())
 
 
 @pytest.mark.parametrize("n_fft", [256, 960])
