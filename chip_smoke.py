@@ -104,6 +104,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                commands on a prepare_data corpus; model_summary. The metric
                pool's wall at 1 and 4 workers, enhance a file and the scoring
                rate are information; K1 and K2 read 0.
+ 12. DFN2/DFN1 at bfloat16, export, demo trainers - the per-frame and
+               chunked bfloat16 runtimes of both families against the CPU (K1
+               once a frame); scripts/export (torch.export) against eager;
+               train_demo and overfit_trial over a seeded corpus; K1 and K2
+               read 0 over the export and the trainers.
+ 13. newer HDF5 formats - the corpus h5py wrote with libver="latest"
+               (deepfilternet_torch/data/testdata/: superblock 3, version-2
+               object headers, fractal heaps, v2 B-trees, fixed-array chunk
+               indexes, a noise group in creation order) read through H5File
+               and Hdf5Dataset bit for bit against its MANIFEST.json, without
+               h5py; each file copied into h5py's default format by H5Writer
+               and both read back equal (read rates as information);
+               hdf5_tool list, split and trim; prepare_data merging two WAVs
+               into a copy; one loader epoch over each format, batches equal;
+               the first batch's train step card vs CPU, train() for one
+               epoch from the demo checkpoint and read_cp after it; K1 and K2
+               read 0; at most 60 s.
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
@@ -2977,6 +2994,284 @@ def families_bf16_export_demo_path(card, smi, audio):
     return {"K1": k1e, "K2": k2e}
 
 
+# -- phase 13: a corpus in the newer HDF5 formats ------------------------------------
+
+# the corpus h5py wrote with libver="latest" (tests/test_torch_h5file_latest.py
+# ::write_latest_corpus): superblock 3, version-2 object headers, dense links
+# and attributes (fractal heaps, v2 B-trees), fixed-array chunk indexes, a
+# noise group in creation order
+LATEST_DIR = os.path.join("deepfilternet_torch", "data", "testdata")
+LATEST_FILES = ("speech.hdf5", "noise.hdf5", "rir.hdf5")
+# the demo's config.ini with these keys and the loss stack of phase 9: one
+# epoch (epoch 1 after the checkpoint as epoch 0) of [8, 1 s] batches over
+# the 16 speech clips
+LATEST_TRAIN = (("train", "MAX_EPOCHS", "2"), ("train", "BATCH_SIZE", "8"),
+                ("train", "MAX_SAMPLE_LEN_S", "1"), ("distortion", "p_reverb", "0.2"))
+LATEST_WORKERS, LATEST_BATCH, LATEST_ROUNDS = 1, 8, 3
+LATEST_PHASE_S = 60.0
+
+
+def read_all(path):
+    """{group/key: the int16 array} of every dataset of a corpus file,
+    through H5File."""
+    from deepfilternet_torch.data.h5file import H5File
+
+    with H5File(path) as f:
+        return {f"{g}/{k}": f[g][k][...] for g in f["/"].keys() for k in f[g].keys()}
+
+
+def latest_read_check(root, manifest):
+    """Every key of the committed files through H5File (shape and sha256 of
+    the int16 bytes as the manifest gives them) and through Hdf5Dataset
+    (the same samples as float); the groups' keys in h5py's order, the noise
+    group's in creation order. Returns the int16 bytes read."""
+    import hashlib
+
+    from deepfilternet_torch.data.h5file import H5File
+    from deepfilternet_torch.data.hdf5 import Hdf5Dataset
+
+    nbytes = 0
+    for name, groups in manifest.items():
+        path = os.path.join(root, name)
+        ds = Hdf5Dataset(path)
+        with H5File(path) as f:
+            for g, entry in groups.items():
+                if f[g].keys() != entry["order"]:
+                    fail(f"{name}: {g}'s keys {f[g].keys()} are not h5py's {entry['order']}")
+                for k, want in entry["keys"].items():
+                    data = f[g][k][...]
+                    if (list(data.shape) != want["shape"] or data.dtype != np.int16
+                            or hashlib.sha256(data.tobytes()).hexdigest() != want["sha256"]
+                            or not np.array_equal(ds.read(g, k), data.astype(np.float32) / 32768)):
+                        fail(f"{name}: {g}/{k} does not read back as its manifest says")
+                    nbytes += data.nbytes
+        ds.close()
+    order = manifest["noise.hdf5"]["noise"]["order"]
+    print(f"latest-format corpus ({LATEST_DIR}: superblock 3, dense links and attributes, "
+          f"fixed-array chunk indexes) through H5File and Hdf5Dataset: "
+          + ", ".join(f"{n} {sum(len(e['keys']) for e in g.values())} keys"
+                      for n, g in manifest.items())
+          + f", {nbytes / 1e6:.2f} MB of int16 samples, every key's sha256 as the manifest's; "
+          f"noise in creation order {order[:4]}... (by name {sorted(order)[:4]}...)")
+    return nbytes
+
+
+def latest_copies(root, copies, nbytes):
+    """Each file copied into h5py's default format by the port's H5Writer
+    (copy_group) and both read back equal; the read rate of each format (MB
+    of int16 samples a second through H5File, best of LATEST_ROUNDS rounds
+    in turns) as information."""
+    from deepfilternet_torch.data.h5file import H5File, H5Writer, copy_group
+
+    os.makedirs(copies)
+    for name in LATEST_FILES:
+        with H5File(os.path.join(root, name)) as src, \
+                H5Writer(os.path.join(copies, name)) as dst:
+            copy_group(src["/"], dst)
+        a, b = read_all(os.path.join(root, name)), read_all(os.path.join(copies, name))
+        with H5File(os.path.join(root, name)) as f, H5File(os.path.join(copies, name)) as g:
+            attrs_same = ({k: np.asarray(v).tolist() for k, v in f.attrs.items()}
+                          == {k: np.asarray(v).tolist() for k, v in g.attrs.items()})
+        if not (attrs_same and a.keys() == b.keys()
+                and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)):
+            fail(f"{name}: the default-format copy does not read back as the latest-format file")
+        with open(os.path.join(copies, name), "rb") as f:
+            if f.read(9)[8] != 0:
+                fail(f"{name}: the copy is not in h5py's default format (superblock 0)")
+    best = {"latest": float("inf"), "default": float("inf")}
+    for _ in range(LATEST_ROUNDS):
+        for tag, d in (("latest", root), ("default", copies), ("default", copies),
+                       ("latest", root)):
+            t0 = time.perf_counter()
+            for name in LATEST_FILES:
+                read_all(os.path.join(d, name))
+            best[tag] = min(best[tag], time.perf_counter() - t0)
+    rates = {k: nbytes / v / 1e6 for k, v in best.items()}
+    print(f"the corpus copied into h5py's default format (superblock 0, symbol tables, v1 "
+          f"B-trees) by H5Writer / copy_group: every key, dtype and attribute equal; a whole "
+          f"read through H5File (host, {os.cpu_count()} cores), best of {LATEST_ROUNDS} in "
+          f"turns: latest format {rates['latest']:.1f} MB/s of int16 samples, default format "
+          f"{rates['default']:.1f} MB/s")
+    return rates
+
+
+def latest_tool_check(root, manifest):
+    """hdf5_tool list, split and trim over the latest-format speech file:
+    the key count listed; the splits a partition of the keys, each bit for
+    bit; trim keeps the clips no longer than its bound, bit for bit."""
+    from deepfilternet_torch.data.h5file import H5File
+    from deepfilternet_torch.scripts import hdf5_tool
+
+    src = os.path.join(root, "speech.hdf5")
+    whole = read_all(src)
+    n = len(manifest["speech.hdf5"]["speech"]["keys"])
+    _, listed = quiet(hdf5_tool.main, ["list", src, "--max-keys", "3"])
+    out = os.path.join(root, "split")
+    os.makedirs(out)
+    quiet(hdf5_tool.main, ["split", src, out, "--ratios", "0.75,0.125,0.125"])
+    parts = [read_all(os.path.join(out, f"speech_{p}.hdf5")) for p in ("train", "valid", "test")]
+    keys = [k for p in parts for k in p]
+    split_ok = (sorted(keys) == sorted(whole) and [len(p) for p in parts] == [12, 2, 2]
+                and all(np.array_equal(v, whole[k]) for p in parts for k, v in p.items()))
+    trimmed = os.path.join(root, "trim.hdf5")
+    _, trim_lines = quiet(hdf5_tool.main, ["trim", src, trimmed, "--max-len-s", "0.75"])
+    kept = read_all(trimmed)
+    trim_ok = (sorted(kept) == sorted(k for k, v in whole.items() if v.shape[-1] <= 0.75 * SR)
+               and 0 < len(kept) < n and all(np.array_equal(v, whole[k]) for k, v in kept.items()))
+    with H5File(trimmed) as f, H5File(src) as g:
+        trim_ok &= ({k: np.asarray(v).tolist() for k, v in f.attrs.items()}
+                    == {k: np.asarray(v).tolist() for k, v in g.attrs.items()})
+    print(f"hdf5_tool on the latest-format speech file: list '{listed[1].strip()}'; split "
+          f"{[len(p) for p in parts]}, a partition, bit for bit: {split_ok}; trim "
+          f"'{trim_lines[-1]}', bit for bit: {trim_ok}")
+    if not (listed[1].strip().startswith(f"[speech] {n} keys") and split_ok and trim_ok):
+        fail("hdf5_tool over the latest-format corpus is wrong")
+
+
+def latest_merge_check(root):
+    """prepare_data merges two new seeded WAVs into a copy of the
+    latest-format speech file (rewritten in the writer's format): every old
+    key as it was, the new ones as prepare_data stores them."""
+    import shutil
+
+    from deepfilternet_torch.scripts.prepare_data import prepare, sanitize_key
+    from deepfilternet_torch.utils.audio_io import load_audio, save_audio
+
+    merged = os.path.join(root, "merged.hdf5")
+    shutil.copy(os.path.join(root, "speech.hdf5"), merged)
+    old = read_all(merged)
+    wavs = []
+    for i in range(2):
+        wavs.append(os.path.join(root, f"merge_{i}.wav"))
+        save_audio(wavs[-1], noisy_speech_like(1, 0.6, seed=1300 + i)[0], SR)
+    quiet(prepare, "speech", merged, wavs)
+    got = read_all(merged)
+    new = {}
+    for p in wavs:
+        audio, _ = load_audio(p)
+        new[f"speech/{sanitize_key(p)}"] = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
+    ok = (got.keys() == old.keys() | new.keys()
+          and all(np.array_equal(got[k], v) for k, v in {**old, **new}.items()))
+    print(f"prepare_data merged 2 seeded WAVs into a copy of the latest-format speech file: "
+          f"{len(got)} keys, the {len(old)} old and 2 new bit for bit: {ok}")
+    if not ok:
+        fail("prepare_data's merge into the latest-format corpus is wrong")
+
+
+def latest_dataset_cfg(d):
+    files = [[n, 1] for n in LATEST_FILES]
+    with open(os.path.join(d, "dataset.cfg"), "w") as f:
+        json.dump({"train": files, "valid": files, "test": files}, f)
+    return os.path.join(d, "dataset.cfg")
+
+
+def latest_loader_check(root, copies, nb_erb, nb_df):
+    """One epoch of DataLoader(FdDataset(TdDataset)) at LATEST_WORKERS over
+    the latest-format files and over their default-format copies, in turns
+    (latest, default, default, latest): every epoch's batches bit for bit
+    equal. Returns the first batch."""
+    from deepfilternet_torch.data.dataloader import DataLoader
+    from deepfilternet_torch.data.dataset import DatasetConfig, FdDataset, TdDataset
+
+    runs = []
+    for tag, d in (("latest", root), ("default", copies), ("default", copies),
+                   ("latest", root)):
+        cfgs = DatasetConfig.open(latest_dataset_cfg(d)).split("train")
+        td = TdDataset(d, cfgs, "train", sr=SR, max_len_s=1.0, p_reverb=0.2, seed=42)
+        loader = DataLoader(FdDataset(td, 960, HOP, nb_erb, nb_df), LATEST_BATCH,
+                            num_workers=LATEST_WORKERS, drop_last=True)
+        t0 = time.perf_counter()
+        runs.append((tag, list(loader.iter_epoch("train", 0)), time.perf_counter() - t0))
+    fields = ("speech", "noisy", "spec_clean", "spec_noisy", "feat_erb", "feat_spec", "lengths",
+              "max_freq", "snr", "gain", "ids")
+    first = runs[0][1]
+    same = len(first) == len(td) // LATEST_BATCH > 0 and all(
+        len(epoch) == len(first) and all(np.array_equal(getattr(a, f), getattr(b, f))
+                                         for a, b in zip(first, epoch) for f in fields)
+        for _, epoch, _ in runs[1:])
+    print(f"one epoch of DataLoader(FdDataset(TdDataset)) at {LATEST_WORKERS} worker, "
+          f"{len(first)} batches of {LATEST_BATCH} x 1 s, in turns: "
+          + ", ".join(f"{tag} {wall:.2f} s" for tag, _, wall in runs)
+          + f"; batches bit for bit equal across the formats: {same}")
+    if not same:
+        fail("the loader's batches differ between the two formats")
+    return first[0]
+
+
+def latest_corpus_path(card, smi, dev="cuda"):
+    """Phase 13. Returns the launches of K1 and K2 over it."""
+    import shutil
+
+    from deepfilternet_torch.checkpoint import read_cp, write_cp
+    from deepfilternet_torch.config import config
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.train.run import batch_to_arrays, to_device
+    from deepfilternet_torch.train.trainer import load_opt_config
+
+    t_phase = time.perf_counter()
+    k1.launches = k2.launches = 0
+    with open(os.path.join(LATEST_DIR, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "latest")  # the loader writes key caches beside a corpus
+        shutil.copytree(LATEST_DIR, root)
+        nbytes = latest_read_check(root, manifest)
+        copies = os.path.join(tmp, "default")
+        latest_copies(root, copies, nbytes)
+        latest_tool_check(root, manifest)
+        latest_merge_check(root)
+
+        params, state, cfg, module, df_state = train_model(MODEL_DIR, dev=dev)
+        first = latest_loader_check(root, copies, cfg["nb_erb"], cfg["nb_df"])
+        opt_cfg = load_opt_config()
+        cpu_params, cpu_state, _, _, _ = train_model(MODEL_DIR, dev="cpu")
+        step_vs_cpu("DFN3 first latest-format corpus batch", card, module, cfg, df_state, params,
+                    state, cpu_params, cpu_state, to_device(batch_to_arrays(first), dev),
+                    opt_cfg["lr"], opt_cfg["weight_decay"])
+
+        # train(): the demo's config and checkpoint (as epoch 0), one epoch
+        base = os.path.join(tmp, "run")
+        config.reset()
+        config.load(os.path.join(MODEL_DIR, "config.ini"), allow_reload=True)
+        for section, key, value in LATEST_TRAIN + TRAIN_LOSS:
+            config.set(key, value, section=section)
+        os.makedirs(base)
+        config.save(os.path.join(base, "config.ini"))
+        demo = read_cp(os.path.join(MODEL_DIR, "checkpoints"), "best")
+        write_cp(os.path.join(base, "checkpoints"), demo["params"], demo["state"], 0)
+        t0 = time.perf_counter()
+        with timed_run_steps() as log:
+            test_loss, lines = run_train("train()", latest_dataset_cfg(root), root, base,
+                                         num_workers=LATEST_WORKERS, device=dev)
+        wall = time.perf_counter() - t0
+        resumed = read_cp(os.path.join(base, "checkpoints"), "latest")
+        ckpts = sorted(os.listdir(os.path.join(base, "checkpoints")))
+        n_steps = len(manifest["speech.hdf5"]["speech"]["keys"]) // LATEST_BATCH
+        finite = all(np.isfinite(np.asarray(v)).all() for _, v in named_leaves(resumed["params"]))
+        ok = (len(log) == n_steps and np.all(np.isfinite([e["loss"] for e in log]))
+              and np.isfinite(test_loss) and "Resuming from epoch 0" in lines
+              and any(c.startswith("model_1.ckpt") for c in ckpts)
+              and resumed["epoch"] == 1 and finite)
+        print(f"train() from the demo checkpoint (epoch 0) over the latest-format corpus on {smi}: "
+              f"{len(log)} steps [{LATEST_BATCH}, 1 s], losses "
+              + ", ".join(f"{e['loss']:.4f}" for e in log)
+              + f", step median {np.median([e['ms'] for e in log]):.2f} ms (CUDA events); test "
+              f"{test_loss:.4f}; checkpoints {ckpts}; read_cp('latest') resumes after epoch "
+              f"{resumed['epoch']}, its weights finite: {finite}; wall {wall:.1f} s")
+        if not ok:
+            fail("train() over the latest-format corpus did not train, write or resume as it "
+                 "should")
+    phase = time.perf_counter() - t_phase
+    print(f"phase 13 on {smi}: {phase:.1f} s wall (bound {LATEST_PHASE_S:.0f} s); K1 launches "
+          f"{k1.launches}, K2 {k2.launches}")
+    if k1.launches or k2.launches:
+        fail(f"phase 13 launched K1 {k1.launches}, K2 {k2.launches} times")
+    if phase > LATEST_PHASE_S:
+        fail(f"phase 13 took {phase:.1f} s, more than {LATEST_PHASE_S:.0f} s")
+    return k1.launches, k2.launches
+
+
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
@@ -3093,6 +3388,11 @@ def main():
     k2b.update(entries["K2"])
     print(f"phase 12 (DFN2/DFN1 bfloat16, export, demo trainers): "
           f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    # K1 and K2 over the corpus in the newer HDF5 formats, which reaches neither
+    k1["latest_corpus_launches"], k2["latest_corpus_launches"] = latest_corpus_path(card, smi)
+    k2b["latest_corpus_launches"] = k2["latest_corpus_launches"]
+    print(f"phase 13 (corpus in the newer HDF5 formats): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

@@ -11,25 +11,46 @@ and the reference's corpora use:
     a local heap);
   * contiguous, compact and chunked data layouts (layout message version 3),
     the chunks indexed by a v1 B-tree of any depth;
+
+and what it writes with `libver="latest"` (or "v108" and later), and for
+`track_order=True`, over the structures of `data/h5v2.py`:
+
+  * superblock version 2 or 3, under its lookup3 checksum;
+  * version-2 object headers ("OHDR", "OCHK" continuation blocks; times,
+    phase-change values, creation-ordered messages, gaps), each block under
+    its checksum;
+  * groups of link messages: compact (in the header) or dense (a fractal
+    heap indexed by a v2 B-tree of names or of creation order);
+  * attributes in dense storage (a fractal heap, huge objects included, and
+    a v2 B-tree of names or of creation order);
+  * data layout message version 4: compact, contiguous, and chunked with any
+    chunk index h5py writes (a single chunk, filtered or not; implicit; a
+    fixed array, paged or not; an extensible array with its secondary and
+    paged data blocks; a v2 B-tree of filtered or unfiltered records);
+    fill values (messages of version 1 to 3) where a chunk was never written;
+
+and in every format:
+
   * the deflate and shuffle filters;
   * little- and big-endian integers and IEEE floats, fixed-length strings,
     variable-length strings (the global heap);
   * attributes of any of these types, scalar or array.
 
+A block whose checksum does not match raises `ValueError` naming it.
 Everything else raises `NotImplementedError` that names the HDF5 feature
-(superblock 2/3 and version-2 object headers, as `libver="latest"` writes
-them; link-message groups; dense attribute storage; other filters; soft and
-external links; compound, array, enum, reference and opaque types; ...):
-the reader never returns data it did not decode.
+(a superblock extension; filtered fractal heaps; shared messages; other
+filters; soft, external and user-defined links; compound, array, enum,
+reference and opaque types; ...): the reader never returns data it did not
+decode.
 
 Its interface is the part of h5py's the data engine uses: `H5File(path)`,
 `f.attrs` (a dict; variable-length strings come back as `str`, fixed-length
 ones as `np.bytes_`, numbers as numpy scalars or arrays, as h5py gives
-them), `f[path]`, `name in group`, `group.keys()` (in the file's order,
-sorted by name), `ds.shape`, `ds.dtype`, `ds.chunks`, `ds.attrs` and
-`ds[...]` / `ds[..., a:b]` (basic slicing; a chunked read decodes only the
-chunks the selection touches). Reads use `os.pread`, so one file serves
-several threads.
+them), `f[path]`, `name in group`, `group.keys()` (in h5py's order: by
+creation order where a group tracks it, else by name), `ds.shape`,
+`ds.dtype`, `ds.chunks`, `ds.attrs` and `ds[...]` / `ds[..., a:b]` (basic
+slicing; a chunked read decodes only the chunks the selection touches).
+Reads use `os.pread`, so one file serves several threads.
 
 `H5Writer` writes the layout of `prepare_data`: superblock 0, symbol-table
 groups (any number of keys), chunked datasets compressed by deflate,
@@ -46,11 +67,13 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from deepfilternet_torch.data import h5v2
+
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 UNDEF = 0xFFFFFFFFFFFFFFFF
 
 # object header message types
-_DATASPACE, _LINKINFO, _DATATYPE, _FILL = 0x01, 0x02, 0x03, 0x05
+_DATASPACE, _LINKINFO, _DATATYPE, _OLD_FILL, _FILL = 0x01, 0x02, 0x03, 0x04, 0x05
 _LINK, _EXTERNAL, _LAYOUT, _GROUPINFO, _PIPELINE = 0x06, 0x07, 0x08, 0x0A, 0x0B
 _ATTRIBUTE, _CONTINUATION, _STAB, _ATTRINFO = 0x0C, 0x10, 0x11, 0x15
 
@@ -127,16 +150,25 @@ def _parse_type(d: bytes) -> _Type:
 
 def _parse_space(d: bytes) -> Optional[Tuple[int, ...]]:
     """The dataspace's dimensions; () for a scalar, None for a null space."""
-    version, rank = d[0], d[1]
+    return _parse_space_max(d)[0]
+
+
+def _parse_space_max(d: bytes) -> Tuple[Optional[Tuple[int, ...]], Optional[Tuple[int, ...]]]:
+    """(dimensions, maximum dimensions) of a dataspace message; UNDEF is an
+    unlimited maximum."""
+    version, rank, flags = d[0], d[1], d[2]
     if version == 1:
         pos = 8
     elif version == 2:
         if d[3] == 2:
-            return None
+            return None, None
         pos = 4
     else:
         raise NotImplementedError(f"HDF5 dataspace message version {version}")
-    return struct.unpack_from(f"<{rank}Q", d, pos)
+    dims = struct.unpack_from(f"<{rank}Q", d, pos)
+    if not flags & 1:
+        return dims, dims
+    return dims, struct.unpack_from(f"<{rank}Q", d, pos + 8 * rank)
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +214,10 @@ class H5File:
     def _read_superblock(self) -> "Group":
         head = os.pread(self._fd, 16, self._base)
         version = head[8]
+        if version in (2, 3):
+            return self._read_superblock_v2()
         if version not in (0, 1):
-            raise NotImplementedError(
-                f"HDF5 superblock version {version} (written with libver='latest' or "
-                "'v108'+; rewrite the file with h5py's default libver)")
+            raise NotImplementedError(f"HDF5 superblock version {version}")
         if head[13] != 8 or head[14] != 8:
             raise NotImplementedError(f"HDF5 offsets of {head[13]} and lengths of "
                                       f"{head[14]} bytes (only 8 are read)")
@@ -195,9 +227,26 @@ class H5File:
         # (the superblock's own place after a user block)
         self._base, _, eof, _ = struct.unpack_from("<4Q", sb, pos)
         _, header = struct.unpack_from("<QQ", sb, pos + 32)
+        self._check_eof(eof)
+        return self._object(header, "/")
+
+    def _read_superblock_v2(self) -> "Group":
+        """Superblock version 2 or 3 (libver "v108" and later): base address,
+        extension, end of file and root object header, under a checksum."""
+        sb = h5v2.verify(self, os.pread(self._fd, 48, self._base), "superblock", self._base)
+        if sb[9] != 8 or sb[10] != 8:
+            raise NotImplementedError(f"HDF5 offsets of {sb[9]} and lengths of {sb[10]} bytes "
+                                      "(only 8 are read)")
+        self._base, ext, eof, root = struct.unpack_from("<4Q", sb, 12)
+        if ext != UNDEF:
+            raise NotImplementedError(f"HDF5 superblock extension at {ext} (file space "
+                                      "strategy or other settings stored with the file)")
+        self._check_eof(eof)
+        return self._object(root, "/")
+
+    def _check_eof(self, eof: int):
         if eof > self._size:  # an absolute address, as HDF5 checks it
             raise ValueError(f"{self.path}: truncated (end of file {eof}, size {self._size})")
-        return self._object(header, "/")
 
     # -- objects ---------------------------------------------------------------
 
@@ -206,8 +255,7 @@ class H5File:
         `addr`, continuation blocks included."""
         prefix = self._read(addr, 16)
         if prefix[:4] == b"OHDR":
-            raise NotImplementedError("HDF5 version-2 object headers (libver='latest' or "
-                                      "track_order=True)")
+            return self._messages_v2(addr)
         version, _, n_msgs, _, size = struct.unpack_from("<BBHII", prefix)
         if version != 1:
             raise NotImplementedError(f"HDF5 object header version {version}")
@@ -224,18 +272,47 @@ class H5File:
                 msgs.append((mtype, mflags, data))
         return msgs
 
+    def _messages_v2(self, addr: int) -> List[Tuple[int, int, bytes]]:
+        """The messages of a version-2 object header ("OHDR", then "OCHK"
+        continuation blocks), each block under its checksum."""
+        head = self._read(addr, 6)
+        version, flags = head[4], head[5]
+        if version != 2:
+            raise NotImplementedError(f"HDF5 object header version {version} (OHDR)")
+        # times (4 x 4 bytes) and phase-change values (2 x 2), then chunk 0's
+        # size in 1, 2, 4 or 8 bytes
+        pos = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+        width = 1 << (flags & 3)
+        size = int.from_bytes(self._read(addr + pos, width), "little")
+        pos += width
+        mhead = 6 if flags & 0x04 else 4  # creation order in each message header
+        blocks = [(h5v2.read_verified(self, addr, pos + size + 4, "object header", b"OHDR"),
+                   pos)]
+        msgs = []
+        while blocks:
+            buf, at = blocks.pop(0)
+            end = len(buf) - 4
+            while at + mhead <= end:  # fewer bytes than a message header: a gap
+                mtype, msize, mflags = struct.unpack_from("<BHB", buf, at)
+                data = buf[at + mhead:at + mhead + msize]
+                at += mhead + msize
+                if mtype == _CONTINUATION:
+                    caddr, clen = struct.unpack_from("<QQ", data)
+                    blocks.append((h5v2.read_verified(
+                        self, caddr, clen, "object header continuation block", b"OCHK"), 4))
+                if mtype:
+                    msgs.append((mtype, mflags, data))
+        return msgs
+
     def _object(self, addr: int, name: str):
         obj = self._objects.get(addr)
         if obj is None:
             msgs = self._messages(addr)
             types = {t for t, _, _ in msgs}
-            if _STAB in types:
+            if types & {_STAB, _LINKINFO, _LINK}:
                 obj = Group(self, name, msgs)
             elif _LAYOUT in types:
                 obj = Dataset(self, name, msgs)
-            elif types & {_LINKINFO, _LINK, _GROUPINFO}:
-                raise NotImplementedError(f"HDF5 link-message groups ({name}; written with "
-                                          "libver='latest' or track_order=True)")
             else:
                 raise NotImplementedError(f"HDF5 object of another kind at {name} "
                                           "(a committed datatype?)")
@@ -243,39 +320,66 @@ class H5File:
         return obj
 
     def _attrs(self, msgs) -> Dict[str, object]:
+        """The attributes of an object: its attribute messages (compact
+        storage, in the header's order), then those in dense storage (a
+        fractal heap indexed by v2 B-trees of names, type 8, and where it is
+        kept of creation order, type 9: in that order, else by name)."""
         out = {}
         for mtype, _, d in msgs:
-            if mtype == _ATTRINFO:
-                (heap,) = struct.unpack_from("<Q", d, 2 + (2 if d[1] & 1 else 0))
-                if heap != UNDEF:
-                    raise NotImplementedError("HDF5 dense attribute storage (a fractal heap)")
-            if mtype != _ATTRIBUTE:
-                continue
-            version = d[0]
-            if version == 1:
-                nlen, tlen, slen = struct.unpack_from("<HHH", d, 2)
-                pos = 8
-                name = d[pos:pos + nlen].split(b"\0")[0]
-                pos += _pad8(nlen)
-                tdata = d[pos:pos + tlen]
-                pos += _pad8(tlen)
-                sdata = d[pos:pos + slen]
-                pos += _pad8(slen)
-            elif version in (2, 3):
-                if d[1] & 3:
-                    raise NotImplementedError("HDF5 shared datatypes or dataspaces in an "
-                                              "attribute")
-                nlen, tlen, slen = struct.unpack_from("<HHH", d, 2)
-                pos = 8 + (1 if version == 3 else 0)
-                name = d[pos:pos + nlen].split(b"\0")[0]
-                tdata = d[pos + nlen:pos + nlen + tlen]
-                sdata = d[pos + nlen + tlen:pos + nlen + tlen + slen]
-                pos += nlen + tlen + slen
-            else:
-                raise NotImplementedError(f"HDF5 attribute message version {version}")
-            typ, shape = _parse_type(tdata), _parse_space(sdata)
-            out[name.decode("utf-8")] = self._value(typ, shape, d[pos:])
+            if mtype == _ATTRIBUTE:
+                name, value = self._attribute(d)
+                out[name] = value
+            elif mtype == _ATTRINFO:
+                out.update(self._dense_attrs(d))
         return out
+
+    def _dense_attrs(self, d: bytes) -> Dict[str, object]:
+        if d[0] != 0:
+            raise NotImplementedError(f"HDF5 attribute info message version {d[0]}")
+        pos = 2 + (2 if d[1] & 1 else 0)
+        heap_addr, name_tree = struct.unpack_from("<QQ", d, pos)
+        if heap_addr == UNDEF:
+            return {}
+        order_tree = struct.unpack_from("<Q", d, pos + 16)[0] if d[1] & 2 else UNDEF
+        tree = h5v2.BTree2(self, order_tree if order_tree != UNDEF else name_tree)
+        if tree.type not in (8, 9):
+            raise ValueError(f"{self.path}: attribute index of record type {tree.type}")
+        heap, found = h5v2.FractalHeap(self, heap_addr), []
+        for rec in tree.records():  # heap ID (8), message flags, creation order (4), ...
+            if rec[8] & 2:
+                raise NotImplementedError("HDF5 shared attribute messages (a shared object "
+                                          "header message table)")
+            found.append(self._attribute(heap.get(rec[:8])))
+        if tree.type == 8:
+            found.sort(key=lambda item: item[0].encode("utf-8"))
+        return dict(found)
+
+    def _attribute(self, d: bytes) -> Tuple[str, object]:
+        """(name, value) of an attribute message."""
+        version = d[0]
+        if version == 1:
+            nlen, tlen, slen = struct.unpack_from("<HHH", d, 2)
+            pos = 8
+            name = d[pos:pos + nlen].split(b"\0")[0]
+            pos += _pad8(nlen)
+            tdata = d[pos:pos + tlen]
+            pos += _pad8(tlen)
+            sdata = d[pos:pos + slen]
+            pos += _pad8(slen)
+        elif version in (2, 3):
+            if d[1] & 3:
+                raise NotImplementedError("HDF5 shared datatypes or dataspaces in an "
+                                          "attribute")
+            nlen, tlen, slen = struct.unpack_from("<HHH", d, 2)
+            pos = 8 + (1 if version == 3 else 0)
+            name = d[pos:pos + nlen].split(b"\0")[0]
+            tdata = d[pos + nlen:pos + nlen + tlen]
+            sdata = d[pos + nlen + tlen:pos + nlen + tlen + slen]
+            pos += nlen + tlen + slen
+        else:
+            raise NotImplementedError(f"HDF5 attribute message version {version}")
+        typ, shape = _parse_type(tdata), _parse_space(sdata)
+        return name.decode("utf-8"), self._value(typ, shape, d[pos:])
 
     def _value(self, typ: _Type, shape, raw: bytes):
         """An attribute's value as h5py returns it."""
@@ -373,27 +477,64 @@ class H5File:
 class Group:
     def __init__(self, file: H5File, name: str, msgs):
         self.file, self.name = file, name
-        self._stab = next(struct.unpack_from("<QQ", d) for t, _, d in msgs if t == _STAB)
+        self._msgs = msgs
         self.attrs = file._attrs(msgs)
-        self._links: Optional[Dict[str, Tuple[int, int]]] = None
+        self._links: Optional[Dict[str, Tuple[int, Optional[str]]]] = None
 
-    def _entries(self) -> Dict[str, Tuple[int, int]]:
-        """name -> (object header address, cache type), in the file's order."""
+    def _entries(self) -> Dict[str, Tuple[int, Optional[str]]]:
+        """name -> (object header address, None) for a hard link, or (UNDEF,
+        what the link is) for one the reader does not follow; in h5py's
+        order."""
         if self._links is None:
-            btree, heap_addr = self._stab
-            heap, links = self.file._local_heap(heap_addr), {}
-            for _, _, snod in self.file._btree_leaves(btree, 0, 8):
-                head = self.file._read(snod, 8)
-                if head[:4] != b"SNOD":
-                    raise ValueError(f"{self.file.path}: no symbol table node at {snod}")
-                n = struct.unpack_from("<H", head, 6)[0]
-                body = self.file._read(snod + 8, n * _ENTRY_SIZE)
-                for i in range(n):
-                    off, header, cache = struct.unpack_from("<QQI", body, i * _ENTRY_SIZE)
-                    name = heap[off:heap.index(b"\0", off)].decode("utf-8")
-                    links[name] = (header, cache)
-            self._links = links
+            stab = [d for t, _, d in self._msgs if t == _STAB]
+            self._links = self._stab_entries(*struct.unpack_from("<QQ", stab[0])) if stab \
+                else self._link_entries()
         return self._links
+
+    def _stab_entries(self, btree: int, heap_addr: int) -> Dict[str, Tuple[int, Optional[str]]]:
+        """A symbol-table group's members, sorted by name (the B-tree's order)."""
+        heap, links = self.file._local_heap(heap_addr), {}
+        for _, _, snod in self.file._btree_leaves(btree, 0, 8):
+            head = self.file._read(snod, 8)
+            if head[:4] != b"SNOD":
+                raise ValueError(f"{self.file.path}: no symbol table node at {snod}")
+            n = struct.unpack_from("<H", head, 6)[0]
+            body = self.file._read(snod + 8, n * _ENTRY_SIZE)
+            for i in range(n):
+                off, header, cache = struct.unpack_from("<QQI", body, i * _ENTRY_SIZE)
+                name = heap[off:heap.index(b"\0", off)].decode("utf-8")
+                links[name] = (UNDEF, "soft links") if cache == 2 else (header, None)
+        return links
+
+    def _link_entries(self) -> Dict[str, Tuple[int, Optional[str]]]:
+        """A group of link messages: compact (in its header) or dense (a
+        fractal heap indexed by a v2 B-tree of names, type 5, or of creation
+        order, type 6). h5py lists them in creation order where the group
+        tracks it, else by name."""
+        info = next((d for t, _, d in self._msgs if t == _LINKINFO), None)
+        links = [_parse_link(d) for t, _, d in self._msgs if t == _LINK]
+        tracked = False
+        if info is not None:
+            if info[0] != 0:
+                raise NotImplementedError(f"HDF5 link info message version {info[0]}")
+            tracked = bool(info[1] & 1)
+            pos = 2 + (8 if tracked else 0)
+            heap_addr, name_tree = struct.unpack_from("<QQ", info, pos)
+            order_tree = struct.unpack_from("<Q", info, pos + 16)[0] if info[1] & 2 else UNDEF
+            if heap_addr != UNDEF:
+                tree = h5v2.BTree2(self.file, order_tree if order_tree != UNDEF else name_tree)
+                if tree.type not in (5, 6):
+                    raise ValueError(f"{self.file.path}: link index of record type {tree.type}")
+                heap = h5v2.FractalHeap(self.file, heap_addr)
+                # a name's hash (4) or a creation order (8), then the heap ID
+                skip = 4 if tree.type == 5 else 8
+                links += [_parse_link(heap.get(rec[skip:skip + heap.id_len]))
+                          for rec in tree.records()]
+        if tracked:
+            links.sort(key=lambda link: link[1])
+        else:
+            links.sort(key=lambda link: link[0].encode("utf-8"))
+        return {name: entry for name, _, entry in links}
 
     def keys(self) -> List[str]:
         return list(self._entries())
@@ -413,10 +554,38 @@ class Group:
             entry = obj._entries().get(part)
             if entry is None:
                 raise KeyError(path)
-            if entry[1] == 2:
-                raise NotImplementedError(f"HDF5 soft links ({path})")
+            if entry[1] is not None:
+                raise NotImplementedError(f"HDF5 {entry[1]} ({path})")
             obj = self.file._object(entry[0], f"{obj.name.rstrip('/')}/{part}")
         return obj
+
+
+def _parse_link(d: bytes) -> Tuple[str, int, Tuple[int, Optional[str]]]:
+    """(name, creation order, (address, None) or (UNDEF, what it is)) of a
+    link message."""
+    if d[0] != 1:
+        raise NotImplementedError(f"HDF5 link message version {d[0]}")
+    flags, pos, kind, order = d[1], 2, 0, 0
+    if flags & 0x08:
+        kind, pos = d[pos], pos + 1
+    if flags & 0x04:
+        (order,) = struct.unpack_from("<Q", d, pos)
+        pos += 8
+    if flags & 0x10:
+        pos += 1  # the name's character set: ASCII or UTF-8, both read as UTF-8
+    width = 1 << (flags & 3)
+    nlen = int.from_bytes(d[pos:pos + width], "little")
+    pos += width
+    name = d[pos:pos + nlen].decode("utf-8")
+    if kind == 0:
+        return name, order, (struct.unpack_from("<Q", d, pos + nlen)[0], None)
+    what = {1: "soft links", 64: "external links"}.get(kind, f"user-defined links (type {kind})")
+    return name, order, (UNDEF, what)
+
+
+# chunk index types of a version-4 data layout message
+_INDEX_NAMES = {1: "single chunk", 2: "implicit", 3: "fixed array", 4: "extensible array",
+                5: "v2 B-tree"}
 
 
 class Dataset:
@@ -431,16 +600,17 @@ class Dataset:
         self._type = _parse_type(by_type[_DATATYPE])
         if self._type.kind == "vstr":
             raise NotImplementedError(f"HDF5 datasets of variable-length strings ({name})")
-        shape = _parse_space(by_type[_DATASPACE])
+        shape, self._maxshape = _parse_space_max(by_type[_DATASPACE])
         self.shape = shape if shape is not None else (0,)
         self.dtype = self._type.dtype
+        self._fill = _parse_fill(by_type.get(_FILL), by_type.get(_OLD_FILL), self.dtype)
         self._filters = _parse_pipeline(by_type[_PIPELINE]) if _PIPELINE in by_type else []
         self._layout(by_type[_LAYOUT])
         self._index: Optional[Dict[Tuple[int, ...], Tuple[int, int, int]]] = None
 
     def _layout(self, d: bytes):
         version, cls = d[0], d[1]
-        if version != 3:
+        if version not in (3, 4):
             raise NotImplementedError(f"HDF5 data layout message version {version} ({self.name})")
         self.chunks = None
         if cls == 0:
@@ -448,14 +618,44 @@ class Dataset:
             self._compact = d[4:4 + size]
         elif cls == 1:
             self._addr, self._nbytes = struct.unpack_from("<QQ", d, 2)
-        elif cls == 2:
+        elif cls == 2 and version == 3:
             ndims = d[2]
-            (self._btree,) = struct.unpack_from("<Q", d, 3)
+            (self._index_addr,) = struct.unpack_from("<Q", d, 3)
             dims = struct.unpack_from(f"<{ndims}I", d, 11)
             self.chunks = tuple(dims[:-1])
+            self._index_type = 0  # a v1 B-tree
+        elif cls == 2:
+            self._layout_v4(d)
         else:
             raise NotImplementedError(f"HDF5 virtual datasets ({self.name})")
         self._class = cls
+
+    def _layout_v4(self, d: bytes):
+        """A chunked layout of version 4: its chunk dimensions, the chunk
+        index's type and parameters, and the index's address."""
+        flags, ndims, width = d[2], d[3], d[4]
+        if flags & 1:
+            raise NotImplementedError(f"HDF5 partial edge chunks stored unfiltered ({self.name})")
+        dims = [int.from_bytes(d[5 + i * width:5 + (i + 1) * width], "little")
+                for i in range(ndims)]
+        self.chunks = tuple(dims[:-1])
+        pos = 5 + ndims * width
+        self._index_type = d[pos]
+        pos += 1
+        self._single = None
+        if self._index_type == 1:
+            if flags & 2:  # a filtered single chunk: its stored size and filter mask
+                self._single = struct.unpack_from("<QI", d, pos)
+                pos += 12
+        elif self._index_type == 3:
+            pos += 1  # page bits, which the array's header holds too
+        elif self._index_type == 4:
+            pos += 5  # the extensible array's parameters, which its header holds too
+        elif self._index_type == 5:
+            pos += 6  # node size, split and merge percentages, in the B-tree's header too
+        elif self._index_type != 2:
+            raise NotImplementedError(f"HDF5 chunk index type {self._index_type} ({self.name})")
+        (self._index_addr,) = struct.unpack_from("<Q", d, pos)
 
     @property
     def size(self) -> int:
@@ -464,6 +664,8 @@ class Dataset:
     def __getitem__(self, key) -> np.ndarray:
         box, steps, squeeze = _selection(key, self.shape)
         out = np.zeros(tuple(b - a for a, b in box), self.dtype)
+        if self._fill is not None:
+            out[...] = self._fill
         if out.size:
             if self._class == 2:
                 self._read_chunks(box, out)
@@ -485,15 +687,72 @@ class Dataset:
     # -- chunked storage --------------------------------------------------------
 
     def _chunk_index(self) -> Dict[Tuple[int, ...], Tuple[int, int, int]]:
-        """Chunk offset -> (address, stored bytes, filter mask)."""
+        """Chunk offset -> (address, stored bytes, filter mask), for the
+        chunks that were written."""
         if self._index is None:
-            index, rank = {}, len(self.shape)
-            if self._btree != UNDEF:
-                for key, _, addr in self.file._btree_leaves(self._btree, 1, 8 + 8 * (rank + 1)):
-                    nbytes, mask = struct.unpack_from("<II", key)
-                    index[struct.unpack_from(f"<{rank}Q", key, 8)] = (addr, nbytes, mask)
-            self._index = index
+            rank, addr = len(self.shape), self._index_addr
+            nbytes = int(np.prod(self.chunks)) * self.dtype.itemsize
+            index = {}
+            if addr == UNDEF:
+                pass
+            elif self._index_type == 0:
+                for key, _, child in self.file._btree_leaves(addr, 1, 8 + 8 * (rank + 1)):
+                    size, mask = struct.unpack_from("<II", key)
+                    index[struct.unpack_from(f"<{rank}Q", key, 8)] = (child, size, mask)
+            elif self._index_type == 1:
+                size, mask = self._single if self._single is not None else (nbytes, 0)
+                index[(0,) * rank] = (addr, size, mask)
+            elif self._index_type == 2:  # every chunk in place, in the grid's order
+                grid = int(np.prod(self._grid()[0], dtype=np.int64))
+                for i, origin in self._grid_order(range(grid)):
+                    index[origin] = (addr + i * nbytes, nbytes, 0)
+            elif self._index_type in (3, 4):
+                read = h5v2.fixed_array if self._index_type == 3 else h5v2.extensible_array
+                elements = dict(read(self.file, addr))
+                for i, origin in self._grid_order(elements):
+                    entry = _chunk_entry(elements[i], nbytes)
+                    if entry is not None:
+                        index[origin] = entry
+            else:
+                tree = h5v2.BTree2(self.file, addr)
+                if tree.type not in (10, 11):
+                    raise ValueError(f"{self.file.path}: chunk index of record type {tree.type} "
+                                     f"({self.name})")
+                for rec in tree.records():
+                    scaled = struct.unpack_from(f"<{rank}Q", rec, len(rec) - 8 * rank)
+                    entry = _chunk_entry(rec[:len(rec) - 8 * rank], nbytes)
+                    if entry is not None:
+                        index[tuple(s * c for s, c in zip(scaled, self.chunks))] = entry
+            self._index = {o: e for o, e in index.items()
+                           if all(a < n for a, n in zip(o, self.shape))}
         return self._index
+
+    def _grid(self) -> Tuple[List[int], int]:
+        """(chunks in each dimension of the array indexes' grid, the one
+        unlimited dimension or 0): over the maximum dimensions, the unlimited
+        one moved first (an extensible array's order)."""
+        counts = [-(-(n if m == UNDEF else m) // c)
+                  for n, m, c in zip(self.shape, self._maxshape, self.chunks)]
+        unlimited = [i for i, m in enumerate(self._maxshape) if m == UNDEF]
+        if len(unlimited) > 1:
+            raise ValueError(f"{self.file.path}: an array chunk index over "
+                             f"{len(unlimited)} unlimited dimensions ({self.name})")
+        u = unlimited[0] if unlimited else 0
+        return [counts[u]] + counts[:u] + counts[u + 1:], u
+
+    def _grid_order(self, indexes) -> Iterator[Tuple[int, Tuple[int, ...]]]:
+        """(i, the offset of the chunk of linear index i) for each i."""
+        grid, u = self._grid()
+        if not all(grid[1:]):
+            return
+        for i in indexes:
+            rest, scaled = i, []
+            for n in reversed(grid[1:]):
+                scaled.append(rest % n)
+                rest //= n
+            scaled = [rest] + scaled[::-1]  # the first dimension is not bounded
+            scaled = scaled[1:u + 1] + scaled[:1] + scaled[u + 1:]
+            yield i, tuple(s * c for s, c in zip(scaled, self.chunks))
 
     def _decode_chunk(self, addr: int, nbytes: int, mask: int) -> np.ndarray:
         buf = self.file._read(addr, nbytes)
@@ -520,7 +779,7 @@ class Dataset:
         for origin in itertools.product(*ranges):
             entry = index.get(origin)
             if entry is None:
-                continue  # never written: the fill value, 0
+                continue  # never written: the fill value
             chunk = self._decode_chunk(*entry)
             src, dst = [], []
             for o, c, (a, b) in zip(origin, self.chunks, box):
@@ -528,6 +787,45 @@ class Dataset:
                 src.append(slice(lo - o, hi - o))
                 dst.append(slice(lo - a, hi - a))
             out[tuple(dst)] = chunk[tuple(src)]
+
+
+def _chunk_entry(element: bytes, nbytes: int) -> Optional[Tuple[int, int, int]]:
+    """(address, stored bytes, filter mask) of a chunk index's element: an
+    address, and for filtered chunks their stored size and filter mask; None
+    where the chunk was never written."""
+    (addr,) = struct.unpack_from("<Q", element)
+    if addr == UNDEF:
+        return None
+    if len(element) == 8:
+        return addr, nbytes, 0
+    return addr, int.from_bytes(element[8:-4], "little"), struct.unpack_from("<I", element,
+                                                                             len(element) - 4)[0]
+
+
+def _parse_fill(new: Optional[bytes], old: Optional[bytes], dtype: np.dtype):
+    """The fill value of unwritten data (fill value message version 1, 2 or
+    3, else the old fill value message) as a numpy scalar, or None for
+    zeros."""
+    raw = b""
+    if new is not None:
+        version = new[0]
+        if version == 1 or (version == 2 and new[3]):
+            (size,) = struct.unpack_from("<I", new, 4)
+            raw = new[8:8 + size]
+        elif version == 3:
+            if new[1] & 0x20:
+                (size,) = struct.unpack_from("<I", new, 2)
+                raw = new[6:6 + size]
+        elif version != 2:
+            raise NotImplementedError(f"HDF5 fill value message version {version}")
+    elif old is not None:
+        (size,) = struct.unpack_from("<I", old)
+        raw = old[4:4 + size]
+    if not raw.strip(b"\0"):
+        return None
+    if len(raw) != dtype.itemsize:
+        raise NotImplementedError(f"HDF5 fill value of {len(raw)} bytes for {dtype}")
+    return np.frombuffer(raw, dtype)[0]
 
 
 def _parse_pipeline(d: bytes) -> List[int]:

@@ -62,7 +62,7 @@ def cmd_sample(args):
 
 
 def _groups(src: H5File):
-    """The root's groups, in the file's (name) order."""
+    """The root's groups, in h5py's order."""
     root = src["/"]
     return [g for g in root.keys() if isinstance(root[g], Group)]
 

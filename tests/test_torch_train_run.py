@@ -390,11 +390,13 @@ def test_train_cli_needs_cuda_without_device(tmp_path):
 
 def test_corpus_training_imports_no_jax_or_h5py(tmp_path):
     """A fresh interpreter writes a corpus with the port's prepare_data and
-    trains one debug epoch through the CLI (`--device cpu`); then no jax,
-    h5py or deepfilternet_tpu module may be loaded (the card's machine has
-    neither)."""
+    trains one debug epoch through the CLI (`--device cpu`), then one more
+    over a copy of the committed corpus h5py wrote with libver="latest"
+    (`deepfilternet_torch/data/testdata/`: the reader's `data/h5v2.py`
+    structures); then no jax, h5py or deepfilternet_tpu module may be
+    loaded (the card's machine has neither)."""
     code = textwrap.dedent(f"""
-        import os, sys
+        import os, shutil, sys
         import numpy as np
         from deepfilternet_torch.scripts.prepare_data import prepare
         from deepfilternet_torch.train import run
@@ -410,12 +412,19 @@ def test_corpus_training_imports_no_jax_or_h5py(tmp_path):
         with open(os.path.join(d, "ds.cfg"), "w") as f:
             f.write('{{"train": [["corpus.hdf5", 1]], "valid": [["corpus.hdf5", 1]], '
                     '"test": [["corpus.hdf5", 1]]}}')
-        os.makedirs(os.path.join(d, "run"))
-        with open(os.path.join(d, "run", "config.ini"), "w") as f:
-            f.write({CONFIG!r})
-        run.main([os.path.join(d, "ds.cfg"), d, os.path.join(d, "run"), "--device", "cpu",
-                  "--debug", "--max-epochs", "1", "--num-workers", "1"])
-        assert os.path.isfile(os.path.join(d, "run", "checkpoints", "model_0.ckpt.best"))
+        latest = os.path.join(d, "latest")
+        shutil.copytree(os.path.join("deepfilternet_torch", "data", "testdata"), latest)
+        files = '[["speech.hdf5", 1], ["noise.hdf5", 1], ["rir.hdf5", 1]]'
+        with open(os.path.join(latest, "ds.cfg"), "w") as f:
+            f.write(f'{{{{"train": {{files}}, "valid": {{files}}, "test": {{files}}}}}}')
+        for data_dir, run_dir in ((d, "run"), (latest, "run_latest")):
+            os.makedirs(os.path.join(d, run_dir))
+            with open(os.path.join(d, run_dir, "config.ini"), "w") as f:
+                f.write({CONFIG!r})
+            run.main([os.path.join(data_dir, "ds.cfg"), data_dir, os.path.join(d, run_dir),
+                      "--device", "cpu", "--debug", "--max-epochs", "1", "--num-workers", "1"])
+            assert os.path.isfile(os.path.join(d, run_dir, "checkpoints", "model_0.ckpt.best"))
+        assert "deepfilternet_torch.data.h5v2" in sys.modules
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "h5py", "deepfilternet_tpu"))
         print("LOADED", bad)
@@ -426,4 +435,4 @@ def test_corpus_training_imports_no_jax_or_h5py(tmp_path):
                          env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "LOADED []" in res.stdout and "final test loss" in res.stdout
+    assert "LOADED []" in res.stdout and res.stdout.count("final test loss") == 2
