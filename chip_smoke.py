@@ -115,12 +115,28 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                indexes, a noise group in creation order) read through H5File
                and Hdf5Dataset bit for bit against its MANIFEST.json, without
                h5py; each file copied into h5py's default format by H5Writer
+               (copy_group: the chunks byte for byte, in h5py's chunks of
+               3,163-5,867 samples)
                and both read back equal (read rates as information);
                hdf5_tool list, split and trim; prepare_data merging two WAVs
-               into a copy; one loader epoch over each format, batches equal;
-               the first batch's train step card vs CPU, train() for one
-               epoch from the demo checkpoint and read_cp after it; K1 and K2
-               read 0; at most 60 s.
+               into a copy in place; one loader epoch over each format,
+               batches equal; the first batch's train step card vs CPU,
+               train() for one epoch from the demo checkpoint and read_cp
+               after it; K1 and K2 read 0; at most 60 s.
+ 14. in-place HDF5 edits - prepare_data writes a 512-clip corpus of 5 s
+               seeded harmonic-plus-noise int16 speech (245.8 MB of samples),
+               then merges 16 new 5 s WAVs in place (2 over keys already
+               there): its wall time and the bytes the file grew by beside
+               the old way's, timed inline (every clip read and written into
+               a new file); every clip bit for bit through H5File and
+               Hdf5Dataset, the old bytes outside the superblock unchanged;
+               hdf5_tool fix in place (every chunk index entry as before);
+               split and trim (raw chunk copies, byte for byte the source's;
+               MB/s); two WAVs merged into a copy of the committed
+               superblock-3 speech.hdf5 (phase 13's check: its manifest plus
+               the new clips, still superblock 3); one loader epoch over the
+               merged corpus;
+               K1 and K2 read 0; at most 90 s.
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
@@ -3088,7 +3104,9 @@ def latest_copies(root, copies, nbytes):
             best[tag] = min(best[tag], time.perf_counter() - t0)
     rates = {k: nbytes / v / 1e6 for k, v in best.items()}
     print(f"the corpus copied into h5py's default format (superblock 0, symbol tables, v1 "
-          f"B-trees) by H5Writer / copy_group: every key, dtype and attribute equal; a whole "
+          f"B-trees; the chunks byte for byte, in h5py's chunks of 3,163-5,867 samples) by "
+          f"H5Writer / "
+          f"copy_group: every key, dtype and attribute equal; a whole "
           f"read through H5File (host, {os.cpu_count()} cores), best of {LATEST_ROUNDS} in "
           f"turns: latest format {rates['latest']:.1f} MB/s of int16 samples, default format "
           f"{rates['default']:.1f} MB/s")
@@ -3130,16 +3148,20 @@ def latest_tool_check(root, manifest):
 
 def latest_merge_check(root):
     """prepare_data merges two new seeded WAVs into a copy of the
-    latest-format speech file (rewritten in the writer's format): every old
-    key as it was, the new ones as prepare_data stores them."""
+    latest-format speech file in `root`, in place: every old key as
+    MANIFEST.json says, the new ones as prepare_data stores them, the keys
+    by name as h5py iterates them, and still superblock 3."""
+    import hashlib
     import shutil
 
+    from deepfilternet_torch.data.h5file import H5File
     from deepfilternet_torch.scripts.prepare_data import prepare, sanitize_key
     from deepfilternet_torch.utils.audio_io import load_audio, save_audio
 
+    with open(os.path.join(LATEST_DIR, "MANIFEST.json")) as f:
+        manifest = json.load(f)["speech.hdf5"]["speech"]["keys"]
     merged = os.path.join(root, "merged.hdf5")
     shutil.copy(os.path.join(root, "speech.hdf5"), merged)
-    old = read_all(merged)
     wavs = []
     for i in range(2):
         wavs.append(os.path.join(root, f"merge_{i}.wav"))
@@ -3150,10 +3172,17 @@ def latest_merge_check(root):
     for p in wavs:
         audio, _ = load_audio(p)
         new[f"speech/{sanitize_key(p)}"] = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
-    ok = (got.keys() == old.keys() | new.keys()
-          and all(np.array_equal(got[k], v) for k, v in {**old, **new}.items()))
-    print(f"prepare_data merged 2 seeded WAVs into a copy of the latest-format speech file: "
-          f"{len(got)} keys, the {len(old)} old and 2 new bit for bit: {ok}")
+    with H5File(merged) as f:
+        version, keys = f.superblock_version, f["speech"].keys()
+    ok = (version == 3 and keys == sorted(keys)
+          and got.keys() == {f"speech/{k}" for k in manifest} | new.keys()
+          and all(list(got[f"speech/{k}"].shape) == w["shape"] and hashlib.sha256(
+              got[f"speech/{k}"].tobytes()).hexdigest() == w["sha256"]
+              for k, w in manifest.items())
+          and all(np.array_equal(got[k], v) for k, v in new.items()))
+    print(f"prepare_data merged 2 seeded WAVs into a copy of the latest-format speech file in "
+          f"place: {len(got)} keys, the {len(manifest)} old as MANIFEST.json says and 2 new bit "
+          f"for bit, keys by name, superblock still {version}: {ok}")
     if not ok:
         fail("prepare_data's merge into the latest-format corpus is wrong")
 
@@ -3269,6 +3298,305 @@ def latest_corpus_path(card, smi, dev="cuda"):
         fail(f"phase 13 launched K1 {k1.launches}, K2 {k2.launches} times")
     if phase > LATEST_PHASE_S:
         fail(f"phase 13 took {phase:.1f} s, more than {LATEST_PHASE_S:.0f} s")
+    return k1.launches, k2.launches
+
+
+# -- phase 14: in-place HDF5 edits --------------------------------------------------
+
+# the corpus prepare_data writes: EDIT_CLIPS seeded harmonic-plus-noise speech
+# clips of EDIT_SECONDS (int16, 245.8 MB of samples; a fine-tuning corpus cut
+# in clip count); the merge adds EDIT_NEW clips of EDIT_SECONDS, EDIT_REPLACED
+# of them over keys already there; two WAVs into the committed superblock-3
+# speech.hdf5; one loader epoch of [8, EDIT_SAMPLE_S] over the merged corpus
+EDIT_CLIPS, EDIT_SECONDS, EDIT_NEW, EDIT_REPLACED = 512, 5.0, 16, 2
+EDIT_BATCH, EDIT_SAMPLE_S, EDIT_WORKERS = 8, 1.0, 2
+EDIT_PHASE_S = 90.0
+
+
+def edit_clips(n, seconds, seed):
+    """n seeded harmonic-plus-noise clips in float32: five harmonics of a
+    vibrato f0 (the phase wrapped to one cycle before the sine, the
+    harmonics by the Chebyshev recurrence) and uniform white noise of unit
+    variance: cheap enough to make 512 x 5 s inside the phase's bound."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * SR), dtype=np.float32) / SR
+    f0 = rng.uniform(100.0, 300.0, (n, 1)).astype(np.float32)
+    vib = 1.0 + 0.02 * np.sin(2 * np.pi * rng.uniform(2.0, 6.0, (n, 1)).astype(np.float32) * t)
+    cycles = f0 / SR * np.cumsum(vib, axis=1, dtype=np.float32)
+    phase = (2 * np.pi) * (cycles - np.floor(cycles))
+    s1, c2 = np.sin(phase), 2 * np.cos(phase)
+    prev, cur, speech = np.zeros_like(s1), s1, s1.copy()
+    for k in range(2, 6):  # sin(k x) = 2 cos(x) sin((k - 1) x) - sin((k - 2) x)
+        prev, cur = cur, c2 * cur - prev
+        speech += cur / k
+    noise = (rng.random(speech.shape, dtype=np.float32) - 0.5) * np.float32(2 * 3 ** 0.5)
+    return speech * np.float32(0.1) + noise * rng.uniform(0.01, 0.05, (n, 1)).astype(np.float32)
+
+
+def write_wavs(d, prefix, clips):
+    """Each clip as a WAV by the port's save_audio; returns (paths, the int16
+    samples prepare_data makes of each, as its loader reads the WAV)."""
+    from deepfilternet_torch.utils.audio_io import load_audio, save_audio
+
+    paths, want = [], []
+    for i, x in enumerate(clips):
+        paths.append(os.path.join(d, f"{prefix}_{i:03d}.wav"))
+        save_audio(paths[-1], x, SR)
+        audio, _ = load_audio(paths[-1])
+        want.append(np.clip(audio * 32767.0, -32768, 32767).astype(np.int16))
+    return paths, want
+
+
+def file_digest(path, start, stop):
+    """sha256 of a file's bytes [start, stop)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        f.seek(start)
+        left = stop - start
+        while left:
+            block = f.read(min(left, 1 << 24))
+            h.update(block)
+            left -= len(block)
+    return h.hexdigest()
+
+
+def chunk_entries(path):
+    """{group/key: {chunk offset: (address, stored bytes, filter mask)}} of
+    every dataset of a corpus, through H5File."""
+    from deepfilternet_torch.data.h5file import H5File
+
+    with H5File(path) as f:
+        return {f"{g}/{k}": dict(f[g][k]._chunk_index())
+                for g in f["/"].keys() for k in f[g].keys()}
+
+
+def rewrite_merge(src, out, content, paths):
+    """The merge as prepare_data made it before it edited in place: every
+    clip of `src` read and written with its attributes into a new file by
+    create_dataset (but the keys written again), then the new clips."""
+    from deepfilternet_torch.data.h5file import H5File, H5Writer
+    from deepfilternet_torch.scripts.prepare_data import sanitize_key
+    from deepfilternet_torch.utils.audio_io import load_audio
+
+    keys = {sanitize_key(p) for p in paths}
+    with H5File(src) as old, H5Writer(out) as w:
+        for name, value in old.attrs.items():
+            w.set_attr("/", name, value)
+        for g in old["/"].keys():
+            for k in old[g].keys():
+                if g != content or k not in keys:
+                    w.create_dataset(f"{g}/{k}", old[g][k][...], attrs=old[g][k].attrs)
+        w.set_attr("/", "db_id", int(time.time()))
+        for p in paths:
+            audio, _ = load_audio(p)
+            w.create_dataset(f"{content}/{sanitize_key(p)}",
+                             np.clip(audio * 32767.0, -32768, 32767).astype(np.int16),
+                             attrs={"n_samples": np.array([audio.shape[-1]])})
+
+
+def edit_reads_back(path, want):
+    """Every key of `want` ({key: int16}) through H5File and Hdf5Dataset, bit
+    for bit, and no other key."""
+    from deepfilternet_torch.data.h5file import H5File
+    from deepfilternet_torch.data.hdf5 import Hdf5Dataset
+
+    ds = Hdf5Dataset(path)
+    with H5File(path) as f:
+        ok = sorted(f["speech"].keys()) == sorted(want) == ds.keys("speech")
+        for k, v in want.items():
+            ok &= (np.array_equal(f["speech"][k][...], v)
+                   and np.array_equal(ds.read("speech", k), v.astype(np.float32) / 32768))
+    ds.close()
+    return ok
+
+
+def raw_copy_check(src, copies):
+    """Every dataset of the `copies` files holds the source's chunks byte for
+    byte (offsets, stored sizes, filter masks, bytes) in its chunk shape.
+    Returns (datasets, stored bytes) compared."""
+    from deepfilternet_torch.data.h5file import H5File
+
+    n = nbytes = 0
+    with H5File(src) as f:
+        for path in copies:
+            with H5File(path) as g:
+                for grp in g["/"].keys():
+                    for k in g[grp].keys():
+                        a, b = f[grp][k], g[grp][k]
+                        ia, ib = a._chunk_index(), b._chunk_index()
+                        if a.chunks != b.chunks or ia.keys() != ib.keys() or any(
+                                ia[o][1:] != ib[o][1:]
+                                or f._read(ia[o][0], ia[o][1]) != g._read(ib[o][0], ib[o][1])
+                                for o in ia):
+                            fail(f"{path}: {grp}/{k}'s chunks are not the source's")
+                        n += 1
+                        nbytes += sum(e[1] for e in ib.values())
+    return n, nbytes
+
+
+def edit_loader_epoch(root):
+    """One epoch of DataLoader(FdDataset(TdDataset)) over the merged corpus
+    (with the committed noise and RIR files): every sample's batch; returns
+    (batches, wall)."""
+    import shutil
+
+    from deepfilternet_torch.data.dataloader import DataLoader
+    from deepfilternet_torch.data.dataset import DatasetConfig, FdDataset, TdDataset
+
+    for name in ("noise.hdf5", "rir.hdf5"):
+        shutil.copy(os.path.join(LATEST_DIR, name), os.path.join(root, name))
+    files = [[n, 1] for n in ("speech.hdf5", "noise.hdf5", "rir.hdf5")]
+    with open(os.path.join(root, "dataset.cfg"), "w") as f:
+        json.dump({"train": files, "valid": files, "test": files}, f)
+    cfgs = DatasetConfig.open(os.path.join(root, "dataset.cfg")).split("train")
+    td = TdDataset(root, cfgs, "train", sr=SR, max_len_s=EDIT_SAMPLE_S, p_reverb=0.2, seed=42)
+    # DFN3's ERB bands and DF bins
+    loader = DataLoader(FdDataset(td, 960, HOP, 32, 96), EDIT_BATCH, num_workers=EDIT_WORKERS,
+                        drop_last=True)
+    t0 = time.perf_counter()
+    batches = list(loader.iter_epoch("train", 0))
+    wall = time.perf_counter() - t0
+    finite = all(np.isfinite(b.noisy).all() and np.isfinite(b.feat_erb).all() for b in batches)
+    if len(batches) != len(td) // EDIT_BATCH or len(td) != EDIT_CLIPS + EDIT_NEW - EDIT_REPLACED \
+            or not finite:
+        fail(f"the loader's epoch over the merged corpus: {len(batches)} batches of {len(td)} "
+             f"samples, finite {finite}")
+    return len(batches), wall
+
+
+def hdf5_edit_path(card, smi):
+    """Phase 14. Returns the launches of K1 and K2 over it."""
+    import shutil
+
+    from deepfilternet_torch.data.h5file import H5File
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.scripts import hdf5_tool
+    from deepfilternet_torch.scripts.prepare_data import prepare, sanitize_key
+
+    t_phase = time.perf_counter()
+    k1.launches = k2.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        root, wav = os.path.join(tmp, "corpus"), os.path.join(tmp, "wav")
+        os.makedirs(root)
+        os.makedirs(wav)
+        t0 = time.perf_counter()
+        paths, want = [], []
+        for b in range(0, EDIT_CLIPS, 16):  # 16 clips at a time: 15 MB arrays
+            p, w = write_wavs(wav, f"speech_{b:03d}",
+                              edit_clips(min(16, EDIT_CLIPS - b), EDIT_SECONDS, 1400 + b))
+            paths += p
+            want += w
+        t_wavs = time.perf_counter() - t0
+        corpus = os.path.join(root, "speech.hdf5")
+        t0 = time.perf_counter()
+        quiet(prepare, "speech", corpus, paths)
+        t_write = time.perf_counter() - t0
+        want = {sanitize_key(p): w for p, w in zip(paths, want)}
+        nbytes = sum(v.nbytes for v in want.values())
+        size = os.path.getsize(corpus)
+        print(f"corpus: {EDIT_CLIPS} clips x {EDIT_SECONDS:.0f} s int16 ({nbytes / 1e6:.1f} MB of "
+              f"samples, {size / 1e6:.1f} MB on disk) written by prepare_data in {t_write:.2f} s "
+              f"(WAVs {t_wavs:.2f} s)")
+
+        # the merge: EDIT_NEW clips, the first EDIT_REPLACED over keys already there
+        merge_dir = os.path.join(tmp, "merge")
+        os.makedirs(merge_dir)
+        new_paths, new_want = write_wavs(merge_dir, "new", edit_clips(EDIT_NEW, EDIT_SECONDS, 1399))
+        for i in range(EDIT_REPLACED):
+            os.replace(new_paths[i], paths[i])
+            new_paths[i] = paths[i]
+        for p, w in zip(new_paths, new_want):
+            want[sanitize_key(p)] = w
+        rewritten = os.path.join(tmp, "rewrite.hdf5")
+        t0 = time.perf_counter()
+        rewrite_merge(corpus, rewritten, "speech", new_paths)
+        t_rewrite, rewrite_bytes = time.perf_counter() - t0, os.path.getsize(rewritten)
+        os.remove(rewritten)
+        before = file_digest(corpus, 96, size)
+        t0 = time.perf_counter()
+        quiet(prepare, "speech", corpus, new_paths)
+        t_merge = time.perf_counter() - t0
+        shutil.rmtree(wav)
+        grown = os.path.getsize(corpus) - size
+        prefix_ok = file_digest(corpus, 96, size) == before
+        read_ok = edit_reads_back(corpus, want)
+        entries = chunk_entries(corpus)
+        new_stored = sum(e[1] for p in new_paths
+                         for e in entries[f"speech/{sanitize_key(p)}"].values())
+        # the metadata written: the new clips' headers and chunk B-trees, the
+        # speech group's symbol table and the root anew, a global heap
+        meta, meta_bound = grown - new_stored, 4096 * (EDIT_NEW + 1) + 128 * len(want)
+        print(f"in-place merge of {EDIT_NEW} WAVs of {EDIT_SECONDS:.0f} s ({EDIT_REPLACED} over "
+              f"keys there) into the {EDIT_CLIPS}-clip corpus (host of {smi}): {t_merge:.3f} s "
+              f"wall, file grown by {grown} bytes ({new_stored} of new chunks, {meta} of "
+              f"metadata, bound {meta_bound}); the old way (read every clip, write a new file "
+              f"by create_dataset): {t_rewrite:.3f} s, {rewrite_bytes} bytes written "
+              f"({t_rewrite / t_merge:.1f}x the time, {rewrite_bytes / grown:.1f}x the bytes); "
+              f"the old bytes outside the superblock unchanged: {prefix_ok}; {len(want)} keys "
+              f"bit for bit through H5File and Hdf5Dataset: {read_ok}")
+        if not (prefix_ok and read_ok and 0 < meta <= meta_bound):
+            fail("the in-place merge is wrong")
+
+        # fix in place: headers anew, every chunk where it was
+        chunks, size = entries, os.path.getsize(corpus)
+        before = file_digest(corpus, 96, size)
+        t0 = time.perf_counter()
+        _, fix_lines = quiet(hdf5_tool.main, ["fix", corpus])
+        t_fix, fix_grown = time.perf_counter() - t0, os.path.getsize(corpus) - size
+        with H5File(corpus) as f:
+            attrs_ok = all(int(f["speech"][k].attrs["n_samples"]) == v.shape[-1]
+                           and int(f["speech"][k].attrs["n_channels"]) == 1
+                           for k, v in want.items())
+        fix_ok = (chunk_entries(corpus) == chunks and file_digest(corpus, 96, size) == before
+                  and attrs_ok)
+        print(f"hdf5_tool fix in place: '{fix_lines[-1]}' in {t_fix:.3f} s wall, file grown by "
+              f"{fix_grown} bytes; every chunk index entry as before, the old bytes unchanged, "
+              f"n_samples and n_channels right: {fix_ok}")
+        if not fix_ok:
+            fail("hdf5_tool fix in place is wrong")
+
+        # split and trim: the chunks copied raw
+        rates = {}
+        for cmd in ("split", "trim"):
+            out = os.path.join(tmp, cmd)
+            os.makedirs(out)
+            if cmd == "split":
+                argv = ["split", corpus, out, "--ratios", "0.8,0.1,0.1"]
+            else:
+                argv = ["trim", corpus, os.path.join(out, "trim.hdf5"), "--max-len-s",
+                        str(EDIT_SECONDS)]
+            t0 = time.perf_counter()
+            _, lines = quiet(hdf5_tool.main, argv)
+            wall = time.perf_counter() - t0
+            copies = [os.path.join(out, n) for n in sorted(os.listdir(out))]
+            n, stored = raw_copy_check(corpus, copies)
+            if n != len(want):
+                fail(f"hdf5_tool {cmd} copied {n} of {len(want)} clips")
+            rates[cmd] = (wall, nbytes / wall / 1e6, stored / wall / 1e6, lines[-1])
+            shutil.rmtree(out)
+        print("raw chunk copies (chunks byte for byte the source's, in its chunk shape): "
+              + "; ".join(f"{cmd} '{line}' {wall:.3f} s, {rate:.0f} MB/s of samples "
+                          f"({srate:.0f} MB/s stored)"
+                          for cmd, (wall, rate, srate, line) in rates.items()))
+
+        latest = os.path.join(tmp, "latest")
+        os.makedirs(latest)
+        shutil.copy(os.path.join(LATEST_DIR, "speech.hdf5"), latest)
+        latest_merge_check(latest)
+        batches, wall = edit_loader_epoch(root)
+        print(f"one epoch of DataLoader(FdDataset(TdDataset)) at {EDIT_WORKERS} workers over the "
+              f"merged corpus: {batches} batches of {EDIT_BATCH} x {EDIT_SAMPLE_S:.0f} s in "
+              f"{wall:.2f} s ({batches * EDIT_BATCH / wall:.1f} samples/s)")
+    phase = time.perf_counter() - t_phase
+    print(f"phase 14 on {smi}: {phase:.1f} s wall (bound {EDIT_PHASE_S:.0f} s); K1 launches "
+          f"{k1.launches}, K2 {k2.launches}")
+    if k1.launches or k2.launches:
+        fail(f"phase 14 launched K1 {k1.launches}, K2 {k2.launches} times")
+    if phase > EDIT_PHASE_S:
+        fail(f"phase 14 took {phase:.1f} s, more than {EDIT_PHASE_S:.0f} s")
     return k1.launches, k2.launches
 
 
@@ -3393,6 +3721,11 @@ def main():
     k1["latest_corpus_launches"], k2["latest_corpus_launches"] = latest_corpus_path(card, smi)
     k2b["latest_corpus_launches"] = k2["latest_corpus_launches"]
     print(f"phase 13 (corpus in the newer HDF5 formats): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    # K1 and K2 over the in-place HDF5 edits, which reach neither
+    k1["hdf5_edit_launches"], k2["hdf5_edit_launches"] = hdf5_edit_path(card, smi)
+    k2b["hdf5_edit_launches"] = k2["hdf5_edit_launches"]
+    print(f"phase 14 (in-place HDF5 edits): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

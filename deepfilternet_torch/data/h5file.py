@@ -54,7 +54,11 @@ Reads use `os.pread`, so one file serves several threads.
 
 `H5Writer` writes the layout of `prepare_data`: superblock 0, symbol-table
 groups (any number of keys), chunked datasets compressed by deflate,
-attributes of numbers and strings. h5py reads what it writes.
+attributes of numbers and strings. In mode "a" it edits a file of
+superblock 0, 2 or 3 in place, in that file's own form, as h5py's modes "a"
+and "r+" do (copy-on-write toward the root; see `H5Writer`), and
+`copy_group` copies chunks byte for byte, as h5py's `copy` does. h5py reads
+and edits again what it writes.
 """
 
 from __future__ import annotations
@@ -89,6 +93,9 @@ _GROUP_LEAF_K, _GROUP_INTERNAL_K, _CHUNK_K = 4, 16, 32
 # last; gzip level 2 (what the JAX package's prepare_data asks h5py for)
 CHUNK, LEVEL = 48000, 2
 _ENTRY_SIZE = 40  # a symbol table entry with 8-byte offsets
+# the most links a group of link messages may hold: Group Info counts them in
+# 16 bits (the writer makes a symbol table of a larger one)
+_MAX_LINK_MESSAGES = 0xFFFF
 
 
 def _pad8(n: int) -> int:
@@ -171,6 +178,45 @@ def _parse_space_max(d: bytes) -> Tuple[Optional[Tuple[int, ...]], Optional[Tupl
     return dims, struct.unpack_from(f"<{rank}Q", d, pos + 8 * rank)
 
 
+def _attr_parts(d: bytes) -> Tuple[str, bytes, bytes, bytes]:
+    """(name, datatype message, dataspace message, value bytes) of an
+    attribute message."""
+    version = d[0]
+    if version == 1:
+        nlen, tlen, slen = struct.unpack_from("<HHH", d, 2)
+        pos = 8
+        name = d[pos:pos + nlen].split(b"\0")[0]
+        pos += _pad8(nlen)
+        tdata = d[pos:pos + tlen]
+        pos += _pad8(tlen)
+        sdata = d[pos:pos + slen]
+        pos += _pad8(slen)
+    elif version in (2, 3):
+        if d[1] & 3:
+            raise NotImplementedError("HDF5 shared datatypes or dataspaces in an attribute")
+        nlen, tlen, slen = struct.unpack_from("<HHH", d, 2)
+        pos = 8 + (1 if version == 3 else 0)
+        name = d[pos:pos + nlen].split(b"\0")[0]
+        tdata = d[pos + nlen:pos + nlen + tlen]
+        sdata = d[pos + nlen + tlen:pos + nlen + tlen + slen]
+        pos += nlen + tlen + slen
+    else:
+        raise NotImplementedError(f"HDF5 attribute message version {version}")
+    return name.decode("utf-8"), tdata, sdata, d[pos:]
+
+
+class _Header:
+    """An object header as the file holds it: `version` (1 or 2), a
+    version-2 header's `flags` and the fields after them (`prefix`: times,
+    attribute phase change), a version-1 header's reference count, and every
+    message but continuations and null messages as (type, flags, creation
+    order, data)."""
+
+    def __init__(self, version: int, flags: int, prefix: bytes, refcount: int, msgs):
+        self.version, self.flags, self.prefix = version, flags, prefix
+        self.refcount, self.msgs = refcount, msgs
+
+
 # ---------------------------------------------------------------------------
 # the reader
 # ---------------------------------------------------------------------------
@@ -185,7 +231,11 @@ class H5File:
         self._fd = os.open(path, os.O_RDONLY)
         try:
             self._size = os.fstat(self._fd).st_size
-            self._base = self._find_superblock()
+            # the superblock's own place (after any user block) and version,
+            # and the root group's object header
+            self._sb_at = self._base = self._find_superblock()
+            self.superblock_version = os.pread(self._fd, 9, self._base)[8]
+            self._root_addr = UNDEF
             self._objects: Dict[int, object] = {}
             self._gheaps: Dict[int, Dict[int, bytes]] = {}
             self._root = self._read_superblock()
@@ -226,9 +276,9 @@ class H5File:
         # every address is relative to the base address, an absolute one
         # (the superblock's own place after a user block)
         self._base, _, eof, _ = struct.unpack_from("<4Q", sb, pos)
-        _, header = struct.unpack_from("<QQ", sb, pos + 32)
+        _, self._root_addr = struct.unpack_from("<QQ", sb, pos + 32)
         self._check_eof(eof)
-        return self._object(header, "/")
+        return self._object(self._root_addr, "/")
 
     def _read_superblock_v2(self) -> "Group":
         """Superblock version 2 or 3 (libver "v108" and later): base address,
@@ -237,12 +287,12 @@ class H5File:
         if sb[9] != 8 or sb[10] != 8:
             raise NotImplementedError(f"HDF5 offsets of {sb[9]} and lengths of {sb[10]} bytes "
                                       "(only 8 are read)")
-        self._base, ext, eof, root = struct.unpack_from("<4Q", sb, 12)
+        self._base, ext, eof, self._root_addr = struct.unpack_from("<4Q", sb, 12)
         if ext != UNDEF:
             raise NotImplementedError(f"HDF5 superblock extension at {ext} (file space "
                                       "strategy or other settings stored with the file)")
         self._check_eof(eof)
-        return self._object(root, "/")
+        return self._object(self._root_addr, "/")
 
     def _check_eof(self, eof: int):
         if eof > self._size:  # an absolute address, as HDF5 checks it
@@ -252,29 +302,35 @@ class H5File:
 
     def _messages(self, addr: int) -> List[Tuple[int, int, bytes]]:
         """(type, flags, data) of every message of the object header at
-        `addr`, continuation blocks included."""
+        `addr`, continuation blocks included (continuation and null messages
+        left out)."""
+        return [(t, f, d) for t, f, _, d in self._header(addr).msgs]
+
+    def _header(self, addr: int) -> "_Header":
         prefix = self._read(addr, 16)
         if prefix[:4] == b"OHDR":
-            return self._messages_v2(addr)
-        version, _, n_msgs, _, size = struct.unpack_from("<BBHII", prefix)
+            return self._header_v2(addr)
+        version, _, n_msgs, refcount, size = struct.unpack_from("<BBHII", prefix)
         if version != 1:
             raise NotImplementedError(f"HDF5 object header version {version}")
-        blocks, msgs = [(addr + 16, size)], []
-        while blocks and len(msgs) < n_msgs:
+        blocks, msgs, seen = [(addr + 16, size)], [], 0
+        while blocks and seen < n_msgs:
             start, length = blocks.pop(0)
             buf, pos = self._read(start, length), 0
-            while pos + 8 <= length and len(msgs) < n_msgs:
+            while pos + 8 <= length and seen < n_msgs:
                 mtype, msize, mflags = struct.unpack_from("<HHB", buf, pos)
                 data = buf[pos + 8:pos + 8 + msize]
                 pos += 8 + msize
+                seen += 1
                 if mtype == _CONTINUATION:
                     blocks.append(struct.unpack_from("<QQ", data))
-                msgs.append((mtype, mflags, data))
-        return msgs
+                elif mtype:
+                    msgs.append((mtype, mflags, 0, data))
+        return _Header(1, 0, b"", refcount, msgs)
 
-    def _messages_v2(self, addr: int) -> List[Tuple[int, int, bytes]]:
-        """The messages of a version-2 object header ("OHDR", then "OCHK"
-        continuation blocks), each block under its checksum."""
+    def _header_v2(self, addr: int) -> "_Header":
+        """A version-2 object header ("OHDR", then "OCHK" continuation
+        blocks), each block under its checksum."""
         head = self._read(addr, 6)
         version, flags = head[4], head[5]
         if version != 2:
@@ -284,25 +340,25 @@ class H5File:
         pos = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
         width = 1 << (flags & 3)
         size = int.from_bytes(self._read(addr + pos, width), "little")
-        pos += width
+        chunk0 = h5v2.read_verified(self, addr, pos + width + size + 4, "object header", b"OHDR")
+        prefix = chunk0[6:pos]
         mhead = 6 if flags & 0x04 else 4  # creation order in each message header
-        blocks = [(h5v2.read_verified(self, addr, pos + size + 4, "object header", b"OHDR"),
-                   pos)]
-        msgs = []
+        blocks, msgs = [(chunk0, pos + width)], []
         while blocks:
             buf, at = blocks.pop(0)
             end = len(buf) - 4
             while at + mhead <= end:  # fewer bytes than a message header: a gap
                 mtype, msize, mflags = struct.unpack_from("<BHB", buf, at)
+                corder = struct.unpack_from("<H", buf, at + 4)[0] if mhead == 6 else 0
                 data = buf[at + mhead:at + mhead + msize]
                 at += mhead + msize
                 if mtype == _CONTINUATION:
                     caddr, clen = struct.unpack_from("<QQ", data)
                     blocks.append((h5v2.read_verified(
                         self, caddr, clen, "object header continuation block", b"OCHK"), 4))
-                if mtype:
-                    msgs.append((mtype, mflags, data))
-        return msgs
+                elif mtype:
+                    msgs.append((mtype, mflags, corder, data))
+        return _Header(2, flags, prefix, 1, msgs)
 
     def _object(self, addr: int, name: str):
         obj = self._objects.get(addr)
@@ -324,22 +380,28 @@ class H5File:
         storage, in the header's order), then those in dense storage (a
         fractal heap indexed by v2 B-trees of names, type 8, and where it is
         kept of creation order, type 9: in that order, else by name)."""
-        out = {}
-        for mtype, _, d in msgs:
+        return {name: self._attribute(d)[1]
+                for name, _, d in self._raw_attrs([(t, f, 0, d) for t, f, d in msgs])}
+
+    def _raw_attrs(self, msgs) -> List[Tuple[str, int, bytes]]:
+        """(name, creation order, attribute message) of every attribute of
+        the header messages `msgs` (type, flags, creation order, data), in
+        the order `_attrs` gives them."""
+        out = []
+        for mtype, _, corder, d in msgs:
             if mtype == _ATTRIBUTE:
-                name, value = self._attribute(d)
-                out[name] = value
+                out.append((_attr_parts(d)[0], corder, d))
             elif mtype == _ATTRINFO:
-                out.update(self._dense_attrs(d))
+                out.extend(self._dense_attrs(d))
         return out
 
-    def _dense_attrs(self, d: bytes) -> Dict[str, object]:
+    def _dense_attrs(self, d: bytes) -> List[Tuple[str, int, bytes]]:
         if d[0] != 0:
             raise NotImplementedError(f"HDF5 attribute info message version {d[0]}")
         pos = 2 + (2 if d[1] & 1 else 0)
         heap_addr, name_tree = struct.unpack_from("<QQ", d, pos)
         if heap_addr == UNDEF:
-            return {}
+            return []
         order_tree = struct.unpack_from("<Q", d, pos + 16)[0] if d[1] & 2 else UNDEF
         tree = h5v2.BTree2(self, order_tree if order_tree != UNDEF else name_tree)
         if tree.type not in (8, 9):
@@ -349,37 +411,16 @@ class H5File:
             if rec[8] & 2:
                 raise NotImplementedError("HDF5 shared attribute messages (a shared object "
                                           "header message table)")
-            found.append(self._attribute(heap.get(rec[:8])))
+            data = heap.get(rec[:8])
+            found.append((_attr_parts(data)[0], struct.unpack_from("<I", rec, 9)[0], data))
         if tree.type == 8:
             found.sort(key=lambda item: item[0].encode("utf-8"))
-        return dict(found)
+        return found
 
     def _attribute(self, d: bytes) -> Tuple[str, object]:
         """(name, value) of an attribute message."""
-        version = d[0]
-        if version == 1:
-            nlen, tlen, slen = struct.unpack_from("<HHH", d, 2)
-            pos = 8
-            name = d[pos:pos + nlen].split(b"\0")[0]
-            pos += _pad8(nlen)
-            tdata = d[pos:pos + tlen]
-            pos += _pad8(tlen)
-            sdata = d[pos:pos + slen]
-            pos += _pad8(slen)
-        elif version in (2, 3):
-            if d[1] & 3:
-                raise NotImplementedError("HDF5 shared datatypes or dataspaces in an "
-                                          "attribute")
-            nlen, tlen, slen = struct.unpack_from("<HHH", d, 2)
-            pos = 8 + (1 if version == 3 else 0)
-            name = d[pos:pos + nlen].split(b"\0")[0]
-            tdata = d[pos + nlen:pos + nlen + tlen]
-            sdata = d[pos + nlen + tlen:pos + nlen + tlen + slen]
-            pos += nlen + tlen + slen
-        else:
-            raise NotImplementedError(f"HDF5 attribute message version {version}")
-        typ, shape = _parse_type(tdata), _parse_space(sdata)
-        return name.decode("utf-8"), self._value(typ, shape, d[pos:])
+        name, tdata, sdata, raw = _attr_parts(d)
+        return name, self._value(_parse_type(tdata), _parse_space(sdata), raw)
 
     def _value(self, typ: _Type, shape, raw: bytes):
         """An attribute's value as h5py returns it."""
@@ -493,48 +534,15 @@ class Group:
 
     def _stab_entries(self, btree: int, heap_addr: int) -> Dict[str, Tuple[int, Optional[str]]]:
         """A symbol-table group's members, sorted by name (the B-tree's order)."""
-        heap, links = self.file._local_heap(heap_addr), {}
-        for _, _, snod in self.file._btree_leaves(btree, 0, 8):
-            head = self.file._read(snod, 8)
-            if head[:4] != b"SNOD":
-                raise ValueError(f"{self.file.path}: no symbol table node at {snod}")
-            n = struct.unpack_from("<H", head, 6)[0]
-            body = self.file._read(snod + 8, n * _ENTRY_SIZE)
-            for i in range(n):
-                off, header, cache = struct.unpack_from("<QQI", body, i * _ENTRY_SIZE)
-                name = heap[off:heap.index(b"\0", off)].decode("utf-8")
-                links[name] = (UNDEF, "soft links") if cache == 2 else (header, None)
-        return links
+        return {name: (UNDEF, "soft links") if cache == 2 else (header, None)
+                for name, header, cache, _ in _stab_members(self.file, btree, heap_addr)}
 
     def _link_entries(self) -> Dict[str, Tuple[int, Optional[str]]]:
         """A group of link messages: compact (in its header) or dense (a
         fractal heap indexed by a v2 B-tree of names, type 5, or of creation
         order, type 6). h5py lists them in creation order where the group
         tracks it, else by name."""
-        info = next((d for t, _, d in self._msgs if t == _LINKINFO), None)
-        links = [_parse_link(d) for t, _, d in self._msgs if t == _LINK]
-        tracked = False
-        if info is not None:
-            if info[0] != 0:
-                raise NotImplementedError(f"HDF5 link info message version {info[0]}")
-            tracked = bool(info[1] & 1)
-            pos = 2 + (8 if tracked else 0)
-            heap_addr, name_tree = struct.unpack_from("<QQ", info, pos)
-            order_tree = struct.unpack_from("<Q", info, pos + 16)[0] if info[1] & 2 else UNDEF
-            if heap_addr != UNDEF:
-                tree = h5v2.BTree2(self.file, order_tree if order_tree != UNDEF else name_tree)
-                if tree.type not in (5, 6):
-                    raise ValueError(f"{self.file.path}: link index of record type {tree.type}")
-                heap = h5v2.FractalHeap(self.file, heap_addr)
-                # a name's hash (4) or a creation order (8), then the heap ID
-                skip = 4 if tree.type == 5 else 8
-                links += [_parse_link(heap.get(rec[skip:skip + heap.id_len]))
-                          for rec in tree.records()]
-        if tracked:
-            links.sort(key=lambda link: link[1])
-        else:
-            links.sort(key=lambda link: link[0].encode("utf-8"))
-        return {name: entry for name, _, entry in links}
+        return {name: entry for name, _, _, entry in _link_members(self.file, self._msgs)[2]}
 
     def keys(self) -> List[str]:
         return list(self._entries())
@@ -558,6 +566,58 @@ class Group:
                 raise NotImplementedError(f"HDF5 {entry[1]} ({path})")
             obj = self.file._object(entry[0], f"{obj.name.rstrip('/')}/{part}")
         return obj
+
+
+def _stab_members(file: H5File, btree: int, heap_addr: int
+                  ) -> List[Tuple[str, int, int, bytes]]:
+    """(name, object header, cache type, scratch pad) of every entry of a
+    symbol table, in name order."""
+    heap, members = file._local_heap(heap_addr), []
+    for _, _, snod in file._btree_leaves(btree, 0, 8):
+        head = file._read(snod, 8)
+        if head[:4] != b"SNOD":
+            raise ValueError(f"{file.path}: no symbol table node at {snod}")
+        n = struct.unpack_from("<H", head, 6)[0]
+        body = file._read(snod + 8, n * _ENTRY_SIZE)
+        for i in range(n):
+            off, header, cache = struct.unpack_from("<QQI", body, i * _ENTRY_SIZE)
+            name = heap[off:heap.index(b"\0", off)].decode("utf-8")
+            members.append((name, header, cache, body[i * _ENTRY_SIZE + 24:(i + 1) * _ENTRY_SIZE]))
+    return members
+
+
+def _link_members(file: H5File, msgs) -> Tuple[int, int, List[Tuple[str, int, bytes, tuple]]]:
+    """(Link Info flags: creation order tracked 1, indexed 2; the next
+    creation order; [(name, creation order, link message, (address, None)
+    or (UNDEF, what the link is))] in h5py's order) of a group of link
+    messages, compact or dense."""
+    info = next((d for t, _, d in msgs if t == _LINKINFO), None)
+    links = [(d,) + _parse_link(d) for t, _, d in msgs if t == _LINK]
+    flags = next_order = 0
+    if info is not None:
+        if info[0] != 0:
+            raise NotImplementedError(f"HDF5 link info message version {info[0]}")
+        flags = info[1] & 3
+        if flags & 1:
+            (next_order,) = struct.unpack_from("<q", info, 2)
+        pos = 2 + (8 if flags & 1 else 0)
+        heap_addr, name_tree = struct.unpack_from("<QQ", info, pos)
+        order_tree = struct.unpack_from("<Q", info, pos + 16)[0] if flags & 2 else UNDEF
+        if heap_addr != UNDEF:
+            tree = h5v2.BTree2(file, order_tree if order_tree != UNDEF else name_tree)
+            if tree.type not in (5, 6):
+                raise ValueError(f"{file.path}: link index of record type {tree.type}")
+            heap = h5v2.FractalHeap(file, heap_addr)
+            # a name's hash (4) or a creation order (8), then the heap ID
+            skip = 4 if tree.type == 5 else 8
+            for rec in tree.records():
+                d = heap.get(rec[skip:skip + heap.id_len])
+                links.append((d,) + _parse_link(d))
+    if flags & 1:
+        links.sort(key=lambda link: link[2])
+    else:
+        links.sort(key=lambda link: link[1].encode("utf-8"))
+    return flags, next_order, [(name, order, d, entry) for d, name, order, entry in links]
 
 
 def _parse_link(d: bytes) -> Tuple[str, int, Tuple[int, Optional[str]]]:
@@ -591,6 +651,7 @@ _INDEX_NAMES = {1: "single chunk", 2: "implicit", 3: "fixed array", 4: "extensib
 class Dataset:
     def __init__(self, file: H5File, name: str, msgs):
         self.file, self.name = file, name
+        self._msgs = msgs
         self.attrs = file._attrs(msgs)
         by_type = {t: d for t, _, d in msgs}
         if _EXTERNAL in by_type:
@@ -915,10 +976,6 @@ def _space_message(shape: Tuple[int, ...]) -> bytes:
     return struct.pack("<BBBB4x", 1, len(shape), 0, 0) + struct.pack(f"<{len(shape)}Q", *shape)
 
 
-def _message(mtype: int, data: bytes) -> bytes:
-    return struct.pack("<HHB3x", mtype, _pad8(len(data)), 0) + data.ljust(_pad8(len(data)), b"\0")
-
-
 def _attr_message(name: str, tdata: bytes, sdata: bytes, value: bytes) -> bytes:
     nb = name.encode("utf-8") + b"\0"
     return (struct.pack("<BBHHH", 1, 0, len(nb), len(tdata), len(sdata))
@@ -926,95 +983,363 @@ def _attr_message(name: str, tdata: bytes, sdata: bytes, value: bytes) -> bytes:
             + sdata.ljust(_pad8(len(sdata)), b"\0") + value)
 
 
-class _WGroup:
-    def __init__(self):
-        self.children: Dict[str, object] = {}
+class _Raw:
+    """An attribute message as the file holds it, written back byte for byte
+    (its variable-length strings stay in the file's global heap)."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+
+
+class _Old:
+    """A member the writer has not opened: its object header's address and
+    its symbol-table entry's cache type and scratch pad; for a soft or
+    external link in a group of link messages (address UNDEF) that message,
+    for a soft link in a symbol table (cache type 2) its value."""
+
+    def __init__(self, addr: int, cache: int = 0, scratch: bytes = bytes(16),
+                 link: Optional[bytes] = None):
+        self.addr, self.cache, self.scratch, self.link = addr, cache, scratch, link
+
+
+class _WObject:
+    """An object whose header the writer writes: a new one (`addr` None), or
+    one of the file's that a call opened, written anew only when `changed`
+    (or, for a group, when a member's header moved). `version`, `flags`,
+    `prefix` and `refcount` are its header's (`_Header`), `msgs` the
+    header's messages but its attributes and their info, as (type, flags,
+    creation order, data); `attrs` maps a name to a value or to a `_Raw`
+    message, in the order they are written, `order` to its creation order;
+    `ainfo` is the (message flags, info flags) of its Attribute Info message
+    and `next_order` the next creation order to give; `entry` the (cache
+    type, scratch pad) its parent's symbol table held."""
+
+    def __init__(self, version: int, msgs, addr: Optional[int] = None, flags: int = 0,
+                 prefix: bytes = b"", refcount: int = 1):
+        self.version, self.msgs, self.addr = version, msgs, addr
+        self.flags, self.prefix, self.refcount = flags, prefix, refcount
+        self.changed = addr is None
         self.attrs: Dict[str, object] = {}
+        self.order: Dict[str, int] = {}
+        self.ainfo: Optional[Tuple[int, int]] = None
+        self.next_order = 0
+        self.entry = (0, bytes(16))
 
 
-class _WDataset:
-    def __init__(self, shape, dtype, chunks, btree, attrs):
-        self.shape, self.dtype, self.chunks, self.btree = shape, dtype, chunks, btree
-        self.attrs = dict(attrs or {})
+class _WGroup(_WObject):
+    """A group: `children` maps a name to a member (`_Old`, `_WGroup` or
+    `_WObject`). `links`: a group of link messages (else a symbol table);
+    `link_flags` its Link Info flags (creation order tracked 1, indexed 2),
+    `link_order` each link's creation order and `next_link` the next;
+    `ginfo` the (message flags, data) of its Group Info message."""
+
+    def __init__(self, version: int, msgs, links: bool, **kw):
+        super().__init__(version, msgs, **kw)
+        self.children: Dict[str, object] = {}
+        self.links = links
+        self.link_flags = self.next_link = 0
+        self.link_order: Dict[str, int] = {}
+        self.linfo_flags = 0
+        self.ginfo: Optional[Tuple[int, bytes]] = None
 
 
 class H5Writer:
-    """Writes a new HDF5 file: `require_group(path)`, `set_attr(path, name,
-    value)`, `create_dataset(path, data, ...)` (its chunks are compressed and
-    written at once), then `close()`, which writes the groups, attributes and
-    superblock. Attribute values: Python or numpy numbers and numeric arrays,
-    `str` (a variable-length UTF-8 string, as h5py stores a `str`) and
-    `bytes` (fixed length)."""
+    """Writes an HDF5 file: `require_group(path)`, `set_attr(path, name,
+    value)`, `del_attr(path, name)`, `create_dataset(path, data, ...)` (its
+    chunks are compressed and written at once), `copy_chunks(path, ds)`,
+    `delete(path)`, `path in writer`, then `close()`, which writes the
+    groups, attributes and superblock. Attribute values: Python or numpy
+    numbers and numeric arrays, `str` (a variable-length UTF-8 string, as
+    h5py stores a `str`) and `bytes` (fixed length).
 
-    def __init__(self, path: str):
-        self.path = path
-        self._f = open(path, "wb")
-        self._f.write(b"\0" * 96)  # the superblock, written last
-        self._root = _WGroup()
+    Mode "w" writes a new file: superblock 0, symbol-table groups, version-1
+    object headers. Mode "a" edits an existing file in place, as h5py's
+    modes "a" and "r+" do (it creates a missing file as "w" does), for
+    superblock 0 and, over `data/h5v2.py`, superblocks 2 and 3; any other
+    version raises `NotImplementedError`. Copy-on-write toward the root:
+    new chunks and every new or changed object header, local heap, symbol
+    table node, B-tree and global heap collection are appended at the old
+    end of the file; an object whose header changes gets a new header there,
+    and so does every group on its path to the root; untouched members keep
+    their addresses, and no byte of an existing chunk is read or written.
+    The superblock is written last (its root and end of file), so until then
+    the file reads as before; on an exception the file is cut back to its
+    old length (a file the writer created is removed). Space a replaced key
+    frees is left, as h5py leaves it.
 
-    def _append(self, data: bytes) -> int:
-        addr = self._f.tell()
-        pad = _pad8(addr) - addr
-        if pad:
-            self._f.write(b"\0" * pad)
-        self._f.write(data)
-        return addr + pad
+    A changed group is written in its own form: a symbol table again (links
+    in name order), or a version-2 header of compact link messages with its
+    Link Info (creation order kept where tracked, new links last) and Group
+    Info (the largest compact count raised to the number of links); a group
+    of link messages of more than 65,535 links, which Group Info cannot
+    count, becomes a symbol table. A changed object's header keeps every
+    message but its attributes, which are all written compact (continuation
+    blocks flattened); its chunk index is not touched. New objects take the
+    file's form: version-1 headers and symbol tables under superblock 0,
+    version-2 headers and link messages under 2 and 3; new datasets are
+    chunked under a v1 B-tree."""
 
-    def _eof(self) -> int:
-        return _pad8(self._f.tell())
+    def __init__(self, path: str, mode: str = "w"):
+        if mode not in ("w", "a"):
+            raise ValueError(f"mode {mode!r}: 'w' or 'a'")
+        self.path, self.mode = path, mode
+        self._src: Optional[H5File] = None
+        self._base = self._sb_at = 0
+        self._group_k = (_GROUP_LEAF_K, _GROUP_INTERNAL_K)
+        if mode == "a" and os.path.exists(path):
+            self._open_existing()
+        else:
+            self._old_size = None  # a new file: removed on an exception in mode "a"
+            self._sb_version = 0
+            self._f = open(path, "wb")
+            self._f.write(b"\0" * 96)  # the superblock, written last
+            self._root = self._new_group()
 
-    def _node(self, path: str, create: bool = False) -> object:
+    def _open_existing(self):
+        src = H5File(self.path)
+        try:
+            version = src.superblock_version
+            if version not in (0, 2, 3):
+                raise NotImplementedError(
+                    f"HDF5 superblock version {version} (the writer edits files of superblock "
+                    "version 0, 2 or 3 in place)")
+            self._sb_version, self._base, self._sb_at = version, src._base, src._sb_at
+            self._sb = os.pread(src._fd, 96 if version == 0 else 48, src._sb_at)
+            root = _Old(src._root_addr)
+            if version == 0:
+                self._group_k = struct.unpack_from("<HH", self._sb, 16)
+                root = _Old(src._root_addr, struct.unpack_from("<I", self._sb, 72)[0],
+                            self._sb[80:96])
+            self._src = src
+            self._root = self._load(root)
+            self._f = open(self.path, "r+b")
+        except BaseException:
+            src.close()
+            raise
+        self._old_size = self._f.seek(0, os.SEEK_END)
+
+    # -- the file's objects --------------------------------------------------------
+
+    def _new_group(self) -> _WGroup:
+        if self._sb_version >= 2:
+            return _WGroup(2, [], links=True)
+        return _WGroup(1, [], links=False)
+
+    def _new_object(self, msgs, attrs) -> _WObject:
+        obj = _WObject(2 if self._sb_version >= 2 else 1, msgs)
+        for name, value in (attrs or {}).items():
+            self._set(obj, name, value)
+        return obj
+
+    def _load(self, old: _Old) -> _WObject:
+        """Open a member: its header, attributes and (a group) members."""
+        if old.addr == UNDEF or old.cache == 2:
+            raise NotImplementedError("HDF5 soft, external or user-defined links (the writer "
+                                      "follows hard links only)")
+        h = self._src._header(old.addr)
+        types = {m[0] for m in h.msgs}
+        kw = dict(addr=old.addr, flags=h.flags, prefix=h.prefix, refcount=h.refcount)
+        keep = [m for m in h.msgs if m[0] not in (_ATTRIBUTE, _ATTRINFO)]
+        if types & {_STAB, _LINKINFO, _LINK}:
+            stab = next((d for t, _, _, d in h.msgs if t == _STAB), None)
+            node = _WGroup(h.version, [m for m in keep if m[0] not in
+                                       (_STAB, _LINKINFO, _GROUPINFO, _LINK)],
+                           links=stab is None, **kw)
+            if stab is not None:
+                btree, heap_addr = struct.unpack_from("<QQ", stab)
+                heap = self._src._local_heap(heap_addr)
+                for name, addr, cache, scratch in _stab_members(self._src, btree, heap_addr):
+                    value = None
+                    if cache == 2:  # a soft link: its value's offset in the heap
+                        at = struct.unpack_from("<I", scratch)[0]
+                        value = heap[at:heap.index(b"\0", at)]
+                    node.children[name] = _Old(addr, cache, scratch, value)
+            else:
+                msgs = [(t, f, d) for t, f, _, d in h.msgs]
+                node.link_flags, node.next_link, members = _link_members(self._src, msgs)
+                for name, order, data, (addr, what) in members:
+                    node.children[name] = _Old(addr, link=data if what else None)
+                    node.link_order[name] = order
+                node.linfo_flags = next((f for t, f, _, _ in h.msgs if t == _LINKINFO), 0)
+                node.ginfo = next(((f, d) for t, f, _, d in h.msgs if t == _GROUPINFO), None)
+        elif _LAYOUT in types:
+            node = _WObject(h.version, keep, **kw)
+        else:
+            raise NotImplementedError("HDF5 object of another kind (a committed datatype?) "
+                                      f"at {old.addr}")
+        for name, order, data in self._src._raw_attrs(h.msgs):
+            node.attrs[name] = _Raw(data)
+            node.order[name] = order
+            node.next_order = max(node.next_order, order + 1)
+        ainfo = next(((f, d) for t, f, _, d in h.msgs if t == _ATTRINFO), None)
+        if ainfo is not None:
+            node.ainfo = (ainfo[0], ainfo[1][1] & 3)
+            if ainfo[1][1] & 1:
+                node.next_order = max(node.next_order,
+                                      struct.unpack_from("<H", ainfo[1], 2)[0])
+        node.entry = (old.cache, old.scratch)
+        return node
+
+    def _node(self, path: str, create: bool = False) -> _WObject:
         node = self._root
         for part in (p for p in path.split("/") if p):
             if not isinstance(node, _WGroup):
                 raise KeyError(path)
-            if part not in node.children:
+            child = node.children.get(part)
+            if child is None:
                 if not create:
                     raise KeyError(path)
-                node.children[part] = _WGroup()
-            node = node.children[part]
+                child = self._add(node, part, self._new_group())
+            elif isinstance(child, _Old):
+                child = node.children[part] = self._load(child)
+            node = child
         return node
+
+    def _add(self, group: _WGroup, name: str, child):
+        if name in group.children:
+            raise KeyError(f"{name} exists")
+        group.children[name] = child
+        group.changed = True
+        if group.link_flags & 1:
+            group.link_order[name] = group.next_link
+            group.next_link += 1
+        return child
+
+    def _parent(self, path: str) -> Tuple[_WGroup, str]:
+        parent, _, name = path.strip("/").rpartition("/")
+        group = self._node(parent, create=True)
+        if not isinstance(group, _WGroup) or not name:
+            raise KeyError(path)
+        return group, name
+
+    @staticmethod
+    def _set(obj: _WObject, name: str, value):
+        obj.attrs.pop(name, None)
+        obj.attrs[name] = value
+        obj.order[name] = obj.next_order
+        obj.next_order += 1
+        obj.changed = True
+
+    # -- the h5py-like surface --------------------------------------------------
+
+    def __contains__(self, path: str) -> bool:
+        try:
+            self._node(path)
+        except KeyError:
+            return False
+        return True
 
     def require_group(self, path: str):
         if not isinstance(self._node(path, create=True), _WGroup):
             raise TypeError(f"{path} is a dataset")
 
     def set_attr(self, path: str, name: str, value):
-        self._node(path).attrs[name] = value
+        self._set(self._node(path), name, value)
+
+    def del_attr(self, path: str, name: str):
+        obj = self._node(path)
+        del obj.attrs[name]
+        obj.changed = True
+
+    def delete(self, path: str):
+        """Unlink `path` from its group, as h5py's `del group[name]` does."""
+        parent, _, name = path.strip("/").rpartition("/")
+        group = self._node(parent)
+        if not isinstance(group, _WGroup) or name not in group.children:
+            raise KeyError(path)
+        del group.children[name]
+        group.link_order.pop(name, None)
+        group.changed = True
 
     def create_dataset(self, path: str, data: np.ndarray,
                        attrs: Optional[Dict[str, object]] = None):
         """Write `data` at `path` (its parent groups are made) in chunks of
         every leading dimension whole and CHUNK elements of the last, each
-        compressed by deflate at level 2, as `prepare_data` stores a clip."""
-        data = np.ascontiguousarray(data)
-        if data.ndim == 0:
-            raise ValueError("a chunked dataset needs at least one dimension")
-        parent, _, name = path.strip("/").rpartition("/")
-        group = self._node(parent, create=True)
-        if not isinstance(group, _WGroup) or name in group.children:
+        compressed by deflate at level 2, as `prepare_data` stores a clip; a
+        scalar (which HDF5 does not chunk) contiguous."""
+        data = np.asarray(data)
+        group, name = self._parent(path)
+        if name in group.children:
             raise KeyError(f"{path} exists")
+        if data.ndim == 0:
+            layout = struct.pack("<BBQQ", 3, 1, self._append(data.tobytes()), data.nbytes)
+            msgs = [(_DATASPACE, 0, 0, _space_message(())),
+                    (_DATATYPE, 0, 0, _type_message(data.dtype)),
+                    (_FILL, 0, 0, struct.pack("<BBBB", 2, 2, 2, 0)), (_LAYOUT, 0, 0, layout)]
+            self._add(group, name, self._new_object(msgs, attrs))
+            return
+        data = np.ascontiguousarray(data)
         shape = data.shape
         chunks = tuple(max(n, 1) for n in shape[:-1]) + (max(min(shape[-1], CHUNK), 1),)
-        es, rank = data.dtype.itemsize, data.ndim
-        keys, addrs = [], []
+        stored = []
         for start in range(0, shape[-1], chunks[-1]):
-            origin = (0,) * (rank - 1) + (start,)
+            origin = (0,) * (data.ndim - 1) + (start,)
             block = np.zeros(chunks, data.dtype)
             part = data[..., start:start + chunks[-1]]
             block[..., :part.shape[-1]] = part
             raw = zlib.compress(block.tobytes(), LEVEL)
-            addrs.append(self._append(raw))
-            keys.append(struct.pack("<II", len(raw), 0) + struct.pack(f"<{rank}Q", *origin)
-                        + struct.pack("<Q", 0))
+            stored.append((origin, self._append(raw), len(raw), 0))
+        msgs = [(_DATASPACE, 0, 0, _space_message(shape)),
+                (_DATATYPE, 0, 0, _type_message(data.dtype)),
+                # fill value: allocated incrementally, written if set, none set
+                (_FILL, 0, 0, struct.pack("<BBBB", 2, 3, 2, 0)),
+                (_LAYOUT, 0, 0, self._chunk_layout(stored, chunks, data.dtype.itemsize)),
+                # one filter, deflate (id 1, optional), named as h5py names it
+                # (HDF5's copy writes the name into the message's old size),
+                # whose one value is the level
+                (_PIPELINE, 0, 0, struct.pack("<BB6xHHHH", 1, 1, 1, 8, 1, 1) + b"deflate\0"
+                 + struct.pack("<I4x", LEVEL))]
+        self._add(group, name, self._new_object(msgs, attrs))
+
+    def copy_chunks(self, path: str, ds: "Dataset"):
+        """Copy the chunked dataset `ds` (of another file, under any chunk
+        index) to `path`, as h5py's `copy` does: each stored chunk byte for
+        byte with its size and filter mask, in the source's chunk shape,
+        dataspace, datatype, fill value and filter pipeline, under a v1
+        B-tree; its attributes."""
+        if ds.chunks is None:
+            raise ValueError(f"{ds.name} is not chunked")
+        group, name = self._parent(path)
+        if name in group.children:
+            raise KeyError(f"{path} exists")
+        index = ds._chunk_index()
+        stored = [(origin, self._append(ds.file._read(addr, size)), size, mask)
+                  for origin, (addr, size, mask) in sorted(index.items())]
+        msgs = [(t, f, 0, d) for t, f, d in ds._msgs if t in (_DATASPACE, _DATATYPE, _OLD_FILL,
+                                                              _FILL)]
+        msgs.append((_LAYOUT, 0, 0, self._chunk_layout(stored, ds.chunks, ds.dtype.itemsize)))
+        msgs += [(t, f, 0, d) for t, f, d in ds._msgs if t == _PIPELINE]
+        self._add(group, name, self._new_object(msgs, ds.attrs))
+
+    def _chunk_layout(self, stored, chunks, es: int) -> bytes:
+        """Write the v1 B-tree over `stored` chunks (offset, address, bytes,
+        filter mask; in offset order); returns the layout message (version 3,
+        chunked) that points to it."""
+        rank = len(chunks)
         btree = UNDEF
-        if addrs:
+        if stored:
+            keys = [struct.pack("<II", size, mask) + struct.pack(f"<{rank + 1}Q", *origin, 0)
+                    for origin, _, size, mask in stored]
             # the right bound of the last chunk: one chunk on in every
             # dimension (the element-size dimension included), as HDF5 does
-            last = [o + c for o, c in zip(origin, chunks)]
+            last = [o + c for o, c in zip(stored[-1][0], chunks)]
             keys.append(struct.pack("<II", 0, 0) + struct.pack(f"<{rank + 1}Q", *last, es))
-            btree = self._btree(1, keys, addrs, 2 * _CHUNK_K)
-        group.children[name] = _WDataset(shape, data.dtype, chunks, btree, attrs)
+            btree = self._btree(1, keys, [addr for _, addr, _, _ in stored], 2 * _CHUNK_K)
+        return (struct.pack("<BBBQ", 3, 2, rank + 1, btree)
+                + struct.pack(f"<{rank + 1}I", *chunks, es))
+
+    # -- writing -------------------------------------------------------------------
+
+    def _append(self, data: bytes) -> int:
+        pos = self._f.tell()
+        pad = _pad8(pos) - pos
+        if pad:
+            self._f.write(b"\0" * pad)
+        self._f.write(data)
+        return pos + pad - self._base
+
+    def _eof(self) -> int:
+        return _pad8(self._f.tell()) - self._base
 
     def _btree(self, node_type: int, keys: List[bytes], children: List[int], fanout: int) -> int:
         """Write a v1 B-tree over `children` (the level-0 entries) whose
@@ -1040,131 +1365,226 @@ class H5Writer:
             keys = [keys[s.start] for s in spans] + [keys[-1]]
             children, level = addrs, level + 1
 
-    def _write_group(self, group: _WGroup, attr_messages) -> Tuple[int, int, int]:
-        """Write a group's members, local heap, symbol-table nodes, B-tree
-        and object header. Returns (header, B-tree, heap) addresses."""
-        entries = []
-        for name in sorted(group.children, key=lambda s: s.encode("utf-8")):
-            child = group.children[name]
-            if isinstance(child, _WGroup):
-                header, btree, heap = self._write_group(child, attr_messages)
-                entries.append((name, header, 1, struct.pack("<QQ", btree, heap)))
-            else:
-                entries.append((name, self._write_dataset(child, attr_messages), 0, b""))
-        # local heap: "" at offset 0, then every name, each padded to 8
+    def _symbol_table(self, members: List[Tuple[str, int, int, bytes]]) -> Tuple[int, int]:
+        """Write a symbol table's local heap, nodes and B-tree over `members`
+        (name, object header, cache type, scratch pad, or for a soft link,
+        cache type 2, its value). Returns (B-tree, heap) addresses."""
+        members = sorted(members, key=lambda m: m[0].encode("utf-8"))
+        # local heap: "" at offset 0, then every name, each padded to 8, and
+        # a soft link's value after its name (the entry's scratch pad holds
+        # the value's offset)
         heap, offsets = bytearray(8), []
-        for name, *_ in entries:
+        for i, (name, header, cache, scratch) in enumerate(members):
             offsets.append(len(heap))
             nb = name.encode("utf-8") + b"\0"
             heap += nb.ljust(_pad8(len(nb)), b"\0")
+            if cache == 2:
+                members[i] = (name, header, cache, struct.pack("<I", len(heap)))
+                heap += scratch.ljust(_pad8(len(scratch) + 1), b"\0")
         heap_addr = self._eof()
         self._append(b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap), 1, heap_addr + 32)
                      + bytes(heap))
         # symbol-table nodes of up to 2K entries, then the B-tree over them
-        per_node, snods, keys = 2 * _GROUP_LEAF_K, [], [struct.pack("<Q", 0)]
-        for i in range(0, len(entries), per_node):
-            part = entries[i:i + per_node]
+        leaf_k, internal_k = self._group_k
+        per_node, snods, keys = 2 * leaf_k, [], [struct.pack("<Q", 0)]
+        for i in range(0, len(members), per_node):
+            part = members[i:i + per_node]
             body = b"".join(struct.pack("<QQI4x", offsets[i + j], header, cache)
                             + scratch.ljust(16, b"\0")
                             for j, (_, header, cache, scratch) in enumerate(part))
             node = b"SNOD" + struct.pack("<BBH", 1, 0, len(part)) + body
             snods.append(self._append(node.ljust(8 + per_node * _ENTRY_SIZE, b"\0")))
             keys.append(struct.pack("<Q", offsets[i + len(part) - 1]))
-        btree = self._btree(0, keys, snods, 2 * _GROUP_INTERNAL_K)
-        header = self._header([_message(_STAB, struct.pack("<QQ", btree, heap_addr))]
-                               + attr_messages(group.attrs))
-        return header, btree, heap_addr
+        return self._btree(0, keys, snods, 2 * internal_k), heap_addr
 
-    def _write_dataset(self, ds: _WDataset, attr_messages) -> int:
-        dims = struct.pack(f"<{len(ds.chunks)}I", *ds.chunks) + struct.pack("<I", ds.dtype.itemsize)
-        layout = struct.pack("<BBBQ", 3, 2, len(ds.chunks) + 1, ds.btree) + dims
-        msgs = [_message(_DATASPACE, _space_message(ds.shape)),
-                _message(_DATATYPE, _type_message(ds.dtype)),
-                # fill value: allocated incrementally, written if set, none set
-                _message(_FILL, struct.pack("<BBBB", 2, 3, 2, 0)),
-                _message(_LAYOUT, layout),
-                # one filter, deflate (id 1), whose one value is the level
-                _message(_PIPELINE, struct.pack("<BB6xHHHHI4x", 1, 1, 1, 0, 0, 1, LEVEL))]
-        return self._header(msgs + attr_messages(ds.attrs))
+    def _write(self, node) -> Tuple[int, int, bytes]:
+        """Write a member (and what it holds) where it changed. Returns its
+        object header's address and the cache type and scratch pad of a
+        symbol-table entry for it."""
+        if isinstance(node, _Old):
+            return node.addr, node.cache, node.scratch
+        if not isinstance(node, _WGroup):
+            if not node.changed:
+                return (node.addr,) + node.entry
+            return self._write_header(node, []), 0, bytes(16)
+        written = {name: self._write(child) for name, child in node.children.items()}
+        if not node.changed and all(written[name][0] == child.addr
+                                    for name, child in node.children.items()):
+            return (node.addr,) + node.entry
+        if node.links and len(written) <= _MAX_LINK_MESSAGES:
+            return self._write_header(node, self._link_messages(node, written)), 0, bytes(16)
+        if node.links and any(isinstance(c, _Old) and c.link is not None
+                              for c in node.children.values()):
+            raise NotImplementedError("HDF5 soft or external links in a group of more than "
+                                      "65,535 links (written as a symbol table)")
+        btree, heap = self._symbol_table([
+            (name, addr, cache, scratch if cache != 2 else node.children[name].link)
+            for name, (addr, cache, scratch) in written.items()])
+        header = self._write_header(node, [(_STAB, 0, 0, struct.pack("<QQ", btree, heap))])
+        return header, 1, struct.pack("<QQ", btree, heap)
 
-    def _header(self, msgs: List[bytes]) -> int:
-        body = b"".join(msgs)
-        return self._append(struct.pack("<BBHII4x", 1, 0, len(msgs), 1, len(body)) + body)
+    def _link_messages(self, group: _WGroup, written) -> list:
+        """The Link Info, Group Info and link messages of a group of link
+        messages, its links in creation order where it tracks it."""
+        names = list(written)
+        tracked = bool(group.link_flags & 1)
+        if tracked:
+            names.sort(key=lambda n: group.link_order[n])
+        links = []
+        for name in names:
+            child = group.children[name]
+            if isinstance(child, _Old) and child.link is not None:
+                data = child.link  # a soft or external link, as the file holds it
+            else:
+                data = h5v2.link_message(name, written[name][0],
+                                         group.link_order[name] if tracked else None)
+            links.append((_LINK, 0, 0, data))
+        ginfo_flags, ginfo = group.ginfo if group.ginfo is not None else (1, None)
+        return ([(_LINKINFO, group.linfo_flags, 0, h5v2.link_info(group.link_flags,
+                                                                   group.next_link)),
+                 (_GROUPINFO, ginfo_flags, 0, h5v2.group_info(ginfo, len(names)))] + links)
+
+    def _write_header(self, obj: _WObject, extra) -> int:
+        """Write `obj`'s object header in its version: its messages, `extra`
+        (type, flags, creation order, data) and its attributes, all compact.
+        Returns its address."""
+        attrs = [(_ATTRIBUTE, 0, obj.order.get(name, 0),
+                  value.data if isinstance(value, _Raw) else self._attr_data(obj, name, value))
+                 for name, value in obj.attrs.items()]
+        msgs = obj.msgs + extra
+        if obj.version == 1:
+            body = []
+            for mtype, mflags, _, data in msgs + attrs:
+                if len(data) > 0xFFF8:
+                    raise NotImplementedError(f"an HDF5 header message of {len(data)} bytes "
+                                              f"(type {mtype}): more than a header holds")
+                body.append(struct.pack("<HHB3x", mtype, _pad8(len(data)), mflags)
+                            + data.ljust(_pad8(len(data)), b"\0"))
+            body = b"".join(body)
+            return self._append(struct.pack("<BBHII4x", 1, 0, len(msgs) + len(attrs),
+                                             obj.refcount, len(body)) + body)
+        flags, prefix = obj.flags, obj.prefix
+        if obj.ainfo is not None or attrs:
+            mflags, iflags = obj.ainfo if obj.ainfo is not None else (4, 0)
+            msgs = msgs + [(_ATTRINFO, mflags, 0, h5v2.attribute_info(iflags, obj.next_order))]
+            # every attribute in the header: its compact limit raised to their
+            # count, so that HDF5 moves them to dense storage when it adds one
+            most, least = struct.unpack_from("<HH", prefix, len(prefix) - 4) if flags & 0x10 \
+                else (8, 6)
+            if len(attrs) > most:
+                if len(attrs) > 0xFFFF:
+                    raise NotImplementedError(f"{len(attrs)} HDF5 attributes in one header")
+                prefix = (prefix[:-4] if flags & 0x10 else prefix) + struct.pack(
+                    "<HH", len(attrs), least)
+                flags |= 0x10
+        return self._append(h5v2.ohdr(flags, prefix, msgs + attrs))
+
+    def _attr_data(self, obj: _WObject, name: str, value) -> bytes:
+        """An attribute message for a value set by this writer."""
+        if isinstance(value, str):
+            ref = struct.pack("<IQI", len(value.encode("utf-8")), self._gheap,
+                              self._gindex[id(obj), name])
+            return _attr_message(name, _VSTR_TYPE, _space_message(()), ref)
+        arr = np.asarray(value)
+        if isinstance(value, bool) or arr.dtype.kind not in "iufS":
+            raise NotImplementedError(f"writing attribute {name} of {type(value).__name__}")
+        if isinstance(value, int):
+            arr = arr.astype(np.int64)
+        return _attr_message(name, _type_message(arr.dtype), _space_message(arr.shape),
+                             arr.tobytes())
+
+    def _string_heap(self):
+        """Write one global heap collection of every string attribute this
+        writer set (none: no collection)."""
+        self._gindex: Dict[Tuple[int, str], int] = {}
+        self._gheap = UNDEF
+        strings: List[bytes] = []
+
+        def collect(node):
+            for name, v in node.attrs.items():
+                if isinstance(v, str):
+                    strings.append(v.encode("utf-8"))
+                    self._gindex[id(node), name] = len(strings)
+            for child in getattr(node, "children", {}).values():
+                if isinstance(child, _WObject):
+                    collect(child)
+
+        collect(self._root)
+        if strings:
+            objs = b"".join(struct.pack("<HH4xQ", i + 1, 1, len(s)) + s.ljust(_pad8(len(s)), b"\0")
+                            for i, s in enumerate(strings))
+            size = max(4096, 16 + len(objs) + 16)
+            free = size - 16 - len(objs)
+            self._gheap = self._append(b"GCOL" + struct.pack("<B3xQ", 1, size) + objs
+                                       + struct.pack("<HH4xQ", 0, 0, free).ljust(free, b"\0"))
 
     def close(self):
-        """Write the global heap of the string attributes, every group and
-        dataset header, and the superblock; close the file."""
+        """Write the global heap of the string attributes, every new or
+        changed object, and last the superblock; close the file."""
         if self._f is None:
             return
         try:
-            # every string attribute's global heap index, by (attrs, name)
-            index: Dict[Tuple[int, str], int] = {}
-            strings: List[bytes] = []
-
-            def collect(node):
-                for name, v in node.attrs.items():
-                    if isinstance(v, str):
-                        strings.append(v.encode("utf-8"))
-                        index[id(node.attrs), name] = len(strings)
-                for child in getattr(node, "children", {}).values():
-                    collect(child)
-
-            collect(self._root)
-            heap_addr = UNDEF
-            if strings:
-                objs = b"".join(struct.pack("<HH4xQ", i + 1, 1, len(s)) + s.ljust(_pad8(len(s)),
-                                                                                  b"\0")
-                                for i, s in enumerate(strings))
-                size = max(4096, 16 + len(objs) + 16)
-                free = size - 16 - len(objs)
-                heap_addr = self._append(b"GCOL" + struct.pack("<B3xQ", 1, size) + objs
-                                         + struct.pack("<HH4xQ", 0, 0, free).ljust(free, b"\0"))
-
-            def attr_messages(attrs) -> List[bytes]:
-                out = []
-                for name, value in attrs.items():
-                    if isinstance(value, str):
-                        ref = struct.pack("<IQI", len(value.encode("utf-8")), heap_addr,
-                                          index[id(attrs), name])
-                        out.append(_message(_ATTRIBUTE, _attr_message(
-                            name, _VSTR_TYPE, _space_message(()), ref)))
-                        continue
-                    arr = np.asarray(value)
-                    if isinstance(value, bool) or arr.dtype.kind not in "iufS":
-                        raise NotImplementedError(f"writing attribute {name} of "
-                                                  f"{type(value).__name__}")
-                    if isinstance(value, int):
-                        arr = arr.astype(np.int64)
-                    out.append(_message(_ATTRIBUTE, _attr_message(
-                        name, _type_message(arr.dtype), _space_message(arr.shape),
-                        arr.tobytes())))
-                return out
-
-            header, btree, heap = self._write_group(self._root, attr_messages)
-            eof = self._eof()
-            self._f.write(b"\0" * (eof - self._f.tell()))
-            sb = (SIGNATURE + struct.pack("<8BHHI", 0, 0, 0, 0, 0, 8, 8, 0, _GROUP_LEAF_K,
-                                          _GROUP_INTERNAL_K, 0)
-                  + struct.pack("<4Q", 0, UNDEF, eof, UNDEF)
-                  + struct.pack("<QQI4xQQ", 0, header, 1, btree, heap))
-            self._f.seek(0)
+            self._string_heap()
+            root, cache, scratch = self._write(self._root)
+            eof = self._f.tell()  # the superblock holds it as an absolute address
+            if self._old_size is not None and (eof, root) == (self._old_size, self._root.addr):
+                return  # nothing changed
+            if self._old_size is None:
+                sb = (SIGNATURE + struct.pack("<8BHHI", 0, 0, 0, 0, 0, 8, 8, 0, _GROUP_LEAF_K,
+                                              _GROUP_INTERNAL_K, 0)
+                      + struct.pack("<4Q", 0, UNDEF, eof, UNDEF))
+            elif self._sb_version == 0:
+                sb = self._sb[:40] + struct.pack("<Q", eof) + self._sb[48:56]
+            else:
+                sb = h5v2.superblock(self._sb, eof, root)
+            if self._sb_version == 0:
+                sb += struct.pack("<QQI4x", 0, root, cache) + scratch
+            self._f.seek(self._sb_at)
             self._f.write(sb)
+        except BaseException:
+            if self.mode == "a":
+                self._abort()
+            raise
         finally:
+            self._close_files()
+
+    def _abort(self):
+        """Leave the file as it was: cut back to its old length, or removed
+        if this writer created it."""
+        if self._f is None:
+            return
+        if self._old_size is None:
+            self._close_files()
+            os.remove(self.path)
+        else:
+            self._f.truncate(self._old_size)
+            self._close_files()
+
+    def _close_files(self):
+        if self._f is not None:
             self._f.close()
             self._f = None
+        if self._src is not None:
+            self._src.close()
+            self._src = None
 
     def __enter__(self):
         return self
 
-    def __exit__(self, *exc):
-        self.close()
+    def __exit__(self, exc_type, *exc):
+        if exc_type is not None and self.mode == "a":
+            self._abort()
+        else:
+            self.close()
 
 
 def copy_group(src: Group, dst: H5Writer, path: str = "", skip=frozenset()):
     """Copy a group's attributes and members (but the paths in `skip`,
     relative to the root and without a leading "/") into the writer at
-    `path`: every dataset with its values, type and attributes, rewritten in
-    the writer's chunks."""
+    `path`: a chunked dataset's chunks byte for byte in its own chunk shape
+    (`H5Writer.copy_chunks`, as h5py's `copy` does), a contiguous or compact
+    one decoded and written in the writer's chunks; each with its
+    attributes."""
     dst.require_group(path)
     for name, value in src.attrs.items():
         dst.set_attr(path, name, value)
@@ -1172,7 +1592,9 @@ def copy_group(src: Group, dst: H5Writer, path: str = "", skip=frozenset()):
         if f"{path}/{key}".strip("/") in skip:
             continue
         obj = src[key]
-        if isinstance(obj, Dataset):
+        if isinstance(obj, Dataset) and obj.chunks is not None:
+            dst.copy_chunks(f"{path}/{key}", obj)
+        elif isinstance(obj, Dataset):
             dst.create_dataset(f"{path}/{key}", obj[...], attrs=obj.attrs)
         else:
             copy_group(obj, dst, f"{path}/{key}", skip)

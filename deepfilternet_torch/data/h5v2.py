@@ -3,6 +3,10 @@
 the Jenkins lookup3 checksum that guards each of them, the fractal heap, the
 version-2 B-tree, and the fixed and extensible arrays that index a dataset's
 chunks. `data/h5file.py` reads objects, groups and datasets over them.
+The last section writes what its writer needs to edit such a file in
+place: a version-2 object header of one chunk, link, Link Info, Group Info
+and Attribute Info messages, and superblock 2/3, each checksum computed as
+HDF5 computes it.
 
 Each reader takes the file (`H5File`: its `_read(addr, n)` and `path`) and
 the structure's address. Every block that carries a checksum is verified as
@@ -403,3 +407,85 @@ def extensible_array(file, addr: int) -> Iterator[Tuple[int, bytes]]:
         addrs = struct.unpack_from(f"<{count}Q", sbuf, prefix + bitmap_size)
         for j, daddr in enumerate(addrs):
             yield from data_block(daddr, size, first + j * size, bitmap, j * npages)
+
+
+# ---------------------------------------------------------------------------
+# the write side
+# ---------------------------------------------------------------------------
+
+
+def ohdr(flags: int, prefix: bytes, msgs) -> bytes:
+    """A version-2 object header of one chunk, under its checksum. `flags`
+    bits 2-5 say whether attribute creation order is tracked (then every
+    message header carries one) and indexed, and whether the attribute
+    phase change and the times are stored (`prefix` holds them: times, then
+    phase change); the width of the chunk's size is chosen here. `msgs` are
+    (type, flags, creation order, data)."""
+    order = bool(flags & 0x04)
+    parts = []
+    for mtype, mflags, corder, data in msgs:
+        if len(data) > 0xFFFF:
+            raise NotImplementedError(f"an HDF5 header message of {len(data)} bytes "
+                                      f"(type {mtype}): more than a header holds")
+        parts.append(struct.pack("<BHB", mtype, len(data), mflags)
+                     + (struct.pack("<H", corder) if order else b"") + data)
+    body = b"".join(parts)
+    width = 0 if len(body) < 1 << 8 else 1 if len(body) < 1 << 16 else 2
+    head = (b"OHDR" + bytes([2, flags & 0x3C | width]) + prefix
+            + len(body).to_bytes(1 << width, "little") + body)
+    return head + struct.pack("<I", lookup3(head))
+
+
+def link_message(name: str, addr: int, corder: Optional[int] = None) -> bytes:
+    """A hard link message to the object header at `addr`, with its creation
+    order where the group tracks it; a name that is not ASCII is marked
+    UTF-8."""
+    nb = name.encode("utf-8")
+    width = 0 if len(nb) < 1 << 8 else 1 if len(nb) < 1 << 16 else 2
+    flags = width | (0x04 if corder is not None else 0) | (0 if nb.isascii() else 0x10)
+    return (bytes([1, flags]) + (struct.pack("<q", corder) if corder is not None else b"")
+            + (b"\x01" if flags & 0x10 else b"") + len(nb).to_bytes(1 << width, "little")
+            + nb + struct.pack("<Q", addr))
+
+
+def link_info(flags: int, next_order: int) -> bytes:
+    """The Link Info message of a group whose links are all in its header
+    (no fractal heap, no index): creation order tracked (flag 1, with the
+    next order to give) and indexed (flag 2) as `flags` say."""
+    return (bytes([0, flags & 3]) + (struct.pack("<q", next_order) if flags & 1 else b"")
+            + struct.pack("<QQ", UNDEF, UNDEF) + (struct.pack("<Q", UNDEF) if flags & 2 else b""))
+
+
+def group_info(old: Optional[bytes], n_links: int) -> bytes:
+    """A Group Info message: `old`'s (HDF5's defaults if None) with the
+    largest compact count raised to at least `n_links`, so that the links
+    may stay in the header; at most 65,535."""
+    flags, most, least, estimates = 0, 8, 6, b""
+    if old is not None:
+        if old[0] != 0:
+            raise NotImplementedError(f"HDF5 group info message version {old[0]}")
+        flags, pos = old[1] & 3, 2
+        if flags & 1:
+            most, least = struct.unpack_from("<HH", old, pos)
+            pos += 4
+        estimates = old[pos:pos + 4] if flags & 2 else b""
+    if n_links > 0xFFFF:
+        raise ValueError(f"{n_links} links do not fit a Group Info message")
+    if n_links > most:
+        flags, most = flags | 1, n_links
+    return bytes([0, flags]) + (struct.pack("<HH", most, least) if flags & 1 else b"") + estimates
+
+
+def attribute_info(flags: int, next_order: int) -> bytes:
+    """The Attribute Info message of an object whose attributes are all in
+    its header: creation order tracked (flag 1, with the next order to give)
+    and indexed (flag 2) as `flags` say."""
+    return (bytes([0, flags & 3]) + (struct.pack("<H", next_order & 0xFFFF) if flags & 1 else b"")
+            + struct.pack("<QQ", UNDEF, UNDEF) + (struct.pack("<Q", UNDEF) if flags & 2 else b""))
+
+
+def superblock(old: bytes, eof: int, root: int) -> bytes:
+    """Superblock 2 or 3 `old` with a new end-of-file address and root
+    object header, under a new checksum."""
+    sb = old[:28] + struct.pack("<QQ", eof, root)
+    return sb + struct.pack("<I", lookup3(sb))

@@ -11,11 +11,11 @@ Subcommands:
     fix     repair sr/max_freq/n_samples/n_channels attrs
             (reference: df/scripts/fix_n_samples_hdf5.py)
 
-`split` and `trim` copy every dataset as it is stored (int16 or float32
-PCM, the uint8 byte streams of vorbis and FLAC) with its attributes; the
-copies are rewritten in the writer's gzip-2 chunks. `fix` cannot edit
-attributes in place as h5py does: it rewrites the whole file (beside it,
-then renamed over it), as `prepare_data` does.
+`split` and `trim` copy every chunked dataset as h5py's `copy` does: its
+chunks byte for byte, in its own chunk shape and filters (int16 or float32
+PCM, the uint8 byte streams of vorbis and FLAC), with its attributes. `fix`
+edits the attributes in place (`H5Writer(file, "a")`, as h5py's mode
+"r+"): the new headers are appended and no sample is moved.
 
 Usage:
     python -m deepfilternet_torch.scripts.hdf5_tool list file.hdf5
@@ -106,13 +106,10 @@ def cmd_trim(args):
 
 
 def cmd_fix(args):
-    """Repair dataset attrs (reference: df/scripts/fix_n_samples_hdf5.py):
-    ensure file-level sr/max_freq exist, decode every entry and rewrite its
-    n_samples/n_channels attrs from the actual audio shape, and drop the
-    legacy n_ch attr. The JAX package edits the attributes in place with
-    h5py; this writer cannot, so the whole file is rewritten with the new
-    attributes (every dataset and other attribute as it was) and renamed
-    over the old one."""
+    """Repair dataset attrs in place (reference: df/scripts/
+    fix_n_samples_hdf5.py): ensure file-level sr/max_freq exist, decode
+    every entry and rewrite its n_samples/n_channels attrs from the actual
+    audio shape, and drop the legacy n_ch attr."""
     reader = Hdf5Dataset(args.file)  # picks up sr/max_freq/codec defaults
     sr, max_freq, codec = reader.sr, reader.max_freq, reader.codec
     if args.sr:
@@ -120,36 +117,28 @@ def cmd_fix(args):
     if args.max_freq:
         max_freq = args.max_freq
     fixed = 0
-    tmp = f"{args.file}.tmp{os.getpid()}"
     try:
-        with H5Writer(tmp) as dst:
+        with H5Writer(args.file, "a") as h5f:
+            h5f.set_attr("/", "sr", sr)
+            h5f.set_attr("/", "max_freq", max_freq)
             src = reader.file
-            for name, value in src.attrs.items():
-                dst.set_attr("/", name, value)
-            dst.set_attr("/", "sr", sr)
-            dst.set_attr("/", "max_freq", max_freq)
             for g in _groups(src):
-                dst.require_group(g)
                 for k in src[g].keys():
-                    d = src[g][k]
                     audio = reader.read(g, k)  # [C, T] float
                     n_samples = int(audio.shape[-1])
                     n_channels = int(audio.shape[0]) if audio.ndim == 2 else 1
                     assert n_channels <= 16, (k, audio.shape)
-                    attrs = dict(d.attrs)
+                    attrs = src[g][k].attrs
                     old = attrs.get("n_samples", None)
                     if old is not None and int(np.atleast_1d(old)[0]) != n_samples:
                         print(f"  {g}/{k}: n_samples {old} -> {n_samples}")
                         fixed += 1
-                    attrs["n_samples"] = n_samples
-                    attrs["n_channels"] = n_channels
-                    attrs.pop("n_ch", None)
-                    dst.create_dataset(f"{g}/{k}", d[...], attrs=attrs)
-        os.replace(tmp, args.file)
+                    h5f.set_attr(f"{g}/{k}", "n_samples", n_samples)
+                    h5f.set_attr(f"{g}/{k}", "n_channels", n_channels)
+                    if "n_ch" in attrs:
+                        h5f.del_attr(f"{g}/{k}", "n_ch")
     finally:
         reader.close()
-        if os.path.exists(tmp):
-            os.remove(tmp)
     print(f"fixed {fixed} entries (sr={sr} max_freq={max_freq} codec={codec})")
 
 

@@ -8,11 +8,12 @@ db_id, one gzip-2 dataset per input file with an `n_samples` attr. PCM int16
 or float32 (vorbis/flac *reading* is supported by the data engine through
 the native decoders; encoding is not vendored — store PCM).
 
-The JAX script opens an existing file in mode "a". This one reads an
-existing file, merges the new files into their group (a key written again
-replaces the old one) and rewrites the whole file: every other group,
-dataset and attribute is kept with its values, the root attributes are set
-anew. The new file is written beside the old one and then renamed over it.
+Like the JAX script (h5py's mode "a"), it edits an existing file in
+place (`H5Writer(output, "a")`): the new clips and the changed groups are
+appended, a key written again is unlinked and written anew, and the root
+attributes are set anew; every other clip stays where it is. A file that
+does not exist is created. A call that fails (a file that does not load)
+leaves the output as it was.
 
 Usage:
     python -m deepfilternet_torch.scripts.prepare_data speech out.hdf5 \
@@ -29,8 +30,9 @@ import time
 
 import numpy as np
 
-from deepfilternet_torch.data.h5file import H5File, H5Writer, copy_group
+from deepfilternet_torch.data.h5file import H5Writer
 from deepfilternet_torch.utils.audio_io import load_audio, resample
+
 
 def sanitize_key(path: str) -> str:
     return path.strip("/").replace("/", "_").replace("\\", "_")
@@ -47,39 +49,31 @@ def prepare(
 ):
     assert content in ("speech", "noise", "rir")
     assert dtype in ("int16", "float32")
-    tmp = f"{output}.tmp{os.getpid()}"
-    try:
-        with H5Writer(tmp) as w:
-            keys = [sanitize_key(p) for p in files]
-            if os.path.isfile(output):
-                with H5File(output) as old:
-                    copy_group(old["/"], w, "", {f"{content}/{k}" for k in keys})
-            w.set_attr("/", "sr", sr)
-            w.set_attr("/", "max_freq", max_freq or sr // 2)
-            w.set_attr("/", "codec", "pcm")
-            w.set_attr("/", "dtype", dtype)
-            w.set_attr("/", "db_name", os.path.basename(output))
-            w.set_attr("/", "db_id", int(time.time()))
-            w.require_group(content)
-            # a key written twice keeps the later file, as JAX's `del grp[key]`
-            for key, path in dict(zip(keys, files)).items():
-                audio, fsr = load_audio(path)
-                if fsr != sr:
-                    audio = resample(audio, fsr, sr)
-                if mono and audio.shape[0] > 1:
-                    audio = audio.mean(axis=0, keepdims=True)
-                if dtype == "int16":
-                    data = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
-                else:
-                    data = audio.astype(np.float32)
-                # gzip-2 chunks of every channel and one second at 48 kHz
-                w.create_dataset(f"{content}/{key}", data,
-                                 attrs={"n_samples": np.array([audio.shape[-1]])})
-            n_written = len(files)
-        os.replace(tmp, output)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with H5Writer(output, "a") as f:
+        f.set_attr("/", "sr", sr)
+        f.set_attr("/", "max_freq", max_freq or sr // 2)
+        f.set_attr("/", "codec", "pcm")
+        f.set_attr("/", "dtype", dtype)
+        f.set_attr("/", "db_name", os.path.basename(output))
+        f.set_attr("/", "db_id", int(time.time()))
+        f.require_group(content)
+        n_written = 0
+        for path in files:
+            audio, fsr = load_audio(path)
+            if fsr != sr:
+                audio = resample(audio, fsr, sr)
+            if mono and audio.shape[0] > 1:
+                audio = audio.mean(axis=0, keepdims=True)
+            if dtype == "int16":
+                data = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
+            else:
+                data = audio.astype(np.float32)
+            key = f"{content}/{sanitize_key(path)}"
+            if key in f:
+                f.delete(key)
+            # gzip-2 chunks of every channel and one second at 48 kHz
+            f.create_dataset(key, data, attrs={"n_samples": np.array([audio.shape[-1]])})
+            n_written += 1
     print(f"Wrote {n_written} {content} samples to {output}")
     return n_written
 

@@ -19,7 +19,9 @@ CPU:
     interpreter on some;
   * against the JAX package on the committed corpus and on a latest-format
     copy of a JAX `prepare_data` corpus: `Hdf5Dataset`, `TdDataset` samples,
-    the `prepare_data` merge and `hdf5_tool` list / split / trim / fix;
+    the `prepare_data` merge and `hdf5_tool` list / split / trim / fix (the
+    merge and `fix` edit the file in place; `tests/test_torch_h5edit.py`
+    holds the writer's mode "a" to h5py's);
   * the committed corpus (`deepfilternet_torch/data/testdata/`) holds what
     `write_latest_corpus` makes and carries the structures it should.
 
@@ -555,28 +557,38 @@ def test_td_dataset_matches_jax(corpora, which):
             np.testing.assert_array_equal(a[k], b[k], err_msg=f"{idx} {k}")
 
 
+def _superblock_version(path):
+    with open(path, "rb") as f:
+        return f.read(9)[8]
+
+
 def _same_contents(got, want):
     """Same root attributes but db_id, groups, keys, values and attributes
-    (h5py), keys compared as sets: a latest-format source keeps its
-    creation order where the port's rewrite sorts by name."""
+    (h5py), every group and attribute list in the same h5py iteration order
+    (creation order where tracked: the port edits a file in place as h5py
+    does), and the same superblock version."""
+    assert _superblock_version(got) == _superblock_version(want)
     with h5py.File(got, "r") as a, h5py.File(want, "r") as b:
         assert {k: v for k, v in a.attrs.items() if k != "db_id"} == \
             {k: v for k, v in b.attrs.items() if k != "db_id"}
-        assert sorted(a) == sorted(b)
+        assert list(a.attrs) == list(b.attrs)
+        assert list(a) == list(b)
         for g in b:
-            assert sorted(a[g]) == sorted(b[g])
+            assert list(a[g]) == list(b[g])
             for k in b[g]:
                 assert a[g][k].dtype == b[g][k].dtype
                 np.testing.assert_array_equal(a[g][k][...], b[g][k][...])
                 assert {n: np.asarray(v).tolist() for n, v in a[g][k].attrs.items()} == \
                     {n: np.asarray(v).tolist() for n, v in b[g][k].attrs.items()}
+                assert list(a[g][k].attrs) == list(b[g][k].attrs)
 
 
 @pytest.mark.parametrize("which,name", [("committed", "speech"), ("committed", "noise"),
                                         ("jax", "speech")])
 def test_prepare_data_merge_matches_jax(corpora, which, name, tmp_path):
-    """The port's prepare_data into a latest-format file (it rewrites the
-    file) against JAX's mode "a" into a copy: the same keys and data."""
+    """The port's prepare_data into a latest-format file (in place, as
+    h5py's mode "a") against JAX's into a copy: the same keys, order, data
+    and superblock version."""
     wavs = _wavs(tmp_path, 2, 0.4, 31)
     src = str(corpora[which] / f"{name}.hdf5")
     for d in ("ours", "theirs"):
