@@ -137,9 +137,26 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                the new clips, still superblock 3); one loader epoch over the
                merged corpus;
                K1 and K2 read 0; at most 90 s.
+ 15. configuration matrix - BASELINE.json's configurations: K1 against its
+               plain version at six geometries (fft/hop/ERB/DF 960/480/32/96,
+               480/240/32/48, 960/480/24/64, 960/240/32/96, 480/236/32/48,
+               480/238/32/48) for S = 1, 17, 37, 64, 4096, mem and frame also
+               4 bytes off 16-byte alignment, timed at DFN3-ll's (480/240)
+               with its bounds; a seeded DFN3 at FFT 480 / hop 240 / 48 DF bins (5 ms
+               delay): StreamingRuntime.process on 64 x 2 s (400 frames, K1
+               once a frame) against the CPU, at bfloat16, enhance(backend=
+               "scan") on 16 x 2 s, a 16-slot server at hop 240 whose clients
+               equal StreamingRuntime.process; DFN2 and DFN1 per frame at that
+               configuration and DFN3 at 24 ERB / 64 DF bins, each against the
+               CPU; DF_ORDER 1-5 per frame against the offline forward; the
+               whole cell refuses the low-latency configuration (K2 reads 0);
+               at most 120 s.
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
+K1's time on the device alone comes from torch.profiler's records of its
+launches, taken in a new process (device_ms_fresh); a run in which the
+profiler kept fewer records than launches fails (kernel_device_ms).
 The second-to-last line of standard output is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. TF32 and cuBLAS's reduced-precision bfloat16
 reductions are off, so float32 runs are float32 against float32 and bfloat16
@@ -223,6 +240,39 @@ def noisy_speech_like(n_streams, seconds, seed):
 # -- phase 3: the fused analysis frontend (TPU kernel K1) --------------------
 
 
+# K1's geometries (fft, hop, nb_erb, nb_df): the main path's, and those of
+# phase 15's configuration matrix
+K1_DEFAULT = (960, 480, 32, 96)
+K1_LOW_LATENCY = (480, 240, 32, 48)  # DFN3-ll
+K1_SHAPES = (K1_DEFAULT, K1_LOW_LATENCY,
+             (960, 480, 24, 64),     # test_configs' ERB and DF counts
+             (960, 240, 32, 96),     # 75% overlap: D != H
+             (480, 236, 32, 48),     # D, H = 244, 236: not multiples of 32
+             (480, 238, 32, 48))     # D, H = 242, 238: not multiples of 4
+
+
+def k1_kwargs(shape):
+    fft, hop, nb_erb, nb_df = shape
+    return dict(fft_size=fft, hop_size=hop, nb_erb=nb_erb, nb_df=nb_df)
+
+
+def k1_state(dev, s, shape, rng):
+    """A seeded mid-stream K1 state: memory, ERB means around their init,
+    unit norms in their init range."""
+    from deepfilternet_torch.ops import mean_norm_init
+
+    fft, hop, nb_erb, nb_df = shape
+    return [torch.from_numpy(x).to(dev) for x in (
+        (rng.standard_normal((s, fft - hop)) * 0.1).astype(np.float32),
+        (mean_norm_init(nb_erb) + rng.standard_normal((s, nb_erb)) * 5).astype(np.float32),
+        rng.uniform(1e-4, 1e-3, (s, nb_df)).astype(np.float32),
+    )]
+
+
+def k1_frame(dev, s, hop, rng):
+    return torch.from_numpy((rng.standard_normal((s, hop)) * 0.1).astype(np.float32)).to(dev)
+
+
 def library_frontend(mem, frame, mean, unit, cs, fb, nb_df, alpha):
     """Yardstick: one torch.matmul (cuBLAS) for both DFT products, then the
     same epilogue in torch. Timed here only; the port never calls it."""
@@ -235,12 +285,26 @@ def library_frontend(mem, frame, mean, unit, cs, fb, nb_df, alpha):
     mn = erb_db * (1.0 - alpha) + mean * alpha
     un = torch.sqrt(power[:, :nb_df]) * (1.0 - alpha) + unit * alpha
     scale = torch.rsqrt(un)
-    return (buf[:, HOP:], re, im, (erb_db - mn) / 40.0, re[:, :nb_df] * scale,
+    return (buf[:, frame.shape[1]:], re, im, (erb_db - mn) / 40.0, re[:, :nb_df] * scale,
             im[:, :nb_df] * scale, mn, un)
 
 
-def check_frontend(dev, card):
-    from deepfilternet_torch.ops import mean_norm_init
+def unaligned(t):
+    """`t` copied into a contiguous tensor whose first element lies 4 bytes
+    past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    base = (1 - buf.data_ptr() // 4) % 4
+    out = buf[base: base + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_frontend_shape(dev, shape, streams):
+    """K1 against its plain version at one geometry, for each stream count
+    over 3 chained frames, the second with mem and the third with the frame
+    starting 4 bytes past a 16-byte boundary (the kernel's 4-byte build, as
+    where fft - hop or hop is not a multiple of 4): every output within 1e-5
+    of its largest value. Returns the largest absolute error."""
     from deepfilternet_torch.ops.fused_frontend import (
         fused_analysis_frontend,
         fused_analysis_frontend_plain,
@@ -248,47 +312,52 @@ def check_frontend(dev, card):
 
     names = ("new_mem", "spec_re", "spec_im", "feat_erb", "fc_re", "fc_im",
              "new_mean", "new_unit")
-    alpha, nb_erb, nb_df = 0.99, 32, 96
+    kw = dict(k1_kwargs(shape), alpha=0.99)
+    tag = "/".join(map(str, shape))
     worst = 0.0
-    # 16 and 17: one full small tile, and its ragged edge; 37: ragged; 4096:
-    # the large tile
-    for s in (1, 16, 17, 37, 64, 4096):
+    for s in streams:
         rng = np.random.default_rng(s)
-        mem = torch.from_numpy((rng.standard_normal((s, 480)) * 0.1).astype(np.float32)).to(dev)
-        mean = torch.from_numpy(
-            (mean_norm_init(nb_erb) + rng.standard_normal((s, nb_erb)) * 5).astype(np.float32)
-        ).to(dev)
-        unit = torch.from_numpy(rng.uniform(1e-4, 1e-3, (s, nb_df)).astype(np.float32)).to(dev)
-        for _ in range(3):
-            frame = torch.from_numpy(
-                (rng.standard_normal((s, HOP)) * 0.1).astype(np.float32)).to(dev)
-            got = fused_analysis_frontend(mem, frame, mean, unit, alpha=alpha)
-            ref = fused_analysis_frontend_plain(mem, frame, mean, unit, alpha=alpha)
+        mem, mean, unit = k1_state(dev, s, shape, rng)
+        for i in range(3):
+            frame = k1_frame(dev, s, shape[1], rng)
+            mem, frame = (unaligned(mem) if i == 1 else mem,
+                          unaligned(frame) if i == 2 else frame)
+            got = fused_analysis_frontend(mem, frame, mean, unit, **kw)
+            ref = fused_analysis_frontend_plain(mem, frame, mean, unit, **kw)
             torch.cuda.synchronize()
             errs = []
             for name, a, b in zip(names, got, ref):
                 if a.shape != b.shape or not torch.isfinite(a).all():
-                    fail(f"K1 {name} at S={s}: shape {tuple(a.shape)} or non-finite values")
+                    fail(f"K1 {tag} {name} at S={s}: shape {tuple(a.shape)} or non-finite values")
                 err = float((a - b).abs().max())
                 # 1e-5 of each output's largest value: the kernel sums the
-                # 960-term products in another order than cuBLAS, from TF32
+                # fft-term products in another order than cuBLAS, from TF32
                 # operand halves (hi + lo) whose lo * lo term it drops
                 tol = 1e-5 * float(b.abs().max())
                 if err > tol:
-                    fail(f"K1 {name} at S={s}: max abs err {err:.3e} > tol {tol:.3e}")
+                    fail(f"K1 {tag} {name} at S={s}: max abs err {err:.3e} > tol {tol:.3e}")
                 errs.append(f"{name}={err:.2e}/{tol:.2e}")
                 worst = max(worst, err)
             mem, mean, unit = (ref[i].contiguous() for i in (0, 6, 7))
-        print(f"K1 S={s}: max abs err / tol (1e-5 x max|plain|) over 3 chained frames "
-              f"(last frame): " + " ".join(errs))
+        print(f"K1 {tag} (fft/hop/ERB/DF) S={s}: max abs err / tol (1e-5 x max|plain|) over 3 "
+              f"chained frames, mem then frame 4 bytes off 16-byte alignment (last frame): "
+              + " ".join(errs))
+    return worst
+
+
+def check_frontend(dev, card):
+    # 16 and 17: one full small tile, and its ragged edge; 37: ragged; 4096:
+    # the large tile
+    worst = check_frontend_shape(dev, K1_DEFAULT, (1, 16, 17, 37, 64, 4096))
 
     # timing: at the main path's shape (S=64, the kernels line) and at the
     # TPU reference's benchmark shape (S=4096)
     empty = empty_launch_ms()
     print(f"an empty kernel launch on {card}: {empty:.4f} ms a launch over 200 back-to-back "
           "launches (CUDA events), what any single launch costs at least")
-    t64 = time_frontend(dev, card, 64, empty)
-    time_frontend(dev, card, 4096, empty)
+    dev_ms = device_ms_fresh([(K1_DEFAULT, 64), (K1_DEFAULT, 4096)])
+    t64 = time_frontend(dev, card, 64, empty, dev_ms[K1_DEFAULT, 64])
+    time_frontend(dev, card, 4096, empty, dev_ms[K1_DEFAULT, 4096])
     return dict(name="fused_analysis_frontend", route="cuda",
                 source="deepfilternet_torch/csrc/fused_frontend.cu",
                 replaces="deepfilternet_tpu/ops/pallas_frontend.py:37",
@@ -311,54 +380,108 @@ def empty_launch_ms():
     return time_ms(launch, iters=200)
 
 
+PROFILE_PAD_S = (0.1, 1.0)  # idle host time around a profiled loop, and on a retake
+
+
 def kernel_device_ms(fn, match, iters=20):
     """Device time a launch of the kernels whose name holds `match`, from
-    torch.profiler (a host-bound loop of launches leaves gaps that CUDA events
-    around the loop count in). None if the profiler recorded no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler's kernel records, summed over the records and divided by
+    their count (a host-bound loop of launches leaves gaps that CUDA events
+    around the loop count in). The profiler keeps only the records it places
+    inside its window, and places the card's 1-11 ms after the host's clock:
+    the launches are padded with idle host time on both sides. A window with
+    another number of records than launches is taken again with longer
+    padding, and then fails. Prints where the first record lay against the
+    host's first launch."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if match in e.key and e.self_device_time_total > 0]
-    if not hits:
-        return None
-    return sum(e.self_device_time_total for e in hits) / iters / 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    for pad in PROFILE_PAD_S:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            with record_function("launches"):
+                for _ in range(iters):
+                    fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = prof.events()
+        hits = [e for e in events if e.device_type == cuda and match in e.name]
+        host = [e.time_range.start for e in events if e.name == "launches"]
+        lead = (min(e.time_range.start for e in hits) - host[0]) if hits and host else None
+        print(f"  torch.profiler: {len(hits)} of {iters} {match} launches recorded "
+              f"(padding {pad} s), the first "
+              + ("not placed" if lead is None else f"{lead / 1e3:+.3f} ms")
+              + " from the host's first launch")
+        if len(hits) == iters:
+            return sum(e.device_time_total for e in hits) / len(hits) / 1e3
+    fail(f"torch.profiler recorded {len(hits)} of {iters} launches of {match}")
 
 
-def time_frontend(dev, card, s, empty_ms):
+def device_ms_child():
+    """In a process of its own: K1's device time alone (kernel_device_ms) for
+    each (shape, S) given as JSON in argv[1], on time_frontend's inputs;
+    prints the times as JSON on the last line."""
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend
+
+    dev, out = torch.device("cuda"), []
+    for shape, s in json.loads(sys.argv[1]):
+        kw = dict(k1_kwargs(shape), alpha=0.99)
+        rng = np.random.default_rng(7)
+        mem, mean, unit = k1_state(dev, s, shape, rng)
+        args = [mem, k1_frame(dev, s, shape[1], rng), mean, unit]
+        out.append(kernel_device_ms(lambda: fused_analysis_frontend(*args, **kw),
+                                    "fused_frontend"))
+    print(json.dumps(out))
+
+
+def device_ms_fresh(cases):
+    """{(shape, S): K1's device time alone} from device_ms_child in a new
+    process. torch.profiler loses a growing share of the card's kernel
+    records as a process ages (every record of a 20-launch window 9 s into a
+    process, 15-20 of 20 after 48-235 s, none after about 600 s of this
+    script; PERF.md §7), so the time does not depend on what ran before."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cases = [(tuple(shape), s) for shape, s in cases]
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.device_ms_child()",
+         json.dumps(cases)], cwd=here, capture_output=True, text=True, timeout=300)
+    lines = res.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if res.returncode != 0 or not lines:
+        fail(f"K1's device time in a new process failed: {res.stderr.strip()[-2000:]}")
+    return dict(zip(cases, json.loads(lines[-1])))
+
+
+def time_frontend(dev, card, s, empty_ms, dev_ms, shape=K1_DEFAULT):
     """K1's time per frame at S streams beside its plain version, the
-    library yardstick and the card's bounds for the same work."""
-    from deepfilternet_torch.ops import erb_fb_tensor, erb_widths, mean_norm_init
+    library yardstick and the card's bounds for the same work; `dev_ms` is
+    its device time alone (device_ms_fresh)."""
+    from deepfilternet_torch.ops import erb_fb_tensor, erb_widths
     from deepfilternet_torch.ops.fused_frontend import (
         fused_analysis_frontend,
         fused_analysis_frontend_plain,
     )
     from deepfilternet_torch.ops.stft import dft_matrices
 
-    alpha, nb_erb, nb_df, fft = 0.99, 32, 96, 960
+    fft, hop, nb_erb, nb_df = shape
+    alpha = 0.99
+    kw = dict(k1_kwargs(shape), alpha=alpha)
     rng = np.random.default_rng(7)
-    args = [torch.from_numpy(x).to(dev) for x in (
-        (rng.standard_normal((s, 480)) * 0.1).astype(np.float32),
-        (rng.standard_normal((s, HOP)) * 0.1).astype(np.float32),
-        (mean_norm_init(nb_erb) + rng.standard_normal((s, nb_erb)) * 5).astype(np.float32),
-        rng.uniform(1e-4, 1e-3, (s, nb_df)).astype(np.float32),
-    )]
-    cs = torch.tensor(np.concatenate(dft_matrices(fft, HOP), axis=1), device=dev)
+    mem, mean, unit = k1_state(dev, s, shape, rng)
+    args = [mem, k1_frame(dev, s, hop, rng), mean, unit]
+    cs = torch.tensor(np.concatenate(dft_matrices(fft, hop), axis=1), device=dev)
     fb = erb_fb_tensor(erb_widths(SR, fft, nb_erb, 2), dev)
     t = alternate({
-        "kernel": lambda: fused_analysis_frontend(*args, alpha=alpha),
-        "plain": lambda: fused_analysis_frontend_plain(*args, alpha=alpha),
+        "kernel": lambda: fused_analysis_frontend(*args, **kw),
+        "plain": lambda: fused_analysis_frontend_plain(*args, **kw),
         "library": lambda: library_frontend(*args, cs, fb, nb_df, alpha),
     })
-    dev_ms = kernel_device_ms(lambda: fused_analysis_frontend(*args, alpha=alpha),
-                              "fused_frontend")
-    f, n, d = fft // 2 + 1, fft, fft - HOP
+    f, n, d = fft // 2 + 1, fft, fft - hop
     flops = 2 * s * n * 2 * f + 2 * s * f * nb_erb
-    nbytes = 4 * (s * (d + HOP + nb_erb + nb_df)                    # inputs
+    nbytes = 4 * (s * (d + hop + nb_erb + nb_df)                    # inputs
                   + s * (d + 2 * f + 2 * nb_erb + 3 * nb_df)         # outputs
                   + 2 * n * f + f * nb_erb)                          # DFT + ERB matrices
     peak_flops, peak_tf32, _, peak_bw = peaks(card)
@@ -368,11 +491,11 @@ def time_frontend(dev, card, s, empty_ms):
     # bound of the unit it uses is three times the operations at the TF32 rate
     t_tc = 3 * flops / peak_tf32 * 1e3
     unit_bound = max(t_tc, t_bytes)
-    best = min(t["kernel"], dev_ms) if dev_ms else t["kernel"]
-    print(f"K1 S={s} per frame on {card}: kernel {t['kernel']:.4f} ms over back-to-back calls "
-          f"(CUDA events), {'not measured' if dev_ms is None else format(dev_ms, '.4f') + ' ms'} "
-          f"on the device alone (profiler), plain {t['plain']:.4f} ms, library "
-          f"{t['library']:.4f} ms, an empty launch {empty_ms:.4f} ms "
+    best = min(t["kernel"], dev_ms)
+    tag = "" if shape == K1_DEFAULT else f" at {'/'.join(map(str, shape))} (fft/hop/ERB/DF)"
+    print(f"K1{tag} S={s} per frame on {card}: kernel {t['kernel']:.4f} ms over back-to-back calls "
+          f"(CUDA events), {dev_ms:.4f} ms on the device alone (profiler), plain "
+          f"{t['plain']:.4f} ms, library {t['library']:.4f} ms, an empty launch {empty_ms:.4f} ms "
           f"({best / empty_ms:.1f} empty launches); float32 bound {bound_ms:.4f} ms "
           f"({flops / 1e9:.3f} GFLOP at {peak_flops / 1e12:.1f} TFLOP/s float32 = {t_ops:.4f} ms; "
           f"{nbytes / 1e6:.2f} MB at {peak_bw / 1e12:.2f} TB/s = {t_bytes:.4f} ms); bound of the "
@@ -753,14 +876,16 @@ def profile_frames(rt, audio, card, label="main path"):
     inflates the wall time, so the busy share is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
 
-    s, n = audio.shape[0], audio.shape[1] // HOP
+    s, n = audio.shape[0], audio.shape[1] // rt.stft_cfg.hop_size
     carry = rt.init(s)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S[0])  # see kernel_device_ms
         t0 = time.perf_counter()
         rt.process(carry, audio)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_PAD_S[0])
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
@@ -777,65 +902,84 @@ def profile_frames(rt, audio, card, label="main path"):
                       for e in top))
 
 
-def main_path(card, model, df_state, suffix):
-    """The per-frame path. Returns (K1 launches, audio, its output on the
-    card, wall seconds)."""
-    from deepfilternet_torch.enhance import enhance, init_df
+def max_abs_err(got, ref):
+    return float(np.abs(got - ref).max())
+
+
+def main_path(card, model, df_state, cpu_model, cpu_state, audio, tag, dtype=torch.float32,
+              cpu_rows=4, cpu_frames=None, tol=1e-4, err_fn=max_abs_err, scan_rows=0,
+              profile=False):
+    """The per-frame path of one model: StreamingRuntime.process over `audio`
+    from a fresh carry after a 5-frame warm-up, K1 once a frame (hop from
+    df_state); its first `cpu_rows` streams (over `cpu_frames` frames, or
+    all) against the same run on the CPU, `err_fn` within `tol` (skipped
+    without a CPU model); with `scan_rows`, enhance(backend="scan") on that
+    many rows of 2 s against the CPU on 2 rows at 1e-4. Returns {launches,
+    out (on the host, float32), wall (seconds), err, scan_launches}."""
+    from deepfilternet_torch.enhance import enhance
     from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
     from deepfilternet_torch.streaming import StreamingRuntime
 
-    rt = StreamingRuntime(model, df_state)
-    s = 64
-    audio = noisy_speech_like(s, SECONDS, seed=0)
-    n_frames = audio.shape[1] // HOP
-    rt.process(rt.init(s), audio[:, : 5 * HOP])  # warm-up (library handles, caches)
+    rt = StreamingRuntime(model, df_state, dtype=dtype)
+    s, hop = audio.shape[0], df_state.hop_size
+    n_frames, seconds = audio.shape[1] // hop, audio.shape[1] / SR
+    rt.process(rt.init(s), audio[:, : 5 * hop])  # warm-up (library handles, caches)
     torch.cuda.synchronize()
 
     k1.launches = 0
     t0 = time.perf_counter()
-    carry, out = rt.process(rt.init(s), audio)
+    _, out = rt.process(rt.init(s), audio)
     torch.cuda.synchronize()
-    main_wall = wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     launches = k1.launches
     if launches != n_frames:
-        fail(f"K1 launches {launches} != frames processed {n_frames}")
-    out = out.cpu().numpy()
+        fail(f"{tag}: K1 launches {launches} != frames processed {n_frames}")
+    out = out.float().cpu().numpy()
     if out.shape != audio.shape or not np.isfinite(out).all():
-        fail(f"main path output {out.shape} not finite / not {audio.shape}")
-    rtf = SECONDS * s / wall
-    print(f"main path ({MODEL_DIR}, {suffix}): StreamingRuntime.process S={s} x "
-          f"{SECONDS} s = {n_frames} frames, K1 launches {launches}; {wall:.3f} s wall, "
-          f"aggregate RTF {rtf:.1f}x on {card} (information only)")
+        fail(f"{tag}: output {out.shape} not finite / not {audio.shape}")
+    kind = "" if dtype == torch.float32 else f"(dtype={dtype_name(dtype)})"
+    print(f"{tag}: StreamingRuntime{kind}.process S={s} x {seconds} s = {n_frames} frames, K1 "
+          f"launches {launches}; {wall:.3f} s wall, aggregate RTF {seconds * s / wall:.1f}x on "
+          f"{card} (information only)")
+    if profile:
+        profile_frames(rt, audio[:, : 20 * hop], card)
 
-    profile_frames(rt, audio[:, : 20 * HOP], card)
+    err = None
+    if cpu_model is not None:
+        cpu_rt = StreamingRuntime(cpu_model, cpu_state, dtype=dtype)
+        n = audio.shape[1] if cpu_frames is None else cpu_frames * hop
+        ref = cpu_rt.process(cpu_rt.init(cpu_rows), audio[:cpu_rows, :n])[1].float().numpy()
+        err = err_fn(out[:cpu_rows, :n], ref)
+        what = "max abs err" if err_fn is max_abs_err else "of the largest value"
+        if not err <= tol:
+            fail(f"{tag}: {cpu_rows} streams differ from the CPU run by {err:.3e} ({what}) > "
+                 f"{tol}")
+        print(f"{tag} vs the same {cpu_rows} streams"
+              + ("" if cpu_frames is None else f" x {cpu_frames} frames")
+              + f" on the CPU: {what} {err:.3e} (tol {tol}); output rms "
+              f"{float(np.sqrt(np.mean(out ** 2))):.4f}, input rms "
+              f"{float(np.sqrt(np.mean(audio ** 2))):.4f}")
 
-    cpu_model, cpu_state, _ = init_df(MODEL_DIR, device="cpu")
-    cpu_rt = StreamingRuntime(cpu_model, cpu_state)
-    _, ref = cpu_rt.process(cpu_rt.init(4), audio[:4])
-    err = float(np.abs(out[:4] - ref.numpy()).max())
-    if not err <= 1e-4:
-        fail(f"main path: 4 streams differ from the CPU run by {err:.3e} > 1e-4")
-    print(f"main path vs the same 4 streams on the CPU: max abs err {err:.3e} (tol 1e-4); "
-          f"output rms {float(np.sqrt(np.mean(out ** 2))):.4f}, input rms "
-          f"{float(np.sqrt(np.mean(audio ** 2))):.4f}")
-
-    batch = noisy_speech_like(16, SECONDS, seed=1)
-    k1.launches = 0
-    t0 = time.perf_counter()
-    enh = enhance(model, df_state, batch, backend="scan")
-    wall = time.perf_counter() - t0
-    n_enh = (batch.shape[1] + df_state.fft_size) // HOP
-    if k1.launches != n_enh:
-        fail(f"enhance: K1 launches {k1.launches} != frames {n_enh}")
-    if enh.shape != batch.shape or not np.isfinite(enh).all():
-        fail("enhance(backend='scan') output malformed")
-    ref = enhance(cpu_model, cpu_state, batch[:2], backend="scan")
-    err = float(np.abs(enh[:2] - ref).max())
-    if not err <= 1e-4:
-        fail(f"enhance: 2 rows differ from the CPU run by {err:.3e} > 1e-4")
-    print(f"enhance(backend='scan') [16, {SECONDS} s]: {n_enh} frames, K1 launches "
-          f"{k1.launches}, {wall:.3f} s wall; vs CPU on 2 rows max abs err {err:.3e}")
-    return launches, audio, out, main_wall, cpu_model, cpu_state
+    scan = None
+    if scan_rows:
+        batch = noisy_speech_like(scan_rows, SECONDS, seed=1)
+        k1.launches = 0
+        t0 = time.perf_counter()
+        enh = enhance(model, df_state, batch, backend="scan")
+        wall_scan = time.perf_counter() - t0
+        scan = k1.launches
+        n_enh = (batch.shape[1] + df_state.fft_size) // hop
+        if scan != n_enh:
+            fail(f"{tag} enhance: K1 launches {scan} != frames {n_enh}")
+        if enh.shape != batch.shape or not np.isfinite(enh).all():
+            fail(f"{tag} enhance(backend='scan') output malformed")
+        e = max_abs_err(enh[:2], enhance(cpu_model, cpu_state, batch[:2], backend="scan"))
+        if not e <= 1e-4:
+            fail(f"{tag} enhance: 2 rows differ from the CPU run by {e:.3e} > 1e-4")
+        print(f"{tag} enhance(backend='scan') [{scan_rows}, {SECONDS} s]: {n_enh} frames, K1 "
+              f"launches {scan}, {wall_scan:.3f} s wall; vs CPU on 2 rows max abs err {e:.3e} "
+              "(tol 1e-4)")
+    return dict(launches=launches, out=out, wall=wall, err=err, scan_launches=scan)
 
 
 def scale_err(got, ref):
@@ -967,10 +1111,12 @@ def profile_call(fn, label, card, audio_seconds):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S[0])  # see kernel_device_ms
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S[0])
     # a user annotation (the optimizer's step) spans its kernels on the
     # device too: counted, it would count their time twice
     spans = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
@@ -1178,16 +1324,16 @@ SERVE_HOPS = int(SECONDS * SR) // HOP  # each client streams 2 s, one hop a requ
 CLIENT_PROCS = 4  # the clients run in processes of their own, apart from the server's
 
 
-def _client_group(port, audio, first, start_at):
+def _client_group(port, audio, first, start_at, hop=HOP):
     """In a client process: one StreamClient thread a row of `audio`, each
     connected, then streaming its row from wall-clock time `start_at` on, one
-    hop a request, each reply waited for. Returns (first row, outputs,
-    round-trip ms, errors)."""
+    hop of `hop` samples a request, each reply waited for. Returns (first
+    row, outputs, round-trip ms, errors)."""
     import threading
 
     from deepfilternet_torch.serve import StreamClient
 
-    n, hops = audio.shape[0], audio.shape[1] // HOP
+    n, hops = audio.shape[0], audio.shape[1] // hop
     outs, rtt, errors = [None] * n, np.zeros((n, hops)), []
 
     def run(i):
@@ -1198,7 +1344,7 @@ def _client_group(port, audio, first, start_at):
                 got = []
                 for k in range(hops):
                     t0 = time.perf_counter()
-                    got.append(c.process_frame(audio[i, k * HOP: (k + 1) * HOP]))
+                    got.append(c.process_frame(audio[i, k * hop: (k + 1) * hop]))
                     rtt[i, k] = (time.perf_counter() - t0) * 1e3
                 outs[i] = np.concatenate(got)
             finally:
@@ -1223,16 +1369,17 @@ def _client_process_ready(_):
     time.sleep(0.2)  # long enough that every process of the pool takes a task
 
 
-def serve_clients(pool, port, audio):
+def serve_clients(pool, port, audio, hop=HOP):
     """Each row of `audio` [n, T] streamed by its own StreamClient thread,
-    one hop a request, each reply waited for, all starting together; the
+    one hop of `hop` samples a request, each reply waited for, all starting together; the
     threads run in the CLIENT_PROCS processes of `pool`, apart from the
     server's, so the server's threads share no interpreter lock with them.
     Returns (outputs [n, T], round-trip ms of every request [n, hops], wall
     seconds from the common start to the last client's end)."""
     groups = np.array_split(np.arange(audio.shape[0]), CLIENT_PROCS)
     start_at = time.time() + 2.0  # every client connected by then
-    got = pool.starmap(_client_group, [(port, audio[g], int(g[0]), start_at) for g in groups])
+    got = pool.starmap(_client_group,
+                       [(port, audio[g], int(g[0]), start_at, hop) for g in groups])
     wall = time.time() - start_at
     errors = [e for _, _, _, errs in got for e in errs]
     if errors:
@@ -1555,18 +1702,21 @@ def family_path(card, smi, model_dir, audio, pool):
     return fam, entry
 
 
-def served_family(tag, smi, model, df_state, audio, pool):
-    """A 16-slot server of another family, each tick one CUDA-graph replay
-    holding K1: 4 clients in the spawned processes stream 1 s each, every one
-    bit for bit equal to StreamingRuntime.process of a 16-stream batch that
-    holds its audio (the same batch width as the graph)."""
+def served_family(tag, smi, model, df_state, audio, pool, clients=CLIENT_PROCS,
+                  seconds=SERVE8_SECONDS):
+    """A 16-slot server, each tick one CUDA-graph replay holding K1: `clients`
+    clients in the spawned processes of `pool` stream `seconds` each, one hop
+    a request, every one bit for bit equal to StreamingRuntime.process of a
+    16-stream batch that holds its audio (the same batch width as the
+    graph)."""
     from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
     from deepfilternet_torch.ops.whole_cell import cell_process as k2
     from deepfilternet_torch.serve import StreamServer
     from deepfilternet_torch.streaming import StreamingRuntime
 
-    n, hops = CLIENT_PROCS, int(SERVE8_SECONDS * SR) // HOP
-    clip = np.ascontiguousarray(audio[:n, : hops * HOP])
+    hop = df_state.hop_size
+    n, hops = clients, int(seconds * SR) // hop
+    clip = np.ascontiguousarray(audio[:n, : hops * hop])
     rows = np.zeros((SERVE8_SLOTS, clip.shape[1]), np.float32)
     rows[:n] = clip
     rt = StreamingRuntime(model, df_state)
@@ -1574,7 +1724,7 @@ def served_family(tag, smi, model, df_state, audio, pool):
     k1.launches = k2.launches = 0
     srv = StreamServer(model, df_state, port=0, max_streams=SERVE8_SLOTS).start()
     try:
-        got, rtt, wall = serve_clients(pool, srv.port, clip)
+        got, rtt, wall = serve_clients(pool, srv.port, clip, hop)
         d, f, r = srv.dispatches, srv.frames_processed, srv.graph_replays
         diff = float(np.abs(got - ref).max())
         if (srv.graph_captures != 1 or srv.k1_in_graph != [1] or diff != 0.0
@@ -1584,11 +1734,12 @@ def served_family(tag, smi, model, df_state, audio, pool):
                  f"{diff:.3e} from StreamingRuntime.process (want 0), K2 {k2.launches}")
     finally:
         srv.stop()
-    print(f"{tag} server, {SERVE8_SLOTS} slots, {n} clients x {hops} hops in {CLIENT_PROCS} "
-          f"processes on {smi}: every client bit for bit equal to StreamingRuntime.process; "
-          f"{d} ticks = {r} graph replays for {f} hops, K1 launches recorded in the graph "
-          f"{srv.k1_in_graph}; round trip median {np.percentile(rtt, 50):.3f} ms, p99 "
-          f"{np.percentile(rtt, 99):.3f} ms, {wall:.3f} s wall (information only)")
+    print(f"{tag} server, {SERVE8_SLOTS} slots, {n} clients x {hops} hops of {hop} samples in "
+          f"{CLIENT_PROCS} processes on {smi}: every client bit for bit equal to "
+          f"StreamingRuntime.process; {d} ticks = {r} graph replays for {f} hops, K1 launches "
+          f"recorded in the graph {srv.k1_in_graph}; round trip median "
+          f"{np.percentile(rtt, 50):.3f} ms, p99 {np.percentile(rtt, 99):.3f} ms against the "
+          f"{hop / SR * 1e3:.0f} ms hop, {wall:.3f} s wall (information only)")
     return {"server_replays": r, "k1_in_graph": srv.k1_in_graph == [1]}
 
 
@@ -3600,6 +3751,160 @@ def hdf5_edit_path(card, smi):
     return k1.launches, k2.launches
 
 
+# -- phase 15: BASELINE.json's configuration matrix ----------------------------------
+
+MATRIX_PHASE_S = 120.0
+LOW_LATENCY = {("FFT_SIZE", "DF"): "480", ("HOP_SIZE", "DF"): "240", ("NB_DF", "DF"): "48"}
+# tests/test_configs.py's DFN2 keys; one DF iteration is what its streaming cell runs
+DFN2_KEYS = {("GRU_TYPE", "deepfilternet"): "squeeze",
+             ("DF_OUTPUT_LAYER", "deepfilternet"): "groupedlinear",
+             ("DFOP_METHOD", "deepfilternet"): "complex_strided",
+             ("DF_N_ITER", "deepfilternet"): "1"}
+ERB_COUNTS = {("NB_ERB", "DF"): "24", ("NB_DF", "DF"): "64"}
+MATRIX_STREAMS = (1, 17, 37, 64, 4096)
+MATRIX_ROWS, MATRIX_CPU_ROWS = 16, 2  # the secondary configurations' streams, and the CPU's
+
+
+def seeded_models(keys, model_name=None, cpu=True):
+    """A random-init model (init_model's seeded generator) under the config
+    `keys` on the card and, with `cpu`, the same weights on the CPU; the
+    config is reset before and after. Returns (model, df_state, cpu_model,
+    cpu_state)."""
+    from deepfilternet_torch.config import config
+    from deepfilternet_torch.enhance import init_df
+
+    config.reset()
+    try:
+        for (key, section), value in keys.items():
+            config.set(key, value, section=section)
+        model, df_state, _ = init_df(model_name=model_name)
+        cpu_model, cpu_state = (init_df(model_name=model_name, device="cpu")[:2] if cpu
+                                else (None, None))
+    finally:
+        config.reset()
+    if cpu:
+        for (name, a), (_, b) in zip(named_leaves(model.params), named_leaves(cpu_model.params)):
+            if not torch.equal(a.cpu(), b):
+                fail(f"seeded {model_name} weights differ between the card and the CPU at {name}")
+    return model, df_state, cpu_model, cpu_state
+
+
+def configuration_matrix_path(dev, card, smi):
+    """Phase 15: K1 against its plain version at every geometry of
+    K1_SHAPES and MATRIX_STREAMS, timed at DFN3-ll's; a seeded DFN3 at FFT
+    480 / hop 240 / 48 DF bins through StreamingRuntime.process (64 x 2 s,
+    K1 once a frame) against the CPU, at bfloat16, through
+    enhance(backend="scan") and a hop-240 server (16 clients x 2 s, bit for
+    bit StreamingRuntime.process); DFN2 and DFN1 per frame at
+    that configuration; 24 ERB / 64 DF bins per frame against the CPU;
+    DF_ORDER 1-5 per frame against the offline forward; the whole cell
+    refusing the low-latency configuration. Returns K1's entries."""
+    import multiprocessing as mp
+
+    from deepfilternet_torch.enhance import enhance
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+    from deepfilternet_torch.streaming_whole_cell import WholeCellStreamingRuntime
+
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def lap(name):
+        steps[name] = time.perf_counter() - t_phase - sum(steps.values())
+
+    entry = {"matrix_max_abs_err": max(check_frontend_shape(dev, shape, MATRIX_STREAMS)
+                                       for shape in K1_SHAPES)}
+    empty = empty_launch_ms()
+    dev_ms = device_ms_fresh([(K1_LOW_LATENCY, 64), (K1_LOW_LATENCY, 4096)])
+    for s in (64, 4096):
+        t = time_frontend(dev, card, s, empty, dev_ms[K1_LOW_LATENCY, s], K1_LOW_LATENCY)
+        entry.update({f"ll_s{s}_{k}": t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms")})
+    lap("K1 alone")
+
+    # DFN3-ll: the per-frame runtimes, the scan backend and the server
+    model, df_state, cpu_model, cpu_state = seeded_models(LOW_LATENCY)
+    hop = df_state.hop_size
+    got = (df_state.fft_size, hop, df_state.delay, model.cfg["nb_df"], model.cfg["freq_bins"])
+    if got != (480, 240, 240, 48, 241):
+        fail(f"DFN3-ll: (fft, hop, delay, nb_df, bins) {got}")
+    tag = "DFN3-ll (seeded random weights, FFT 480 / hop 240 / 48 DF bins)"
+    audio = noisy_speech_like(64, SECONDS, seed=15)
+    run = main_path(card, model, df_state, cpu_model, cpu_state, audio, tag,
+                    cpu_rows=MATRIX_CPU_ROWS, scan_rows=MATRIX_ROWS)
+    entry["ll_launches"], entry["ll_scan_launches"] = run["launches"], run["scan_launches"]
+    lap("DFN3-ll float32, scan")
+
+    bf16 = main_path(card, model, df_state, cpu_model, cpu_state, audio, tag,
+                     dtype=torch.bfloat16, cpu_rows=MATRIX_CPU_ROWS, cpu_frames=100, tol=0.05,
+                     err_fn=scale_err)
+    e_f32 = scale_err(bf16["out"], run["out"])
+    if not e_f32 <= BF16_DRIFT_TOL:
+        fail(f"{tag} bfloat16: vs float32 {e_f32:.3e} (tol {BF16_DRIFT_TOL}) of the largest "
+             "value")
+    print(f"{tag} bfloat16 vs the float32 run: {e_f32:.3e} of the largest value (tol "
+          f"{BF16_DRIFT_TOL})")
+    entry["ll_bf16_launches"] = bf16["launches"]
+    lap("bfloat16")
+
+    with mp.get_context("spawn").Pool(CLIENT_PROCS) as pool:
+        pool.map(_client_process_ready, range(4 * CLIENT_PROCS), chunksize=1)
+        served = served_family(tag, smi, model, df_state, audio, pool, clients=SERVE8_SLOTS,
+                               seconds=SECONDS)
+    entry["ll_server_replays"] = served["server_replays"]
+    lap("server")
+
+    # the whole cell takes DFN3's default geometry only, as JAX's does
+    k2.launches = 0
+    try:
+        WholeCellStreamingRuntime(model, df_state)
+    except AssertionError:
+        pass
+    else:
+        fail("WholeCellStreamingRuntime took the low-latency configuration")
+    if k2.launches:
+        fail(f"the refused whole cell launched K2 {k2.launches} times")
+    print(f"WholeCellStreamingRuntime at {tag}: refused (AssertionError, as JAX's "
+          "PallasStreamingRuntime), K2 launches 0")
+
+    # DFN2 and DFN1 at the low-latency configuration, 24 ERB / 64 DF bins:
+    # per frame on 16 x 1 s, the CPU on its first streams and 100 frames
+    short = audio[:MATRIX_ROWS, : int(SR * 1.0)]
+    for key, keys, name in (("ll_dfn2", {**LOW_LATENCY, **DFN2_KEYS}, "deepfilternet2"),
+                            ("ll_dfn1", LOW_LATENCY, "deepfilternet"),
+                            ("erb24_df64", ERB_COUNTS, None)):
+        fm, fd, cm, cd = seeded_models(keys, name)
+        label = (f"{key} ({fm.module.__name__.rsplit('.', 1)[1]}, seeded, FFT {fd.fft_size} / "
+                 f"hop {fd.hop_size} / {fm.cfg['nb_erb']} ERB / {fm.cfg['nb_df']} DF bins)")
+        entry[f"{key}_launches"] = main_path(card, fm, fd, cm, cd, short, label,
+                                             cpu_rows=MATRIX_CPU_ROWS, cpu_frames=100)["launches"]
+    lap("DFN2, DFN1, 24/64")
+
+    # DF_ORDER 1-5: per frame against the offline forward on the card, at
+    # JAX's own bound for the pair (tests/test_configs.py: 2e-4)
+    x = audio[:4, : int(SR * 1.0)]
+    errs, entry["df_order_launches"] = [], 0
+    for order in range(1, 6):
+        om, od, _, _ = seeded_models({("DF_ORDER", "DF"): str(order)}, cpu=False)
+        o = main_path(card, om, od, None, None, x, f"DF_ORDER {order} (seeded DFN3)")
+        err = max_abs_err(o["out"], enhance(om, od, x, pad=False))
+        if om.cfg["df_order"] != order or not err <= 2e-4:
+            fail(f"DF_ORDER {order}: cfg order {om.cfg['df_order']}, per frame vs offline "
+                 f"{err:.3e} (tol 2e-4)")
+        errs.append(err)
+        entry["df_order_launches"] += o["launches"]
+    print(f"DF_ORDER 1-5 (seeded DFN3) StreamingRuntime.process [4, 1 s] against "
+          f"enhance(pad=False) on {card}: max abs err " + ", ".join(f"{e:.2e}" for e in errs)
+          + f" (tol 2e-4); K1 launches {entry['df_order_launches']} in all")
+
+    lap("DF orders")
+    phase = time.perf_counter() - t_phase
+    print(f"phase 15 on {smi}: {phase:.1f} s wall (bound {MATRIX_PHASE_S:.0f} s): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items()))
+    if phase > MATRIX_PHASE_S:
+        fail(f"phase 15 took {phase:.1f} s, more than {MATRIX_PHASE_S:.0f} s")
+    return entry
+
+
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
@@ -3672,8 +3977,11 @@ def main():
     k1 = check_frontend(dev, card)
     worst, rt32 = check_whole_cell(dev, card, model, df_state, torch.float32)
     k2 = dict(time_whole_cell_all(dev, card, rt32, ""), max_abs_err=worst)
-    k1["launches"], audio, out, wall, cpu_model, cpu_state = main_path(
-        card, model, df_state, suffix)
+    cpu_model, cpu_state, _ = init_df(MODEL_DIR, device="cpu")
+    audio = noisy_speech_like(64, SECONDS, seed=0)
+    run = main_path(card, model, df_state, cpu_model, cpu_state, audio,
+                    f"main path ({MODEL_DIR}, {suffix})", scan_rows=16, profile=True)
+    k1["launches"], out, wall = run["launches"], run["out"], run["wall"]
     k2["launches"], wc_out = whole_cell_path(card, model, df_state, cpu_model, cpu_state, audio,
                                              out, wall)
     t0 = time.perf_counter()
@@ -3726,6 +4034,11 @@ def main():
     k1["hdf5_edit_launches"], k2["hdf5_edit_launches"] = hdf5_edit_path(card, smi)
     k2b["hdf5_edit_launches"] = k2["hdf5_edit_launches"]
     print(f"phase 14 (in-place HDF5 edits): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    # K1 at every geometry of BASELINE.json's configuration matrix, and its
+    # launches on those configurations' per-frame paths
+    k1.update(configuration_matrix_path(dev, card, smi))
+    print(f"phase 15 (configuration matrix): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

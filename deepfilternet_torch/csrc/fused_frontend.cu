@@ -57,7 +57,25 @@
 //     the chunks' band sums in chunk order, so the result does not depend on
 //     block timing, and writes the dB, mean-norm outputs;
 //   * the ragged last tile is zero-filled on load and masked on store, so any
-//     S works; new_mem is written by the blocks of chunk 0 only.
+//     S works. Every block sees every K-slice of buf, so slice sl's part of
+//     new_mem is written by the blocks of chunk sl % gridDim.y: the copy is
+//     spread over the chunks, and no block's K loop, the time at small S,
+//     carries all of it;
+//   * __launch_bounds__(THREADS, 2): the large tile's shared memory fits two
+//     blocks a multiprocessor, and the bound holds its registers to what two
+//     blocks can have (unbounded, ptxas gives it over 128 and one block runs
+//     alone);
+//   * any D >= 0 and H > 0 works, as for the TPU kernel, whose blocks are
+//     whole rows. A K-slice must come from one source, so the packed DFT
+//     holds mem's rows padded with zero rows to Dp = ceil(D / KS) * KS, then
+//     frame's padded to a multiple of KS; the loads of buf zero-fill the
+//     columns past D or H (cp.async with src-size 0, as for rows past S), so
+//     that no load leaves its row and no stale stage is multiplied by a zero
+//     row. Where a source's rows are not all 16-byte aligned (D or H not a
+//     multiple of 4, or an unaligned base) buf is copied 4 bytes at a time,
+//     by a build of its own, so that the 16-byte build keeps its code.
+//     new_mem[:, j] = buf[:, H + j] is written by index: where H < D it takes
+//     columns of both sources, and H need not start a slice.
 //
 // Measured times, error and the card they were taken on: PERF.md, kernel table.
 
@@ -75,6 +93,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   const int n = valid ? 16 : 0;  // 0: nothing is read, 16 zero bytes are written
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -147,13 +170,15 @@ struct Tile {
   static_assert(TS * PW_LD <= STAGES * STAGE_FLOATS, "the power tile reuses the ring");
 };
 
-template <int TS, int NC, int WM, int WN>
-__global__ void __launch_bounds__(Tile<TS, NC, WM, WN>::THREADS) fused_frontend_kernel(
+// VEC16: buf is copied 16 bytes at a time (every row of mem and frame
+// 16-byte aligned), else 4
+template <int TS, int NC, int WM, int WN, bool VEC16>
+__global__ void __launch_bounds__(Tile<TS, NC, WM, WN>::THREADS, 2) fused_frontend_kernel(
     const float* __restrict__ mem,      // [S, D]
     const float* __restrict__ frame,    // [S, H]
     const float* __restrict__ mean,     // [S, E]
     const float* __restrict__ unit,     // [S, FD]
-    const float* __restrict__ dft,      // [FP / NC, N, B_LD]: per bin chunk, K rows of [cos | sin | pad]
+    const float* __restrict__ dft,      // [FP / NC, Dp + Hp, B_LD]: per bin chunk, K rows of [cos | sin | pad]
     const float* __restrict__ fb,       // [F, E]
     float* __restrict__ new_mem,        // [S, D]
     float* __restrict__ re_out,         // [S, F]
@@ -172,7 +197,9 @@ __global__ void __launch_bounds__(Tile<TS, NC, WM, WN>::THREADS) fused_frontend_
   extern __shared__ __align__(128) float smem[];
   __shared__ bool last_chunk;
   __shared__ __align__(8) unsigned long long full[STAGES];
-  const int N = D + H;
+  constexpr int VEC = VEC16 ? 4 : 1;  // floats a copy
+  const int Dp = (D + KS - 1) / KS * KS;  // K rows of mem and of frame in the packed DFT
+  const int Np = Dp + (H + KS - 1) / KS * KS;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -180,7 +207,6 @@ __global__ void __launch_bounds__(Tile<TS, NC, WM, WN>::THREADS) fused_frontend_
   const int row0 = blockIdx.x * TS;
   const int chunk = blockIdx.y;
   const int c0 = chunk * NC;
-  const bool write_mem = chunk == 0;
 
   if (tid == 0) {
     for (int i = 0; i < STAGES; ++i) mbar_init(full + i);
@@ -188,27 +214,40 @@ __global__ void __launch_bounds__(Tile<TS, NC, WM, WN>::THREADS) fused_frontend_
   }
   __syncthreads();
 
+  // K-slice k0 of the packed rows lies in one source: columns [col0, col0 +
+  // KS) of mem (k0 < Dp) or of frame, of which those below `len` exist
+  struct Slice {
+    const float* src;
+    int len, col0, b0;  // b0: buf column of the slice's first column
+  };
+  auto slice_at = [&](int k0) {
+    return k0 < Dp ? Slice{mem, D, k0, k0} : Slice{frame, H, k0 - Dp, D + k0 - Dp};
+  };
+
   // stage `st` <- K-slice k0: the chunk's rows of [cos | sin] by one bulk copy
   // (the wrapper packs them contiguously, padded as shared memory wants
-  // them), buf by cp.async from every thread (rows beyond S: zeros)
+  // them), buf by cp.async from every thread (rows beyond S and columns
+  // beyond the source's: zeros)
   auto issue = [&](int st, int k0) {
     float* As = smem + st * T::STAGE_FLOATS;
     float* Bs = As + T::A_FLOATS;
     if (tid == 0) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       mbar_expect(full + st, (unsigned)(T::B_FLOATS * sizeof(float)));
-      bulk_copy(Bs, dft + ((size_t)chunk * N + k0) * T::B_LD,
+      bulk_copy(Bs, dft + ((size_t)chunk * Np + k0) * T::B_LD,
                 (unsigned)(T::B_FLOATS * sizeof(float)), full + st);
     }
-    const bool in_mem = k0 < D;
-    const float* src = in_mem ? mem : frame;
-    const int ld = in_mem ? D : H;
-    const int kk0 = in_mem ? k0 : k0 - D;
-    for (int i = tid; i < TS * (KS / 4); i += THREADS) {
-      const int r = i / (KS / 4), c4 = i % (KS / 4);
+    const Slice from = slice_at(k0);
+    // VEC16: len % 4 == 0, so a group of 4 lies wholly inside or past it
+    for (int i = tid; i < TS * (KS / VEC); i += THREADS) {
+      const int r = i / (KS / VEC), c = i % (KS / VEC) * VEC;
       const int row = row0 + r;
-      const bool ok = row < S;
-      cp_async16(As + r * A_LD + c4 * 4, src + (size_t)(ok ? row : 0) * ld + kk0 + c4 * 4, ok);
+      const bool ok = row < S && from.col0 + c < from.len;
+      const float* src = from.src + (ok ? (size_t)row * from.len + from.col0 + c : 0);
+      if constexpr (VEC16)
+        cp_async16(As + r * A_LD + c, src, ok);
+      else
+        cp_async4(As + r * A_LD + c, src, ok);
     }
   };
 
@@ -221,7 +260,7 @@ __global__ void __launch_bounds__(Tile<TS, NC, WM, WN>::THREADS) fused_frontend_
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc_re[i][j][q] = acc_im[i][j][q] = 0.f;
 
-  const int n_slices = N / KS;
+  const int n_slices = Np / KS;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_slices) issue(s, s * KS);
@@ -235,11 +274,12 @@ __global__ void __launch_bounds__(Tile<TS, NC, WM, WN>::THREADS) fused_frontend_
     cp_async_commit();
     const float* As = smem + (sl % STAGES) * T::STAGE_FLOATS;
     const float* Bs = As + T::A_FLOATS;
-    const int k0 = sl * KS;
-    if (write_mem && k0 >= H) {  // new_mem = buf[:, H:]
+    const Slice here = slice_at(sl * KS);
+    if (sl % (int)gridDim.y == chunk && here.b0 + KS > H) {  // new_mem[:, j] = buf[:, H + j]
       for (int i = tid; i < TS * KS; i += THREADS) {
         const int r = i / KS, c = i % KS;
-        if (row0 + r < S) new_mem[(size_t)(row0 + r) * D + (k0 - H) + c] = As[r * A_LD + c];
+        if (row0 + r < S && here.col0 + c < here.len && here.b0 + c >= H)
+          new_mem[(size_t)(row0 + r) * D + (here.b0 + c - H)] = As[r * A_LD + c];
       }
     }
     // The tensor core cuts each sum it returns towards zero, a bias that
@@ -391,11 +431,11 @@ struct Args {
   float alpha, one_minus_alpha;
 };
 
-template <int TS, int NC, int WM, int WN>
+template <int TS, int NC, int WM, int WN, bool VEC16>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using T = Tile<TS, NC, WM, WN>;
   if (a.FP % NC != 0) return cudaErrorInvalidValue;
-  auto kernel = fused_frontend_kernel<TS, NC, WM, WN>;
+  auto kernel = fused_frontend_kernel<TS, NC, WM, WN, VEC16>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (err != cudaSuccess) return err;
@@ -421,9 +461,11 @@ extern "C" {
 // success). The caller owns every buffer; all are float32 (`done`: uint32),
 // contiguous and row-major. tile_rows picks the build: 64 (64 streams x NC = 64
 // bins a block) or 16 (16 streams x NC = 32 bins). dft is the windowed DFT
-// packed for that build: [FP / NC, D + H, 2 * NC + 8], chunk c's K rows of
+// packed for that build: [FP / NC, Dp + Hp, 2 * NC + 8], chunk c's K rows of
 // [cos[:, c*NC:(c+1)*NC] | sin[...] | 8 floats of padding], zero in the
-// columns at and beyond F. band_part is [FP / NC, S, E]; done holds
+// columns at and beyond F; its rows are the D rows of mem, zero rows up to
+// Dp = ceil(D / 32) * 32, the H rows of frame and zero rows up to
+// Hp = ceil(H / 32) * 32. band_part is [FP / NC, S, E]; done holds
 // ceil(S / tile_rows) zeros.
 int dfn_fused_frontend(const float* mem, const float* frame, const float* mean,
                        const float* unit, const float* dft,
@@ -433,14 +475,19 @@ int dfn_fused_frontend(const float* mem, const float* frame, const float* mean,
                        int H, int F, int FP, int E, int FD, float alpha,
                        float one_minus_alpha, int tile_rows, void* stream) {
   if (S <= 0) return 0;
-  if (D < 0 || H <= 0 || D % KS != 0 || H % KS != 0 || FP < F || FD > F)
+  if (D < 0 || H <= 0 || FP < F || FD > F)
     return (int)cudaErrorInvalidValue;
   const Args a{mem, frame, mean, unit, dft, fb, new_mem, re_out, im_out, fe_out,
                fc_re, fc_im, mean_out, unit_out, band_part, done, S, D, H, F, FP, E, FD,
                alpha, one_minus_alpha};
   cudaStream_t st = (cudaStream_t)stream;
-  if (tile_rows == 64) return (int)launch<64, 64, 2, 4>(a, st);
-  if (tile_rows == 16) return (int)launch<16, 32, 1, 4>(a, st);
+  // 16-byte copies need every row of both sources 16-byte aligned
+  const bool vec16 = D % 4 == 0 && H % 4 == 0 && reinterpret_cast<uintptr_t>(frame) % 16 == 0 &&
+                     (D == 0 || reinterpret_cast<uintptr_t>(mem) % 16 == 0);
+  if (tile_rows == 64)
+    return (int)(vec16 ? launch<64, 64, 2, 4, true>(a, st) : launch<64, 64, 2, 4, false>(a, st));
+  if (tile_rows == 16)
+    return (int)(vec16 ? launch<16, 32, 1, 4, true>(a, st) : launch<16, 32, 1, 4, false>(a, st));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,6 +30,7 @@ from deepfilternet_torch.ops.norms import erb_norm_step
 from deepfilternet_torch.ops.stft import Stft, analysis_step_ri, dft_matrices
 
 _NC = 128  # the kernel's DFT matrices are padded to a multiple of this many bins
+_KS = 32  # K rows a slice of the kernel's ring: mem's and frame's rows are padded to it
 
 # the kernel's two builds: (stream rows, bins) a block
 _TILE_LARGE = (64, 64)
@@ -76,19 +77,32 @@ def _padded_dft_tensors(fft_size: int, hop_size: int, device: torch.device):
     return tuple(out)
 
 
+def _k_rows(n: int) -> int:
+    """Rows a source of n columns takes in the packed DFT: whole K-slices."""
+    return -(-n // _KS) * _KS
+
+
 @functools.lru_cache(maxsize=None)
 def _packed_dft(fft_size: int, hop_size: int, bins: int, device: torch.device) -> torch.Tensor:
     """The padded DFT matrices as the kernel's build with `bins` bins a block
-    reads them: [chunks, fft, 2 * bins + 8], chunk c's K rows of
+    reads them: [chunks, Dp + Hp, 2 * bins + 8], chunk c's K rows of
     [cos[:, c*bins:(c+1)*bins] | sin[...] | 8 floats of padding], so that a
     K-slice of a chunk is one contiguous copy in the layout (row stride 8
-    off a multiple of 32 banks) its shared-memory loads want."""
+    off a multiple of 32 banks) its shared-memory loads want. The rows of
+    mem (D = fft - hop) and of frame (H = hop) are each padded with zero rows
+    to whole slices (Dp = _k_rows(D), Hp = _k_rows(H)), so that every slice
+    comes from one of the two; at 960 / 480 there is no padding."""
     cos_p, sin_p = _padded_dft_tensors(fft_size, hop_size, device)
     n, fp = cos_p.shape
+    d = fft_size - hop_size
+    dp = _k_rows(d)
     chunks = fp // bins
-    out = torch.zeros((chunks, n, 2 * bins + 8), dtype=torch.float32, device=device)
-    out[:, :, :bins] = cos_p.reshape(n, chunks, bins).permute(1, 0, 2)
-    out[:, :, bins: 2 * bins] = sin_p.reshape(n, chunks, bins).permute(1, 0, 2)
+    out = torch.zeros((chunks, dp + _k_rows(hop_size), 2 * bins + 8), dtype=torch.float32,
+                      device=device)
+    for lo, hi, at in ((0, d, 0), (d, n, dp)):
+        for col, m in ((0, cos_p), (bins, sin_p)):
+            out[:, at: at + hi - lo, col: col + bins] = (
+                m[lo:hi].reshape(hi - lo, chunks, bins).permute(1, 0, 2))
     return out
 
 
@@ -159,8 +173,14 @@ def fused_analysis_frontend(
     the TPU kernel, any number of streams S works: the CUDA kernel masks its
     ragged last tile of streams, and the tile (64 streams x 64 bins a block,
     or 16 x 32 while that would leave multiprocessors idle) is chosen here
-    from S and the card, so there is no `tile` argument.
+    from S and the card, so there is no `tile` argument. As for the TPU
+    kernel, any fft_size >= hop_size > 0 works (the kernel masks the columns
+    past the memory and the hop); the rest raises ValueError before a launch.
     """
+    if hop_size <= 0 or fft_size < hop_size or nb_df > fft_size // 2 + 1:
+        # what the TPU kernel cannot take either; any other fft / hop works
+        raise ValueError(f"no analysis frontend for fft_size {fft_size}, hop_size {hop_size}, "
+                         f"nb_df {nb_df}")
     _check_inputs(analysis_mem, frame, mean_state, unit_state, fft_size, hop_size,
                   nb_erb, nb_df)
     kw = dict(fft_size=fft_size, hop_size=hop_size, nb_erb=nb_erb, nb_df=nb_df,

@@ -102,6 +102,54 @@ def test_packed_dft_holds_the_chunks(bins):
     assert (32 * (2 * bins + 8) * 4) % 16 == 0
 
 
+# (fft, hop): the default, DFN3-ll, 75% overlap, D and H not multiples of 32
+# (244, 236), D and H not multiples of 4 (242, 238)
+GEOMETRIES = [(960, 480), (480, 240), (960, 240), (480, 236), (480, 238)]
+
+
+@pytest.mark.parametrize("bins", [ff._TILE_SMALL[1], ff._TILE_LARGE[1]])
+@pytest.mark.parametrize("fft,hop", GEOMETRIES)
+def test_packed_dft_slices_walk_like_the_kernel(fft, hop, bins):
+    """The kernel's K loop over the packed DFT, emulated in float64: every
+    K-slice taken from mem or frame alone (`slice_at`), columns past the
+    source zero-filled, new_mem written by index. The spectrum equals the
+    plain analysis to float32 rounding, and new_mem equals it exactly, at
+    any fft / hop (the padded rows of mem start frame's on a slice)."""
+    from deepfilternet_torch.ops.stft import Stft, analysis_step_ri
+
+    rng = np.random.default_rng(fft + hop)
+    s, d, ks = 5, fft - hop, ff._KS
+    mem = torch.from_numpy((rng.standard_normal((s, d)) * 0.1).astype(np.float32))
+    frame = torch.from_numpy((rng.standard_normal((s, hop)) * 0.1).astype(np.float32))
+    packed = ff._packed_dft(fft, hop, bins, torch.device("cpu")).double()
+    chunks, k_rows, _ = packed.shape
+    dp = ff._k_rows(d)
+    assert k_rows == dp + ff._k_rows(hop) and dp % ks == 0 and k_rows % ks == 0
+    re = torch.zeros((s, chunks, bins), dtype=torch.float64)
+    im = torch.zeros_like(re)
+    new_mem = torch.full((s, d), float("nan"))
+    for k0 in range(0, k_rows, ks):
+        src, length, col0, b0 = (mem, d, k0, k0) if k0 < dp else (frame, hop, k0 - dp,
+                                                                    d + k0 - dp)
+        a = torch.zeros((s, ks), dtype=torch.float64)
+        n = max(0, min(ks, length - col0))
+        a[:, :n] = src[:, col0: col0 + n].double()
+        rows = packed[:, k0: k0 + ks]
+        re += torch.einsum("sk,ckb->scb", a, rows[..., :bins])
+        im += torch.einsum("sk,ckb->scb", a, rows[..., bins: 2 * bins])
+        for c in range(n):
+            if b0 + c >= hop:
+                new_mem[:, b0 + c - hop] = a[:, c].float()
+    f = fft // 2 + 1
+    want_mem, want_re, want_im = analysis_step_ri(mem, frame, Stft(48000, fft, hop))
+    assert torch.equal(new_mem, want_mem)
+    for got, want in ((re, want_re), (im, want_im)):
+        got = got.reshape(s, -1)
+        assert not got[:, f:].any()
+        err = float((got[:, :f] - want.double()).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+
 def test_tf32_split_of_the_dft_matrices():
     cs = torch.tensor(np.concatenate(dft_matrices(960, 480), axis=1))
     hi, lo = ff.tf32_split(cs)
