@@ -151,6 +151,19 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                CPU; DF_ORDER 1-5 per frame against the offline forward; the
                whole cell refuses the low-latency configuration (K2 reads 0);
                at most 120 s.
+ 16. the last slices - DFN3-ll (seeded weights at the default widths) trained
+               on the card: one step against the CPU's (4 x 3 s, phase 9's
+               bounds), 20 timed steps on 8 x 3 s, the stepped weights through
+               write_cp, config.save and init_df into StreamingRuntime.process
+               on 64 x 2 s (K1 once a frame, 400 frames) against the CPU;
+               deepfilternet_torch/scripts/cuda_train.sh --device cuda for
+               three epochs over a corpus of a few clips, SIGUSR1 to the
+               trainer after its first epoch: continue holds that epoch, the
+               wrapper resubmits once, the resumed run trains only the later
+               epochs, exit 0 and no continue left; the port's make_vtlp_pool
+               over 16 x 5 s at 4 warps (audio seconds a wall second), read
+               back and fed to train_demo's loader as DEMO_EXTRA_CLEAN; K2
+               reads 0; at most 150 s.
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
@@ -1874,10 +1887,11 @@ def train_batch(df_state, nb_df, rows, seconds, seed, dev):
     return {"noisy": spec, "clean": clean_spec, "feat_erb": feat_erb, "feat_spec": feat_spec}
 
 
-def train_model(model_dir=None, name=None, dev="cuda"):
+def train_model(model_dir=None, name=None, dev="cuda", keys=None):
     """(params, state, cfg, module, df_state) through init_model, with a
     bundled checkpoint's weights through read_cp (seeded random weights
-    without a directory), on `dev`; the loss stack set in the config."""
+    without a directory), on `dev`, under the config `keys` {(key, section):
+    value}; the loss stack set in the config."""
     from deepfilternet_torch.checkpoint import params_from_numpy, read_cp
     from deepfilternet_torch.config import config
     from deepfilternet_torch.enhance import DfState
@@ -1886,6 +1900,8 @@ def train_model(model_dir=None, name=None, dev="cuda"):
     config.reset()
     if model_dir is not None:
         config.load(os.path.join(model_dir, "config.ini"), allow_reload=True)
+    for (key, section), value in (keys or {}).items():
+        config.set(key, value, section=section)
     params, state, cfg, module = init_model(name, seed=7, device=dev)
     if model_dir is not None:
         payload = read_cp(os.path.join(model_dir, "checkpoints"), "best")
@@ -1893,7 +1909,9 @@ def train_model(model_dir=None, name=None, dev="cuda"):
         state = ckpt_state or state
     for section, key, value in TRAIN_LOSS + (("DfAlphaLoss", "factor", "1"),):
         config.set(key, value, section=section)
-    df_state = DfState(nb_erb=cfg["nb_erb"],
+    df_state = DfState(sr=config("SR", 48000, int, section="DF"),
+                       fft_size=config("FFT_SIZE", 960, int, section="DF"),
+                       hop_size=config("HOP_SIZE", 480, int, section="DF"), nb_erb=cfg["nb_erb"],
                        min_nb_erb_freqs=config("MIN_NB_ERB_FREQS", 2, int, section="DF"))
     return params, state, cfg, module, df_state
 
@@ -2208,7 +2226,7 @@ CORPUS_TRAIN = (("train", "MAX_EPOCHS", "2"), ("train", "BATCH_SIZE", "8"),
 CORPUS_WORKERS, CORPUS_BATCH, PRELOADED_STEPS = 4, 8, 5
 
 
-def write_corpus(root):
+def write_corpus(root, corpus=CORPUS):
     """Seeded WAVs (phase 9's harmonic-plus-noise speech, amplitude-modulated
     white noise, decaying-noise RIRs) written by the port's save_audio and
     turned into int16 corpora by the port's prepare_data (its own HDF5
@@ -2222,7 +2240,7 @@ def write_corpus(root):
     os.makedirs(wav)
     rng = np.random.default_rng(100)
     nbytes = 0
-    for seed, (name, (n, seconds)) in enumerate(CORPUS.items()):
+    for seed, (name, (n, seconds)) in enumerate(corpus.items()):
         t = np.arange(int(seconds * SR)) / SR
         if name in ("speech", "valid"):
             clips = noisy_speech_like(n, seconds, seed=200 + seed)
@@ -3013,14 +3031,15 @@ def export_path(card, smi, root):
     return k1.launches, k2.launches
 
 
-def write_demo_corpus(root):
-    """The demo trainers' corpus: clean.hdf5 and noise_flac.hdf5, seeded WAVs
-    written by the port's prepare_data."""
+def write_demo_corpus(root, corpus=DEMO_CORPUS):
+    """The demo trainers' corpus: clean.hdf5 and noise_flac.hdf5 of
+    `corpus` {name: (clips, seconds)}, seeded WAVs written by the port's
+    prepare_data."""
     from deepfilternet_torch.scripts.prepare_data import prepare
     from deepfilternet_torch.utils.audio_io import save_audio
 
     rng = np.random.default_rng(300)
-    for name, (n, seconds) in DEMO_CORPUS.items():
+    for name, (n, seconds) in corpus.items():
         if name == "clean":
             clips = noisy_speech_like(n, seconds, seed=301) * 0.5
         else:
@@ -3905,6 +3924,367 @@ def configuration_matrix_path(dev, card, smi):
     return entry
 
 
+# -- phase 16: the last slices ---------------------------------------------------------
+
+# the phase took 73.6 s in the whole script on an NVIDIA H100 80GB HBM3
+# (700 W) and its host, two trainer processes' start-up among it
+LAST_PHASE_S = 120.0
+# the wrapper's corpus {name: (clips, seconds)} and [train] keys: three epochs
+# of 2 steps of 4 x 3 s
+WRAPPER_CORPUS = {"speech": (8, 3.0), "noise": (4, 3.0), "rir": (2, 0.5), "valid": (4, 3.0)}
+WRAPPER_EPOCHS = 3
+WRAPPER_TRAIN = (("train", "MAX_EPOCHS", str(WRAPPER_EPOCHS)), ("train", "BATCH_SIZE", "4"),
+                 ("train", "MAX_SAMPLE_LEN_S", "3"), ("train", "EARLY_STOPPING_PATIENCE", "5"))
+WRAPPER_TIMEOUT_S = 300
+# the module the port's wrapper runs
+TRAINER = "deepfilternet_torch.train.run"
+# the VTLP pool's source corpus and warps
+VTLP_CORPUS = {"clean": (16, 5.0), "noise_flac": (4, 5.0)}
+VTLP_ALPHAS = (0.9, 0.95, 1.05, 1.1)
+
+
+def low_latency_training(dev, card, smi):
+    """Phase 16 (a): DFN3-ll (seeded random weights at the default widths,
+    FFT 480 / hop 240 / 48 DF bins) one train step card vs CPU on 4 x 3 s at
+    phase 9's bounds, 20 timed steps on 8 x 3 s, then the stepped weights
+    through write_cp, config.save and init_df into StreamingRuntime.process
+    on 64 x 2 s (K1 once a frame, 400 frames) against the CPU at 1e-4.
+    Returns K1's launches in that run."""
+    from deepfilternet_torch.checkpoint import write_cp
+    from deepfilternet_torch.config import config
+    from deepfilternet_torch.enhance import init_df
+    from deepfilternet_torch.train.trainer import load_opt_config, make_train_step
+
+    opt_cfg = load_opt_config()
+    lr, wd = opt_cfg["lr"], opt_cfg["weight_decay"]
+    params, state, cfg, module, df_state = train_model(name="deepfilternet3", dev=dev,
+                                                       keys=LOW_LATENCY)
+    cpu_params, cpu_state, _, _, _ = train_model(name="deepfilternet3", dev="cpu",
+                                                 keys=LOW_LATENCY)
+    got = (df_state.fft_size, df_state.hop_size, cfg["nb_erb"], cfg["nb_df"], cfg["freq_bins"])
+    if got != (480, 240, 32, 48, 241):
+        fail(f"DFN3-ll training: (fft, hop, nb_erb, nb_df, bins) {got}")
+    for (name, a), (_, b) in zip(named_leaves(params), named_leaves(cpu_params)):
+        if not torch.equal(a.cpu(), b):
+            fail(f"seeded DFN3-ll weights differ between the card and the CPU at {name}")
+    tag = "DFN3-ll training (seeded, FFT 480 / hop 240 / 48 DF bins)"
+    walls = {}
+    t0 = time.perf_counter()
+    batch = train_batch(df_state, cfg["nb_df"], 4, TRAIN_SECONDS, seed=161, dev=dev)
+    ts, _ = step_vs_cpu(tag, card, module, cfg, df_state, params, state, cpu_params, cpu_state,
+                        batch, lr, wd)
+    walls["step card vs CPU"] = time.perf_counter() - t0
+    batch8 = train_batch(df_state, cfg["nb_df"], 8, TRAIN_SECONDS, seed=162, dev=dev)
+    step = make_train_step(module, cfg, train_loss(cfg, df_state))
+    ts = timed_steps(tag, card, smi, step, ts, batch8, lr, wd, TRAIN_STEPS)
+    walls[f"{TRAIN_STEPS} steps"] = time.perf_counter() - t0 - sum(walls.values())
+
+    # the stepped weights as a user loads them: write_cp and the config
+    with tempfile.TemporaryDirectory() as model_dir:
+        write_cp(os.path.join(model_dir, "checkpoints"), ts.params, ts.model_state, ts.step,
+                 is_best=True)
+        config.save(os.path.join(model_dir, "config.ini"))
+        model, mstate, suffix = init_df(model_dir, device=dev)
+        cpu_model, cpu_mstate, _ = init_df(model_dir, device="cpu")
+    config.reset()
+    same = all(torch.equal(a.detach(), b) for (_, a), (_, b)
+               in zip(named_leaves(ts.params), named_leaves(model.params)))
+    if not (same and suffix == f"e{ts.step}" and mstate.hop_size == 240):
+        fail(f"{tag}: the stepped weights did not load back ({suffix}, bit for bit {same}, "
+             f"hop {mstate.hop_size})")
+    walls["write_cp, init_df"] = time.perf_counter() - t0 - sum(walls.values())
+    audio = noisy_speech_like(64, SECONDS, seed=16)
+    run = main_path(card, model, mstate, cpu_model, cpu_mstate, audio,
+                    f"{tag} after {ts.step} steps, per frame", cpu_rows=MATRIX_CPU_ROWS)
+    walls["per frame, card and CPU"] = time.perf_counter() - t0 - sum(walls.values())
+    print(f"{tag} walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    if run["launches"] != 400:
+        fail(f"{tag}: K1 launched {run['launches']} times in 400 frames")
+    return run["launches"]
+
+
+def _descendants(pid):
+    """The pids of every process below `pid`, from /proc/*/stat."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    parent[int(name)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except OSError:
+                continue
+    out, todo = [], [pid]
+    while todo:
+        above = todo.pop()
+        kids = [c for c, p in parent.items() if p == above]
+        out += kids
+        todo += kids
+    return out
+
+
+def kill_tree(proc):
+    """Kill `proc` and every process below it, and reap `proc`."""
+    for pid in [*_descendants(proc.pid), proc.pid]:
+        try:
+            os.kill(pid, 9)
+        except ProcessLookupError:
+            pass
+    proc.wait()
+
+
+def trainer_pid(wrapper_pid, module=TRAINER):
+    """The trainer below the wrapper: the Python interpreter (not a shell
+    script named python3) running `module`."""
+    for pid in _descendants(wrapper_pid):
+        try:
+            exe = os.path.basename(os.readlink(f"/proc/{pid}/exe"))
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().split(b"\0")
+        except OSError:
+            continue
+        if exe.startswith("python") and module.encode() in cmd:
+            return pid
+    return None
+
+
+def sigusr1_resubmit(wrapper, args, root, module=TRAINER, timeout_s=WRAPPER_TIMEOUT_S):
+    """Run the cluster wrapper `wrapper` with `args` (DATA_CFG DATA_DIR
+    BASE_DIR, then the trainer's extra arguments) from the repository's root,
+    and send SIGUSR1 to its trainer (the Python process running `module`,
+    found below the wrapper in /proc; not the wrapper, whose bash would die of
+    it) once the trainer's first epoch line has printed. A `python` and a
+    `python3` first on PATH run this interpreter and record after each trainer
+    run whether BASE_DIR/continue exists (the resubmitted wrapper removes
+    it). A watchdog kills the whole tree after `timeout_s`. Returns what the
+    run showed: its exit code, the trainer's and the wrapper's pids, those
+    records, the epoch `continue` held, the resubmissions, the epochs before
+    and after the resubmission, the `Resuming from` epochs, the final test
+    losses, whether `continue` was left, the wall seconds, and the lines."""
+    import signal
+    import threading
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = args[2]
+    bin_dir = os.path.join(root, "bin")
+    os.makedirs(bin_dir)
+    log = os.path.join(root, "continue.log")
+    for name in ("python", "python3"):
+        with open(os.path.join(bin_dir, name), "w") as f:
+            f.write(f'#!/bin/sh\n"{sys.executable}" "$@"\nrc=$?\n'
+                    f'if [ -f "$5/continue" ]; then echo "continue $(cat "$5/continue")" >> "{log}"\n'
+                    f'else echo "no continue" >> "{log}"; fi\nexit $rc\n')
+        os.chmod(os.path.join(bin_dir, name), 0o755)
+    env = dict(os.environ, PATH=f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}",
+               PYTHONPATH=here, PYTHONUNBUFFERED="1", OPENBLAS_NUM_THREADS="1")
+    env.pop("SLURM_JOB_NAME", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([wrapper, *args], cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    # the whole tree goes at the time limit: the trainer holds the pipe open
+    watchdog = threading.Timer(timeout_s, kill_tree, (proc,))
+    watchdog.start()
+    lines, signalled, marks = [], None, {}
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            print(f"  {os.path.basename(wrapper)}: {lines[-1]}")
+            for mark in ("epoch 0: train loss", "continue file found", "Resuming from"):
+                if line.startswith(mark):
+                    marks.setdefault(mark, time.perf_counter() - t0)
+            if signalled is None and line.startswith("epoch 0: train loss"):
+                signalled = trainer_pid(proc.pid, module)
+                if signalled is None:
+                    kill_tree(proc)
+                    break
+                os.kill(signalled, signal.SIGUSR1)
+        rc = proc.wait(timeout=60)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            kill_tree(proc)
+    wall = time.perf_counter() - t0
+    records = open(log).read().splitlines() if os.path.exists(log) else []
+    resubmit = "continue file found - resubmitting"
+    at = lines.index(resubmit) if resubmit in lines else len(lines)
+
+    def epochs(part):
+        return [int(ln.split()[1].rstrip(":")) for ln in part if ": train loss" in ln]
+
+    return {
+        "rc": rc, "trainer": signalled, "wrapper": proc.pid, "records": records,
+        "stopped": int(records[0].split()[1]) if records[:1] and
+        records[0].startswith("continue ") else None,
+        "sigusr1_lines": lines.count("SIGUSR1 received; wrote continue file"),
+        "resubmits": lines.count(resubmit),
+        "first": epochs(lines[:at]), "resumed": epochs(lines[at:]),
+        "resumed_from": [int(ln.split()[-1]) for ln in lines[at:]
+                         if ln.startswith("Resuming from epoch ")],
+        "final_test_losses": sum(ln.startswith("final test loss") for ln in lines),
+        "continue_left": os.path.exists(os.path.join(base, "continue")),
+        "wall": wall, "timed_out": wall >= timeout_s, "marks": marks, "lines": lines,
+    }
+
+
+def resumed_as_it_should(run, epochs):
+    """Whether a `sigusr1_resubmit` run of `epochs` epochs stopped after the
+    epoch it was signalled in (or the next), wrote that epoch to `continue`,
+    resubmitted once, resumed after that epoch, trained only the later
+    epochs, and ended with exit 0, two final test losses and no `continue`."""
+    stopped = run["stopped"]
+    return (run["rc"] == 0 and run["trainer"] not in (None, run["wrapper"])
+            and stopped is not None and stopped < epochs - 1
+            and run["records"] == [f"continue {stopped}", "no continue"]
+            and run["sigusr1_lines"] == 1 and run["resubmits"] == 1
+            and run["first"] == list(range(stopped + 1))
+            and run["resumed_from"] == [stopped]
+            and run["resumed"] == list(range(stopped + 1, epochs))
+            and run["final_test_losses"] == 2 and not run["continue_left"]
+            and not run["timed_out"])
+
+
+def cuda_train_wrapper(smi, root):
+    """Phase 16 (b): deepfilternet_torch/scripts/cuda_train.sh over a corpus
+    of a few clips, --device cuda, three epochs, SIGUSR1 to the trainer once
+    its first epoch line has printed (`sigusr1_resubmit`): it must stop,
+    resubmit once and resume as `resumed_as_it_should` says, and leave the
+    last epoch's checkpoint. Returns the wall seconds."""
+    from deepfilternet_torch.config import config
+
+    wrapper = os.path.join("deepfilternet_torch", "scripts", "cuda_train.sh")
+    if not os.access(wrapper, os.X_OK):
+        fail(f"{wrapper} is not executable")
+    data = os.path.join(root, "wrapper_data")
+    os.makedirs(data)
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        write_corpus(data, WRAPPER_CORPUS)
+    base = os.path.join(root, "wrapper_run")
+    os.makedirs(base)
+    config.reset()
+    config.load(os.path.join(MODEL_DIR, "config.ini"), allow_reload=True)
+    for section, key, value in WRAPPER_TRAIN + TRAIN_LOSS:
+        config.set(key, value, section=section)
+    config.save(os.path.join(base, "config.ini"))
+    config.reset()
+    run = sigusr1_resubmit(os.path.abspath(wrapper),
+                           [os.path.join(data, "dataset.cfg"), data, base,
+                            "--device", "cuda", "--num-workers", "2"], root)
+    last = os.path.join(base, "checkpoints", f"model_{WRAPPER_EPOCHS - 1}.ckpt")
+    print(f"cuda_train.sh --device cuda on {smi}: SIGUSR1 to the trainer (pid {run['trainer']}, "
+          f"not the wrapper {run['wrapper']}) after its first epoch line; continue held epoch "
+          f"{run['stopped']}; the wrapper resubmitted {run['resubmits']} time(s), the resumed "
+          f"run trained epochs {run['resumed']}; after each trainer run: {run['records']}; exit "
+          f"{run['rc']}, continue left: {run['continue_left']}; {run['wall']:.1f} s wall for "
+          f"two trainer processes ("
+          + ", ".join(f"'{k}' at {v:.1f} s" for k, v in run["marks"].items()) + ")")
+    if not (resumed_as_it_should(run, WRAPPER_EPOCHS) and os.path.isfile(last)):
+        fail("cuda_train.sh did not stop, resubmit and resume as it should")
+    return run["wall"]
+
+
+def vtlp_pool_path(smi, root):
+    """Phase 16 (c): the port's make_vtlp_pool over a clean corpus of
+    VTLP_CORPUS (no h5py): audio seconds written a wall second; the pool read
+    back through Hdf5Dataset (every warp of every key, finite, the source's
+    length, not the source); then train_demo's loader with the pool as its
+    DEMO_EXTRA_CLEAN, its length by the pool's sampling factor, samples of
+    the pool's keys through FdDataset and collate. Returns (audio seconds a
+    wall second, wall seconds)."""
+    from deepfilternet_torch.data.dataloader import collate
+    from deepfilternet_torch.data.hdf5 import Hdf5Dataset
+    from deepfilternet_torch.scripts.make_vtlp_pool import main as make_pool
+    from deepfilternet_torch.scripts.train_demo import demo_loader
+
+    assets = os.path.join(root, "vtlp_assets")
+    os.makedirs(assets)
+    write_demo_corpus(assets, VTLP_CORPUS)
+    src, pool = os.path.join(assets, "clean.hdf5"), os.path.join(assets, "clean_vtlp.hdf5")
+    t0 = time.perf_counter()
+    line = captured(make_pool, [src, pool, "--alphas", ",".join(f"{a:g}" for a in VTLP_ALPHAS)])
+    wall = time.perf_counter() - t0
+    n_clips, seconds = VTLP_CORPUS["clean"]
+    n_pool = n_clips * len(VTLP_ALPHAS)
+    audio_s = n_pool * seconds
+    orig, ds = Hdf5Dataset(src), Hdf5Dataset(pool)
+    keys = orig.keys("speech")
+    want = sorted(f"{k}_vtlp{a:g}" for k in keys for a in VTLP_ALPHAS)
+    bad = []
+    for k in keys:
+        a = orig.read("speech", k)
+        for alpha in VTLP_ALPHAS:
+            w = ds.read("speech", f"{k}_vtlp{alpha:g}")
+            if not (w.shape == a.shape and np.isfinite(w).all() and np.abs(w).max() > 0.01
+                    and not np.allclose(w, a, atol=1e-3)):
+                bad.append(f"{k}_vtlp{alpha:g}")
+    same_keys = ds.keys("speech") == want
+    orig.close()
+    ds.close()
+
+    old = {k: os.environ.get(k) for k in ("DEMO_ASSETS", "DEMO_EXTRA_CLEAN")}
+    os.environ.update(DEMO_ASSETS=assets, DEMO_EXTRA_CLEAN=f"{os.path.basename(pool)}:1")
+    try:
+        fd = demo_loader().dataset
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    td = fd.td
+    picked = [i for i, (f, _) in enumerate(td.sp_index) if f == os.path.basename(pool)][:4]
+    batch = collate([fd.get_sample(i, seed=i) for i in picked])
+    mixes = (len(picked) == 4 and np.isfinite(batch.noisy).all()
+             and np.isfinite(batch.feat_erb).all() and not np.allclose(batch.speech, batch.noisy))
+    n_td = len(td)
+    print(f"make_vtlp_pool (the port's, no h5py) on the card's host, {smi}: {n_clips} clips x "
+          f"{seconds} s at {len(VTLP_ALPHAS)} warps -> {n_pool} clips, {audio_s:.0f} s of audio "
+          f"in {wall:.2f} s wall, {audio_s / wall:.1f} audio s a wall s; '{line.strip()}'; read "
+          f"back through Hdf5Dataset: keys as asked {same_keys}, bad clips {bad}; train_demo's "
+          f"loader with DEMO_EXTRA_CLEAN={os.path.basename(pool)}:1: {n_td} samples (clean "
+          f"{n_clips} x 16 + pool {n_pool} x 1), 4 of the pool's mixed through FdDataset and "
+          f"collate: finite and not the clean speech: {mixes}")
+    if not (line.strip() == f"wrote {pool}: {n_pool} clips ({len(VTLP_ALPHAS)} warps)"
+            and same_keys and not bad and n_td == n_clips * 16 + n_pool and mixes):
+        fail("make_vtlp_pool's pool is wrong or does not feed the demo loader")
+    return audio_s / wall, wall
+
+
+def last_slices_path(dev, card, smi):
+    """Phase 16: DFN3-ll trained on the card and run through K1; the cluster
+    wrapper cuda_train.sh; the port's make_vtlp_pool. Returns K1's and K2's
+    launches over the phase."""
+    from deepfilternet_torch.ops.fused_frontend import fused_analysis_frontend as k1
+    from deepfilternet_torch.ops.whole_cell import cell_process as k2
+
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def lap(name):
+        steps[name] = time.perf_counter() - t_phase - sum(steps.values())
+
+    k2.launches = 0
+    ll_launches = low_latency_training(dev, card, smi)
+    lap("DFN3-ll training and per frame")
+    k1.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        cuda_train_wrapper(smi, root)
+        lap("cuda_train.sh")
+        rate, _ = vtlp_pool_path(smi, root)
+        lap("make_vtlp_pool")
+    phase = time.perf_counter() - t_phase
+    print(f"phase 16 K1 launches: {ll_launches} in the stepped DFN3-ll's 400 frames, "
+          f"{k1.launches} over the wrapper and the pool (the trainer's own processes are "
+          f"not counted here); K2 launches {k2.launches}")
+    print(f"phase 16 on {smi}: {phase:.1f} s wall (bound {LAST_PHASE_S:.0f} s): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items())
+          + f"; VTLP pool {rate:.1f} audio s a wall s")
+    if k1.launches or k2.launches:
+        fail(f"phase 16: the wrapper and the pool launched K1 {k1.launches} times, or the "
+             f"phase launched K2 {k2.launches} times")
+    if phase > LAST_PHASE_S:
+        fail(f"phase 16 took {phase:.1f} s, more than {LAST_PHASE_S:.0f} s")
+    return ll_launches, k2.launches
+
+
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
@@ -4039,6 +4419,13 @@ def main():
     # launches on those configurations' per-frame paths
     k1.update(configuration_matrix_path(dev, card, smi))
     print(f"phase 15 (configuration matrix): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    # K1 once a frame on the DFN3-ll trained on the card; K2 over the phase,
+    # the wrapper and the VTLP pool (which reach neither kernel)
+    k1["ll_trained_launches"], k2["last_slices_launches"] = last_slices_path(dev, card, smi)
+    k2b["last_slices_launches"] = k2["last_slices_launches"]
+    print(f"phase 16 (DFN3-ll training, cuda_train.sh, make_vtlp_pool): "
+          f"{time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

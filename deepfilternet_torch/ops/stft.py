@@ -52,6 +52,22 @@ class Stft(NamedTuple):
     fft_size: int
     hop_size: int
 
+    @property
+    def freq_size(self) -> int:
+        return self.fft_size // 2 + 1
+
+    @property
+    def delay(self) -> int:
+        return self.fft_size - self.hop_size
+
+    @property
+    def window(self) -> np.ndarray:
+        return vorbis_window(self.fft_size)
+
+    @property
+    def wnorm(self) -> float:
+        return wnorm(self.fft_size, self.hop_size)
+
 
 def frame_signal(x: torch.Tensor, fft_size: int, hop_size: int) -> torch.Tensor:
     """[..., T] -> [..., T // hop, fft_size] after a left zero pad of

@@ -131,7 +131,7 @@ def _write_audio_summaries(base_dir, loader, eval_fn, ts, stft_cfg, epoch, sr, d
                             path=os.path.join(out_dir, f"{i}_{name}_spec.png"))
 
 
-def _sigusr1(signum, frame):  # pragma: no cover - signal path
+def _sigusr1(signum, frame):
     global should_stop
     should_stop = True
 
@@ -171,7 +171,11 @@ def train(
     debug: bool = False,
     device=None,
 ):
+    global should_stop
     dev = resolve_device(device)
+    # a SIGUSR1 that stopped an earlier train() in this process does not stop
+    # this one (the JAX package keeps the flag set)
+    should_stop = False
     os.makedirs(base_dir, exist_ok=True)
     ckpt_dir = os.path.join(base_dir, "checkpoints")
     cfg_path = os.path.join(base_dir, "config.ini")
@@ -285,7 +289,6 @@ def train(
             losses.append(float(total))
         return float(np.mean(losses)) if losses else float("inf")
 
-    global should_stop
     prev_sched_bs = None
     for epoch in range(start_epoch, epochs):
         if bs_sched:

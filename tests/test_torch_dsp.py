@@ -67,6 +67,22 @@ def test_window_and_dft_matrices(fft, hop):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-7)
 
 
+@pytest.mark.parametrize("fft,hop", [(960, 480), (480, 240)])
+def test_stft_config_properties(fft, hop):
+    """`Stft`'s properties equal JAX's (the window bit for bit), and it stays
+    a three-field NamedTuple that unpacks, compares and pickles as before."""
+    import pickle
+
+    t, j = t_stft.Stft(48000, fft, hop), j_stft.Stft(48000, fft, hop)
+    assert (t.freq_size, t.delay, t.wnorm) == (j.freq_size, j.delay, j.wnorm)
+    assert t.freq_size == fft // 2 + 1 and t.delay == fft - hop
+    assert t.window.dtype == j.window.dtype == np.float32
+    np.testing.assert_array_equal(t.window, j.window)
+    assert t._fields == ("sr", "fft_size", "hop_size") and len(t) == 3
+    assert t._asdict() == {"sr": 48000, "fft_size": fft, "hop_size": hop}
+    assert tuple(t) == tuple(j) and pickle.loads(pickle.dumps(t)) == t
+
+
 def test_analysis_and_synthesis_steps_chained():
     rng = np.random.default_rng(11)
     s, d = 4, 480

@@ -161,9 +161,13 @@ class _JaxJitRecorder:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both packages' train() from one JAX-written checkpoint; returns
+    return train_both(tmp_path_factory.mktemp("train_run"), CONFIG)
+
+
+def train_both(root, config_ini):
+    """Both packages' train() under `config_ini` from one JAX-written
+    checkpoint of epoch 0, over a corpus written under `root`; returns
     {"jax"|"torch": (base dir, recorder, test loss)}."""
-    root = tmp_path_factory.mktemp("train_run")
     data = root / "data"
     data.mkdir()
     j_prep.prepare("speech", str(data / "speech.hdf5"), _wavs(data, "sp", 6, 0.5, 1))
@@ -176,7 +180,7 @@ def runs(tmp_path_factory):
     # JAX's initial parameters at the config's widths, epoch 0
     seed_dir = root / "seed"
     seed_dir.mkdir()
-    (seed_dir / "config.ini").write_text(CONFIG)
+    (seed_dir / "config.ini").write_text(config_ini)
     j_config.reset()
     j_config.load(str(seed_dir / "config.ini"), allow_reload=True)
     params, state, _, _ = j_init_model("deepfilternet3", seed=11)

@@ -83,14 +83,15 @@ def _fresh_configs():
     t_config.reset()
 
 
-def _losses(keys, nb_erb=32, nb_df=96):
-    """(JAX Loss, port Loss) under `keys`, set in both configs."""
+def _losses(keys, nb_erb=32, nb_df=96, fft_size=960, hop_size=480):
+    """(JAX Loss, port Loss) under `keys`, set in both configs, at the STFT
+    geometry `fft_size` / `hop_size`."""
     for cfg in (j_config, t_config):
         for (key, section), value in keys.items():
             cfg.set(key, value, section=section)
-    widths = erb_widths(48000, 960, nb_erb, 2)
-    return (jl.Loss(JStft(48000, 960, 480), widths, nb_df, (-15, 35)),
-            tl.Loss(TStft(48000, 960, 480), widths, nb_df, (-15, 35)))
+    widths = erb_widths(48000, fft_size, nb_erb, 2)
+    return (jl.Loss(JStft(48000, fft_size, hop_size), widths, nb_df, (-15, 35)),
+            tl.Loss(TStft(48000, fft_size, hop_size), widths, nb_df, (-15, 35)))
 
 
 def _batch(seed, b, t, cfg):
