@@ -7,7 +7,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 
   1. device  - needs CUDA; prints the card's name and power limit;
   2. build   - compiles every CUDA kernel from deepfilternet_torch/csrc/, and
-               counts each kernel's tensor-core (HMMA) instructions;
+               counts each kernel's tensor-core (HMMA) instructions; prints
+               -Xptxas -v's registers and spills of the units design's float32
+               and bfloat16 builds;
   3. kernels - each kernel against its plain PyTorch version on the card at
                the main path's shapes (and others), with its time, the plain
                version's, a library yardstick's (where one PyTorch call
@@ -16,7 +18,11 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                kernel in both of its designs (every product cut over all
                multiprocessors; a tile of stream rows a block, built for 4 and
                8 rows, and 16 at bfloat16), also where a block walks over
-               several units or tiles;
+               several units or tiles; the units design's stage clocks with
+               its wait on producers, and 20 calls on the same inputs at
+               S=64 x 200 and 512 x 30 equal bit for bit (a race between a
+               unit and the counters it waits on would differ), float32 here
+               and bfloat16 in phase 6;
   4. main    - streaming DFN3 with the bundled demo checkpoint: 64 streams
                x 2 s through StreamingRuntime.process (one frontend kernel
                launch per frame), held against the same run on the CPU, then
@@ -179,6 +185,7 @@ products sum in float32.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -844,21 +851,52 @@ def time_whole_cell(dev, card, rt, s, frames):
           f"{clocks.sum() / frames:.0f} cycles a frame in the first block, share by stage: "
           + "; ".join(f"{name} {c / clocks.sum():.1%}" for name, c in zip(names, clocks)))
     if own[0] == "units":
+        print(f"K2 S={s} units, the first block's {names[-1]}: {clocks[-1] / frames:.0f} "
+              f"cycles a frame, {clocks[-1] / clocks.sum():.1%} of its cycles (from a unit's "
+              "start until its first input stage is in, or an elementwise unit's producers "
+              "are done)")
         rates = units_read_rates(s, bf16, clocks / frames)
         print(f"K2 S={s} units, the first block's reads from L2 a frame by phase (input tiles "
               "and weight slices of its units, from the plan) at its cycles: "
               + "; ".join(f"{name} {kb:.1f} KB {r:.1f} B/clock" for name, kb, r in rates))
+        if s in REPEAT_S:
+            repeat_calls(tag=f"S={s} x {frames}, {dtype_name(W['dft'].dtype)}",
+                         fn=lambda: cell_process(x, carry, W, st))
     return dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound_ms,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None, frames_per_launch=frames, design=design_name(*own))
 
 
+# the units design's repeated calls: a race between a unit and the counters
+# it waits on would show as a difference between calls
+REPEAT_S, REPEAT_CALLS = (64, 512), 20
+
+
+def repeat_calls(tag, fn):
+    """REPEAT_CALLS calls of `fn` on the same inputs: every output of every
+    call bit for bit the first's."""
+    first = None
+    for i in range(REPEAT_CALLS):
+        c, o = fn()
+        got = dict(c, audio=o)
+        if first is None:
+            first = {k: v.clone() for k, v in got.items()}
+            continue
+        differ = [k for k in first if not torch.equal(first[k], got[k])]
+        if differ:
+            fail(f"K2 units {tag}: call {i + 1} of {REPEAT_CALLS} differs from the first in "
+                 f"{differ}")
+    torch.cuda.synchronize()
+    print(f"K2 units {tag}: {REPEAT_CALLS} calls on the same inputs, the 12 outputs of each "
+          "bit for bit the first's")
+
+
 def units_read_rates(s, bf16, cycles):
     """(phase, KB, bytes a clock) that block 0 of the units design reads from
-    L2 in each phase of a frame: for each of its units (unit u of a phase
-    goes to block u mod the block count) the input tile's K rows of 64
-    streams in float32 and its weight slice as packed, over block 0's cycles
-    in that phase."""
+    L2 in each phase of a frame: for each of its units (the plan deals unit u
+    of a phase to the block whose rank there is u mod the block count) the
+    input tile's K rows of 64 streams in float32 and its weight slice as
+    packed, over block 0's cycles in that phase."""
     from deepfilternet_torch.ops import whole_cell_plan as wp
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -875,7 +913,8 @@ def units_read_rates(s, bf16, cycles):
             cols = wp.packed_cols(int(j[wp.J_NCAT] * j[wp.J_CW]), bf16)
             per_unit = int(j[wp.J_K]) * (wp.RT * 4 + cols * (2 if bf16 else 4))
             begin, units = int(j[wp.J_BEGIN]), int(j[wp.J_UNITS])
-            nbytes += per_unit * sum(1 for u in range(begin, begin + units) if u % n_sm == 0)
+            nbytes += per_unit * sum(1 for u in range(begin, begin + units)
+                                     if u % n_sm == t.ranks[i][0])
         out.append((name, nbytes / 1e3, nbytes / max(float(cycles[i]), 1.0)))
     return out
 
@@ -4285,12 +4324,31 @@ def last_slices_path(dev, card, smi):
     return ll_launches, k2.launches
 
 
+def ptxas_report(log, kernel):
+    """'kernel build: N registers, spills' for each instance of `kernel` in a
+    `-Xptxas -v` log (the build named by its operand type)."""
+    name, spills, out = None, {}, []
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if not name or kernel not in name:
+            continue
+        short = f"{kernel} {'bfloat16' if 'bfloat16' in name else 'float32'}"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills[short] = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{short}: {m.group(1)} registers, {spills.get(short, 'spills not shown')}")
+    return out
+
+
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
     name is shortened to its function, operand type and row count."""
-    import re
-
     from deepfilternet_torch import kernels
 
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
@@ -4340,6 +4398,9 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
+        if name == "whole_cell":  # the units design's two builds, by name
+            for line in ptxas_report(log, "whole_cell_kernel"):
+                print(f"    -Xptxas -v, {line}")
     # every product of the bfloat16 builds runs on the tensor cores
     for name in kernels.SOURCES:
         counts = hmma_counts(kernels.library_path(name))

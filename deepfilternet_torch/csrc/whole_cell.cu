@@ -17,30 +17,41 @@
 // What bounds it: a frame is about 7.2 M multiply-adds a stream (8.1 M at the
 // padded widths the weights are stored at) against 28 MB of float32 weights
 // (14 MB bfloat16), which sit in the 50 MB L2 after the first frame. With few
-// streams the limit is the chain of dependent products: each must be spread
-// over the whole card to be short, and each then ends in a grid-wide barrier.
-// With many streams it is the float32 FMA rate in the float32 build. The
-// bfloat16 build's products take the tensor cores a small share of that
-// time; it is bound by the fixed cost of each phase (the grid barrier, the
-// first chunk's copy from L2, the epilogue's loads), which is the same in
-// both builds: at 64 streams a block reads its units' bytes at 2-14 of the
-// ~27 bytes a clock it could.
+// streams the limit is the chain of dependent products (DFT -> ERB bands ->
+// e0 ... e3 -> encoder GRU -> ... -> conv_out -> the erb_inv tail ->
+// synthesis): each must be spread over the whole card to be short, so what
+// paces a frame is the fixed cost of each link, not the arithmetic. With many
+// streams it is the float32 FMA rate in the float32 build; the bfloat16
+// build's products take the tensor cores a small share of that time.
 //
 // What the design does about it:
 //   * one persistent block of 256 threads per multiprocessor, launched
 //     cooperatively so that all are resident, loops over the call's frames;
-//   * a frame is a fixed list of phases with a grid barrier after each
-//     (a counter in global memory: threadfence, atomicAdd, spin on
-//     ld.acquire). Products that do not depend on one another share a phase:
-//     every h @ w_hh runs beside the analysis DFT, the ERB conv chain beside
-//     the DF conv chain, the ERB decoder beside the DF GRU stack; the
-//     decoder's pathway convs run early and join as addends. 18 phases a
-//     frame where the frame has ~45 products;
+//   * a frame is a fixed list of phases; products that do not depend on one
+//     another share a phase (every h @ w_hh beside the analysis DFT, the ERB
+//     conv chain beside the DF conv chain, the ERB decoder beside the DF GRU
+//     stack; the decoder's pathway convs run early and join as addends): 18
+//     phases where the frame has ~45 products;
 //   * a product is cut into units of one tile of 64 stream rows by one slice
-//     of its output columns, dealt over all blocks, so a block reads only its
-//     slice of the weights. The phases, their products and each slice width
-//     are decided on the host (ops/whole_cell_plan.py) for the stream count
-//     and the card, and arrive as one int32 table;
+//     of its output columns, so a block reads only its slice of the weights.
+//     A phase's units are dealt over the blocks, the first to those that
+//     have read least from L2 so far in the frame. The phases, their
+//     products, each slice width, the dealing and the edges below are decided
+//     on the host (ops/whole_cell_plan.py) for the stream count and the card,
+//     and arrive as one int32 table;
+//   * no barrier inside the frame loop. The units of a launch have one
+//     global order (frame, phase, unit), every block walks its own in it, and
+//     the plan's edges between jobs (read after write, write after read,
+//     write after write, from the scratch columns each job touches; the
+//     reduction no other path implies) all point backward in it. A counter
+//     in global memory for each (job, tile) counts the job's units done there
+//     over the launch: a unit that is done makes its stores visible to the
+//     copy engine (fence.proxy.async) and adds one with release semantics;
+//     a unit waits, with ld.acquire, until each producer's counter reaches
+//     its units a tile times the frames the edge needs. A block with nothing
+//     in a phase goes on to its next unit; with all blocks resident the
+//     global order cannot deadlock. Carry in, the first frame in and carry
+//     out keep a grid barrier each;
 //   * activations and state live in a global scratch [tiles, SCR, 64],
 //     feature major, so a K-chunk of any product's input is one contiguous
 //     copy. A multiprocessor gets about 27 bytes a clock from L2 however the
@@ -48,10 +59,14 @@
 //     that rate; so a unit streams its input chunk and weight slice through a
 //     ring of shared-memory stages filled by bulk copies (the TMA engine, one
 //     warp issuing, an mbarrier a stage), which run while all warps multiply.
-//     float32: a thread owns 8 rows x 8 columns (8 x 2 in narrow slices) and a
-//     share of each chunk's K rows; bfloat16: a warp owns one k16 step of each
-//     chunk for half the tile's rows (MmaTile). The shares are added in shared
-//     memory in a fixed order, so results do not depend on timing;
+//     The copy warp runs ahead into the block's next unit: its weight copies
+//     go out as soon as a stage is free, before the wait on producers, and
+//     only its input copies wait, so a unit whose producers are done finds
+//     its first stage in. float32: a thread owns 8 rows x 8 columns (8 x 2 in
+//     narrow slices) and a share of each chunk's K rows; bfloat16: a warp
+//     owns one k16 step of each chunk for half the tile's rows (MmaTile). The
+//     shares are added in shared memory in a fixed order, so results do not
+//     depend on timing or on the order the units run in;
 //   * a unit owns whole groups of columns that belong together (re and im of
 //     a bin; the three gates of a GRU column), so the elementwise stages run
 //     in the product's epilogue: power / unit norm / complex features after
@@ -61,8 +76,9 @@
 //     transposed copy of dft that the wrapper keeps;
 //   * rows beyond S in the last tile repeat the last stream: computed, never
 //     stored;
-//   * thread 0 of block 0 adds up its cycles in each phase and at the
-//     barriers (stage_clocks), so a run can say where a frame's time goes.
+//   * thread 0 of block 0 adds up its cycles in the units of each phase and,
+//     apart, its cycles waiting on producers (stage_clocks), so a run can say
+//     where a frame's time goes.
 //
 // Two builds of the kernel, by the weights' type (the TPU kernel's mdtype):
 // float32, and bfloat16, the JAX package's default. The bfloat16 build runs
@@ -119,6 +135,11 @@ constexpr int N_CKEYS = 11;
 constexpr int C_SIL = 3;
 __constant__ int CWIDTH[N_CKEYS] = {480, 480, 128, 8, 64, 384, 256, 256, 768, 512, 512};
 constexpr int TAB_MAX = 3072;
+constexpr int MAX_FRAME_PHASES = 23;  // stage clocks kept in shared memory
+// block 0's stage clocks in shared memory: one a frame phase, then its wait on
+// producers, the clock its running unit's inputs were in at, and the clock
+// the unit before it ended at
+constexpr int CLK_WAIT = MAX_FRAME_PHASES, CLK_READY = CLK_WAIT + 1, CLK_PREV = CLK_WAIT + 2;
 
 // scratch columns, in the order of the plan's LAYOUT
 enum Lay { L_BUF, L_SPEC, L_POW, L_ERBWIN, L_FSWIN, L_E0, L_E1, L_E2, L_E3, L_C0, L_C1, L_CEMB,
@@ -126,17 +147,24 @@ enum Lay { L_BUF, L_SPEC, L_POW, L_ERBWIN, L_FSWIN, L_E0, L_E1, L_E2, L_E3, L_C0
            L_P3, L_PA3, L_PA2, L_PA1, L_PA0, L_MASK, L_COEF, L_SE, L_SMEM, L_MEAN, L_UNIT,
            L_ENC_H, L_DEC_H, L_DF_H, L_RING_RE, L_RING_IM, L_LSNR, L_MUTE, L_SILCTR, N_LAY };
 
-// the plan table: header, scratch offsets, carry segments, phases, jobs
-enum Hdr { H_PHASES, H_JOBS, H_TILES, H_FRAME_PHASES, H_PRE, H_SEGS, H_LAY, H_SCR, HEADER_INTS };
+// the plan table: header, scratch offsets, carry segments, phases, jobs,
+// edges, and the frame phases' block ranks (uint16, two an int: block b runs
+// the units u of frame phase ph with u mod the grid = rank[ph][b])
+enum Hdr { H_PHASES, H_JOBS, H_TILES, H_FRAME_PHASES, H_PRE, H_SEGS, H_LAY, H_SCR, H_DEPS,
+           HEADER_INTS };
 enum JobField { J_TYPE, J_BEGIN, J_UNITS, J_XOFF, J_K, J_W, J_NCAT, J_CSTRIDE, J_CW, J_SLICES,
                 J_BIAS, J_ACT, J_ADD, J_Y, J_YRAW, J_EP, J_H, J_GH, J_KG, J_AUX, J_RND, J_KSEG,
-                JOB_INTS };
+                J_DEP0, J_NDEP, JOB_INTS };
+// an edge of a frame job: the producer's job row, its units in a tile in one
+// frame, and the frame it is waited for in (0: the consumer's, -1: the one
+// before)
+enum DepField { D_JOB, D_PER_TILE, D_FRAME, DEP_INTS };
 // J_W: the weight's offset in wpack, in elements; J_CSTRIDE: columns between
 // the groups in the unpacked weight (the host's bookkeeping); J_AUX: chunks
 // (elementwise), columns of a thread's register tile (product, float32 build;
 // 0 in the bfloat16 build's plan); J_RND, J_KSEG: where the bfloat16 build
 // rounds the result (Rnd), and the K rows of each input segment whose product
-// it rounds before adding (0: one sum)
+// it rounds before adding (0: one sum); J_DEP0, J_NDEP: the job's edges
 constexpr int PHASE_INTS = 3;  // first job, jobs, units
 enum JobType { T_GEMM, T_CARRY_IN, T_FRAME0, T_ADVANCE, T_LSNR, T_CARRY_OUT };
 enum Epilogue { EP_STD, EP_SPEC, EP_ERBNORM, EP_GRU, EP_TAIL, EP_OLA };
@@ -156,7 +184,7 @@ struct Params {
   float* scratch;               // [tiles, SCR, RT]
   const int* table;
   int table_ints;
-  unsigned int* barrier;        // one counter, zero at launch
+  unsigned int* counters;       // the grid barrier's, then one per job and tile; zero at launch
   long long* stage_clocks;      // [frame phases + 1]
   int S, n_frames;
   float alpha, one_minus_alpha, lsnr_min, lsnr_max, pf_beta, silence_thresh, atten_lim,
@@ -244,6 +272,17 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// ---- counters in global memory: the grid barrier's, and one per (job, tile)
+// that counts the units of the job done in the tile over the whole launch
+__device__ __forceinline__ unsigned ld_acquire(const unsigned int* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_release(unsigned int* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
 // All blocks of the (cooperative) grid meet here. `target` counts arrivals
 // over the whole launch, so the counter is never reset.
 __device__ __forceinline__ void grid_barrier(unsigned int* ctr, unsigned int& target) {
@@ -268,12 +307,45 @@ struct Ctx {
   const Params& p;
   const int* tab;      // the plan, in shared memory
   const int* lay;      // scratch offsets
+  const int* jobs;     // the job rows
+  const int* deps;     // the frame jobs' edges
+  long long* clk;      // block 0's stage clocks (CLK_*)
   float* smem;         // the ring's stages; the reduction tile takes their place
   unsigned long long* full;   // per stage: the bytes have landed
   unsigned long long* empty;  // per stage: every compute warp is done reading
   const float* sm_co;  // convp_co
   const float* sm_cb;  // convp_b
 };
+
+// Lanes of one warp wait, an edge a lane, until every producer of job J has
+// done its units in this tile up to the frame the edge names (the counter
+// reads with acquire semantics at GPU scope); then the warp meets.
+template <typename WT>
+__device__ void wait_producers(const Ctx<WT>& c, const int* J, int tile, int f, int lane) {
+  const int tiles = c.tab[H_TILES];
+  for (int i = lane; i < J[J_NDEP]; i += 32) {
+    const int* d = c.deps + (J[J_DEP0] + i) * DEP_INTS;
+    const int target = d[D_PER_TILE] * (f + 1 + d[D_FRAME]);
+    const unsigned int* ctr = c.p.counters + 1 + d[D_JOB] * tiles + tile;
+    if (target > 0)
+      while (ld_acquire(ctr) < (unsigned)target) {
+      }
+  }
+  __syncwarp();
+}
+
+// A unit of job J is done (compute threads): every thread's stores are made
+// visible to the copy engine, which reads them next in other blocks' bulk
+// copies; then one thread counts the unit with release semantics.
+template <typename WT>
+__device__ __forceinline__ void unit_done(const Ctx<WT>& c, const int* J, int tile) {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  compute_sync();
+  if (threadIdx.x == 0) {
+    const int ji = (int)(J - c.jobs) / JOB_INTS;
+    red_release(c.p.counters + 1 + ji * c.tab[H_TILES] + tile, 1u);
+  }
+}
 
 // The float32 build's share of a unit's product: a thread owns 8 rows x MC
 // columns of the tile (MC = 8 where the slice is wide enough: one byte of
@@ -443,33 +515,54 @@ __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int t
   // Fill number q of the ring (counted over the whole launch, the same in
   // every thread) goes to stage q % NSTG; it is that stage's (q / NSTG)-th use.
   if (tid >= THREADS) {
-    // ---- the copy warp (its first lane): two bulk copies (TMA) a chunk, the
-    // input tile's K rows and the unit's weight slice, which the wrapper has
-    // packed contiguously ([slice][K][columns], in fragment order for the
-    // bfloat16 build). It runs ahead of the compute warps by the depth of the
-    // ring, into the block's next unit too.
-    if (tid == THREADS) {
-      // the slice's packed columns: whole n8 tiles in the bfloat16 build
-      const int wcols = BF ? (cnt + 7) & ~7 : cnt;
-      const WT* wsl =
-          static_cast<const WT*>(p.wpack) + (size_t)J[J_W] + (size_t)slice * K * wcols;
+    // ---- the copy warp: two bulk copies (TMA) a chunk, issued by its first
+    // lane, the unit's weight slice, which the wrapper has packed
+    // contiguously ([slice][K][columns], in fragment order for the bfloat16
+    // build), and the input tile's K rows. The weights are constant, so the
+    // first stages' weight copies go out as soon as the stages are free;
+    // the input copies wait until the warp has seen every producer of the
+    // job done in this tile. A stage's mbarrier takes two arrivals: the
+    // expected bytes before its first copy, and one after the producers
+    // were seen, so that the compute warps' wait on the stage orders that
+    // acquire before their own loads (the epilogue's). The warp runs ahead
+    // of the compute warps by the depth of the ring, into the block's next
+    // unit too.
+    const int lane = tid - THREADS;
+    // the slice's packed columns: whole n8 tiles in the bfloat16 build
+    const int wcols = BF ? (cnt + 7) & ~7 : cnt;
+    const WT* wsl =
+        static_cast<const WT*>(p.wpack) + (size_t)J[J_W] + (size_t)slice * K * wcols;
+    const int ahead = min(n_chunks, NSTG);  // chunks whose weights go before the wait
+    auto fill = [&](int o) {  // a free stage, its bytes expected, the weights copied
+      const unsigned q = fills + o;
+      const int st = q % NSTG;
+      const unsigned use = q / NSTG;
+      if (use > 0) mbar_wait(c.empty + st, (use - 1) & 1u);
+      const int k0 = o * KC;
+      const int len = min(KC, K - k0);
+      // the stage was last read by ordinary loads: order them before the
+      // copy engine's writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect(c.full + st, (unsigned)(len * (RT * sizeof(float) + wcols * sizeof(WT))));
+      // len is a multiple of 32 and wcols of 4: at least 256 bytes, 16-byte aligned
+      bulk_copy(c.smem + st * STAGE_FLOATS + KC * RT, wsl + (size_t)k0 * wcols,
+                (unsigned)(len * wcols * sizeof(WT)), c.full + st);
+    };
+    if (lane == 0)
+      for (int o = 0; o < ahead; ++o) fill(o);
+    wait_producers(c, J, tile, f, lane);
+    if (lane == 0) {
+      // the producers' stores, made visible to the copy engine before they
+      // were counted, are read next by it
+      asm volatile("fence.proxy.async;\n" ::: "memory");
       for (int o = 0; o < n_chunks; ++o) {
-        const unsigned q = fills + o;
-        const int st = q % NSTG;
-        const unsigned use = q / NSTG;
-        if (use > 0) mbar_wait(c.empty + st, (use - 1) & 1u);
-        float* xs = c.smem + st * STAGE_FLOATS;
+        if (o >= ahead) fill(o);
+        const int st = (fills + o) % NSTG;
         const int k0 = o * KC;
         const int len = min(KC, K - k0);
-        // the stage was last read by ordinary loads: order them before the
-        // copy engine's writes
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        mbar_expect(c.full + st, (unsigned)(len * (RT * sizeof(float) + wcols * sizeof(WT))));
-        bulk_copy(xs, sct + (size_t)(x_off + k0) * RT, (unsigned)(len * RT * sizeof(float)),
-                  c.full + st);
-        // len is a multiple of 32 and wcols of 4: at least 256 bytes, 16-byte aligned
-        bulk_copy(xs + KC * RT, wsl + (size_t)k0 * wcols, (unsigned)(len * wcols * sizeof(WT)),
-                  c.full + st);
+        mbar_arrive(c.full + st);
+        bulk_copy(c.smem + st * STAGE_FLOATS, sct + (size_t)(x_off + k0) * RT,
+                  (unsigned)(len * RT * sizeof(float)), c.full + st);
       }
     }
     fills += n_chunks;
@@ -489,6 +582,7 @@ __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int t
     const unsigned q = fills + o;
     const int st = q % NSTG;
     mbar_wait(c.full + st, (q / NSTG) & 1u);
+    if (o == 0 && tid == 0) c.clk[CLK_READY] = clock64();  // the unit's inputs are in
     const float* xs = c.smem + st * STAGE_FLOATS;
     prod.mac(xs, reinterpret_cast<const WT*>(xs + KC * RT), min(KC, K - o * KC), cnt, kg_n);
     __syncwarp();
@@ -721,7 +815,7 @@ __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int t
       break;
     }
   }
-  compute_sync();  // red and the ring are free for the next unit
+  unit_done(c, J, tile);  // and red and the ring are free for the next unit
 }
 
 // Audio frame f into buf's second half (after moving the last frame to the
@@ -831,71 +925,95 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Para
   __shared__ float sm_cb[ORDER * 2];
   __shared__ __align__(8) unsigned long long full[NSTG];
   __shared__ __align__(8) unsigned long long empty[NSTG];
+  __shared__ long long clk[CLK_PREV + 1];
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int i = 0; i < NSTG; ++i) {
-      mbar_init(full + i, 1);              // the copy thread's expect; then bytes count
+      mbar_init(full + i, 2);              // the copy lane's expect, then its arrival once
+                                           // the producers are seen; then bytes count
       mbar_init(empty + i, THREADS / 32);  // one arrival a compute warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::);
   }
+  if (tid <= CLK_PREV) clk[tid] = 0;
   for (int i = tid; i < p.table_ints; i += THREADS) tab[i] = p.table[i];
   for (int i = tid; i < CH * ORDER * 2; i += THREADS)
     sm_co[i] = wget(static_cast<const WT*>(p.w[W_CONVP_CO]), i);
   if (tid < ORDER * 2) sm_cb[tid] = static_cast<const float*>(p.w[W_CONVP_B])[tid];
   __syncthreads();
-  const Ctx<WT> c{p, tab, tab + HEADER_INTS, smem, full, empty, sm_co, sm_cb};
-  unsigned fills = 0;  // ring fills so far, the same in every thread
   const int tiles = tab[H_TILES], n_pre = tab[H_PRE], n_fp = tab[H_FRAME_PHASES];
   const int* phases = tab + HEADER_INTS + tab[H_LAY] + 4 * tab[H_SEGS];
   const int* jobs = phases + PHASE_INTS * tab[H_PHASES];
+  const int* deps = jobs + JOB_INTS * tab[H_JOBS];
+  const unsigned short* ranks =
+      reinterpret_cast<const unsigned short*>(deps + DEP_INTS * tab[H_DEPS]);
+  const Ctx<WT> c{p, tab, tab + HEADER_INTS, jobs, deps, clk, smem, full, empty, sm_co, sm_cb};
+  unsigned fills = 0;  // ring fills so far, the same in every thread
 
-  auto run_phase = [&](int ph, int f) {
+  // The units of phase ph this block owns, those u with u mod the grid =
+  // `first`, in order: the global order is frame by frame, phase by phase,
+  // and a phase's units by number, and every block walks its own in it.
+  auto for_units = [&](int ph, int first, auto&& run) {
     const int* P = phases + ph * PHASE_INTS;
-    for (int u = blockIdx.x; u < P[2]; u += gridDim.x) {
+    for (int u = first; u < P[2]; u += gridDim.x) {
       const int* J = jobs + P[0] * JOB_INTS;
       while (u >= J[J_BEGIN] + J[J_UNITS]) J += JOB_INTS;
       const int local = u - J[J_BEGIN];
-      const int tile = local % tiles, part = local / tiles;
-      switch (J[J_TYPE]) {
-        case T_GEMM:
-          if constexpr (kBf16<WT>) gemm_unit<8, WT>(c, fills, J, tile, part, f);  // MC unused
-          else if (J[J_AUX] == 8) gemm_unit<8, WT>(c, fills, J, tile, part, f);
-          else gemm_unit<2, WT>(c, fills, J, tile, part, f);
-          break;
-        case T_CARRY_IN: carry_unit(c, tile, part, J[J_AUX], false); break;
-        case T_FRAME0: frame_in_unit(c, tile, part, J[J_AUX], 0, false); break;
-        case T_ADVANCE: frame_in_unit(c, tile, part, J[J_AUX], f + 1, true); break;
-        case T_LSNR: lsnr_unit(c, tile); break;
-        case T_CARRY_OUT: carry_unit(c, tile, part, J[J_AUX], true); break;
-      }
+      run(J, local % tiles, local / tiles);
     }
   };
 
+  // carry in, the first frame in: a grid barrier after each
   unsigned int target = 0;
   for (int ph = 0; ph < n_pre; ++ph) {
-    run_phase(ph, 0);
-    grid_barrier(p.barrier, target);
+    for_units(ph, blockIdx.x, [&](const int* J, int tile, int part) {
+      if (J[J_TYPE] == T_CARRY_IN) carry_unit(c, tile, part, J[J_AUX], false);
+      else frame_in_unit(c, tile, part, J[J_AUX], 0, false);
+    });
+    grid_barrier(p.counters, target);
   }
-  // thread 0 of block 0 keeps its cycles per phase, and at the barriers
+
+  // the frames: no barrier; a unit waits only on its producers' counters.
+  // Thread 0 of block 0 keeps its cycles in each phase's units, less those
+  // spent waiting on producers (from a unit's start until its first input
+  // stage is in, or until an elementwise unit's producers are done).
   const bool timer = blockIdx.x == 0 && tid == 0;
-  long long t0 = clock64();
+  if (timer) clk[CLK_PREV] = clock64();
   for (int f = 0; f < p.n_frames; ++f) {
     for (int ph = 0; ph < n_fp; ++ph) {
-      run_phase(n_pre + ph, f);
-      long long t1 = 0;
-      if (timer) {
-        t1 = clock64();
-        p.stage_clocks[ph] += t1 - t0;
-      }
-      grid_barrier(p.barrier, target);
-      if (timer) {
-        t0 = clock64();
-        p.stage_clocks[n_fp] += t0 - t1;
-      }
+      const int first = ranks[ph * gridDim.x + blockIdx.x];
+      for_units(n_pre + ph, first, [&](const int* J, int tile, int part) {
+        if (J[J_TYPE] == T_GEMM) {
+          if constexpr (kBf16<WT>) gemm_unit<8, WT>(c, fills, J, tile, part, f);  // MC unused
+          else if (J[J_AUX] == 8) gemm_unit<8, WT>(c, fills, J, tile, part, f);
+          else gemm_unit<2, WT>(c, fills, J, tile, part, f);
+        } else if (tid < THREADS) {  // elementwise: the compute threads alone
+          if (tid < 32) wait_producers(c, J, tile, f, tid);
+          compute_sync();
+          if (tid == 0) clk[CLK_READY] = clock64();
+          if (J[J_TYPE] == T_ADVANCE) frame_in_unit(c, tile, part, J[J_AUX], f + 1, true);
+          else lsnr_unit(c, tile);
+          unit_done(c, J, tile);
+        }
+        if (timer && ph < MAX_FRAME_PHASES) {
+          const long long t1 = clock64(), prev = clk[CLK_PREV], ready = clk[CLK_READY];
+          const long long wait = ready > prev ? ready - prev : 0;
+          clk[ph] += t1 - prev - wait;
+          clk[CLK_WAIT] += wait;
+          clk[CLK_PREV] = t1;
+        }
+      });
     }
   }
-  run_phase(n_pre + n_fp, 0);
+  if (timer) {
+    for (int ph = 0; ph < n_fp && ph < MAX_FRAME_PHASES; ++ph) p.stage_clocks[ph] = clk[ph];
+    p.stage_clocks[n_fp] = clk[CLK_WAIT];
+  }
+  // carry out, once every unit of every frame is done
+  grid_barrier(p.counters, target);
+  for_units(n_pre + n_fp, blockIdx.x, [&](const int* J, int tile, int part) {
+    carry_unit(c, tile, part, J[J_AUX], true);
+  });
 }
 
 }  // namespace
@@ -933,14 +1051,15 @@ cudaError_t launch(Params& p, int n_blocks, cudaStream_t stream) {
 // lsnr_min, lsnr_max, pf_beta, silence_thresh, atten_lim, gate_min,
 // gate_max_erb, gate_max_df) are host arrays. table: the plan
 // (ops/whole_cell_plan.py), table_ints int32 on the device. scratch:
-// [tiles, SCR, 64] floats, zero where never written; barrier: one uint32,
-// zero; stage_clocks: frame phases + 1 int64, zero. Returns the CUDA error
+// [tiles, SCR, 64] floats, zero where never written; counters: 1 + jobs x
+// tiles uint32 (the plan's n_counters), zero; stage_clocks: frame phases + 1
+// int64. Returns the CUDA error
 // (0 on success); cudaErrorCooperativeLaunchTooLarge or cudaErrorNotSupported
 // if the card cannot hold the grid.
 extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* carry_in,
                               void* const* carry_out, const void* const* weights, int n_weights,
                               const void* wpack, void* scratch, const void* table, int table_ints,
-                              void* barrier, void* stage_clocks, int S, int n_frames, int n_blocks,
+                              void* counters, void* stage_clocks, int S, int n_frames, int n_blocks,
                               const float* scalars, int mask_pf, int lsnr_gating,
                               int silence_frames, int bf16, void* stream) {
   if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1 || table_ints > TAB_MAX)
@@ -957,7 +1076,7 @@ extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* c
   p.scratch = static_cast<float*>(scratch);
   p.table = static_cast<const int*>(table);
   p.table_ints = table_ints;
-  p.barrier = static_cast<unsigned int*>(barrier);
+  p.counters = static_cast<unsigned int*>(counters);
   p.stage_clocks = static_cast<long long*>(stage_clocks);
   p.S = S;
   p.n_frames = n_frames;

@@ -792,10 +792,10 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
 def _launch_units(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, scalars, flags,
                   stream):
     """The design of `csrc/whole_cell.cu`: every product cut over all
-    multiprocessors by the plan for (S, card), a grid barrier between
-    dependent products. One persistent block per multiprocessor, all resident
-    at once: the launch is cooperative, and a card that refuses it makes
-    `cell_process` raise."""
+    multiprocessors by the plan for (S, card); a unit waits on counters of
+    the units it depends on (the plan's edges). One persistent block per
+    multiprocessor, all resident at once: the launch is cooperative, and a
+    card that refuses it makes `cell_process` raise."""
     from deepfilternet_torch.kernels import load
 
     lib = _bind(load("whole_cell"))
@@ -806,11 +806,13 @@ def _launch_units(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, s
     wpack = packed_weights(weights, s, n_sm)
     # zeroed: the columns nothing writes (pad lanes) are read as zeros
     scratch = torch.zeros(info["scratch_shape"], dtype=torch.float32, device=device)
-    barrier = torch.zeros((1,), dtype=torch.int32, device=device)
+    # the grid barrier's counter, then one per job and tile, counted up over
+    # the launch
+    counters = torch.zeros((info["n_counters"],), dtype=torch.int32, device=device)
     clocks = torch.zeros((info["n_stages"],), dtype=torch.int64, device=device)
     err = lib.dfn_whole_cell(
         audio.data_ptr(), out.data_ptr(), c_in, c_out, w_ptrs, len(WKEYS), wpack.data_ptr(),
-        scratch.data_ptr(), table.data_ptr(), table.numel(), barrier.data_ptr(),
+        scratch.data_ptr(), table.data_ptr(), table.numel(), counters.data_ptr(),
         clocks.data_ptr(), s, n_frames, n_sm, scalars, *flags, stream)
     return err, clocks
 
@@ -849,7 +851,7 @@ cell_process.frames = 0  # type: ignore[attr-defined]
 cell_process.stage_clocks = None  # type: ignore[attr-defined]
 cell_process.stage_names = None  # type: ignore[attr-defined]
 STAGES = {
-    # each phase of the frame, then the wait at the grid barriers
+    # each phase's units of the frame, then the waits on producers
     "units": plan.STAGES,
     "rows": ("frame in, rms", "analysis DFT", "features, norms", "erb convs e0-e3", "df_conv0",
              "df_conv1, df_fc_emb", "encoder GRU, lsnr", "erb decoder", "df GRU stack",

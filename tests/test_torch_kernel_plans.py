@@ -8,10 +8,14 @@ held against their plain versions on the card by `chip_smoke.py`.
     product, emulated bit for bit in PyTorch;
   * K2 (`ops/whole_cell.py`, `ops/whole_cell_plan.py`): the design chooser;
     the work plan (every output of every product owned by exactly one unit,
-    no job touching what another job of its phase writes); the plan executed
-    with plain tensor operations against `cell_process_plain`; the packed
-    weights, including the transposed DFT of the synthesis product; the
-    reordering of `h @ w_hh` that the plan relies on;
+    no job touching what another job of its phase writes); the edges between
+    jobs that take the place of grid barriers (every conflict ordered, every
+    edge backward in the global unit order, units in any order the edges
+    allow equal to the phase order bit for bit, any edge dropped caught);
+    the plan executed with plain tensor operations against
+    `cell_process_plain`; the packed weights, including the transposed DFT
+    of the synthesis product; the reordering of `h @ w_hh` that the plan
+    relies on;
   * K2's bfloat16 builds on the tensor cores: the design and row choices by
     operand type, the bfloat16 plan, and the units' B-fragment and the rows'
     A-fragment packs read back lane by lane as the kernels address them.
@@ -197,7 +201,7 @@ def test_kernel_choice_and_rows(s):
     assert design == ("units" if tiles <= 8 else "rows")
     assert wc._tile_rows(s, N_SM) == (4 if -(-s // 4) <= N_SM else 8)
     assert set(wc.STAGES) == {"units", "rows"}
-    assert wc.STAGES["units"][-1] == "grid barriers"
+    assert wc.STAGES["units"][-1] == "waiting on producers"
 
 
 @pytest.mark.parametrize("s", STREAMS)
@@ -249,7 +253,7 @@ def test_plan_spreads_small_s_over_the_card():
     units = {name: n for ph in info["phases"] for name, _, _, n in ph}
     assert units["dft"] + 5 * units["enc_whh"] <= N_SM
     assert units["c0"] >= 64 and units["c1"] >= 64 and units["synthesis"] >= 64
-    assert len(wp.frame_phases()) == 18  # grid barriers a frame
+    assert len(wp.frame_phases()) == 18  # phases a frame
 
 
 @pytest.mark.parametrize("pset", ["default", "stages"])
@@ -299,6 +303,168 @@ def test_run_plan_reports_a_hazard(runtimes):
     wp.run_plan(bad, x, carry_to_flat(rt.init(2)), rt.weights, rt.statics,
                 wp.pack_weights(rt.weights, info), hazards=hazards)
     assert any(pi == n_pre + 2 for pi, _, _ in hazards)
+
+
+def _frame_rows(t):
+    n_pre, n_fp = int(t.header[wp.H_PRE]), int(t.header[wp.H_FRAME_PHASES])
+    return list(range(int(t.phases[n_pre][0]), int(t.phases[n_pre + n_fp][0])))
+
+
+def _reach(t, frame_rows):
+    """{(row, frame): nodes reachable from it} over the table's edges, two
+    frames unrolled."""
+    succ = {}
+    for b in frame_rows:
+        for a, _, off in wp.job_deps(t, b):
+            for f in (0, 1):
+                if f + off >= 0:
+                    succ.setdefault((int(a), f + int(off)), []).append((b, f))
+    reach = {}
+    for node in [(r, f) for r in frame_rows for f in (0, 1)]:
+        seen, todo = set(), [node]
+        while todo:
+            for nxt in succ.get(todo.pop(), ()):
+                if nxt not in seen:
+                    seen.add(nxt)
+                    todo.append(nxt)
+        reach[node] = seen
+    return reach
+
+
+@pytest.mark.parametrize("s", [1, 130])
+def test_plan_edges_order_every_conflict_and_point_backward(runtimes, s):
+    """The edges that take the place of the grid barriers. Each frame job's
+    columns as the plan states them (`job_access`) are those the plan's
+    plain run reads and writes. Every two jobs that conflict there (one
+    writes what the other reads or writes; a job with itself a frame apart)
+    are ordered by a path of edges, the earlier of the frame order first
+    within a frame and the later one of the frame before first across
+    frames. Every edge points backward in the global unit order: each
+    producer's units in the tile lie before the first unit that waits for
+    them. The edges are stated per tile: a counter per job and tile, and a
+    producer's count a frame is its units in one tile; the same edges at
+    1 and 3 tiles."""
+    rt = runtimes["stages"]  # gating on: the tail reads the LSNR
+    table, info = wp.plan(s, N_SM)
+    t = wp.decode(table)
+    tiles = int(t.header[wp.H_TILES])
+    rows = _frame_rows(t)
+    x = torch.from_numpy(np.random.default_rng(s).standard_normal((s, 2 * HOP))
+                         .astype(np.float32) * 0.1)
+    accesses = {}
+    wp.run_plan(table, x, carry_to_flat(rt.init(s)), rt.weights, rt.statics,
+                wp.pack_weights(rt.weights, info), accesses=accesses)
+    acc = {}
+    for r in rows:
+        reads, writes = wp.job_access(t.jobs[r])
+        assert set(np.flatnonzero(reads)) == accesses[r][0], info["names"][r]
+        assert set(np.flatnonzero(writes)) == accesses[r][1], info["names"][r]
+        acc[r] = (reads, writes)
+    reach = _reach(t, rows)
+    for i, a in enumerate(rows):
+        for b in rows[i:]:
+            (ra, wa), (rb, wb) = acc[a], acc[b]
+            if not ((rb & wa).any() or (wb & ra).any() or (wb & wa).any()):
+                continue
+            if a != b:
+                assert (b, 1) in reach[(a, 1)], (info["names"][a], info["names"][b])
+            assert (a, 1) in reach[(b, 0)], (info["names"][b], info["names"][a])
+    order = list(wp.unit_order(table, 3))
+    last = {}
+    for i, (f, ji, tile, _) in enumerate(order):
+        last[(f, ji, tile)] = i
+    for i, (f, ji, tile, _) in enumerate(order):
+        for a, per, off in wp.job_deps(t, ji):
+            if f + off >= 0:
+                assert last[(f + int(off), int(a), tile)] < i
+    assert info["n_counters"] == 1 + len(t.jobs) * tiles
+    # each frame phase deals its units over every block once (a permutation)
+    assert t.ranks.shape == (len(wp.frame_phases()), N_SM)
+    assert all(sorted(r) == list(range(N_SM)) for r in t.ranks)
+    assert all(int(per) == int(t.jobs[int(a)][wp.J_UNITS]) // tiles for a, per, _ in t.deps)
+    t64 = wp.decode(wp.plan(64, N_SM)[0])
+    assert {b: [(int(a), int(o)) for a, _, o in wp.job_deps(t, b)] for b in rows} == \
+        {b: [(int(a), int(o)) for a, _, o in wp.job_deps(t64, b)] for b in rows}
+    # pre- and post-phase jobs wait at grid barriers, not on counters
+    assert all(int(t.jobs[r][wp.J_NDEP]) == 0 for r in range(len(t.jobs)) if r not in rows)
+
+
+def _plan_inputs(rt, s, frames=3):
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy((rng.standard_normal((s, (2 + frames) * HOP)) * 0.1).astype(np.float32))
+    carry, _ = wc.cell_process_plain(x[:, : 2 * HOP].contiguous(), carry_to_flat(rt.init(s)),
+                                     rt.weights, rt.statics)
+    return x[:, 2 * HOP:].contiguous(), carry
+
+
+def _same(a, b):
+    (ca, oa), (cb, ob) = a, b
+    return torch.equal(oa, ob) and all(torch.equal(ca[k], cb[k]) for k in ca)
+
+
+@pytest.mark.parametrize("pset", ["stages", "bf16 stages"])
+@pytest.mark.parametrize("s", [1, 37, 64, 130])
+def test_units_in_any_order_the_edges_allow_equal_the_phase_order(runtimes, pset, s):
+    """The plan run unit by unit over 3 frames from a non-initial carry: in
+    a seeded random order among the units whose producers' counters are
+    reached, as the kernel's blocks may meet them, it equals the global
+    order bit for bit, and no read finds another version than the phase
+    order leaves there."""
+    rt = runtimes[pset]
+    xc, carry = _plan_inputs(rt, s)
+    table, info = wp.plan(s, N_SM, bf16=pset.startswith("bf16"))
+    packed = wp.pack_weights(rt.weights, info)
+    phase_order = wp.run_plan(table, xc, carry, rt.weights, rt.statics, packed,
+                              schedule="phase")
+    hazards = []
+    got = wp.run_plan(table, xc, carry, rt.weights, rt.statics, packed, hazards=hazards,
+                      schedule=s)
+    assert hazards == []
+    assert _same(phase_order, got)
+    out = got[1]
+    assert out.shape == xc.shape and bool(torch.isfinite(out).all())
+
+
+def _drop_edge(table, ji, k):
+    """The table with edge k of job row ji taken out."""
+    bad = table.copy()
+    t = wp.decode(bad)
+    a = wp.HEADER_INTS + t.lay.size + t.segs.size + t.phases.size  # the first job row
+    jobs = bad[a: a + t.jobs.size].reshape(-1, wp.JOB_INTS)
+    deps = bad[a + t.jobs.size: a + t.jobs.size + t.deps.size].reshape(-1, wp.DEP_INTS)
+    first, n = int(jobs[ji][wp.J_DEP0]), int(jobs[ji][wp.J_NDEP])
+    deps[[first + k, first + n - 1]] = deps[[first + n - 1, first + k]]
+    jobs[ji][wp.J_NDEP] -= 1
+    return bad
+
+
+# a sample of the plan's 50 edges: reads across frames and within one,
+# writes after reads (the tail's spectrum and mute, the next frame's
+# overlap), an elementwise producer and consumer, a decoder pathway addend
+DROPPED = [("dft", "advance"), ("enc_gru", "enc_whh"), ("e3", "gl"), ("erb_inv", "synthesis"),
+           ("advance", "erb_inv"), ("t1", "p0")]
+
+
+@pytest.mark.parametrize("consumer,producer", DROPPED)
+def test_dropping_an_edge_is_caught(runtimes, consumer, producer):
+    """Each sampled edge is needed: with it taken out of the table, the unit
+    run that puts off the producer's first frame while anything else can run
+    reports a read at another version than the phase order's (with the edge
+    in, any order the edges allow reports none:
+    `test_units_in_any_order_the_edges_allow_equal_the_phase_order`)."""
+    rt = runtimes["stages"]
+    s = 1
+    xc, carry = _plan_inputs(rt, s, frames=2)  # an edge from the frame before needs two
+    table, info = wp.plan(s, N_SM)
+    t = wp.decode(table)
+    names = info["names"]
+    b = names.index(consumer)
+    k = [names[int(d[wp.D_JOB])] for d in wp.job_deps(t, b)].index(producer)
+    packed = wp.pack_weights(rt.weights, info)
+    hazards = []
+    wp.run_plan(_drop_edge(table, b, k), xc, carry, rt.weights, rt.statics, packed,
+                hazards=hazards, schedule=(0, names.index(producer)))
+    assert hazards
 
 
 @pytest.mark.parametrize("pset", ["default", "bf16 default"])
