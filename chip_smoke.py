@@ -18,8 +18,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                kernel in both of its designs (every product cut over all
                multiprocessors; a tile of stream rows a block, built for 4 and
                8 rows, and 16 at bfloat16), also where a block walks over
-               several units or tiles; the units design's stage clocks with
-               its wait on producers, and 20 calls on the same inputs at
+               several units or tiles; every block's stage split from the
+               kernel's records under the profiler (the units design's with
+               each block's wait on producers), and 20 calls on the same inputs at
                S=64 x 200 and 512 x 30 equal bit for bit (a race between a
                unit and the counters it waits on would differ), float32 here
                and bfloat16 in phase 6;
@@ -840,25 +841,16 @@ def time_whole_cell(dev, card, rt, s, frames):
           f"{t_bytes:.4f} ms a call); kernel at {bound_ms / t['kernel']:.1%} of the bound; "
           f"per call: kernel {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, bound "
           f"{bound_ms:.3f} ms")
-    # where a frame's time goes: SM cycles of the kernel's first block per stage
-    cell_process(x, carry, W, st)
-    torch.cuda.synchronize()
-    clocks = cell_process.stage_clocks.cpu().numpy().astype(np.float64)
-    names = cell_process.stage_names
-    if len(clocks) != len(names) or not clocks.sum() > 0:
-        fail(f"K2 stage clocks malformed: {clocks}")
-    print(f"K2 S={s} x {frames} frames, design {design_name(*own)}, "
-          f"{clocks.sum() / frames:.0f} cycles a frame in the first block, share by stage: "
-          + "; ".join(f"{name} {c / clocks.sum():.1%}" for name, c in zip(names, clocks)))
+    # where a frame's time goes: every block's time by stage, from the
+    # records the kernel writes while a profiler records
+    rec = k2_traced_record(lambda: cell_process(x, carry, W, st), f"S={s} x {frames}")
+    print_k2_split(rec, f"K2 S={s} x {frames} frames, {dtype_name(W['dft'].dtype)}, design "
+                   f"{design_name(*own)}")
     if own[0] == "units":
-        print(f"K2 S={s} units, the first block's {names[-1]}: {clocks[-1] / frames:.0f} "
-              f"cycles a frame, {clocks[-1] / clocks.sum():.1%} of its cycles (from a unit's "
-              "start until its first input stage is in, or an elementwise unit's producers "
-              "are done)")
-        rates = units_read_rates(s, bf16, clocks / frames)
-        print(f"K2 S={s} units, the first block's reads from L2 a frame by phase (input tiles "
-              "and weight slices of its units, from the plan) at its cycles: "
-              + "; ".join(f"{name} {kb:.1f} KB {r:.1f} B/clock" for name, kb, r in rates))
+        rates = units_read_rates(s, bf16, rec["ns"][0, :-1] / frames)
+        print(f"K2 S={s} units, block 0's reads from L2 a frame by phase (input tiles and "
+              "weight slices of its units, from the plan) over its time in the phase: "
+              + "; ".join(f"{name} {kb:.1f} KB {r:.1f} GB/s" for name, kb, r in rates))
         if s in REPEAT_S:
             repeat_calls(tag=f"S={s} x {frames}, {dtype_name(W['dft'].dtype)}",
                          fn=lambda: cell_process(x, carry, W, st))
@@ -891,12 +883,61 @@ def repeat_calls(tag, fn):
           "bit for bit the first's")
 
 
-def units_read_rates(s, bf16, cycles):
-    """(phase, KB, bytes a clock) that block 0 of the units design reads from
-    L2 in each phase of a frame: for each of its units (the plan deals unit u
-    of a phase to the block whose rank there is u mod the block count) the
-    input tile's K rows of 64 streams in float32 and its weight slice as
-    packed, over block 0's cycles in that phase."""
+def k2_traced_record(fn, tag):
+    """Run `fn` (one K2 call) while a profiler records and return the call's
+    record (`utils.timings.k2_records`); fails unless there is exactly one
+    and every block's stages add up to within 2% of its own span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepfilternet_torch.ops import whole_cell as wc
+    from deepfilternet_torch.utils import timings
+
+    timings.k2_clear()
+    every, wc.RECORD_EVERY = wc.RECORD_EVERY, 1  # this traced call records, whatever came before
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            fn()
+    finally:
+        wc.RECORD_EVERY = every
+    torch.cuda.synchronize()
+    recs = timings.k2_records()
+    if len(recs) != 1:
+        fail(f"K2 {tag}: {len(recs)} records for one traced call")
+    rec = recs[0]
+    total = rec["ns"].sum(axis=1).astype(np.float64)
+    own = (rec["span"][:, 1] - rec["span"][:, 0]).astype(np.float64)
+    if rec["ns"].shape[1] != len(rec["stages"]) or not (own > 0).all() or (
+            np.abs(total - own) > 0.02 * own).any():
+        fail(f"K2 {tag}: records malformed (stage sums {total[:4]}..., spans {own[:4]}...)")
+    return rec
+
+
+def print_k2_split(rec, tag):
+    """The stage split of one K2 record: the median and the slowest block a
+    frame by stage, the families averaged over blocks, the blocks' busy share
+    and, in the units design, each block's wait on producers."""
+    from deepfilternet_torch.utils import timings
+
+    sp, frames = timings.k2_split(rec), rec["frames"]
+    us = 1e3 / frames
+    print(f"{tag}: {len(rec['ns'])} blocks, {sp['call_ms'] * us:.1f} us a frame from the first "
+          f"block's start to the last one's end, blocks busy {sp['busy']:.2%} of it; families "
+          "(mean over blocks, us a frame) "
+          + ", ".join(f"{k} {v * us:.1f}" for k, v in sp["family_ms"].items())
+          + "; by stage (median block / slowest block, us a frame): "
+          + "; ".join(f"{n} {a * us:.1f}/{b * us:.1f}" for n, a, b in
+                      zip(rec["stages"], sp["stage_median_ms"], sp["stage_max_ms"])))
+    if rec["design"] == "units":
+        print(f"{tag}: each block's wait on producers (us a frame, block order): "
+              + " ".join(f"{v / frames / 1e3:.1f}" for v in rec["ns"][:, -1]))
+
+
+def units_read_rates(s, bf16, ns):
+    """(phase, KB, GB/s) that block 0 of the units design reads from L2 in
+    each phase of a frame: for each of its units (the plan deals unit u of a
+    phase to the block whose rank there is u mod the block count) the input
+    tile's K rows of 64 streams in float32 and its weight slice as packed,
+    over block 0's ns in that phase."""
     from deepfilternet_torch.ops import whole_cell_plan as wp
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -915,7 +956,7 @@ def units_read_rates(s, bf16, cycles):
             begin, units = int(j[wp.J_BEGIN]), int(j[wp.J_UNITS])
             nbytes += per_unit * sum(1 for u in range(begin, begin + units)
                                      if u % n_sm == t.ranks[i][0])
-        out.append((name, nbytes / 1e3, nbytes / max(float(cycles[i]), 1.0)))
+        out.append((name, nbytes / 1e3, nbytes / max(float(ns[i]), 1.0)))
     return out
 
 
@@ -4325,8 +4366,10 @@ def last_slices_path(dev, card, smi):
 
 
 def ptxas_report(log, kernel):
-    """'kernel build: N registers, spills' for each instance of `kernel` in a
-    `-Xptxas -v` log (the build named by its operand type)."""
+    """'function build: N registers, spills' for each kernel whose name starts
+    with `kernel` in a `-Xptxas -v` log (the function, e.g. whole_cell_kernel
+    or whole_cell_recording, the build that times its stages, and the build
+    named by its operand type)."""
     name, spills, out = None, {}, []
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
@@ -4335,7 +4378,8 @@ def ptxas_report(log, kernel):
             continue
         if not name or kernel not in name:
             continue
-        short = f"{kernel} {'bfloat16' if 'bfloat16' in name else 'float32'}"
+        fn = re.search(r"\d+(%s[a-z_]*)" % re.escape(kernel), name)
+        short = f"{fn.group(1) if fn else kernel} {'bfloat16' if 'bfloat16' in name else 'float32'}"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spills[short] = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
@@ -4348,7 +4392,8 @@ def ptxas_report(log, kernel):
 def hmma_counts(path):
     """{kernel: HMMA instructions in its SASS} of a built library, from
     `cuobjdump -sass` (shipped with the CUDA toolkit beside nvcc); a kernel's
-    name is shortened to its function, operand type and row count."""
+    name is shortened to its function, operand type, row count and whether
+    it is the instance that records its stages."""
     from deepfilternet_torch import kernels
 
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
@@ -4359,7 +4404,8 @@ def hmma_counts(path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"\d+([a-z_]+kernel|[a-z_]+frontend[a-z_]*)", mangled)
+            base = re.search(r"\d+(whole_cell_[a-z]+|[a-z_]+kernel|[a-z_]+frontend[a-z_]*)",
+                             mangled)
             rows = re.search(r"ILi(\d+)E", mangled)
             name = ((base.group(1) if base else mangled)
                     + (" bfloat16" if "__nv_bfloat16" in mangled else "")
@@ -4399,7 +4445,7 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
         if name == "whole_cell":  # the units design's two builds, by name
-            for line in ptxas_report(log, "whole_cell_kernel"):
+            for line in ptxas_report(log, "whole_cell_"):
                 print(f"    -Xptxas -v, {line}")
     # every product of the bfloat16 builds runs on the tensor cores
     for name in kernels.SOURCES:

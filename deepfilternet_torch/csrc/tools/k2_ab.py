@@ -11,11 +11,14 @@ tree's process, and handed to both as files). Then:
     bfloat16 build; default params and the runtime stages; the design
     forced where the case names one), both builds: the 12 outputs bit for
     bit this tree's;
-  * ms a frame at S=64 x 200 and 512 x 30, and forced to the units design
-    at 1056 x 20 and 4096 x 20, both builds (CUDA events around 2 calls, as
-    `chip_smoke.py` times K2), over ROUNDS rounds in turns
-    (this, others, others reversed, this, ...), and block 0's stage clocks
-    of each;
+  * ms a frame at S=64 x 200 and 512 x 30, forced to the units design at
+    1056 x 20 and 4096 x 20, and in the rows design (8 rows) at 4096 x 20,
+    both builds (CUDA events around 2 calls, as `chip_smoke.py` times K2),
+    over ROUNDS rounds in turns (this, others, others reversed, this, ...),
+    and the stage split of each: for a tree whose kernel records every
+    block's stages while a profiler records (`utils.timings.k2_records`), the
+    median and the slowest block by stage, and the ms a frame again with the
+    records on; for an older tree, block 0's stage clocks;
   * one frame a call at S=64, both builds: device ms a call over 20 calls
     back to back, and the host's ms a call waited for (median of 50).
 
@@ -36,9 +39,11 @@ import time
 MODEL_DIR = "pretrained/dfn3_fixture_demo"
 HOP = 480
 ROUNDS = 6
-# (streams, frames): the units design's own sizes, then forced where the
-# wrapper runs the rows design
-TIMED = ((64, 200), (512, 30), (1056, 20), (4096, 20))
+# (streams, frames, design, rows): the units design's own sizes, then forced
+# where the wrapper runs the rows design, then the rows design at the size
+# the benchmark's stream cell runs
+TIMED = ((64, 200, "units", None), (512, 30, "units", None), (1056, 20, "units", None),
+         (4096, 20, "units", None), (4096, 20, "rows", 8))
 TAG = "K2AB "
 
 
@@ -99,6 +104,27 @@ def worker(root, model_dir):
         end.synchronize()
         return start.elapsed_time(end) / iters
 
+    def stage_split(call, frames):
+        from deepfilternet_torch.utils import timings
+
+        if not hasattr(timings, "k2_records"):  # block 0's clocks, an older tree
+            call()
+            torch.cuda.synchronize()
+            return dict(clocks=[int(v) for v in wc.cell_process.stage_clocks.cpu()],
+                        names=list(wc.cell_process.stage_names))
+        from torch.profiler import ProfilerActivity, profile
+
+        timings.k2_clear()
+        every, wc.RECORD_EVERY = wc.RECORD_EVERY, 1  # every traced call runs the recording build
+        try:
+            with profile(activities=[ProfilerActivity.CPU]):
+                ms = events_ms(call, 2) / frames
+        finally:
+            wc.RECORD_EVERY = every
+        ns = timings.k2_records()[-1]["ns"].astype(np.float64) / frames
+        return dict(records_ms=ms, names=list(timings.k2_records()[-1]["stages"]),
+                    median=np.median(ns, axis=0).tolist(), slowest=ns.max(axis=0).tolist())
+
     reply(dict(source=wc.__file__, ptxas=log))
     for line in sys.stdin:
         cmd = json.loads(line)
@@ -133,13 +159,11 @@ def worker(root, model_dir):
             carry = carry_to_flat(rt.init(s))
 
             def call():
-                return forced("units", None, lambda: wc.cell_process(x, carry, W, st))
+                return forced(cmd["design"], cmd["rows"], lambda: wc.cell_process(x, carry, W, st))
 
-            ms = events_ms(call, 2) / frames
-            call()
-            torch.cuda.synchronize()
-            clocks = [int(v) for v in wc.cell_process.stage_clocks.cpu()]
-            res = dict(ms=ms, clocks=clocks, names=list(wc.cell_process.stage_names))
+            res = dict(ms=events_ms(call, 2) / frames)
+            if frames > 1:
+                res.update(stage_split(call, frames))
             if frames == 1:
                 waited = []
                 for _ in range(50):
@@ -204,7 +228,7 @@ def main():
         print(f"{len(sides)} sides built and loaded in {time.perf_counter() - t0:.1f} s")
         for name, side in sides.items():
             print(f"{name}: {side.hello['source']}; "
-                  + "; ".join(cs.ptxas_report(side.hello["ptxas"], "whole_cell_kernel")))
+                  + "; ".join(cs.ptxas_report(side.hello["ptxas"], "whole_cell_")))
         tmp = tempfile.mkdtemp()
         for dtype in ("float32", "bfloat16"):
             cases = cs.K2_CASES + (cs.K2_BF16_CASES if dtype == "bfloat16" else ())
@@ -230,31 +254,45 @@ def main():
                         if differ:
                             failed.append(f"{tag} vs {name}")
         for dtype in ("float32", "bfloat16"):
-            for s, frames in TIMED + ((64, 1),):
+            for s, frames, design, rows in TIMED + ((64, 1, "units", None),):
                 runs = {name: [] for name in sides}
                 for rnd in range(ROUNDS):
                     for name in (list(sides) if rnd % 2 == 0 else list(sides)[::-1]):
                         runs[name].append(sides[name].ask(op="time", dtype=dtype, s=s,
-                                                           frames=frames))
+                                                           frames=frames, design=design,
+                                                           rows=rows))
                 for name, rs in runs.items():
                     ms = [r["ms"] for r in rs]
                     if frames == 1:
                         host = [r["host_ms"] for r in rs]
-                        print(f"K2 units {dtype} one frame a call, S={s}, {name}, on {smi}: "
+                        print(f"K2 {design} {dtype} one frame a call, S={s}, {name}, on {smi}: "
                               f"device ms a call (20 back to back) "
                               + ", ".join(f"{v:.4f}" for v in ms)
                               + "; host ms a call waited for (median of 50) "
                               + ", ".join(f"{v:.3f}" for v in host))
                         continue
-                    print(f"K2 units {dtype} S={s} x {frames}, {name}, on {smi}: ms a frame "
+                    label = design if rows is None else f"{design} {rows}"
+                    print(f"K2 {label} {dtype} S={s} x {frames}, {name}, on {smi}: ms a frame "
                           + ", ".join(f"{v:.4f}" for v in ms)
                           + f" (median {float(np.median(ms)):.4f})")
-                    clocks = np.asarray([r["clocks"] for r in rs], np.float64).mean(0) / frames
-                    total = clocks.sum()
-                    print(f"  stage clocks, block 0, cycles a frame (mean of {ROUNDS} calls) "
-                          f"{total:.0f}: " + "; ".join(
-                              f"{n} {c:.0f} ({c / total:.1%})"
-                              for n, c in zip(rs[0]["names"], clocks)))
+                    if "clocks" in rs[0]:
+                        clocks = np.asarray([r["clocks"] for r in rs], np.float64).mean(0) / frames
+                        total = clocks.sum()
+                        print(f"  stage clocks, block 0, cycles a frame (mean of {ROUNDS} calls) "
+                              f"{total:.0f}: " + "; ".join(
+                                  f"{n} {c:.0f} ({c / total:.1%})"
+                                  for n, c in zip(rs[0]["names"], clocks)))
+                        continue
+                    traced = [r["records_ms"] for r in rs]
+                    print(f"  with the stage records on (under the profiler): ms a frame "
+                          + ", ".join(f"{v:.4f}" for v in traced)
+                          + f" (median {float(np.median(traced)):.4f}, "
+                          f"{float(np.median(traced)) / float(np.median(ms)) - 1:+.2%})")
+                    med = np.asarray([r["median"] for r in rs]).mean(0) / 1e3
+                    top = np.asarray([r["slowest"] for r in rs]).mean(0) / 1e3
+                    print(f"  stages, us a frame (mean of {ROUNDS} calls), median block / "
+                          f"slowest block, sum {med.sum():.1f}: " + "; ".join(
+                              f"{n} {a:.1f}/{b:.1f}" for n, a, b in zip(rs[0]["names"], med, top)))
     finally:
         for side in sides.values():
             side.close()

@@ -5,8 +5,9 @@ or 12 columns and pads its packed B tile with zero columns to whole n8 tiles
 of the tensor cores. The alternative restricts the slices to whole n8 tiles,
 which halves the units of the narrow products. This times K2's bfloat16
 units design at S=64 x 200 and 512 x 30 frames with the plan as shipped and
-with the restricted one, the float32 build beside, in turns, and prints block
-0's cycles a frame by phase. Not part of the package's build. On a machine
+with the restricted one, the float32 build beside, in turns, and prints the
+median block's us a frame by phase (the kernel's records, taken under the
+profiler). Not part of the package's build. On a machine
 with the card, from the repository's root:
 
     python3 deepfilternet_torch/csrc/tools/k2_units_padding_ab.py
@@ -64,16 +65,15 @@ def main():
                 with cs.k2_design("units"):
                     run = lambda: wc.cell_process(x, carry, rt.weights, rt.statics)  # noqa: E731
                     ms.setdefault(name, []).append(cs.time_ms(run, iters=2) / frames)
-                    run()
-                torch.cuda.synchronize()
+                    rec = cs.k2_traced_record(run, name)
                 clk.setdefault(name, []).append(
-                    wc.cell_process.stage_clocks.cpu().numpy().astype(np.float64) / frames)
+                    np.median(rec["ns"].astype(np.float64), axis=0) / frames / 1e3)
         use_plan(SHIPPED)
         for name, _, _ in variants:
             c = np.median(np.stack(clk[name]), axis=0)
             print(f"S={s} x {frames}, {name}: {np.median(ms[name]):.4f} ms a frame (rounds: "
-                  + ", ".join(f"{v:.4f}" for v in ms[name]) + f"); block 0 {c.sum():.0f} cycles a "
-                  "frame, by phase: " + " ".join(f"{v:.0f}" for v in c))
+                  + ", ".join(f"{v:.4f}" for v in ms[name]) + f"); the median block "
+                  f"{c.sum():.1f} us a frame, by phase: " + " ".join(f"{v:.1f}" for v in c))
 
 
 if __name__ == "__main__":

@@ -76,9 +76,15 @@
 //     transposed copy of dft that the wrapper keeps;
 //   * rows beyond S in the last tile repeat the last stream: computed, never
 //     stored;
-//   * thread 0 of block 0 adds up its cycles in the units of each phase and,
-//     apart, its cycles waiting on producers (stage_clocks), so a run can say
-//     where a frame's time goes.
+//   * when the launch passes a record buffer, thread 0 of every block adds
+//     up its cycles in the units of each phase and, apart, its cycles
+//     waiting on producers, and writes them out in ns, scaled by the block's
+//     own span of the global timer over the frames, with that span, so a run
+//     can say where a frame's time goes on every multiprocessor. The timers
+//     are a kernel of their own, whole_cell_recording, which the launch picks
+//     when it passes a buffer; the kernel that ships, whole_cell_kernel, has
+//     no timer code and reads no clock, and a trace tells the two apart by
+//     name.
 //
 // Two builds of the kernel, by the weights' type (the TPU kernel's mdtype):
 // float32, and bfloat16, the JAX package's default. The bfloat16 build runs
@@ -136,10 +142,12 @@ constexpr int C_SIL = 3;
 __constant__ int CWIDTH[N_CKEYS] = {480, 480, 128, 8, 64, 384, 256, 256, 768, 512, 512};
 constexpr int TAB_MAX = 3072;
 constexpr int MAX_FRAME_PHASES = 23;  // stage clocks kept in shared memory
-// block 0's stage clocks in shared memory: one a frame phase, then its wait on
-// producers, the clock its running unit's inputs were in at, and the clock
-// the unit before it ended at
-constexpr int CLK_WAIT = MAX_FRAME_PHASES, CLK_READY = CLK_WAIT + 1, CLK_PREV = CLK_WAIT + 2;
+// a block's stage clocks in shared memory when the launch records: one a frame
+// phase, then its wait on producers, the clock its running unit's inputs were
+// in at, the clock the unit before it ended at, and its first global timer
+// and cycle readings
+constexpr int CLK_WAIT = MAX_FRAME_PHASES, CLK_READY = CLK_WAIT + 1, CLK_PREV = CLK_WAIT + 2,
+              CLK_GT0 = CLK_WAIT + 3, CLK_START = CLK_WAIT + 4;
 
 // scratch columns, in the order of the plan's LAYOUT
 enum Lay { L_BUF, L_SPEC, L_POW, L_ERBWIN, L_FSWIN, L_E0, L_E1, L_E2, L_E3, L_C0, L_C1, L_CEMB,
@@ -185,7 +193,10 @@ struct Params {
   const int* table;
   int table_ints;
   unsigned int* counters;       // the grid barrier's, then one per job and tile; zero at launch
-  long long* stage_clocks;      // [frame phases + 1]
+  // null, or [gridDim.x][frame phases + 4]: each block's ns in each frame
+  // phase's units, its ns waiting on producers, then its first and last
+  // reading of the global timer over the frames and its SM cycles between them
+  long long* records;
   int S, n_frames;
   float alpha, one_minus_alpha, lsnr_min, lsnr_max, pf_beta, silence_thresh, atten_lim,
       gate_min, gate_max_erb, gate_max_df;
@@ -193,6 +204,13 @@ struct Params {
 };
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// the device's global timer, in ns
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 template <typename WT>
 constexpr bool kBf16 = std::is_same<WT, __nv_bfloat16>::value;
@@ -309,7 +327,7 @@ struct Ctx {
   const int* lay;      // scratch offsets
   const int* jobs;     // the job rows
   const int* deps;     // the frame jobs' edges
-  long long* clk;      // block 0's stage clocks (CLK_*)
+  long long* clk;      // the block's stage clocks (CLK_*), when the launch records
   float* smem;         // the ring's stages; the reduction tile takes their place
   unsigned long long* full;   // per stage: the bytes have landed
   unsigned long long* empty;  // per stage: every compute warp is done reading
@@ -494,7 +512,7 @@ struct MmaTile {
 // One unit of a product: tile `tile` of stream rows, column slice `slice`.
 // MC: the float32 build's register tile (FmaTile); the bfloat16 build
 // multiplies on the tensor cores (MmaTile). WT: the weights' type.
-template <int MC, typename WT>
+template <int MC, typename WT, bool TIMED>
 __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int tile, int slice,
                           int f) {
   constexpr bool BF = kBf16<WT>;
@@ -582,7 +600,7 @@ __device__ void gemm_unit(const Ctx<WT>& c, unsigned& fills, const int* J, int t
     const unsigned q = fills + o;
     const int st = q % NSTG;
     mbar_wait(c.full + st, (q / NSTG) & 1u);
-    if (o == 0 && tid == 0) c.clk[CLK_READY] = clock64();  // the unit's inputs are in
+    if (TIMED && o == 0 && tid == 0) c.clk[CLK_READY] = clock64();  // the unit's inputs are in
     const float* xs = c.smem + st * STAGE_FLOATS;
     prod.mac(xs, reinterpret_cast<const WT*>(xs + KC * RT), min(KC, K - o * KC), cnt, kg_n);
     __syncwarp();
@@ -917,15 +935,26 @@ __device__ void carry_unit(const Ctx<WT>& c, int tile, int chunk, int chunks, bo
   }
 }
 
-template <typename WT>
-__global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Params p) {
+#ifdef DFN_K2_PLANT
+// A test build only: thread 0 spends k2_plant_ns of the global timer at the
+// end of each unit of frame phase k2_plant_stage (dfn_k2_plant sets both), so
+// that a test can see the planted time land in that phase's record.
+__device__ int k2_plant_stage = -1;
+__device__ long long k2_plant_ns = 0;
+#endif
+
+// The kernel's body. TIMED: the recording build (Params::records is set); the
+// other reads no clock at all. Each build is a kernel of its own name
+// (whole_cell_kernel, whole_cell_recording), so a trace tells them apart.
+template <typename WT, bool TIMED>
+__device__ __forceinline__ void whole_cell_body(const Params& p) {
   extern __shared__ __align__(128) float smem[];
   __shared__ int tab[TAB_MAX];
   __shared__ float sm_co[CH * ORDER * 2];
   __shared__ float sm_cb[ORDER * 2];
   __shared__ __align__(8) unsigned long long full[NSTG];
   __shared__ __align__(8) unsigned long long empty[NSTG];
-  __shared__ long long clk[CLK_PREV + 1];
+  __shared__ long long clk[CLK_START + 1];
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int i = 0; i < NSTG; ++i) {
@@ -935,7 +964,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Para
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::);
   }
-  if (tid <= CLK_PREV) clk[tid] = 0;
+  if (TIMED && tid <= CLK_START) clk[tid] = 0;
   for (int i = tid; i < p.table_ints; i += THREADS) tab[i] = p.table[i];
   for (int i = tid; i < CH * ORDER * 2; i += THREADS)
     sm_co[i] = wget(static_cast<const WT*>(p.w[W_CONVP_CO]), i);
@@ -974,28 +1003,38 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Para
   }
 
   // the frames: no barrier; a unit waits only on its producers' counters.
-  // Thread 0 of block 0 keeps its cycles in each phase's units, less those
-  // spent waiting on producers (from a unit's start until its first input
-  // stage is in, or until an elementwise unit's producers are done).
-  const bool timer = blockIdx.x == 0 && tid == 0;
-  if (timer) clk[CLK_PREV] = clock64();
+  // When the launch records, thread 0 of each block keeps its cycles in each
+  // phase's units, less those spent waiting on producers (from a unit's start
+  // until its first input stage is in, or until an elementwise unit's
+  // producers are done).
+  const bool timer = TIMED && tid == 0;
+  if (timer) {
+    clk[CLK_GT0] = globaltimer();
+    clk[CLK_START] = clk[CLK_PREV] = clock64();
+  }
   for (int f = 0; f < p.n_frames; ++f) {
     for (int ph = 0; ph < n_fp; ++ph) {
       const int first = ranks[ph * gridDim.x + blockIdx.x];
       for_units(n_pre + ph, first, [&](const int* J, int tile, int part) {
         if (J[J_TYPE] == T_GEMM) {
-          if constexpr (kBf16<WT>) gemm_unit<8, WT>(c, fills, J, tile, part, f);  // MC unused
-          else if (J[J_AUX] == 8) gemm_unit<8, WT>(c, fills, J, tile, part, f);
-          else gemm_unit<2, WT>(c, fills, J, tile, part, f);
+          if constexpr (kBf16<WT>)
+            gemm_unit<8, WT, TIMED>(c, fills, J, tile, part, f);  // MC unused
+          else if (J[J_AUX] == 8) gemm_unit<8, WT, TIMED>(c, fills, J, tile, part, f);
+          else gemm_unit<2, WT, TIMED>(c, fills, J, tile, part, f);
         } else if (tid < THREADS) {  // elementwise: the compute threads alone
           if (tid < 32) wait_producers(c, J, tile, f, tid);
           compute_sync();
-          if (tid == 0) clk[CLK_READY] = clock64();
+          if (TIMED && tid == 0) clk[CLK_READY] = clock64();
           if (J[J_TYPE] == T_ADVANCE) frame_in_unit(c, tile, part, J[J_AUX], f + 1, true);
           else lsnr_unit(c, tile);
           unit_done(c, J, tile);
         }
         if (timer && ph < MAX_FRAME_PHASES) {
+#ifdef DFN_K2_PLANT
+          if (ph == k2_plant_stage)
+            for (const long long t = globaltimer(); globaltimer() - t < k2_plant_ns;) {
+            }
+#endif
           const long long t1 = clock64(), prev = clk[CLK_PREV], ready = clk[CLK_READY];
           const long long wait = ready > prev ? ready - prev : 0;
           clk[ph] += t1 - prev - wait;
@@ -1006,8 +1045,16 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Para
     }
   }
   if (timer) {
-    for (int ph = 0; ph < n_fp && ph < MAX_FRAME_PHASES; ++ph) p.stage_clocks[ph] = clk[ph];
-    p.stage_clocks[n_fp] = clk[CLK_WAIT];
+    const long long gt1 = globaltimer(), c1 = clock64();
+    const double ns_a_clk =
+        c1 > clk[CLK_START] ? (double)(gt1 - clk[CLK_GT0]) / (double)(c1 - clk[CLK_START]) : 0.0;
+    long long* rec = p.records + (size_t)blockIdx.x * (n_fp + 4);
+    for (int ph = 0; ph < n_fp; ++ph)
+      rec[ph] = ph < MAX_FRAME_PHASES ? __double2ll_rn((double)clk[ph] * ns_a_clk) : 0;
+    rec[n_fp] = __double2ll_rn((double)clk[CLK_WAIT] * ns_a_clk);
+    rec[n_fp + 1] = clk[CLK_GT0];
+    rec[n_fp + 2] = gt1;
+    rec[n_fp + 3] = c1 - clk[CLK_START];
   }
   // carry out, once every unit of every frame is done
   grid_barrier(p.counters, target);
@@ -1016,31 +1063,63 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) whole_cell_kernel(const Para
   });
 }
 
+// the build that ships: no record buffer, no clock read
+template <typename WT>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+    whole_cell_kernel(const __grid_constant__ Params p) {
+  whole_cell_body<WT, false>(p);
+}
+
+// the build a launch with a record buffer runs
+template <typename WT>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+    whole_cell_recording(const __grid_constant__ Params p) {
+  whole_cell_body<WT, true>(p);
+}
+
 }  // namespace
+
+#ifdef DFN_K2_PLANT
+// A test build only: the recording build's thread 0 spends `ns` of the global
+// timer at the end of each unit of frame phase `stage` (-1: none).
+extern "C" int dfn_k2_plant(int stage, long long ns) {
+  cudaError_t err = cudaMemcpyToSymbol(k2_plant_stage, &stage, sizeof(stage));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(k2_plant_ns, &ns, sizeof(ns));
+  return (int)err;
+}
+#endif
 
 // Threads a block, which the plan's K groups are sized for.
 extern "C" int dfn_whole_cell_threads() { return THREADS; }
 
-template <typename WT>
-cudaError_t launch(Params& p, int n_blocks, cudaStream_t stream) {
+template <typename Kernel>
+cudaError_t launch_build(Kernel kernel, Params& p, int n_blocks, cudaStream_t stream) {
   int dev = 0, coop = 0, per_sm = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return cudaErrorNotSupported;
-  err = cudaFuncSetAttribute(whole_cell_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SMEM_BYTES);
   if (err != cudaSuccess) return err;
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, whole_cell_kernel<WT>,
-                                                      BLOCK_THREADS, SMEM_BYTES);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK_THREADS,
+                                                      SMEM_BYTES);
   if (err != cudaSuccess) return err;
   if (n_blocks > per_sm * n_sm) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)whole_cell_kernel<WT>, dim3((unsigned)n_blocks),
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3((unsigned)n_blocks),
                                     dim3(BLOCK_THREADS), args, SMEM_BYTES, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// the recording build when the launch passes a record buffer, else the one
+// that reads no clock
+template <typename WT>
+cudaError_t launch(Params& p, int n_blocks, cudaStream_t stream) {
+  return p.records ? launch_build(whole_cell_recording<WT>, p, n_blocks, stream)
+                   : launch_build(whole_cell_kernel<WT>, p, n_blocks, stream);
 }
 
 // Launches the kernel cooperatively on `stream` with n_blocks blocks (at most
@@ -1052,14 +1131,15 @@ cudaError_t launch(Params& p, int n_blocks, cudaStream_t stream) {
 // gate_max_erb, gate_max_df) are host arrays. table: the plan
 // (ops/whole_cell_plan.py), table_ints int32 on the device. scratch:
 // [tiles, SCR, 64] floats, zero where never written; counters: 1 + jobs x
-// tiles uint32 (the plan's n_counters), zero; stage_clocks: frame phases + 1
-// int64. Returns the CUDA error
+// tiles uint32 (the plan's n_counters), zero; records: null (no block reads a
+// clock), or n_blocks x (frame phases + 4) int64, every entry written (see
+// Params::records). Returns the CUDA error
 // (0 on success); cudaErrorCooperativeLaunchTooLarge or cudaErrorNotSupported
 // if the card cannot hold the grid.
 extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* carry_in,
                               void* const* carry_out, const void* const* weights, int n_weights,
                               const void* wpack, void* scratch, const void* table, int table_ints,
-                              void* counters, void* stage_clocks, int S, int n_frames, int n_blocks,
+                              void* counters, void* records, int S, int n_frames, int n_blocks,
                               const float* scalars, int mask_pf, int lsnr_gating,
                               int silence_frames, int bf16, void* stream) {
   if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1 || table_ints > TAB_MAX)
@@ -1077,7 +1157,7 @@ extern "C" int dfn_whole_cell(const void* audio, void* out, const void* const* c
   p.table = static_cast<const int*>(table);
   p.table_ints = table_ints;
   p.counters = static_cast<unsigned int*>(counters);
-  p.stage_clocks = static_cast<long long*>(stage_clocks);
+  p.records = static_cast<long long*>(records);
   p.S = S;
   p.n_frames = n_frames;
   p.alpha = scalars[0]; p.one_minus_alpha = scalars[1];

@@ -52,8 +52,14 @@
 //     are shifted in place by the thread that owns the element;
 //   * static scalars and the stage switches are kernel arguments; the 65 weight
 //     pointers travel in the argument struct, copied by value;
-//   * thread 0 of block 0 adds up the SM cycles of each stage of the frame
-//     (stage_clocks), so a run can say where a frame's time goes.
+//   * when the launch passes a record buffer, thread 0 of every block adds
+//     up its SM cycles in each stage of the frame (and in the carry's load
+//     and store) and writes them out in ns, scaled by the block's own span
+//     of the global timer, with that span, so a run can say where a frame's
+//     time goes and how long each multiprocessor held work. The timers are a
+//     kernel of their own, whole_cell_recording, which the launch picks when
+//     it passes a buffer; the kernel that ships, whole_cell_kernel, has no
+//     timer code and reads no clock, and a trace tells the two apart by name.
 //
 // Two builds, by the weights' type (the TPU kernel's mdtype): float32 (R = 4,
 // 8), and bfloat16 (R = 4, 8, 16), the JAX package's default. The bfloat16
@@ -167,10 +173,11 @@ enum Act { ACT_NONE, ACT_RELU, ACT_SIGMOID, ACT_TANH };
 // gates); the sum, the bias add and the addend add (the model trunk)
 enum Rnd { R_F32, R_SUM, R_TRUNK };
 
-// stages of a frame whose SM cycles block 0 adds up (see Params::stage_clocks)
+// stages whose time every block adds up when the launch records (see
+// Params::records); ST_CARRY is the carry's load and store around a tile
 enum Stage { ST_FRAME_IN, ST_ANALYSIS, ST_FEATURES, ST_ERB_CONVS, ST_DF_CONV0, ST_DF_CONV1,
-             ST_ENC_GRU, ST_ERB_DECODER, ST_DF_GRU, ST_DF_COEF_MAC, ST_MASK_TAIL, ST_SYNTHESIS,
-             N_STAGES };
+             ST_ENC_GRU, ST_DEC_GRU, ST_ERB_DECODER, ST_DF_GRU, ST_DF_COEF_MAC, ST_MASK_TAIL,
+             ST_SYNTHESIS, ST_CARRY, N_STAGES };
 
 struct Params {
   const float* audio;  // [S, T]
@@ -184,7 +191,10 @@ struct Params {
   const __nv_bfloat16* wpack;
   int pk[N_WKEYS + 1];
   float* scratch;      // [gridDim.x, R, SCR]
-  long long* stage_clocks;  // [N_STAGES] SM cycles of block 0 per stage, over the call
+  // null, or [gridDim.x][N_STAGES + 3]: each block's ns in each stage over
+  // the call, then its first and last reading of the global timer and its
+  // SM cycles between them
+  long long* records;
   int S, n_frames;
   float alpha, one_minus_alpha, lsnr_min, lsnr_max, pf_beta, silence_thresh, atten_lim,
       gate_min, gate_max_erb, gate_max_df;
@@ -192,6 +202,13 @@ struct Params {
 };
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// the device's global timer, in ns
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 template <typename WT>
 constexpr bool kBf16 = std::is_same<WT, __nv_bfloat16>::value;
@@ -613,8 +630,19 @@ __host__ __device__ constexpr size_t smem_bytes() {
          (staged_floats<R, WT>() + (kBf16<WT> ? NWARPS * 16 * R : THREADS * R * 4));
 }
 
-template <int R, typename WT>
-__global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) {
+#ifdef DFN_K2_PLANT
+// A test build only: thread 0 spends k2_plant_ns of the global timer at the
+// end of stage k2_plant_stage (dfn_k2_plant sets both), so that a test can
+// see the planted time land in that stage's record.
+__device__ int k2_plant_stage = -1;
+__device__ long long k2_plant_ns = 0;
+#endif
+
+// The kernel's body. TIMED: the recording build (Params::records is set); the
+// other reads no clock at all. Each build is a kernel of its own name
+// (whole_cell_kernel, whole_cell_recording), so a trace tells them apart.
+template <int R, typename WT, bool TIMED>
+__device__ __forceinline__ void whole_cell_body(const Params& p) {
   extern __shared__ __align__(16) float smem[];
   float* sm_x = smem;                                      // staged x
   float* sm_red = smem + staged_floats<R, WT>();            // K slices' partial sums
@@ -623,7 +651,7 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
   __shared__ float sm_lsnr[R];
   __shared__ int sm_mute[R];
   __shared__ long long sm_clk[N_STAGES];
-  __shared__ long long sm_t0;
+  __shared__ long long sm_t0, sm_gt0, sm_clk0;  // thread 0's last mark, first readings
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int T = p.n_frames * HOP;
@@ -638,15 +666,24 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
 
   for (int i = tid; i < CH * ORDER * 2; i += THREADS) sm_co[i] = wget(W(W_CONVP_CO), i);
   if (tid < ORDER * 2) sm_cb[tid] = static_cast<const float*>(p.w[W_CONVP_B])[tid];
-  if (tid < N_STAGES) sm_clk[tid] = 0;
-  // thread 0 of block 0 closes a stage: the cycles since the last mark go to it
+  if (TIMED && tid < N_STAGES) sm_clk[tid] = 0;
+  // thread 0 closes a stage: the cycles since the last mark go to it
   auto mark = [&](int stage) {
-    if (blockIdx.x == 0 && tid == 0) {
+    if (TIMED && tid == 0) {
+#ifdef DFN_K2_PLANT
+      if (stage == k2_plant_stage)
+        for (const long long t = globaltimer(); globaltimer() - t < k2_plant_ns;) {
+        }
+#endif
       const long long t = clock64();
       sm_clk[stage] += t - sm_t0;
       sm_t0 = t;
     }
   };
+  if (TIMED && tid == 0) {
+    sm_gt0 = globaltimer();
+    sm_clk0 = sm_t0 = clock64();
+  }
 
   const int n_tiles = (p.S + R - 1) / R;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -695,8 +732,8 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
     float sil_ctr = 0.f;  // lane 0 of warp r keeps row r's counter
     if (warp < R && lane == 0) sil_ctr = p.cin[C_SIL][(size_t)grow(warp) * 8];
     __syncthreads();
+    mark(ST_CARRY);  // the last tile's carry store and this one's load
 
-    if (blockIdx.x == 0 && tid == 0) sm_t0 = clock64();
     for (int f = 0; f < p.n_frames; ++f) {
       // ---- frame in; RMS silence counter (one warp per row)
       for (int i = tid; i < R * HOP; i += THREADS) {
@@ -799,6 +836,7 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
       gru_gate<R>(sc, O_DEC_H);
       gemm<R, WT>(sm_x, sm_red, sc + O_DEC_H, P(W_DEC_LIN_OUT), nullptr, nullptr, HID, 1, 128,
               nullptr, ACT_RELU, R_TRUNK, nullptr, sc + O_DEMB);
+      mark(ST_DEC_GRU);
       gemm<R, WT>(sm_x, sm_red, sc + O_E3, P(W_P3_W), nullptr, nullptr, 128, 1, 128, W(W_P3_B),
               ACT_RELU, R_TRUNK, sc + O_DEMB, sc + O_PA);
       gemm<R, WT>(sm_x, sm_red, sc + O_PA, P(W_T3_W), nullptr, nullptr, 128, 1, 128, W(W_T3_B),
@@ -973,26 +1011,71 @@ __global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const Params p) 
     }
     if (warp < R && lane == 0 && valid(warp)) p.cout[C_SIL][(size_t)(row0 + warp) * 8] = sil_ctr;
   }
-  if (blockIdx.x == 0 && tid == 0)
-    for (int i = 0; i < N_STAGES; ++i) p.stage_clocks[i] = sm_clk[i];
+  if constexpr (TIMED) {
+    __syncthreads();  // every thread has made its carry stores
+    mark(ST_CARRY);
+    if (tid == 0) {
+      const long long gt1 = globaltimer();
+      const long long gt0 = sm_gt0, clk0 = sm_clk0;
+      const double ns_a_clk = sm_t0 > clk0 ? (double)(gt1 - gt0) / (double)(sm_t0 - clk0) : 0.0;
+      long long* rec = p.records + (size_t)blockIdx.x * (N_STAGES + 3);
+      for (int i = 0; i < N_STAGES; ++i) rec[i] = __double2ll_rn((double)sm_clk[i] * ns_a_clk);
+      rec[N_STAGES] = gt0;
+      rec[N_STAGES + 1] = gt1;
+      rec[N_STAGES + 2] = sm_t0 - clk0;
+    }
+  }
 }
 
+// the build that ships: no record buffer, no clock read
+template <int R, typename WT>
+__global__ void __launch_bounds__(THREADS, 1) whole_cell_kernel(const __grid_constant__ Params p) {
+  whole_cell_body<R, WT, false>(p);
+}
+
+// the build a launch with a record buffer runs
+template <int R, typename WT>
+__global__ void __launch_bounds__(THREADS, 1)
+    whole_cell_recording(const __grid_constant__ Params p) {
+  whole_cell_body<R, WT, true>(p);
+}
+
+template <typename Kernel>
+cudaError_t launch_build(Kernel kernel, size_t shmem, const Params& p, int n_blocks,
+                         cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_blocks, THREADS, shmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the recording build when the launch passes a record buffer, else the one
+// that reads no clock
 template <int R, typename WT>
 cudaError_t launch(const Params& p, int n_blocks, cudaStream_t stream) {
   const size_t shmem = smem_bytes<R, WT>();
-  cudaError_t err = cudaFuncSetAttribute(whole_cell_kernel<R, WT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-  if (err != cudaSuccess) return err;
-  whole_cell_kernel<R, WT><<<n_blocks, THREADS, shmem, stream>>>(p);
-  return cudaGetLastError();
+  return p.records ? launch_build(whole_cell_recording<R, WT>, shmem, p, n_blocks, stream)
+                   : launch_build(whole_cell_kernel<R, WT>, shmem, p, n_blocks, stream);
 }
 
 }  // namespace
 
+#ifdef DFN_K2_PLANT
+// A test build only: the recording build's thread 0 spends `ns` of the global
+// timer at the end of `stage` (-1: none) in every block, tile and frame.
+extern "C" int dfn_k2_plant(int stage, long long ns) {
+  cudaError_t err = cudaMemcpyToSymbol(k2_plant_stage, &stage, sizeof(stage));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(k2_plant_ns, &ns, sizeof(ns));
+  return (int)err;
+}
+#endif
+
 // Floats of scratch the kernel needs for each stream row of each block.
 extern "C" int dfn_whole_cell_rows_scratch_floats() { return SCR; }
 
-// Entries of the stage_clocks array (int64), in the order of the Stage enum.
+// Stages a block records (int64 each, in the order of the Stage enum), before
+// its first and last global timer reading and its cycles between them.
 extern "C" int dfn_whole_cell_rows_stages() { return N_STAGES; }
 
 // Launches the kernel on `stream` for audio [S, n_frames * 480]. carry_in,
@@ -1004,13 +1087,15 @@ extern "C" int dfn_whole_cell_rows_stages() { return N_STAGES; }
 // whole_cell_plan.pack_rows_weights (bfloat16, on the device) and pk the host
 // array of its n_weights + 1 offsets; else both are ignored. rows: 4 or 8, or
 // 16 with `bf16`. scratch: n_blocks * rows *
-// dfn_whole_cell_rows_scratch_floats() floats. stage_clocks:
-// dfn_whole_cell_rows_stages() int64 on the device, written by block 0.
+// dfn_whole_cell_rows_scratch_floats() floats. records: null (no block reads
+// a clock), or n_blocks x (dfn_whole_cell_rows_stages() + 3) int64 on the
+// device, every entry written: a block's ns in each stage, then its first and
+// last global timer reading (ns) and its SM cycles between them.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* const* carry_in,
                                    void* const* carry_out, const void* const* weights,
                                    int n_weights, const void* wpack, const int* pk, void* scratch,
-                                   void* stage_clocks, int S, int n_frames, int rows,
+                                   void* records, int S, int n_frames, int rows,
                                    int n_blocks, const float* scalars, int mask_pf,
                                    int lsnr_gating, int silence_frames, int bf16, void* stream) {
   if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1)
@@ -1026,7 +1111,7 @@ extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* con
   p.wpack = static_cast<const __nv_bfloat16*>(wpack);
   for (int i = 0; i <= N_WKEYS; ++i) p.pk[i] = bf16 ? pk[i] : -1;
   p.scratch = static_cast<float*>(scratch);
-  p.stage_clocks = static_cast<long long*>(stage_clocks);
+  p.records = static_cast<long long*>(records);
   p.S = S;
   p.n_frames = n_frames;
   p.alpha = scalars[0]; p.one_minus_alpha = scalars[1];

@@ -133,7 +133,10 @@ class DataLoader:
             # train: epoch_seed + idx; eval: idx (dataloader.rs:270-278)
             return epoch_seed + int(idx) if split == "train" else int(idx)
 
-        from deepfilternet_torch.utils.timings import GLOBAL_TIMINGS
+        from deepfilternet_torch.utils.timings import log_timings_enabled, span
+
+        # spans add to GLOBAL_TIMINGS this epoch if the LOG_TIMINGS flag is set
+        log_timings_enabled()
 
         def worker():
             while not stop.is_set():
@@ -142,10 +145,10 @@ class DataLoader:
                 except queue.Empty:
                     return
                 try:
-                    with GLOBAL_TIMINGS.timed("dataloader/sample"):
+                    with span("dataloader.sample"):
                         samples = [self.dataset.get_sample(int(i), seed_for(i))
                                    for i in idxs]
-                    with GLOBAL_TIMINGS.timed("dataloader/collate"):
+                    with span("dataloader.collate"):
                         batch = collate(samples)
                     out_q.put((bi, batch))
                 except Exception as e:  # surfaced on the consumer side

@@ -36,6 +36,7 @@ from deepfilternet_torch.ops.features import erb_feat, spec_feat
 from deepfilternet_torch.ops.norms import get_norm_alpha
 from deepfilternet_torch.ops.stft import Stft, istft_ri, stft
 from deepfilternet_torch.utils.audio_io import load_audio, resample, save_audio
+from deepfilternet_torch.utils.timings import span
 
 
 @dataclass
@@ -193,14 +194,21 @@ def df_features(audio, df_state: DfState, nb_df: int, alpha: Optional[float] = N
 def _offline(model: DfModel, df_state: DfState, audio: np.ndarray, lim: float) -> np.ndarray:
     """The whole offline path on the model's device: STFT -> features ->
     forward -> attenuation-limit mix -> iDFT synthesis."""
-    x = torch.from_numpy(np.ascontiguousarray(audio)).to(model.device)
-    spec, erb, sf = _features(x, df_state, model.cfg["nb_df"], _norm_alpha(df_state))
-    spec_ri = _ri(spec)
-    (spec_e_ri, _, _, _), _ = model.module.forward(
-        model.params, model.state, model.cfg, spec_ri, erb, _ri(sf))
-    # attenuation-limit mixback (lim == 0 leaves spec_e)
-    spec_e_ri = spec_ri * lim + spec_e_ri * (1.0 - lim)
-    return istft_ri(spec_e_ri, df_state.stft_cfg).cpu().numpy()
+    with span("enhance.h2d"):
+        x = torch.from_numpy(np.ascontiguousarray(audio)).to(model.device)
+    with span("enhance.features"):
+        spec, erb, sf = _features(x, df_state, model.cfg["nb_df"], _norm_alpha(df_state))
+        spec_ri = _ri(spec)
+        sf_ri = _ri(sf)
+    with span("enhance.forward"):
+        (spec_e_ri, _, _, _), _ = model.module.forward(
+            model.params, model.state, model.cfg, spec_ri, erb, sf_ri)
+    with span("enhance.synthesis"):
+        # attenuation-limit mixback (lim == 0 leaves spec_e)
+        spec_e_ri = spec_ri * lim + spec_e_ri * (1.0 - lim)
+        out = istft_ri(spec_e_ri, df_state.stft_cfg)
+    with span("enhance.d2h"):  # waits for the device
+        return out.cpu().numpy()
 
 
 def enhance(
@@ -225,15 +233,26 @@ def enhance(
     mesh: a `parallel.Mesh`; the scan backend then splits the rows over its
     devices (weights copied to each, no traffic between them); the rows must
     divide over the devices.
+
+    A call is the span `enhance` (utils/timings.py), with the children
+    `enhance.pad`, `enhance.h2d`, `enhance.features`, `enhance.forward`,
+    `enhance.synthesis`, `enhance.d2h` and `enhance.trim` on the offline
+    path.
     """
-    audio = np.atleast_2d(np.asarray(audio, np.float32))
-    orig_len = audio.shape[-1]
-    n_fft, hop = df_state.fft_size, df_state.hop_size
-    if pad:
-        audio = np.pad(audio, ((0, 0), (0, n_fft)))
-    # trim to whole hops (streaming analysis consumes whole frames only)
-    t_hops = audio.shape[-1] // hop
-    audio = audio[..., : t_hops * hop]
+    with span("enhance"):
+        return _enhance(model, df_state, audio, pad, atten_lim_db, backend, mesh)
+
+
+def _enhance(model, df_state, audio, pad, atten_lim_db, backend, mesh) -> np.ndarray:
+    with span("enhance.pad"):
+        audio = np.atleast_2d(np.asarray(audio, np.float32))
+        orig_len = audio.shape[-1]
+        n_fft, hop = df_state.fft_size, df_state.hop_size
+        if pad:
+            audio = np.pad(audio, ((0, 0), (0, n_fft)))
+        # trim to whole hops (streaming analysis consumes whole frames only)
+        t_hops = audio.shape[-1] // hop
+        audio = audio[..., : t_hops * hop]
     lim = 0.0
     if atten_lim_db is not None and abs(atten_lim_db) > 0:
         lim = 10.0 ** (-abs(atten_lim_db) / 20.0)
@@ -244,7 +263,8 @@ def enhance(
     elif backend == "scan":
         rt = _get_scan_runtime(model, df_state, mesh)
         _, out = rt.process(rt.init(audio.shape[0]), audio)
-        out = out.cpu().numpy()
+        with span("enhance.d2h"):
+            out = out.cpu().numpy()
         if lim > 0:
             # attenuation-limit mixback in the time domain: the spectral mix
             # lim*spec + (1-lim)*spec_e commutes with the linear synthesis,
@@ -256,10 +276,11 @@ def enhance(
             out = lim * delayed + (1.0 - lim) * out
     else:
         raise ValueError(f"unknown backend {backend!r}")
-    if pad:
-        d = n_fft - hop
-        out = out[:, d : orig_len + d]
-    return out
+    with span("enhance.trim"):
+        if pad:
+            d = n_fft - hop
+            out = out[:, d : orig_len + d]
+        return out
 
 
 def _get_scan_runtime(model: DfModel, df_state: DfState, mesh=None):

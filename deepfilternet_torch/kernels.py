@@ -4,7 +4,9 @@ Each source under `csrc/` is compiled by `nvcc` for Hopper (`sm_90a`) into a
 shared library with a plain C interface, loaded with `ctypes`. Builds happen
 at first use, into `_build/` beside this file (listed in `.gitignore`), and
 are keyed by a hash of the source and the flags, so an edited source builds
-anew. `build()` starts one `nvcc` per missing library, all at once.
+anew. `build()` starts one `nvcc` per missing library, all at once. A test may
+ask for a build with extra preprocessor `defines` (e.g. `("DFN_K2_PLANT",)`),
+which is a library of its own.
 """
 
 from __future__ import annotations
@@ -46,29 +48,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     src = (SOURCE_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]:
+def build(names: Optional[Iterable[str]] = None,
+          defines: Tuple[str, ...] = ()) -> Dict[str, Tuple[float, str]]:
     """Compile the named kernels (default: all) that are not built yet.
 
     Returns {name: (seconds, ptxas report)} for the libraries it built.
     Raises RuntimeError with the compiler's output if any build fails.
     """
     names = list(SOURCES) if names is None else list(names)
-    todo = [n for n in names if not library_path(n).is_file()]
+    todo = [n for n in names if not library_path(n, defines).is_file()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for n in todo:
-        out = library_path(n)
+        out = library_path(n, defines)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / SOURCES[n])]
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(SOURCE_DIR / SOURCES[n])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out, time.perf_counter())
@@ -87,7 +94,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    build([name], defines)
+    return ctypes.CDLL(str(library_path(name, defines)))

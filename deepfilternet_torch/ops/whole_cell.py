@@ -47,6 +47,7 @@ import torch
 
 from deepfilternet_torch.ops import whole_cell_plan as plan
 from deepfilternet_torch.ops.stft import dft_matrices, wnorm
+from deepfilternet_torch.utils import timings
 
 PI = 3.1415926535897932384626433
 
@@ -730,8 +731,7 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     CPU tensors run `cell_process_plain`. CUDA tensors launch the kernel
     once for all frames (counting one launch in `cell_process.launches`, and
     in `cell_process.bf16_launches` too for a bfloat16 weight set, the frames
-    in `cell_process.frames`, and leaving the kernel's per-stage cycle counts
-    in `cell_process.stage_clocks`) or raise. Two designs of the kernel
+    in `cell_process.frames`) or raise. Two designs of the kernel
     exist and `_kernel_choice` picks one from S, the card and the operand
     type, with no argument for the caller: for few streams every product is
     cut over all multiprocessors (`whole_cell_plan.plan`; a cooperative
@@ -740,6 +740,18 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     for each operand type: float32 products in FMAs on the CUDA cores,
     bfloat16 ones on the tensor cores (`mma.sync` m16n8k16). Any S works:
     both mask their ragged last tile.
+
+    While a torch profiler is recording, one call in `RECORD_EVERY` (the
+    first of each stretch of traced calls, then every `RECORD_EVERY`-th) is
+    handed a record buffer and runs the recording kernel
+    (`whole_cell_recording`): every thread block times each stage of its
+    frames (`STAGES`, `FAMILIES`), and the buffer is kept for
+    `utils.timings.k2_records()`. The other calls run the kernel that ships
+    (`whole_cell_kernel`), so a trace times it too. With no profiler
+    recording no buffer is made and no block reads a clock. The host's two
+    steps are the spans `k2.alloc` (the output, the new carry and the
+    kernel's work buffers) and `k2.launch` (the weights' addresses, the
+    packed weights and the launch).
     """
     _check_inputs(audio, carry, weights)
     device = audio.device
@@ -754,43 +766,107 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
         raise ValueError("the whole-cell kernel needs contiguous inputs")
     s, t = audio.shape
     n_frames = t // HOP
+    bf16 = weights["dft"].dtype == torch.bfloat16
+    record = _record_this_call()
     with torch.cuda.device(device):
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        out = torch.empty_like(audio)
-        new_carry = {k: torch.empty_like(carry[k]) for k, _ in CKEYS}
-        ptr = ctypes.c_void_p * len(CKEYS)
-        st = statics
-        args = dict(
-            audio=audio, out=out, s=s, n_frames=n_frames, n_sm=n_sm, weights=weights,
-            c_in=ptr(*[carry[k].data_ptr() for k, _ in CKEYS]),
-            c_out=ptr(*[new_carry[k].data_ptr() for k, _ in CKEYS]),
-            w_ptrs=(ctypes.c_void_p * len(WKEYS))(*[weights[k].data_ptr() for k in WKEYS]),
-            scalars=(ctypes.c_float * 10)(
-                st.alpha, 1.0 - st.alpha, st.lsnr_min, st.lsnr_max, st.pf_beta,
-                st.silence_thresh, st.atten_lim, st.gate_lsnr_min, st.gate_lsnr_max_erb,
-                st.gate_lsnr_max_df),
-            flags=(int(st.mask_pf), int(st.lsnr_gating), int(st.silence_frames),
-                   int(weights["dft"].dtype == torch.bfloat16)),
-            stream=torch.cuda.current_stream(device).cuda_stream,
-        )
-        design = _kernel_choice(s, n_sm, weights["dft"].dtype == torch.bfloat16)
-        launch = _launch_units if design == "units" else _launch_rows
-        err, clocks = launch(**args)
+        design = _kernel_choice(s, n_sm, bf16)
+        units = design == "units"
+        with timings.span("k2.alloc"):
+            out = torch.empty_like(audio)
+            new_carry = {k: torch.empty_like(carry[k]) for k, _ in CKEYS}
+            work = (_units_buffers if units else _rows_buffers)(s, n_sm, bf16, device, record)
+        with timings.span("k2.launch"):
+            ptr = ctypes.c_void_p * len(CKEYS)
+            st = statics
+            args = dict(
+                audio=audio, out=out, s=s, n_frames=n_frames, n_sm=n_sm, weights=weights,
+                c_in=ptr(*[carry[k].data_ptr() for k, _ in CKEYS]),
+                c_out=ptr(*[new_carry[k].data_ptr() for k, _ in CKEYS]),
+                w_ptrs=(ctypes.c_void_p * len(WKEYS))(*[weights[k].data_ptr() for k in WKEYS]),
+                scalars=(ctypes.c_float * 10)(
+                    st.alpha, 1.0 - st.alpha, st.lsnr_min, st.lsnr_max, st.pf_beta,
+                    st.silence_thresh, st.atten_lim, st.gate_lsnr_min, st.gate_lsnr_max_erb,
+                    st.gate_lsnr_max_df),
+                flags=(int(st.mask_pf), int(st.lsnr_gating), int(st.silence_frames), int(bf16)),
+                stream=torch.cuda.current_stream(device).cuda_stream,
+            )
+            err = (_launch_units if units else _launch_rows)(**args, **work)
     if err != 0:
         raise RuntimeError(
             f"whole_cell kernel launch failed: cudaError {err}"
             + (" (the card refused the cooperative launch of one block per multiprocessor)"
                if err in (720, 801) else ""))
     cell_process.launches += 1
-    cell_process.bf16_launches += int(weights["dft"].dtype == torch.bfloat16)
+    cell_process.bf16_launches += int(bf16)
     cell_process.frames += n_frames
-    cell_process.stage_clocks = clocks
-    cell_process.stage_names = STAGES[design]
+    if work["records"] is not None:
+        timings.k2_keep(design, STAGES[design], stage_families(design), n_frames,
+                        work["records"])
     return new_carry, out
 
 
+# while a profiler records, the calls that run the recording kernel: one in
+# this many of each stretch of traced calls, the first included
+RECORD_EVERY = 4
+_traced_calls = 0  # the calls of the current stretch of traced calls
+
+
+def _record_this_call() -> bool:
+    """Whether this call records: with a profiler recording, the first call
+    of a stretch of traced calls and every `RECORD_EVERY`-th after it."""
+    global _traced_calls
+    if not timings.tracing():
+        _traced_calls = 0
+        return False
+    _traced_calls += 1
+    return (_traced_calls - 1) % RECORD_EVERY == 0
+
+
+def _records(n_blocks: int, n_stages: int, device, record: bool):
+    """The record buffer of a recording launch: int64 [blocks, stages + 3],
+    every entry written by the kernel (a block's ns in each stage, then its
+    first and last global timer reading and its SM cycles between them);
+    None for a launch that does not record."""
+    if not record:
+        return None
+    return torch.empty((n_blocks, n_stages + 3), dtype=torch.int64, device=device)
+
+
+def _units_buffers(s, n_sm, bf16, device, record):
+    """One launch's buffers for the units design: the plan's table (kept per
+    plan), a zeroed scratch, zeroed counters and the record buffer."""
+    table, info = _plan_on_device(s, n_sm, bf16, device)
+    return dict(
+        table=table,
+        # zeroed: the columns nothing writes (pad lanes) are read as zeros
+        scratch=torch.zeros(info["scratch_shape"], dtype=torch.float32, device=device),
+        # the grid barrier's counter, then one per job and tile, counted up
+        # over the launch
+        counters=torch.zeros((info["n_counters"],), dtype=torch.int32, device=device),
+        records=_records(n_sm, len(STAGES["units"]), device, record))
+
+
+def _rows_buffers(s, n_sm, bf16, device, record):
+    """One launch's buffers for the rows design: the tile's rows, the scratch
+    of its blocks and the record buffer."""
+    from deepfilternet_torch.kernels import load
+
+    lib = _bind_rows(load("whole_cell_rows"))
+    if record and lib.dfn_whole_cell_rows_stages() != len(STAGES["rows"]):
+        raise RuntimeError("the rows kernel and STAGES['rows'] disagree on the stages")
+    rows = _tile_rows(s, n_sm, bf16)
+    # one persistent block per multiprocessor at most: each walks over its
+    # tiles of `rows` streams, so the scratch stays small
+    n_blocks = max(1, min(-(-s // rows), n_sm))
+    scratch = torch.empty((n_blocks, rows, lib.dfn_whole_cell_rows_scratch_floats()),
+                          dtype=torch.float32, device=device)
+    return dict(rows=rows, scratch=scratch,
+                records=_records(n_blocks, len(STAGES["rows"]), device, record))
+
+
 def _launch_units(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, scalars, flags,
-                  stream):
+                  stream, table, scratch, counters, records):
     """The design of `csrc/whole_cell.cu`: every product cut over all
     multiprocessors by the plan for (S, card); a unit waits on counters of
     the units it depends on (the plan's edges). One persistent block per
@@ -801,62 +877,75 @@ def _launch_units(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, s
     lib = _bind(load("whole_cell"))
     if lib.dfn_whole_cell_threads() != plan.THREADS:
         raise RuntimeError("the whole-cell kernel and its plan disagree on the block size")
-    device = audio.device
-    table, info = _plan_on_device(s, n_sm, weights["dft"].dtype == torch.bfloat16, device)
     wpack = packed_weights(weights, s, n_sm)
-    # zeroed: the columns nothing writes (pad lanes) are read as zeros
-    scratch = torch.zeros(info["scratch_shape"], dtype=torch.float32, device=device)
-    # the grid barrier's counter, then one per job and tile, counted up over
-    # the launch
-    counters = torch.zeros((info["n_counters"],), dtype=torch.int32, device=device)
-    clocks = torch.zeros((info["n_stages"],), dtype=torch.int64, device=device)
-    err = lib.dfn_whole_cell(
+    return lib.dfn_whole_cell(
         audio.data_ptr(), out.data_ptr(), c_in, c_out, w_ptrs, len(WKEYS), wpack.data_ptr(),
         scratch.data_ptr(), table.data_ptr(), table.numel(), counters.data_ptr(),
-        clocks.data_ptr(), s, n_frames, n_sm, scalars, *flags, stream)
-    return err, clocks
+        None if records is None else records.data_ptr(), s, n_frames, n_sm, scalars, *flags,
+        stream)
 
 
 def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, scalars, flags,
-                 stream):
+                 stream, rows, scratch, records):
     """The design of `csrc/whole_cell_rows.cu`: one persistent block per tile
     of 4, 8 or (bfloat16) 16 stream rows computes the whole frame by itself.
     The bfloat16 build reads the products' weights from their packed copy."""
     from deepfilternet_torch.kernels import load
 
     lib = _bind_rows(load("whole_cell_rows"))
-    device = audio.device
     bf16 = weights["dft"].dtype == torch.bfloat16
     wpack, offsets = packed_rows_weights(weights) if bf16 else (None, None)
-    rows = _tile_rows(s, n_sm, bf16)
-    # one persistent block per multiprocessor at most: each walks over its
-    # tiles of `rows` streams, so the scratch stays small
-    n_blocks = max(1, min(-(-s // rows), n_sm))
-    scratch = torch.empty((n_blocks, rows, lib.dfn_whole_cell_rows_scratch_floats()),
-                          dtype=torch.float32, device=device)
-    clocks = torch.empty((lib.dfn_whole_cell_rows_stages(),), dtype=torch.int64, device=device)
-    err = lib.dfn_whole_cell_rows(
+    return lib.dfn_whole_cell_rows(
         audio.data_ptr(), out.data_ptr(), c_in, c_out, w_ptrs, len(WKEYS),
-        wpack.data_ptr() if bf16 else None, offsets, scratch.data_ptr(), clocks.data_ptr(), s,
-        n_frames, rows, n_blocks, scalars, *flags, stream)
-    return err, clocks
+        wpack.data_ptr() if bf16 else None, offsets, scratch.data_ptr(),
+        None if records is None else records.data_ptr(), s, n_frames, rows, scratch.shape[0],
+        scalars, *flags, stream)
 
 
 cell_process.launches = 0  # type: ignore[attr-defined]
 cell_process.bf16_launches = 0  # type: ignore[attr-defined]
 cell_process.frames = 0  # type: ignore[attr-defined]
-# after a launch: int64 device tensor of the SM cycles the kernel's first
-# block spent in each stage of the frame over the call (read after a
-# synchronize), and the stages' names, which differ between the two designs
-cell_process.stage_clocks = None  # type: ignore[attr-defined]
-cell_process.stage_names = None  # type: ignore[attr-defined]
+# the stages each thread block times (in the order of the kernel's records),
+# which differ between the two designs
 STAGES = {
     # each phase's units of the frame, then the waits on producers
     "units": plan.STAGES,
     "rows": ("frame in, rms", "analysis DFT", "features, norms", "erb convs e0-e3", "df_conv0",
-             "df_conv1, df_fc_emb", "encoder GRU, lsnr", "erb decoder", "df GRU stack",
-             "df_out, DF MAC", "mask gains, tail", "synthesis, overlap-add"),
+             "df_conv1, df_fc_emb", "encoder GRU, lsnr", "erb decoder GRU",
+             "erb decoder convs, mask", "df GRU stack", "df_out, DF MAC", "mask gains, tail",
+             "synthesis, overlap-add", "carry in, out"),
 }
+# Each stage's family: "gru", the stages that hold GRU layers' products (with
+# the grouped linear layers around them; in the units design a phase that
+# holds a GRU product, whatever else runs beside it); "conv", the
+# convolutions and linear layers outside the GRUs; "dsp", the rest (frame
+# in, DFTs, features and norms, mask gains, DF MAC, synthesis, the carry).
+# The units design's "waiting on producers" belongs to none.
+FAMILIES = {
+    "units": {
+        "gru": ("analysis DFT, h @ w_hh", "enc GRU", "dec GRU, df GRU 0", "dec lin_out, df GRU 1",
+                "convt3, df GRU 2"),
+        "conv": ("erb bands, df_conv0", "e0, df_conv1", "e1, df_fc_emb, p0", "e2, p1", "e3, p2",
+                 "enc lin_in, p3", "enc lin_out", "dec/df lin_in, lsnr", "convt2, df_out",
+                 "convt1", "conv_out mask"),
+        "dsp": ("mask gains, DF MAC, tail", "synthesis, overlap-add, advance"),
+    },
+    "rows": {
+        "gru": ("encoder GRU, lsnr", "erb decoder GRU", "df GRU stack"),
+        "conv": ("erb convs e0-e3", "df_conv0", "df_conv1, df_fc_emb", "erb decoder convs, mask",
+                 "df_out, DF MAC"),
+        "dsp": ("frame in, rms", "analysis DFT", "features, norms", "mask gains, tail",
+                "synthesis, overlap-add", "carry in, out"),
+    },
+}
+WAIT_STAGE = plan.WAIT_STAGE
+
+
+def stage_families(design: str) -> Tuple[str, ...]:
+    """The family of each of the design's `STAGES` ("wait" for the units
+    design's waiting on producers)."""
+    of = {name: fam for fam, names in FAMILIES[design].items() for name in names}
+    return tuple("wait" if n == WAIT_STAGE else of[n] for n in STAGES[design])
 
 
 @functools.lru_cache(maxsize=None)

@@ -234,11 +234,12 @@ PRE_PHASES = [("carry in", [Elementwise("carry_in", T_CARRY_IN, EW_CHUNKS)]),
               ("first frame in", [Elementwise("frame0", T_FRAME0, EW_CHUNKS)])]
 POST_PHASE = ("carry out", [Elementwise("carry_out", T_CARRY_OUT, EW_CHUNKS)])
 
-# names of `cell_process.stage_clocks`' entries: block 0's cycles in the units
-# of each phase of the frame, then its cycles waiting on producers (from a
-# unit's start until its first input stage is in, or, for an elementwise
-# unit, until its producers' counters are reached)
-STAGES: Tuple[str, ...] = tuple(n for n, _ in frame_phases()) + ("waiting on producers",)
+# the stages a block of the units design times (utils.timings.k2_records): its
+# time in the units of each phase of the frame, then its time waiting on
+# producers (from a unit's start until its first input stage is in, or, for
+# an elementwise unit, until its producers' counters are reached)
+WAIT_STAGE = "waiting on producers"
+STAGES: Tuple[str, ...] = tuple(n for n, _ in frame_phases()) + (WAIT_STAGE,)
 
 CKEY_ORDER = ("amem", "smem", "norms", "sil", "erb_ctx", "spec_ctx", "enc_h", "dec_h", "df_h",
               "ring_re", "ring_im")

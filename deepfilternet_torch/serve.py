@@ -29,6 +29,13 @@ slot behind an event; the fetcher waits on that event, so the batcher never
 waits on the device. On the CPU the same tick runs eagerly. A failed capture
 raises: a CUDA server never ticks eagerly.
 
+Tracing (utils/timings.py): the spans `serve.handler_wait` (a handler's
+wait for its hop's output), inside it `serve.queue` (from the hop's arrival
+among the pending hops to the tick that takes it), `serve.submit` (the
+batcher enqueues a tick), `serve.fetch` (the fetcher waits for a tick's
+output) and `serve.reply` (the handler sends it). `StreamServer.stats()`
+gives the counters and the bounded logs' percentiles.
+
 Run: python -m deepfilternet_torch.serve [--port 7860] [--device cpu] [...]
 """
 
@@ -48,18 +55,34 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from deepfilternet_torch.utils.timings import span, tracing
+
 MAGIC = 0x44465331
 
 
 class _Req:
-    """One pending hop for one slot."""
+    """One pending hop for one slot: `event` is set when its output is in
+    `out`; `taken`, made only while a profiler records (for the span
+    `serve.queue`), when a tick takes it."""
 
-    __slots__ = ("audio", "out", "event")
+    __slots__ = ("audio", "out", "event", "taken", "t_arrival")
 
     def __init__(self, audio: np.ndarray):
         self.audio = audio
         self.out: Optional[np.ndarray] = None
         self.event = threading.Event()
+        self.taken: Optional[threading.Event] = threading.Event() if tracing() else None
+        self.t_arrival = 0.0
+
+
+def _percentiles(log: deque) -> Dict:
+    """count, p50 and p95 of a bounded log (copied at once: `deque.copy`
+    holds the interpreter lock, so appends from other threads cannot cut in)."""
+    v = list(log.copy())
+    if not v:
+        return dict(count=0, p50=None, p95=None)
+    p50, p95 = np.percentile(v, [50, 95])
+    return dict(count=len(v), p50=float(p50), p95=float(p95))
 
 
 def _stream_axes(rt) -> List[int]:
@@ -247,12 +270,14 @@ class StreamServer:
         self._tick_lock = threading.Lock()
         # observability. dispatch_times records submit -> output-on-host wall
         # seconds per tick, tick_host_times the batcher's host seconds from
-        # taking a batch to the tick enqueued (both bounded);
-        # measure_chip_tick() gives the device's.
+        # taking a batch to the tick enqueued, queue_wait_times each hop's
+        # seconds from its arrival among the pending hops to the tick that
+        # takes it (all bounded); measure_chip_tick() gives the device's.
         self.dispatches = 0
         self.frames_processed = 0
         self.dispatch_times: deque = deque(maxlen=10_000)
         self.tick_host_times: deque = deque(maxlen=10_000)
+        self.queue_wait_times: deque = deque(maxlen=10_000)
         self.graph_captures = sum(s.graph is not None for s in self._shards)
         self.error: Optional[BaseException] = None
 
@@ -266,6 +291,19 @@ class StreamServer:
     def k1_in_graph(self) -> List[int]:
         """Fused frontend launches recorded in each shard's graph."""
         return [s.k1_in_graph for s in self._shards]
+
+    def stats(self) -> Dict:
+        """What the server has done so far: `dispatches` (ticks), `frames`
+        (hops processed), `graph_replays`, and the count, p50 and p95 in
+        seconds of the last 10,000 of each log: `tick_host_s` (the batcher's
+        host time a tick), `dispatch_s` (a tick from its submit to its
+        output on the host) and `queue_wait_s` (a hop's wait for the tick
+        that takes it)."""
+        return dict(dispatches=self.dispatches, frames=self.frames_processed,
+                    graph_replays=self.graph_replays,
+                    tick_host_s=_percentiles(self.tick_host_times),
+                    dispatch_s=_percentiles(self.dispatch_times),
+                    queue_wait_s=_percentiles(self.queue_wait_times))
 
     # -- protocol ------------------------------------------------------------
 
@@ -295,14 +333,22 @@ class StreamServer:
             self._pending.pop(slot, None)
             self._free.append(slot)
 
-    def _submit(self, slot: int, hop_audio: np.ndarray) -> np.ndarray:
-        req = _Req(hop_audio)
-        with self._cv:
-            self._pending[slot] = req
-            self._cv.notify_all()
-        while not req.event.wait(1.0):
+    def _wait(self, event: threading.Event):
+        while not event.wait(1.0):
             if self._stop.is_set():
                 raise RuntimeError("server stopping")
+
+    def _submit(self, slot: int, hop_audio: np.ndarray) -> np.ndarray:
+        req = _Req(hop_audio)
+        with span("serve.handler_wait"):
+            with self._cv:
+                req.t_arrival = time.perf_counter()
+                self._pending[slot] = req
+                self._cv.notify_all()
+            if req.taken is not None:
+                with span("serve.queue"):
+                    self._wait(req.taken)
+            self._wait(req.event)
         return req.out  # type: ignore[return-value]
 
     # -- batcher and fetcher -------------------------------------------------
@@ -331,6 +377,11 @@ class StreamServer:
             with self._cv:
                 batch, self._pending = self._pending, {}
                 resets, self._reset_pending = self._reset_pending, set()
+            t_take = time.perf_counter()
+            for req in batch.values():
+                self.queue_wait_times.append(t_take - req.t_arrival)
+                if req.taken is not None:
+                    req.taken.set()
             if not batch and not resets:
                 continue
             idx = self._take_ring_slot()
@@ -345,7 +396,7 @@ class StreamServer:
             for slot in resets:
                 rows[slot // n][slot % n, hop + 1] = 1.0
             t_disp = time.perf_counter()
-            with self._tick_lock:
+            with self._tick_lock, span("serve.submit"):
                 for s in self._shards:
                     s.submit(idx)
             self.tick_host_times.append(time.perf_counter() - t_host)
@@ -361,7 +412,8 @@ class StreamServer:
                 idx, batch, t_disp = self._fetchq.get(timeout=0.2)
             except queue.Empty:
                 continue
-            outs = [s.fetch(idx) for s in self._shards]
+            with span("serve.fetch"):
+                outs = [s.fetch(idx) for s in self._shards]
             self._ring_free.put(idx)
             out = np.concatenate(outs) if len(outs) > 1 else outs[0]
             self.dispatch_times.append(time.perf_counter() - t_disp)
@@ -419,7 +471,8 @@ class StreamServer:
                 outs = [self._submit(slot, audio[i: i + self.hop])
                         for i in range(0, n, self.hop)]
                 out_np = np.concatenate(outs)
-                conn.sendall(struct.pack("<I", out_np.size) + out_np.tobytes())
+                with span("serve.reply"):
+                    conn.sendall(struct.pack("<I", out_np.size) + out_np.tobytes())
         except (OSError, RuntimeError):
             pass  # the client went away, or the server is stopping
         finally:

@@ -18,6 +18,11 @@ number of frames work; the CUDA kernel masks its ragged last tile of streams.
 kernel for a model on a CUDA device; `backend="plain"` (there: "xla") runs
 `cell_process_plain` on either device.
 
+Each `process` call is the span `whole_cell.process` (utils/timings.py),
+with the children `whole_cell.carry_in` and `whole_cell.carry_out` (the
+carry to and from the kernel's flat layout) and, on a card, the kernel
+wrapper's `k2.alloc` and `k2.launch`.
+
 API:
     rt = WholeCellStreamingRuntime(model, df_state)   # from enhance.init_df
     carry = rt.init(n_streams)
@@ -39,6 +44,7 @@ from deepfilternet_torch.ops.whole_cell import (
     cell_process_plain,
 )
 from deepfilternet_torch.streaming import RuntimeParams, StreamCarry, StreamingRuntime
+from deepfilternet_torch.utils.timings import span
 
 
 def carry_to_flat(carry: StreamCarry) -> Dict[str, torch.Tensor]:
@@ -134,12 +140,16 @@ class WholeCellStreamingRuntime(StreamingRuntime):
     def process(self, carry: StreamCarry, audio) -> Tuple[StreamCarry, torch.Tensor]:
         """audio: [S, T] with T a multiple of hop. Returns [S, T] enhanced
         (delayed by fft-hop samples, streaming semantics)."""
-        audio = self._audio(audio).contiguous()
-        if audio.shape[1] % self.stft_cfg.hop_size:
-            raise ValueError("process() needs whole hops")
-        run = cell_process if self.backend == "kernel" else cell_process_plain
-        new_flat, out = run(audio, carry_to_flat(carry), self.weights, self.statics)
-        return flat_to_carry(new_flat, carry), out
+        with span("whole_cell.process"):
+            audio = self._audio(audio).contiguous()
+            if audio.shape[1] % self.stft_cfg.hop_size:
+                raise ValueError("process() needs whole hops")
+            run = cell_process if self.backend == "kernel" else cell_process_plain
+            with span("whole_cell.carry_in"):
+                flat = carry_to_flat(carry)
+            new_flat, out = run(audio, flat, self.weights, self.statics)
+            with span("whole_cell.carry_out"):
+                return flat_to_carry(new_flat, carry), out
 
     def process_frame(self, carry: StreamCarry, frame) -> Tuple[StreamCarry, torch.Tensor]:
         return self.process(carry, frame)

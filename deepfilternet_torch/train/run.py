@@ -44,6 +44,7 @@ from deepfilternet_torch.models import init_model
 from deepfilternet_torch.ops.stft import Stft, istft
 from deepfilternet_torch.train.loss import Loss
 from deepfilternet_torch.train.lr import cosine_scheduler
+from deepfilternet_torch.utils.timings import GLOBAL_TIMINGS, log_timings_enabled
 from deepfilternet_torch.train.trainer import (
     MAX_NANS,
     init_train_state,
@@ -331,6 +332,9 @@ def train(
                                epoch, sr, dev)
         valid_loss = run_eval("valid", epoch)
         print(f"epoch {epoch}: valid loss {valid_loss:.4f}")
+        if log_timings_enabled():
+            print(f"epoch {epoch}: timings {GLOBAL_TIMINGS.summary()}")
+            GLOBAL_TIMINGS.reset()
         is_best, go_on = best_and_patience(ckpt_dir, epoch, valid_loss, patience)
         write_cp(ckpt_dir, ts.params, ts.model_state, epoch, opt_state=None,
                  is_best=is_best)
