@@ -44,8 +44,10 @@
 //     N / 4 is below the thread count, a slice of K; slices are then added
 //     in shared memory in slice order, so results do not depend on timing
 //     or on R;
-//   * the synthesis product against dft^T (gemm_t) gives each warp an output
-//     sample: lanes stride K with 16-byte loads and reduce by shuffles;
+//   * the synthesis product [se_re | se_im] @ dft^T is one more gemm, against
+//     a copy of dft^T the wrapper makes once per weight set (float32:
+//     row-major [1024, 960]; bfloat16: packed with the other products), so
+//     it runs at the analysis DFT's pace: 240 column groups, 2 K slices;
 //   * activations and the per-frame state live in a per-block scratch in
 //     global memory (L1/L2 resident; allocated by the wrapper): about 70 KB a
 //     stream row. Rolling windows (conv contexts, DF ring, analysis memory)
@@ -123,7 +125,9 @@ enum WKey {
   N_WKEYS
 };
 
-constexpr int P_DFT_T = N_WKEYS;  // Params::pk's entry of the synthesis product
+// the synthesis product's weight, against dft^T: Params::pk's entry (bfloat16),
+// Params::dft_t (float32)
+constexpr int P_DFT_T = N_WKEYS;
 
 // carry arrays, CKEYS order
 enum CKey { C_AMEM, C_SMEM, C_NORMS, C_SIL, C_ERB_CTX, C_SPEC_CTX, C_ENC_H, C_DEC_H,
@@ -190,6 +194,8 @@ struct Params {
   // by its first weight key (P_DFT_T: the synthesis product against dft^T)
   const __nv_bfloat16* wpack;
   int pk[N_WKEYS + 1];
+  // float32 build: dft^T row-major, [2 * FPAD, FFT], the synthesis product's weight
+  const float* dft_t;
   float* scratch;      // [gridDim.x, R, SCR]
   // null, or [gridDim.x][N_STAGES + 3]: each block's ns in each stage over
   // the call, then its first and last reading of the global timer and its
@@ -555,51 +561,6 @@ __device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
   }
 }
 
-// y[r, j] = sum_k x[r, k] * w[j, k] for j < N, K = 1024: the product against
-// the transposed DFT matrix (float32 build; the bfloat16 build runs it through
-// gemm on its packed copy of dft^T). One warp per output j; lanes stride k.
-template <int R>
-__device__ __noinline__ void gemm_t(float* sm_x, const float* x, const float* __restrict__ w,
-                                    int N, float* y) {
-  constexpr int K = 2 * FPAD;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < R * K / 4; i += THREADS) {
-    const int r = i / (K / 4), k4 = i % (K / 4);
-    const float4 v = *reinterpret_cast<const float4*>(x + (size_t)r * SCR + 4 * k4);
-    reinterpret_cast<float4*>(sm_x)[i] = v;
-  }
-  __syncthreads();
-  for (int j = warp; j < N; j += NWARPS) {
-    float4 wv[K / 128];
-#pragma unroll
-    for (int i = 0; i < K / 128; ++i) wv[i] = wget4(w + (size_t)j * K + i * 128 + lane * 4);
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float a = 0.f;
-#pragma unroll
-      for (int i = 0; i < K / 128; ++i) {
-        const float4 xv =
-            *reinterpret_cast<const float4*>(sm_x + r * K + i * 128 + lane * 4);
-        a = fmaf(xv.x, wv[i].x, a); a = fmaf(xv.y, wv[i].y, a);
-        a = fmaf(xv.z, wv[i].z, a); a = fmaf(xv.w, wv[i].w, a);
-      }
-      acc[r] = a;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) y[(size_t)r * SCR + j] = acc[r];
-    }
-  }
-  __syncthreads();
-}
-
 // GRU gates on GI (x @ w_ih + b_ih) and GH (h @ w_hh + b_hh): b_hn sits in GH
 // and so stays inside r * (...). Updates h in place.
 template <int R>
@@ -658,10 +619,11 @@ __device__ __forceinline__ void whole_cell_body(const Params& p) {
   float* sc = p.scratch + (size_t)blockIdx.x * R * SCR;
   // weight k in the build's type (imult and convp_b are float32 in both)
   auto W = [&](int k) { return static_cast<const WT*>(p.w[k]); };
-  // a product's weight: as it is (float32), or its packed copy (bfloat16)
+  // a product's weight: as it is (float32), or its packed copy (bfloat16);
+  // P_DFT_T, the synthesis product's: the wrapper's copy of dft^T in both
   auto P = [&](int k) -> const WT* {
     if constexpr (kBf16<WT>) return p.wpack + p.pk[k];
-    else return W(k);
+    else return k == P_DFT_T ? p.dft_t : W(k);
   };
 
   for (int i = tid; i < CH * ORDER * 2; i += THREADS) sm_co[i] = wget(W(W_CONVP_CO), i);
@@ -955,11 +917,8 @@ __device__ __forceinline__ void whole_cell_body(const Params& p) {
       __syncthreads();
       mark(ST_MASK_TAIL);
       // ---- synthesis: [se_re | se_im] @ dft^T, overlap-add
-      if constexpr (kBf16<WT>)
-        gemm<R, WT>(sm_x, sm_red, sc + O_SE, p.wpack + p.pk[P_DFT_T], nullptr, nullptr, 2 * FPAD,
-                    1, FFT, nullptr, ACT_NONE, R_F32, nullptr, sc + O_X);
-      else
-        gemm_t<R>(sm_x, sc + O_SE, W(W_DFT), FFT, sc + O_X);
+      gemm<R, WT>(sm_x, sm_red, sc + O_SE, P(P_DFT_T), nullptr, nullptr, 2 * FPAD, 1, FFT,
+                  nullptr, ACT_NONE, R_F32, nullptr, sc + O_X);
       for (int i = tid; i < R * HOP; i += THREADS) {
         const int r = i / HOP, c = i % HOP;
         float* row = sc + (size_t)r * SCR;
@@ -1085,19 +1044,21 @@ extern "C" int dfn_whole_cell_rows_stages() { return N_STAGES; }
 // host arrays; the weights are bfloat16 but imult and convp_b when `bf16`,
 // else all float32. With `bf16`, wpack is the products' weights packed by
 // whole_cell_plan.pack_rows_weights (bfloat16, on the device) and pk the host
-// array of its n_weights + 1 offsets; else both are ignored. rows: 4 or 8, or
-// 16 with `bf16`. scratch: n_blocks * rows *
-// dfn_whole_cell_rows_scratch_floats() floats. records: null (no block reads
-// a clock), or n_blocks x (dfn_whole_cell_rows_stages() + 3) int64 on the
-// device, every entry written: a block's ns in each stage, then its first and
-// last global timer reading (ns) and its SM cycles between them.
+// array of its n_weights + 1 offsets; else both are ignored. dft_t: dft^T as a
+// row-major float32 [1024, 960] on the device, the float32 build's synthesis
+// weight (ignored with `bf16`). rows: 4 or 8, or 16 with `bf16`. scratch:
+// n_blocks * rows * dfn_whole_cell_rows_scratch_floats() floats. records: null
+// (no block reads a clock), or n_blocks x (dfn_whole_cell_rows_stages() + 3)
+// int64 on the device, every entry written: a block's ns in each stage, then
+// its first and last global timer reading (ns) and its SM cycles between them.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* const* carry_in,
                                    void* const* carry_out, const void* const* weights,
-                                   int n_weights, const void* wpack, const int* pk, void* scratch,
-                                   void* records, int S, int n_frames, int rows,
-                                   int n_blocks, const float* scalars, int mask_pf,
-                                   int lsnr_gating, int silence_frames, int bf16, void* stream) {
+                                   int n_weights, const void* wpack, const int* pk,
+                                   const void* dft_t, void* scratch, void* records, int S,
+                                   int n_frames, int rows, int n_blocks, const float* scalars,
+                                   int mask_pf, int lsnr_gating, int silence_frames, int bf16,
+                                   void* stream) {
   if (n_weights != N_WKEYS || S < 1 || n_frames < 0 || n_blocks < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -1110,6 +1071,7 @@ extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* con
   for (int i = 0; i < N_WKEYS; ++i) p.w[i] = weights[i];
   p.wpack = static_cast<const __nv_bfloat16*>(wpack);
   for (int i = 0; i <= N_WKEYS; ++i) p.pk[i] = bf16 ? pk[i] : -1;
+  p.dft_t = static_cast<const float*>(dft_t);
   p.scratch = static_cast<float*>(scratch);
   p.records = static_cast<long long*>(records);
   p.S = S;

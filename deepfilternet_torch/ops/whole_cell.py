@@ -621,7 +621,7 @@ def cell_process_plain(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
-# (ids of the weight tensors) -> (weak references to them, {plan or "rows": packed copy})
+# (ids of the weight tensors) -> (weak references to them, {plan, "rows" or "dft_t": copy})
 _PACKED: Dict[Tuple[int, ...], Tuple[list, dict]] = {}
 
 
@@ -663,6 +663,16 @@ def packed_rows_weights(weights: Dict[str, torch.Tensor]):
         packed, offsets = plan.pack_rows_weights(weights)
         copies["rows"] = (packed, (ctypes.c_int * len(offsets))(*offsets))
     return copies["rows"]
+
+
+def rows_dft_t(weights: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The rows design's float32 copy of `dft` transposed, row-major [1024,
+    960]: the synthesis product's weight, which the kernel streams like the
+    analysis DFT's. Made once per weight set; no key of the set."""
+    copies = _packed_copies(weights)
+    if "dft_t" not in copies:
+        copies["dft_t"] = weights["dft"].t().contiguous()
+    return copies["dft_t"]
 
 
 # The units design wins while there are few tiles of 64 streams for the
@@ -889,7 +899,8 @@ def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, sc
                  stream, rows, scratch, records):
     """The design of `csrc/whole_cell_rows.cu`: one persistent block per tile
     of 4, 8 or (bfloat16) 16 stream rows computes the whole frame by itself.
-    The bfloat16 build reads the products' weights from their packed copy."""
+    The bfloat16 build reads the products' weights from their packed copy,
+    the float32 build its synthesis product's from `rows_dft_t`."""
     from deepfilternet_torch.kernels import load
 
     lib = _bind_rows(load("whole_cell_rows"))
@@ -897,7 +908,8 @@ def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, sc
     wpack, offsets = packed_rows_weights(weights) if bf16 else (None, None)
     return lib.dfn_whole_cell_rows(
         audio.data_ptr(), out.data_ptr(), c_in, c_out, w_ptrs, len(WKEYS),
-        wpack.data_ptr() if bf16 else None, offsets, scratch.data_ptr(),
+        wpack.data_ptr() if bf16 else None, offsets,
+        None if bf16 else rows_dft_t(weights).data_ptr(), scratch.data_ptr(),
         None if records is None else records.data_ptr(), s, n_frames, rows, scratch.shape[0],
         scalars, *flags, stream)
 
@@ -965,8 +977,8 @@ def _bind_rows(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     pp, pf = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float)
     fn = lib.dfn_whole_cell_rows
-    fn.argtypes = [p, p, pp, pp, pp, i, p, ctypes.POINTER(ctypes.c_int), p, p, i, i, i, i, pf, i,
-                   i, i, i, p]
+    fn.argtypes = [p, p, pp, pp, pp, i, p, ctypes.POINTER(ctypes.c_int), p, p, p, i, i, i, i, pf,
+                   i, i, i, i, p]
     fn.restype = ctypes.c_int
     for count in (lib.dfn_whole_cell_rows_scratch_floats, lib.dfn_whole_cell_rows_stages):
         count.argtypes = []

@@ -21,6 +21,9 @@ held against their plain versions on the card by `chip_smoke.py`.
     A-fragment packs read back lane by lane as the kernels address them.
 """
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 
@@ -670,6 +673,23 @@ def test_bf16_rows_pack_read_lane_by_lane(runtimes):
     assert total == packed.numel()
     assert {keys for keys in wp.ROWS_PRODUCTS} >= {("c0w_t0", "c0w_t1", "c0w_t2"), ("dft_t",)}
     assert sum(o >= 0 for o in offsets) == len(wp.ROWS_PRODUCTS)
+
+
+def test_rows_float32_dft_t_copy_is_made_once_per_weight_set(runtimes):
+    """The float32 rows build's synthesis weight: `dft` transposed and
+    contiguous, made once per weight set, no key of it, dropped with it."""
+    weights = {k: v.clone() for k, v in runtimes["default"].weights.items()}
+    t = wc.rows_dft_t(weights)
+    assert t.dtype == torch.float32 and t.shape == (1024, 960) and t.is_contiguous()
+    assert torch.equal(t, weights["dft"].T)
+    assert wc.rows_dft_t(weights) is t
+    assert "dft_t" not in wc.WKEYS and set(weights) == set(runtimes["default"].weights)
+    key = tuple(id(weights[k]) for k in wc.WKEYS)
+    assert key in wc._PACKED
+    copy = weakref.ref(t)
+    del weights, t
+    gc.collect()
+    assert key not in wc._PACKED and copy() is None
 
 
 def test_rows_and_units_copies_are_cached_per_weight_set(runtimes):

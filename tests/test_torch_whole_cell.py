@@ -17,8 +17,8 @@ model carried across with `params_from_numpy`:
     `StreamingRuntime`, at the JAX tests' own tolerance for that pair
     (atol 2e-4, rtol 1e-3); 1e-5 where the port is compared with itself.
 
-On the CPU the kernel wrapper runs its plain version; the one test that
-launches the CUDA kernel is marked `cuda` and skips without a GPU.
+On the CPU the kernel wrapper runs its plain version; the tests that launch
+the CUDA kernel are marked `cuda` and skip without a GPU.
 """
 
 import dataclasses
@@ -407,6 +407,22 @@ def test_cuda_kernel_matches_plain(cuda_device, s):
     """Kernel against plain version on the card, all 12 outputs, 1e-4 of
     each output's largest value (sums of up to 2048 terms in another order,
     through ~45 layers and three recurrences)."""
+    _kernel_matches_plain(cuda_device, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 8])
+@pytest.mark.parametrize("s", [37, 70])
+def test_cuda_float32_rows_design_matches_plain(cuda_device, monkeypatch, s, rows):
+    """The float32 rows design, forced whatever S, with 4 and 8 stream rows a
+    block (37 and 70 streams leave a ragged last tile), against the plain
+    version as above."""
+    monkeypatch.setattr(wc, "_kernel_choice", lambda *a: "rows")
+    monkeypatch.setattr(wc, "_tile_rows", lambda *a: rows)
+    _kernel_matches_plain(cuda_device, s)
+
+
+def _kernel_matches_plain(cuda_device, s):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tm, td, _ = init_df(MODEL_DIR, device=cuda_device)
