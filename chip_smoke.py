@@ -155,8 +155,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                "scan") on 16 x 2 s, a 16-slot server at hop 240 whose clients
                equal StreamingRuntime.process; DFN2 and DFN1 per frame at that
                configuration and DFN3 at 24 ERB / 64 DF bins, each against the
-               CPU; DF_ORDER 1-5 per frame against the offline forward; the
-               whole cell refuses the low-latency configuration (K2 reads 0);
+               CPU; DF_ORDER 1-5 per frame against the offline forward;
                at most 120 s.
  16. the last slices - DFN3-ll (seeded weights at the default widths) trained
                on the card: one step against the CPU's (4 x 3 s, phase 9's
@@ -171,6 +170,11 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
                over 16 x 5 s at 4 warps (audio seconds a wall second), read
                back and fed to train_demo's loader as DEMO_EXTRA_CLEAN; K2
                reads 0; at most 150 s.
+ 17. DFN3-ll's whole cell - phase 15's seeded DFN3-ll through
+               WholeCellStreamingRuntime (K2 rows built for 480 / 240 / 48):
+               float32 against phase 15's per-frame run at 1e-4, the default
+               bfloat16 within BF16_DRIFT_TOL, every rows tile size of both
+               builds against the plain version at S = 37; at most 30 s.
 
 Phases 3 to 5 hold the whole cell at float32 operands
 (matmul_dtype=torch.float32); phase 6 at bfloat16, the runtime's default.
@@ -3888,6 +3892,74 @@ def seeded_models(keys, model_name=None, cpu=True):
     return model, df_state, cpu_model, cpu_state
 
 
+def low_latency_whole_cell(dev, model, df_state, audio, per_frame_out, tag):
+    """DFN3-ll through the whole cell (K2's rows design, built for FFT 480 /
+    hop 240 / 48 DF bins): WholeCellStreamingRuntime at float32 over the
+    per-frame run's audio, one launch, against that run at 1e-4 of its
+    largest value; at its default bfloat16, against it within
+    BF16_DRIFT_TOL; and the rows kernel, each tile size of both builds,
+    against its plain version at S = 37 (20 frames from a carry warmed by 4
+    plain frames) within `k2_bounds`. Returns the entry's numbers."""
+    from deepfilternet_torch.ops.whole_cell import (
+        _kernel_choice,
+        cell_process,
+        cell_process_plain,
+        geometry_of,
+    )
+    from deepfilternet_torch.streaming_whole_cell import (
+        WholeCellStreamingRuntime,
+        carry_to_flat,
+    )
+
+    hop, s, out = df_state.hop_size, audio.shape[0], {}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        rt = (WholeCellStreamingRuntime(model, df_state, matmul_dtype=dtype)
+              if dtype == torch.float32 else WholeCellStreamingRuntime(model, df_state))
+        if rt.matmul_dtype != dtype:
+            fail(f"{tag}: WholeCellStreamingRuntime's default type {rt.matmul_dtype}")
+        geo = geometry_of(rt.weights, rt.statics)
+        design = _kernel_choice(s, n_sm, dtype == torch.bfloat16, geo)
+        rt.process(rt.init(s), audio[:, : 5 * hop])  # build, load, pack
+        torch.cuda.synchronize()
+        cell_process.launches = 0
+        t0 = time.perf_counter()
+        _, got = rt.process(rt.init(s), audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if cell_process.launches != 1 or design != "rows":
+            fail(f"{tag} whole cell {name}: {cell_process.launches} launches, design {design}")
+        err = scale_err(got.float().cpu().numpy(), per_frame_out)
+        tol = 1e-4 if dtype == torch.float32 else BF16_DRIFT_TOL
+        if not err <= tol:
+            fail(f"{tag} whole cell {name} vs the per-frame float32 run: {err:.3e} of the "
+                 f"largest value (tol {tol})")
+        print(f"{tag}: WholeCellStreamingRuntime({name}) S={s} x {audio.shape[1] // hop} frames "
+              f"at {tuple(geo)}: 1 launch, design rows, {wall:.3f} s wall; vs the per-frame "
+              f"float32 run {err:.3e} of the largest value (tol {tol:g})")
+        out[f"ll_whole_cell_{name}_err"] = err
+
+        bounds = k2_bounds(dtype)["frames"]
+        x = torch.from_numpy(np.ascontiguousarray(audio[:37, : 24 * hop])).to(dev)
+        carry, _ = cell_process_plain(x[:, : 4 * hop].contiguous(), carry_to_flat(rt.init(37)),
+                                      rt.weights, rt.statics)
+        xc = x[:, 4 * hop:].contiguous()
+        ref_carry, ref_audio = cell_process_plain(xc, carry, rt.weights, rt.statics)
+        ref = dict(ref_carry, audio=ref_audio)
+        for rows in ((4, 8) if dtype == torch.float32 else (4, 8, 16)):
+            with k2_design("rows", rows):
+                c, o = cell_process(xc, carry, rt.weights, rt.statics)
+            torch.cuda.synchronize()
+            _, rel, mean = compare_cell(f"{tag} S=37 rows {rows} {name}", dict(c, audio=o), ref,
+                                        *bounds)
+            print(f"{tag}: K2 rows {rows} {name} at S=37 x 20 frames against its plain "
+                  f"version: 12 outputs within {bounds[0]:g} ({rel:.2e} of the largest)"
+                  + ("" if bounds[1] is None else f", mean within {bounds[1]:g} ({mean:.2e})"))
+            out[f"ll_rows{rows}_{name}_rel"] = rel
+    return out
+
+
 def configuration_matrix_path(dev, card, smi):
     """Phase 15: K1 against its plain version at every geometry of
     K1_SHAPES and MATRIX_STREAMS, timed at DFN3-ll's; a seeded DFN3 at FFT
@@ -3896,13 +3968,12 @@ def configuration_matrix_path(dev, card, smi):
     enhance(backend="scan") and a hop-240 server (16 clients x 2 s, bit for
     bit StreamingRuntime.process); DFN2 and DFN1 per frame at
     that configuration; 24 ERB / 64 DF bins per frame against the CPU;
-    DF_ORDER 1-5 per frame against the offline forward; the whole cell
-    refusing the low-latency configuration. Returns K1's entries."""
+    DF_ORDER 1-5 per frame against the offline forward. Returns K1's
+    entries and phase 17's inputs: (model, df_state, audio, per-frame
+    output, tag) of the seeded DFN3-ll."""
     import multiprocessing as mp
 
     from deepfilternet_torch.enhance import enhance
-    from deepfilternet_torch.ops.whole_cell import cell_process as k2
-    from deepfilternet_torch.streaming_whole_cell import WholeCellStreamingRuntime
 
     t_phase = time.perf_counter()
     steps = {}
@@ -3952,19 +4023,6 @@ def configuration_matrix_path(dev, card, smi):
     entry["ll_server_replays"] = served["server_replays"]
     lap("server")
 
-    # the whole cell takes DFN3's default geometry only, as JAX's does
-    k2.launches = 0
-    try:
-        WholeCellStreamingRuntime(model, df_state)
-    except AssertionError:
-        pass
-    else:
-        fail("WholeCellStreamingRuntime took the low-latency configuration")
-    if k2.launches:
-        fail(f"the refused whole cell launched K2 {k2.launches} times")
-    print(f"WholeCellStreamingRuntime at {tag}: refused (AssertionError, as JAX's "
-          "PallasStreamingRuntime), K2 launches 0")
-
     # DFN2 and DFN1 at the low-latency configuration, 24 ERB / 64 DF bins:
     # per frame on 16 x 1 s, the CPU on its first streams and 100 frames
     short = audio[:MATRIX_ROWS, : int(SR * 1.0)]
@@ -4001,7 +4059,7 @@ def configuration_matrix_path(dev, card, smi):
           + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items()))
     if phase > MATRIX_PHASE_S:
         fail(f"phase 15 took {phase:.1f} s, more than {MATRIX_PHASE_S:.0f} s")
-    return entry
+    return entry, (model, df_state, audio, run["out"], tag)
 
 
 # -- phase 16: the last slices ---------------------------------------------------------
@@ -4365,6 +4423,25 @@ def last_slices_path(dev, card, smi):
     return ll_launches, k2.launches
 
 
+# -- phase 17: DFN3-ll through the whole cell -----------------------------------------
+
+# the step took 2.1-2.3 s inside phase 15 on an NVIDIA H100 80GB HBM3 (700 W),
+# its library built before the phases
+LL_WHOLE_CELL_PHASE_S = 30.0
+
+
+def low_latency_whole_cell_path(dev, smi, ll):
+    """Phase 17: `low_latency_whole_cell` on phase 15's seeded DFN3-ll, `ll`
+    = (model, df_state, audio, per-frame output, tag). Returns its numbers."""
+    t_phase = time.perf_counter()
+    entry = low_latency_whole_cell(dev, *ll)
+    phase = time.perf_counter() - t_phase
+    print(f"phase 17 on {smi}: {phase:.1f} s wall (bound {LL_WHOLE_CELL_PHASE_S:.0f} s)")
+    if phase > LL_WHOLE_CELL_PHASE_S:
+        fail(f"phase 17 took {phase:.1f} s, more than {LL_WHOLE_CELL_PHASE_S:.0f} s")
+    return entry
+
+
 def ptxas_report(log, kernel):
     """'function build: N registers, spills' for each kernel whose name starts
     with `kernel` in a `-Xptxas -v` log (the function, e.g. whole_cell_kernel
@@ -4436,8 +4513,14 @@ def main():
           "bfloat16 products sum in float32 (allow_bf16_reduced_precision_reduction = False)")
     print(smi)
 
+    from deepfilternet_torch.ops.whole_cell import cell_geometry, rows_defines
+
     t0 = time.perf_counter()
     built = kernels.build()
+    # the rows design at DFN3-ll's geometry (phase 17), a library of its own
+    ll_defines = rows_defines(cell_geometry(480, 240, 48))
+    built.update({f"{k} ({', '.join(ll_defines)})": v
+                  for k, v in kernels.build(["whole_cell_rows"], ll_defines).items()})
     print(f"build: {len(built)} kernel(s) in {time.perf_counter() - t0:.1f} s wall")
     for name, (secs, log) in built.items():
         print(f"  {name}: nvcc {secs:.1f} s")
@@ -4524,7 +4607,8 @@ def main():
     t0 = time.perf_counter()
     # K1 at every geometry of BASELINE.json's configuration matrix, and its
     # launches on those configurations' per-frame paths
-    k1.update(configuration_matrix_path(dev, card, smi))
+    matrix, ll = configuration_matrix_path(dev, card, smi)
+    k1.update(matrix)
     print(f"phase 15 (configuration matrix): {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
     # K1 once a frame on the DFN3-ll trained on the card; K2 over the phase,
@@ -4533,6 +4617,11 @@ def main():
     k2b["last_slices_launches"] = k2["last_slices_launches"]
     print(f"phase 16 (DFN3-ll training, cuda_train.sh, make_vtlp_pool): "
           f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    # K2's rows design at DFN3-ll's geometry, both builds
+    k2.update(low_latency_whole_cell_path(dev, smi, ll))
+    del ll
+    print(f"phase 17 (DFN3-ll through the whole cell): {time.perf_counter() - t0:.1f} s wall")
 
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k2b]}))

@@ -46,8 +46,9 @@
 //     or on R;
 //   * the synthesis product [se_re | se_im] @ dft^T is one more gemm, against
 //     a copy of dft^T the wrapper makes once per weight set (float32:
-//     row-major [1024, 960]; bfloat16: packed with the other products), so
-//     it runs at the analysis DFT's pace: 240 column groups, 2 K slices;
+//     row-major [2 * FPAD, FFT]; bfloat16: packed with the other products),
+//     so it runs at the analysis DFT's pace (DFN3: 240 column groups, 2 K
+//     slices);
 //   * activations and the per-frame state live in a per-block scratch in
 //     global memory (L1/L2 resident; allocated by the wrapper): about 70 KB a
 //     stream row. Rolling windows (conv contexts, DF ring, analysis memory)
@@ -62,6 +63,12 @@
 //     kernel of their own, whole_cell_recording, which the launch picks when
 //     it passes a buffer; the kernel that ships, whole_cell_kernel, has no
 //     timer code and reads no clock, and a trace tells the two apart by name.
+//
+// The DSP geometry (hop, the padded bins FPAD, the DF bins and their padded
+// lanes BLK) is a set of compile-time constants, one library for each
+// geometry (-D DFN_K2_*; DFN3's by default, whose code is the same as before
+// the geometry could change). The model's widths stay DFN3's: 32 ERB bands,
+// DF order 5, GRUs of 256, 16 conv channels.
 //
 // Two builds, by the weights' type (the TPU kernel's mdtype): float32 (R = 4,
 // 8), and bfloat16 (R = 4, 8, 16), the JAX package's default. The bfloat16
@@ -95,16 +102,42 @@ namespace {
 constexpr int THREADS = 512;
 constexpr int UNROLL = 4;  // weight rows a thread keeps in flight per batch
 constexpr int NWARPS = THREADS / 32;
-constexpr int HOP = 480;
-constexpr int FFT = 960;
-constexpr int FPAD = 512;
-constexpr int BLK = 128;
 constexpr int NB_ERB = 32;
-constexpr int NB_DF = 96;
 constexpr int HID = 256;
 constexpr int CH = 16;
 constexpr int ORDER = 5;
-constexpr int KMAX = 2048;  // widest product input (c1)
+// The DSP geometry is fixed at build time (-D, ops/whole_cell.py::rows_defines):
+// DFN3's (hop 480, 96 DF bins) when no define is given.
+#ifndef DFN_K2_HOP
+#define DFN_K2_HOP 480
+#endif
+#ifndef DFN_K2_FPAD
+#define DFN_K2_FPAD 512
+#endif
+#ifndef DFN_K2_NB_DF
+#define DFN_K2_NB_DF 96
+#endif
+#ifndef DFN_K2_BLK
+#define DFN_K2_BLK 128
+#endif
+constexpr int HOP = DFN_K2_HOP;
+constexpr int FFT = 2 * HOP;        // the analysis window is [prev_hop | frame]
+constexpr int FPAD = DFN_K2_FPAD;   // the FFT / 2 + 1 bins, padded
+constexpr int NB_DF = DFN_K2_NB_DF;
+constexpr int BLK = DFN_K2_BLK;     // the DF bins padded; pad lanes carry zeros end to end
+constexpr int FS = 2 * NB_DF;       // one frame of complex features, [re | im]
+constexpr int C1 = CH * NB_DF / 2;  // df_conv1's output, (F, C) flat
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// widest product input: c1's (CH * BLK) at DFN3, 2048
+constexpr int KMAX = cmax(cmax(CH * BLK, 2 * FPAD), cmax(cmax(FFT, 3 * FS), 512));
+// widest carry array but df_h (ring_re, ring_im at DFN3: 512): the columns of
+// the loop that loads the carry
+constexpr int CARRY_W = cmax(cmax(4 * BLK, HID), cmax(2 * FS, NB_ERB + NB_DF));
+static_assert(HOP % 8 == 0 && FPAD % 16 == 0 && FPAD > HOP && BLK % 16 == 0 && NB_DF <= BLK &&
+                  NB_DF % 8 == 0,
+              "the geometry must suit 16-byte loads and the bfloat16 fragments' multiples of 16");
+static_assert(FS <= HOP && CARRY_W <= 3 * HID,
+              "the loops that advance the windows and store the carry must span their columns");
 constexpr float PI_F = 3.14159265358979323846f;
 
 // weight pointers, WKEYS order
@@ -134,18 +167,18 @@ enum CKey { C_AMEM, C_SMEM, C_NORMS, C_SIL, C_ERB_CTX, C_SPEC_CTX, C_ENC_H, C_DE
             C_DF_H, C_RING_RE, C_RING_IM, N_CKEYS };
 
 // per-row scratch layout, in floats; every offset is a multiple of 4
-constexpr int O_BUF = 0;                     // [prev_hop | frame]         960
-constexpr int O_SPEC = O_BUF + FFT;          // [re | im]                 1024
-constexpr int O_POW = O_SPEC + 2 * FPAD;     // power                      512
+constexpr int O_BUF = 0;                     // [prev_hop | frame]         FFT
+constexpr int O_SPEC = O_BUF + FFT;          // [re | im]                 2 * FPAD
+constexpr int O_POW = O_SPEC + 2 * FPAD;     // power                      FPAD
 constexpr int O_ERBWIN = O_POW + FPAD;       // [erb t-2 | t-1 | t]         96
-constexpr int O_FSWIN = O_ERBWIN + 96;       // [fs t-2 | t-1 | t], 192 each: [re | im]
-constexpr int O_E0 = O_FSWIN + 576;          // 512
+constexpr int O_FSWIN = O_ERBWIN + 96;       // [fs t-2 | t-1 | t], FS each: [re | im]
+constexpr int O_E0 = O_FSWIN + 3 * FS;       // 512
 constexpr int O_E1 = O_E0 + 512;             // 256
 constexpr int O_E2 = O_E1 + 256;             // 128
 constexpr int O_E3 = O_E2 + 128;             // 128
-constexpr int O_C0 = O_E3 + 128;             // 2048
-constexpr int O_C1 = O_C0 + CH * BLK;        // 768
-constexpr int O_EMB = O_C1 + 768;            // 128  e3 + cemb
+constexpr int O_C0 = O_E3 + 128;             // CH * BLK
+constexpr int O_C1 = O_C0 + CH * BLK;        // C1
+constexpr int O_EMB = O_C1 + C1;             // 128  e3 + cemb
 constexpr int O_XIN = O_EMB + 128;           // 256  GRU stack input
 constexpr int O_GI = O_XIN + HID;            // 768
 constexpr int O_GH = O_GI + 3 * HID;         // 768
@@ -154,22 +187,27 @@ constexpr int O_DEMB = O_EMB2 + 128;         // 128
 constexpr int O_PA = O_DEMB + 128;           // 512  decoder pathway ping
 constexpr int O_PB = O_PA + 512;             // 512  decoder pathway pong
 constexpr int O_MASK = O_PB + 512;           // 32
-constexpr int O_COEF = O_MASK + NB_ERB;      // 1280
-constexpr int O_Y = O_COEF + ORDER * 2 * BLK;  // [y_re | y_im] 256
-constexpr int O_GAIN = O_Y + 2 * BLK;        // 512  (also the raw ERB band sums)
-constexpr int O_SE = O_GAIN + FPAD;          // [se_re*imult | se_im*imult] 1024
-constexpr int O_X = O_SE + 2 * FPAD;         // synthesis frame 960
-constexpr int O_SMEM = O_X + FFT;            // 480
+constexpr int O_COEF = O_MASK + NB_ERB;      // ORDER * 2 * BLK
+constexpr int O_Y = O_COEF + ORDER * 2 * BLK;  // [y_re | y_im] 2 * BLK
+constexpr int O_GAIN = O_Y + 2 * BLK;        // FPAD  (also the raw ERB band sums)
+constexpr int O_SE = O_GAIN + FPAD;          // [se_re*imult | se_im*imult] 2 * FPAD
+constexpr int O_X = O_SE + 2 * FPAD;         // synthesis frame FFT
+constexpr int O_SMEM = O_X + FFT;            // HOP
 constexpr int O_MEAN = O_SMEM + HOP;         // 32
-constexpr int O_UNIT = O_MEAN + NB_ERB;      // 96
+constexpr int O_UNIT = O_MEAN + NB_ERB;      // NB_DF
 constexpr int O_ENC_H = O_UNIT + NB_DF;      // 256
 constexpr int O_DEC_H = O_ENC_H + HID;       // 256
 constexpr int O_DF_H = O_DEC_H + HID;        // 768
-constexpr int O_RING_RE = O_DF_H + 3 * HID;  // 512
-constexpr int O_RING_IM = O_RING_RE + 4 * BLK;  // 512
+constexpr int O_RING_RE = O_DF_H + 3 * HID;  // 4 * BLK
+constexpr int O_RING_IM = O_RING_RE + 4 * BLK;  // 4 * BLK
 constexpr int SCR = O_RING_IM + 4 * BLK;
-static_assert(SCR % 4 == 0 && O_FSWIN % 4 == 0 && O_MASK % 4 == 0 && O_MEAN % 4 == 0,
+static_assert(SCR % 4 == 0 && O_FSWIN % 4 == 0 && O_E0 % 4 == 0 && O_EMB % 4 == 0 &&
+                  O_MASK % 4 == 0 && O_MEAN % 4 == 0 && O_ENC_H % 4 == 0,
               "scratch offsets must keep 16-byte alignment");
+
+// c < n for a column c of the carry's load loop (CARRY_W columns); a constant
+// true where n spans them all
+__device__ __forceinline__ bool carry_col(int c, int n) { return n >= CARRY_W || c < n; }
 
 enum Act { ACT_NONE, ACT_RELU, ACT_SIGMOID, ACT_TANH };
 // where the bfloat16 build rounds a product's result: never (float32); the sum
@@ -660,26 +698,28 @@ __device__ __forceinline__ void whole_cell_body(const Params& p) {
       const int r = i / HOP, c = i % HOP;
       float* row = sc + (size_t)r * SCR;
       const size_t g = (size_t)grow(r);
-      row[O_BUF + c] = p.cin[C_AMEM][g * 480 + c];
-      row[O_SMEM + c] = p.cin[C_SMEM][g * 480 + c];
+      row[O_BUF + c] = p.cin[C_AMEM][g * HOP + c];
+      row[O_SMEM + c] = p.cin[C_SMEM][g * HOP + c];
     }
-    for (int i = tid; i < R * 512; i += THREADS) {
-      const int r = i / 512, c = i % 512;
+    for (int i = tid; i < R * CARRY_W; i += THREADS) {
+      const int r = i / CARRY_W, c = i % CARRY_W;
       float* row = sc + (size_t)r * SCR;
       const size_t g = (size_t)grow(r);
-      row[O_RING_RE + c] = p.cin[C_RING_RE][g * 512 + c];
-      row[O_RING_IM + c] = p.cin[C_RING_IM][g * 512 + c];
-      if (c < 128) {
-        const float v = p.cin[C_NORMS][g * 128 + c];
+      if (carry_col(c, 4 * BLK)) {
+        row[O_RING_RE + c] = p.cin[C_RING_RE][g * 4 * BLK + c];
+        row[O_RING_IM + c] = p.cin[C_RING_IM][g * 4 * BLK + c];
+      }
+      if (c < NB_ERB + NB_DF) {
+        const float v = p.cin[C_NORMS][g * (NB_ERB + NB_DF) + c];
         if (c < NB_ERB) row[O_MEAN + c] = v; else row[O_UNIT + c - NB_ERB] = v;
       }
-      if (c < 64) row[O_ERBWIN + c] = p.cin[C_ERB_CTX][g * 64 + c];
-      if (c < 384) {
+      if (c < 2 * NB_ERB) row[O_ERBWIN + c] = p.cin[C_ERB_CTX][g * 2 * NB_ERB + c];
+      if (c < 2 * FS) {
         // spec_ctx is (c, t, f) flat: [re t-2 | re t-1 | im t-2 | im t-1];
         // the window holds frames as [re | im] pairs
         const int blk = c / NB_DF, f = c % NB_DF;
         const int t = blk & 1, ri = blk >> 1;
-        row[O_FSWIN + t * 192 + ri * NB_DF + f] = p.cin[C_SPEC_CTX][g * 384 + c];
+        row[O_FSWIN + t * FS + ri * NB_DF + f] = p.cin[C_SPEC_CTX][g * 2 * FS + c];
       }
       if (c < HID) {
         row[O_ENC_H + c] = p.cin[C_ENC_H][g * HID + c];
@@ -731,8 +771,8 @@ __device__ __forceinline__ void whole_cell_body(const Params& p) {
           const float un = sqrtf(pw) * p.one_minus_alpha + row[O_UNIT + k] * p.alpha;
           row[O_UNIT + k] = un;
           const float scale = rsqrtf(un);
-          row[O_FSWIN + 384 + k] = re * scale;
-          row[O_FSWIN + 384 + NB_DF + k] = im * scale;
+          row[O_FSWIN + 2 * FS + k] = re * scale;
+          row[O_FSWIN + 2 * FS + NB_DF + k] = im * scale;
         }
       }
       __syncthreads();
@@ -758,13 +798,13 @@ __device__ __forceinline__ void whole_cell_body(const Params& p) {
       gemm<R, WT>(sm_x, sm_red, sc + O_E2, P(W_E3_W), nullptr, nullptr, 128, 1, 128, W(W_E3_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_E3);
       mark(ST_ERB_CONVS);
-      gemm<R, WT>(sm_x, sm_red, sc + O_FSWIN, P(W_C0W_T0), W(W_C0W_T1), W(W_C0W_T2), 192, 3,
+      gemm<R, WT>(sm_x, sm_red, sc + O_FSWIN, P(W_C0W_T0), W(W_C0W_T1), W(W_C0W_T2), FS, 3,
               CH * BLK, W(W_C0_B), ACT_RELU, R_TRUNK, nullptr, sc + O_C0, true);
       mark(ST_DF_CONV0);
-      gemm<R, WT>(sm_x, sm_red, sc + O_C0, P(W_C1_W), nullptr, nullptr, CH * BLK, 1, 768, W(W_C1_B),
+      gemm<R, WT>(sm_x, sm_red, sc + O_C0, P(W_C1_W), nullptr, nullptr, CH * BLK, 1, C1, W(W_C1_B),
               ACT_RELU, R_TRUNK, nullptr, sc + O_C1);
       // emb = e3 + relu(c1 @ gl)
-      gemm<R, WT>(sm_x, sm_red, sc + O_C1, P(W_GL_W), nullptr, nullptr, 768, 1, 128, nullptr,
+      gemm<R, WT>(sm_x, sm_red, sc + O_C1, P(W_GL_W), nullptr, nullptr, C1, 1, 128, nullptr,
               ACT_RELU, R_TRUNK, sc + O_E3, sc + O_EMB);
       mark(ST_DF_CONV1);
       // ---- encoder GRU + LSNR head
@@ -832,7 +872,7 @@ __device__ __forceinline__ void whole_cell_body(const Params& p) {
       gemm<R, WT>(sm_x, sm_red, sc + O_DF_H + 2 * HID, P(W_DF_OUT_W), nullptr, nullptr, HID, 1,
               ORDER * 2 * BLK, nullptr, ACT_TANH, R_F32, nullptr, sc + O_COEF);
       // ---- deep filter MAC: ring frames 0..3, the current frame as tap 4;
-      // then the ring shifts. Pad lanes (f >= 96) of the current frame are 0.
+      // then the ring shifts. Pad lanes (f >= NB_DF) of the current frame are 0.
       for (int i = tid; i < R * BLK; i += THREADS) {
         const int r = i / BLK, f = i % BLK;
         float* row = sc + (size_t)r * SCR;
@@ -926,9 +966,9 @@ __device__ __forceinline__ void whole_cell_body(const Params& p) {
         if (valid(r)) p.out[(size_t)(row0 + r) * T + (size_t)f * HOP + c] = o;
         row[O_SMEM + c] = row[O_X + HOP + c];
         row[O_BUF + c] = row[O_BUF + HOP + c];  // prev_hop = frame
-        if (c < 192) {  // conv contexts advance one frame
-          row[O_FSWIN + c] = row[O_FSWIN + 192 + c];
-          row[O_FSWIN + 192 + c] = row[O_FSWIN + 384 + c];
+        if (c < FS) {  // conv contexts advance one frame
+          row[O_FSWIN + c] = row[O_FSWIN + FS + c];
+          row[O_FSWIN + FS + c] = row[O_FSWIN + 2 * FS + c];
         }
         if (c < NB_ERB) {
           row[O_ERBWIN + c] = row[O_ERBWIN + NB_ERB + c];
@@ -947,20 +987,21 @@ __device__ __forceinline__ void whole_cell_body(const Params& p) {
       const size_t g = (size_t)(row0 + r);
       p.cout[C_DF_H][g * 3 * HID + c] = row[O_DF_H + c];
       if (c < HOP) {
-        p.cout[C_AMEM][g * 480 + c] = row[O_BUF + c];
-        p.cout[C_SMEM][g * 480 + c] = row[O_SMEM + c];
+        p.cout[C_AMEM][g * HOP + c] = row[O_BUF + c];
+        p.cout[C_SMEM][g * HOP + c] = row[O_SMEM + c];
       }
-      if (c < 512) {
-        p.cout[C_RING_RE][g * 512 + c] = row[O_RING_RE + c];
-        p.cout[C_RING_IM][g * 512 + c] = row[O_RING_IM + c];
+      if (c < 4 * BLK) {
+        p.cout[C_RING_RE][g * 4 * BLK + c] = row[O_RING_RE + c];
+        p.cout[C_RING_IM][g * 4 * BLK + c] = row[O_RING_IM + c];
       }
-      if (c < 128)
-        p.cout[C_NORMS][g * 128 + c] = c < NB_ERB ? row[O_MEAN + c] : row[O_UNIT + c - NB_ERB];
-      if (c < 64) p.cout[C_ERB_CTX][g * 64 + c] = row[O_ERBWIN + c];
-      if (c < 384) {
+      if (c < NB_ERB + NB_DF)
+        p.cout[C_NORMS][g * (NB_ERB + NB_DF) + c] =
+            c < NB_ERB ? row[O_MEAN + c] : row[O_UNIT + c - NB_ERB];
+      if (c < 2 * NB_ERB) p.cout[C_ERB_CTX][g * 2 * NB_ERB + c] = row[O_ERBWIN + c];
+      if (c < 2 * FS) {
         const int blk = c / NB_DF, fq = c % NB_DF;
         const int t = blk & 1, ri = blk >> 1;
-        p.cout[C_SPEC_CTX][g * 384 + c] = row[O_FSWIN + t * 192 + ri * NB_DF + fq];
+        p.cout[C_SPEC_CTX][g * 2 * FS + c] = row[O_FSWIN + t * FS + ri * NB_DF + fq];
       }
       if (c < HID) {
         p.cout[C_ENC_H][g * HID + c] = row[O_ENC_H + c];
@@ -1037,7 +1078,15 @@ extern "C" int dfn_whole_cell_rows_scratch_floats() { return SCR; }
 // its first and last global timer reading and its cycles between them.
 extern "C" int dfn_whole_cell_rows_stages() { return N_STAGES; }
 
-// Launches the kernel on `stream` for audio [S, n_frames * 480]. carry_in,
+// The geometry the library was built for: hop, FPAD, NB_DF and BLK, in `out`.
+extern "C" void dfn_whole_cell_rows_geometry(int* out) {
+  out[0] = HOP;
+  out[1] = FPAD;
+  out[2] = NB_DF;
+  out[3] = BLK;
+}
+
+// Launches the kernel on `stream` for audio [S, n_frames * HOP]. carry_in,
 // carry_out (11 device pointers, CKEYS order), weights (n_weights device
 // pointers, WKEYS order) and scalars (alpha, 1 - alpha, lsnr_min, lsnr_max,
 // pf_beta, silence_thresh, atten_lim, gate_min, gate_max_erb, gate_max_df) are
@@ -1045,7 +1094,7 @@ extern "C" int dfn_whole_cell_rows_stages() { return N_STAGES; }
 // else all float32. With `bf16`, wpack is the products' weights packed by
 // whole_cell_plan.pack_rows_weights (bfloat16, on the device) and pk the host
 // array of its n_weights + 1 offsets; else both are ignored. dft_t: dft^T as a
-// row-major float32 [1024, 960] on the device, the float32 build's synthesis
+// row-major float32 [2 * FPAD, FFT] on the device, the float32 build's synthesis
 // weight (ignored with `bf16`). rows: 4 or 8, or 16 with `bf16`. scratch:
 // n_blocks * rows * dfn_whole_cell_rows_scratch_floats() floats. records: null
 // (no block reads a clock), or n_blocks x (dfn_whole_cell_rows_stages() + 3)

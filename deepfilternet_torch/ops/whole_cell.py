@@ -1,6 +1,6 @@
 """Whole-cell streaming DFN3: every stage of a frame, frames looped inside.
 
-One call takes audio [S, T] for S independent streams and T / 480 frames and
+One call takes audio [S, T] for S independent streams and T / hop frames and
 runs, per frame: the split analysis DFT, the ERB / unit-norm features with
 their exponential norms, the dense-folded DFN3 cell (every conv collapsed to
 a matrix product, see `models/dfnet3_fused.py`), the three GRU stacks, the
@@ -30,9 +30,16 @@ package's `cell_process_xla`). `cell_process` runs the plain version for
 tensors on the CPU and launches the kernel for tensors on a CUDA device; it
 never falls back from one to the other.
 
-`FPAD` (512) and `BLK` (128) keep the JAX package's padded widths, so every
-weight compares one to one with the JAX `build_cell_weights`; they suit
-16-byte loads. The TPU benchmarking switch `CellStatics.ablate` is not ported.
+The DSP geometry (FFT, hop, DF bins) is the configuration's
+(`CellGeometry`), read from the weight set and the statics, with FFT = 2 x
+hop; the model's widths are DFN3's (32 ERB bands, DF order 5, GRUs of 256,
+16 conv channels). At DFN3's geometry `FPAD` (512) and `BLK` (128) keep the
+JAX package's padded widths, so every weight compares one to one with the JAX
+`build_cell_weights`; they suit 16-byte loads. The module's `WSHAPES` and
+`CKEYS` are DFN3's; `weight_shapes` and `carry_widths` give any geometry's.
+The rows design's library is built for one geometry at a time
+(`rows_defines`); the units design takes DFN3's only. The TPU benchmarking
+switch `CellStatics.ablate` is not ported.
 """
 
 from __future__ import annotations
@@ -51,12 +58,46 @@ from deepfilternet_torch.utils import timings
 
 PI = 3.1415926535897932384626433
 
-# fixed DSP geometry of the default DFN3 config (checked at build time)
+# DSP geometry of the default DFN3 config
 HOP = 480
 FFT = 960
 NFREQ = 481
 FPAD = 512  # frequency bins padded to a multiple of 128
 BLK = 128   # the 96-bin DF blocks padded to 128; pad lanes carry zeros end to end
+# the model's widths the kernels take: conv channels, ERB bands, DFN3's DF
+# bins, DF order, GRU width
+_CH, _NB_ERB, _NB_DF, _ORDER, _HID = 16, 32, 96, 5, 256
+
+
+class CellGeometry(NamedTuple):
+    """The DSP geometry of a weight set: FFT and hop (FFT = 2 x hop), the DF
+    bins, the FFT / 2 + 1 bins padded to `fpad` (a multiple of 128) and the
+    DF bins padded to `blk` lanes (a multiple of 64)."""
+
+    fft: int
+    hop: int
+    nb_df: int
+    fpad: int
+    blk: int
+
+    @property
+    def nfreq(self) -> int:
+        return self.fft // 2 + 1
+
+
+def df_lanes(nb_df: int) -> int:
+    """The DF bins padded to whole blocks of 64 lanes (DFN3's 96: 128)."""
+    return -(-nb_df // 64) * 64
+
+
+def cell_geometry(fft: int, hop: int, nb_df: int) -> CellGeometry:
+    """The geometry of a configuration, its padded widths derived."""
+    if fft != 2 * hop:
+        raise ValueError(f"the whole cell needs FFT = 2 x hop, got FFT {fft}, hop {hop}")
+    return CellGeometry(fft, hop, nb_df, -(-(fft // 2 + 1) // 128) * 128, df_lanes(nb_df))
+
+
+DFN3_GEOMETRY = cell_geometry(FFT, HOP, _NB_DF)
 
 
 class CellStatics(NamedTuple):
@@ -101,44 +142,87 @@ WKEYS: List[str] = [
     "convp_b",    # [1, 16]    per-output-channel shift (10 used, padded)
 ]
 
-# ordered carry keys with their per-stream widths
-CKEYS: List[Tuple[str, int]] = [
-    ("amem", FFT - HOP),    # analysis memory
-    ("smem", FFT - HOP),    # synthesis OLA tail
-    ("norms", 128),         # 0:32 mean-norm (dB), 32:128 unit-norm
-    ("sil", 8),             # col 0: consecutive-quiet-frame counter (f32)
-    ("erb_ctx", 64),        # 2 past erb feature frames, (t, f) flat
-    ("spec_ctx", 384),      # 2 past feat_spec frames, (c, t, f) flat
-    ("enc_h", 256),
-    ("dec_h", 256),
-    ("df_h", 768),          # 3 layers, layer-major
-    ("ring_re", 4 * BLK),   # df ring: 4 past low-band frames, 128-padded
-    ("ring_im", 4 * BLK),
-]
+def carry_widths(g: CellGeometry) -> List[Tuple[str, int]]:
+    """The ordered carry keys with their per-stream widths at geometry g."""
+    return [
+        ("amem", g.fft - g.hop),     # analysis memory
+        ("smem", g.fft - g.hop),     # synthesis OLA tail
+        ("norms", _NB_ERB + g.nb_df),  # 0:32 mean-norm (dB), 32: unit-norm
+        ("sil", 8),                  # col 0: consecutive-quiet-frame counter (f32)
+        ("erb_ctx", 2 * _NB_ERB),    # 2 past erb feature frames, (t, f) flat
+        ("spec_ctx", 4 * g.nb_df),   # 2 past feat_spec frames, (c, t, f) flat
+        ("enc_h", _HID),
+        ("dec_h", _HID),
+        ("df_h", 3 * _HID),          # 3 layers, layer-major
+        ("ring_re", 4 * g.blk),      # df ring: 4 past low-band frames, blk-padded
+        ("ring_im", 4 * g.blk),
+    ]
 
-_CH, _NB_ERB, _NB_DF, _ORDER, _HID = 16, 32, 96, 5, 256
 
-# the weight shapes the kernel is written for (full DFN3 width)
-WSHAPES: Dict[str, Tuple[int, int]] = {
-    "dft": (FFT, 2 * FPAD), "imult": (1, FPAD),
-    "erb_fwd": (FPAD, _NB_ERB), "erb_inv": (_NB_ERB, FPAD),
-    "e0_w": (3 * _NB_ERB, 512), "e0_b": (1, 512), "e1_w": (512, 256), "e1_b": (1, 256),
-    "e2_w": (256, 128), "e2_b": (1, 128), "e3_w": (128, 128), "e3_b": (1, 128),
-    "c0w_t0": (2 * _NB_DF, _CH * BLK), "c0w_t1": (2 * _NB_DF, _CH * BLK),
-    "c0w_t2": (2 * _NB_DF, _CH * BLK), "c0_b": (1, _CH * BLK),
-    "c1_w": (_CH * BLK, 768), "c1_b": (1, 768), "gl_w": (768, 128),
-    "p3_w": (128, 128), "p3_b": (1, 128), "t3_w": (128, 128), "t3_b": (1, 128),
-    "p2_w": (128, 128), "p2_b": (1, 128), "t2_w": (128, 256), "t2_b": (1, 256),
-    "p1_w": (256, 256), "p1_b": (1, 256), "t1_w": (256, 512), "t1_b": (1, 512),
-    "p0_w": (512, 512), "p0_b": (1, 512), "out_w": (512, _NB_ERB), "out_b": (1, _NB_ERB),
-    "enc_lin_in": (128, _HID), "enc_lin_out": (_HID, 128),
-    "lsnr_w": (128, 1), "lsnr_b": (1, 1),
-    "dec_lin_in": (128, _HID), "dec_lin_out": (_HID, 128),
-    "df_lin_in": (128, _HID),
-    "df_out_w": (_HID, _ORDER * 2 * BLK), "convp_co": (_CH, _ORDER * 2), "convp_b": (1, _CH),
-}
-WSHAPES.update({k: (_HID, 3 * _HID) for k in WKEYS if "wih" in k or "whh" in k})
-WSHAPES.update({k: (1, 3 * _HID) for k in WKEYS if "bih" in k or "bhh" in k})
+def weight_shapes(g: CellGeometry) -> Dict[str, Tuple[int, int]]:
+    """The weight shapes the kernel takes at geometry g (DFN3's widths)."""
+    c1 = _CH * g.nb_df // 2  # df_conv1's output, (F, C) flat
+    shapes = {
+        "dft": (g.fft, 2 * g.fpad), "imult": (1, g.fpad),
+        "erb_fwd": (g.fpad, _NB_ERB), "erb_inv": (_NB_ERB, g.fpad),
+        "e0_w": (3 * _NB_ERB, 512), "e0_b": (1, 512), "e1_w": (512, 256), "e1_b": (1, 256),
+        "e2_w": (256, 128), "e2_b": (1, 128), "e3_w": (128, 128), "e3_b": (1, 128),
+        "c0w_t0": (2 * g.nb_df, _CH * g.blk), "c0w_t1": (2 * g.nb_df, _CH * g.blk),
+        "c0w_t2": (2 * g.nb_df, _CH * g.blk), "c0_b": (1, _CH * g.blk),
+        "c1_w": (_CH * g.blk, c1), "c1_b": (1, c1), "gl_w": (c1, 128),
+        "p3_w": (128, 128), "p3_b": (1, 128), "t3_w": (128, 128), "t3_b": (1, 128),
+        "p2_w": (128, 128), "p2_b": (1, 128), "t2_w": (128, 256), "t2_b": (1, 256),
+        "p1_w": (256, 256), "p1_b": (1, 256), "t1_w": (256, 512), "t1_b": (1, 512),
+        "p0_w": (512, 512), "p0_b": (1, 512), "out_w": (512, _NB_ERB), "out_b": (1, _NB_ERB),
+        "enc_lin_in": (128, _HID), "enc_lin_out": (_HID, 128),
+        "lsnr_w": (128, 1), "lsnr_b": (1, 1),
+        "dec_lin_in": (128, _HID), "dec_lin_out": (_HID, 128),
+        "df_lin_in": (128, _HID),
+        "df_out_w": (_HID, _ORDER * 2 * g.blk), "convp_co": (_CH, _ORDER * 2),
+        "convp_b": (1, _CH),
+    }
+    shapes.update({k: (_HID, 3 * _HID) for k in WKEYS if "wih" in k or "whh" in k})
+    shapes.update({k: (1, 3 * _HID) for k in WKEYS if "bih" in k or "bhh" in k})
+    return shapes
+
+
+# DFN3's: the carry and the weight shapes at its geometry
+CKEYS: List[Tuple[str, int]] = carry_widths(DFN3_GEOMETRY)
+WSHAPES: Dict[str, Tuple[int, int]] = weight_shapes(DFN3_GEOMETRY)
+
+
+def geometry_of(weights: Dict[str, torch.Tensor], statics: "CellStatics") -> CellGeometry:
+    """The geometry of a weight set: the FFT from `dft` [fft, 2 x fpad], the
+    hop half of it, the DF bins from the statics (`cell_geometry`; the
+    weights' other widths are held to it by `cell_process`'s shape check)."""
+    fft = int(weights["dft"].shape[0])
+    return cell_geometry(fft, fft // 2, int(statics.nb_df))
+
+
+def check_rows_geometry(g: CellGeometry, statics: "CellStatics"):
+    """Raise ValueError unless the rows kernel can be built for geometry g and
+    the statics' widths: FFT = 2 x hop, a hop of whole 8 samples, the DF
+    bins a multiple of 8 with their two feature frames within a hop, and
+    DFN3's model widths. FPAD and BLK follow from `cell_geometry`."""
+    if statics.nb_erb != _NB_ERB or statics.df_order != _ORDER:
+        raise ValueError(f"the whole-cell kernel is built for {_NB_ERB} ERB bands and DF "
+                         f"order {_ORDER}, got {statics.nb_erb} and {statics.df_order}")
+    bad = [why for ok, why in (
+        (g.fft == 2 * g.hop, "FFT = 2 x hop"),
+        (g.hop % 8 == 0, "a hop of whole 8 samples"),
+        (g.nb_df % 8 == 0 and 2 * g.nb_df <= g.hop, "DF bins a multiple of 8, at most hop / 2"),
+    ) if not ok]
+    if bad:
+        raise ValueError(f"the rows kernel takes no geometry {g}: it needs {'; '.join(bad)}")
+
+
+def rows_defines(g: CellGeometry) -> Tuple[str, ...]:
+    """The rows kernel's build defines for geometry g: none for DFN3's (the
+    source's defaults), else its hop, FPAD, DF bins and BLK."""
+    if g == DFN3_GEOMETRY:
+        return ()
+    return (f"DFN_K2_HOP={g.hop}", f"DFN_K2_FPAD={g.fpad}", f"DFN_K2_NB_DF={g.nb_df}",
+            f"DFN_K2_BLK={g.blk}")
 
 
 def _pad_cols(a: np.ndarray, n: int) -> np.ndarray:
@@ -160,7 +244,9 @@ def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.bfloat16,
                        cfg=None) -> Tuple[Dict[str, torch.Tensor], CellStatics]:
     """Precompute the whole-cell weight set from a loaded DFN3 model, as
     tensors on the model's device: `matmul_dtype` (float32 or bfloat16; the
-    JAX package's default is bfloat16), `F32_KEYS` always float32.
+    JAX package's default is bfloat16), `F32_KEYS` always float32. The DSP
+    geometry is `df_state`'s FFT and hop (FFT = 2 x hop, else ValueError)
+    and the config's DF bins (`weight_shapes`).
 
     Reuses the dense conv folds of `models/dfnet3_fused.build_fused` and
     re-permutes the DF-coefficient heads so both emit (n, ri, f)-blocked
@@ -189,11 +275,12 @@ def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.bfloat16,
             "the whole-cell path has no mask-only (run_df=False) form; use "
             "StreamingRuntime"
         )
-    assert cfg["nb_df"] == _NB_DF and cfg["nb_erb"] == _NB_ERB and cfg["df_order"] == _ORDER
-    assert cfg["freq_bins"] == NFREQ and cfg["df_pathway_kt"] == 1
+    geo = cell_geometry(df_state.fft_size, df_state.hop_size, cfg["nb_df"])
+    fft, hop, fpad, nfreq, blk = geo.fft, geo.hop, geo.fpad, geo.nfreq, geo.blk
+    assert cfg["nb_erb"] == _NB_ERB and cfg["df_order"] == _ORDER
+    assert cfg["freq_bins"] == nfreq and cfg["df_pathway_kt"] == 1
     assert not cfg["enc_concat"] and cfg["df_gru_skip"] is None
     assert cfg["conv_kernel_inp"][0] == 3
-    assert df_state.fft_size == FFT and df_state.hop_size == HOP
 
     params = _tree_to(model.params, "cpu")
     state = _tree_to(model.state, "cpu")
@@ -204,25 +291,25 @@ def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.bfloat16,
     F = build_fused(params, state, cfg)
     W: Dict[str, np.ndarray] = {}
 
-    cos_m, sin_m = dft_matrices(FFT, HOP)  # [960, 481] each
+    cos_m, sin_m = dft_matrices(fft, hop)  # [fft, nfreq] each
     W["dft"] = np.concatenate(
-        [_pad_cols(cos_m, FPAD), _pad_cols(sin_m, FPAD)], axis=1
-    )  # [960, 1024]
+        [_pad_cols(cos_m, fpad), _pad_cols(sin_m, fpad)], axis=1
+    )  # [fft, 2 * fpad]
     # The iDFT matrix is exactly a row-rescaled transpose of the forward
     # DFT matrix: idft_re[j, k] = dft_cos[k, j] * mult_j / wnorm (same for
     # the sin/im half), with mult_j = 2 except DC/Nyquist = 1
     # (ops/stft.py idft_matrices), so synthesis reuses dft^T.
-    mult = np.full(FPAD, 2.0, np.float64)
+    mult = np.full(fpad, 2.0, np.float64)
     mult[0] = 1.0
-    mult[NFREQ - 1] = 1.0
-    mult[NFREQ:] = 0.0
-    W["imult"] = (mult / wnorm(FFT, HOP)).astype(np.float32)[None, :]
+    mult[nfreq - 1] = 1.0
+    mult[nfreq:] = 0.0
+    W["imult"] = (mult / wnorm(fft, hop)).astype(np.float32)[None, :]
 
     widths = df_state.erb_widths
     erb_f = np.asarray(erb_fb_matrices(widths, normalized=True, inverse=False))
     erb_i = np.asarray(erb_fb_matrices(widths, normalized=True, inverse=True))
-    W["erb_fwd"] = np.pad(erb_f, ((0, FPAD - NFREQ), (0, 0)))
-    W["erb_inv"] = _pad_cols(erb_i, FPAD)
+    W["erb_fwd"] = np.pad(erb_f, ((0, fpad - nfreq), (0, 0)))
+    W["erb_inv"] = _pad_cols(erb_i, fpad)
 
     ch = cfg["conv_ch"]
     e = cfg["nb_erb"]
@@ -232,18 +319,18 @@ def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.bfloat16,
         w, b = F[name]
         W[name + "_w"] = npf(w)
         W[name + "_b"] = npf(b)[None, :]
-    # pad c0's 16 channel blocks from 96 to BLK lanes so that the DF MAC
-    # reads it as [S, 16, BLK]; c1 absorbs the matching zero input rows. The
+    # pad c0's 16 channel blocks from nb_df to blk lanes so that the DF MAC
+    # reads it as [S, 16, blk]; c1 absorbs the matching zero input rows. The
     # fold is then split per context frame t: c0 = sum_t fs_t @ c0w_t with
     # fs_t = [re_t | im_t], so the 3-frame window is never materialized.
     nb_df = cfg["nb_df"]
     c0w, c0b = W.pop("c0_w"), W["c0_b"]
-    c0w_p = np.zeros((c0w.shape[0], ch * BLK), np.float32)
-    c0b_p = np.zeros((1, ch * BLK), np.float32)
-    c1w_p = np.zeros((ch * BLK, W["c1_w"].shape[1]), np.float32)
+    c0w_p = np.zeros((c0w.shape[0], ch * blk), np.float32)
+    c0b_p = np.zeros((1, ch * blk), np.float32)
+    c1w_p = np.zeros((ch * blk, W["c1_w"].shape[1]), np.float32)
     for ci in range(ch):
         src_sl = slice(ci * nb_df, (ci + 1) * nb_df)
-        dst_sl = slice(ci * BLK, ci * BLK + nb_df)
+        dst_sl = slice(ci * blk, ci * blk + nb_df)
         c0w_p[:, dst_sl] = c0w[:, src_sl]
         c0b_p[:, dst_sl] = c0b[:, src_sl]
         c1w_p[dst_sl, :] = W["c1_w"][src_sl, :]
@@ -253,7 +340,7 @@ def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.bfloat16,
             [c0w_p[t * nb_df: (t + 1) * nb_df],
              c0w_p[3 * nb_df + t * nb_df: 3 * nb_df + (t + 1) * nb_df]],
             axis=0,
-        )  # [192, 2048]
+        )  # [2 * nb_df, 16 * blk]
     W["c0_b"], W["c1_w"] = c0b_p, c1w_p
     W["gl_w"] = npf(F["gl"])
     # conv3p consumes e3, which the fused fold emits (F,C)-flat: fold the
@@ -290,23 +377,23 @@ def build_cell_weights(model, df_state, rt_params, matmul_dtype=torch.bfloat16,
     W["lsnr_b"] = npf(params["lsnr_fc"]["b"])[None, :]
 
     # df_out: dense grouped-linear [256, F'*O*2]; output columns are
-    # (f, n, ri)-flat; permute to (n, ri, f) blocks padded to BLK lanes each
+    # (f, n, ri)-flat; permute to (n, ri, f) blocks padded to blk lanes each
     o = cfg["df_order"]
-    df_out = npf(_grouped_dense(params["df_out"]["w"]))  # [256, 960]
-    df_out_p = np.zeros((df_out.shape[0], o * 2, BLK), np.float32)
+    df_out = npf(_grouped_dense(params["df_out"]["w"]))  # [256, nb_df * 10]
+    df_out_p = np.zeros((df_out.shape[0], o * 2, blk), np.float32)
     df_out_p[:, :, :nb_df] = df_out.reshape(-1, nb_df, o * 2).transpose(0, 2, 1)
-    W["df_out_w"] = df_out_p.reshape(df_out.shape[0], o * 2 * BLK)
+    W["df_out_w"] = df_out_p.reshape(df_out.shape[0], o * 2 * blk)
     # df_convp is a pure 1x1 grouped conv (kernel (1,1), groups 2, no
     # pointwise) + BN affine: a frequency-invariant [16 -> 10] channel map.
     # Extract it from the exact dense fold and verify frequency invariance,
     # rather than re-deriving the BN/group algebra by hand.
     cw, cb = _linearize_conv(
         params["df_convp"], state.get("df_convp", {}), L["df_convp"], (ch, 1, nb_df)
-    )  # [1536, 960] (c,f)-in, (o,f)-out flat
+    )  # [16 * nb_df, 10 * nb_df] (c,f)-in, (o,f)-out flat
     cw, cb = npf(cw), npf(cb)
     co = cw[::nb_df, ::nb_df].copy()   # [16, 10]
     bo = cb[::nb_df].copy()            # [10]
-    for f0 in (1, 37, 95):  # frequency invariance, no cross-frequency leakage
+    for f0 in (1, nb_df // 3 + 5, nb_df - 1):  # frequency invariance, no leakage
         assert np.allclose(cw[1 * nb_df + f0, 3 * nb_df + f0], co[1, 3], atol=1e-6)
         assert abs(cw[1 * nb_df + f0, 3 * nb_df + (f0 - 1) % nb_df]) < 1e-7
         assert abs(cb[3 * nb_df + f0] - bo[3]) < 1e-6
@@ -382,35 +469,36 @@ def _gru_cell(h, gi, gh, b_hh):
     return (1.0 - z) * n + z * h.to(f32)
 
 
-def _carry_split(c: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _carry_split(c: Dict[str, torch.Tensor], g: CellGeometry) -> Dict[str, torch.Tensor]:
     """Flat carry dict -> per-frame state dict, whose rolling windows
     (analysis memory, conv feature contexts, DF ring) advance by rebinding
     keys rather than by shifting arrays."""
-    e = _NB_ERB
+    e, f, blk = _NB_ERB, g.nb_df, g.blk
     s = {
-        "prev_hop": c["amem"],          # [S, 480] == last input hop (fft = 2*hop)
-        "smem": c["smem"],              # [S, 480] OLA tail
+        "prev_hop": c["amem"],          # [S, hop] == last input hop (fft = 2*hop)
+        "smem": c["smem"],              # [S, hop] OLA tail
         "mean": c["norms"][:, :e],
         "unit": c["norms"][:, e:],
         "sil": c["sil"],
         "erb_a": c["erb_ctx"][:, :e],   # feat_erb at t-2
         "erb_b": c["erb_ctx"][:, e:],   # feat_erb at t-1
         # feat_spec frames as [re | im] pairs (t-2, t-1)
-        "fs_a": torch.cat([c["spec_ctx"][:, :96], c["spec_ctx"][:, 192:288]], dim=-1),
-        "fs_b": torch.cat([c["spec_ctx"][:, 96:192], c["spec_ctx"][:, 288:]], dim=-1),
+        "fs_a": torch.cat([c["spec_ctx"][:, :f], c["spec_ctx"][:, 2 * f:3 * f]], dim=-1),
+        "fs_b": torch.cat([c["spec_ctx"][:, f:2 * f], c["spec_ctx"][:, 3 * f:]], dim=-1),
         "enc_h": c["enc_h"],
         "dec_h": c["dec_h"],
     }
     for li in range(3):
         s[f"dfh{li}"] = c["df_h"][:, li * _HID: (li + 1) * _HID]
     for n in range(4):
-        s[f"r{n}_re"] = c["ring_re"][:, n * BLK: (n + 1) * BLK]
-        s[f"r{n}_im"] = c["ring_im"][:, n * BLK: (n + 1) * BLK]
+        s[f"r{n}_re"] = c["ring_re"][:, n * blk: (n + 1) * blk]
+        s[f"r{n}_im"] = c["ring_im"][:, n * blk: (n + 1) * blk]
     return s
 
 
-def _carry_join(s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _carry_join(s: Dict[str, torch.Tensor], g: CellGeometry) -> Dict[str, torch.Tensor]:
     """Inverse of _carry_split."""
+    f = g.nb_df
     return {
         "amem": s["prev_hop"],
         "smem": s["smem"],
@@ -418,8 +506,8 @@ def _carry_join(s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         "sil": s["sil"],
         "erb_ctx": torch.cat([s["erb_a"], s["erb_b"]], dim=-1),
         "spec_ctx": torch.cat(
-            [s["fs_a"][:, :96], s["fs_b"][:, :96],
-             s["fs_a"][:, 96:], s["fs_b"][:, 96:]], dim=-1),
+            [s["fs_a"][:, :f], s["fs_b"][:, :f],
+             s["fs_a"][:, f:], s["fs_b"][:, f:]], dim=-1),
         "enc_h": s["enc_h"],
         "dec_h": s["dec_h"],
         "df_h": torch.cat([s["dfh0"], s["dfh1"], s["dfh2"]], dim=-1),
@@ -436,26 +524,27 @@ def _frame_step(W: Dict[str, torch.Tensor], P: _Products, st: CellStatics,
 
     Window products are split per context frame, so no window tensor is
     materialized:
-      * analysis DFT: prev_hop @ dft[:480] + frame @ dft[480:]
+      * analysis DFT: prev_hop @ dft[:hop] + frame @ dft[hop:]
       * df_conv0 fold: fs_{t-2} @ c0w_t0 + fs_{t-1} @ c0w_t1 + fs_t @ c0w_t2
       * synthesis iDFT: separate re/im products against the transposed DFT.
     """
     relu = torch.relu
     mm, mmf = P.mm, P.mmf
-    nb_df = st.nb_df
+    g = geometry_of(W, st)
+    nb_df, hop, fpad, blk = st.nb_df, g.hop, g.fpad, g.blk
     n_rows = frame.shape[0]
     ns = dict(s)
-    lane_mask = (torch.arange(BLK, device=frame.device) < nb_df).to(torch.float32)[None, :]
+    lane_mask = (torch.arange(blk, device=frame.device) < nb_df).to(torch.float32)[None, :]
 
     # -- analysis: windowed real-DFT split over [prev_hop | frame]
-    spec2 = (s["prev_hop"].to(P.dtype).float() @ P.w["dft"][:HOP]
-             + frame.to(P.dtype).float() @ P.w["dft"][HOP:])
-    spec_re = spec2[:, :FPAD]
-    spec_im = spec2[:, FPAD:]
+    spec2 = (s["prev_hop"].to(P.dtype).float() @ P.w["dft"][:hop]
+             + frame.to(P.dtype).float() @ P.w["dft"][hop:])
+    spec_re = spec2[:, :fpad]
+    spec_im = spec2[:, fpad:]
     ns["prev_hop"] = frame
 
     # -- features (feat_erb / feat_cplx with exponential norms)
-    power = spec_re * spec_re + spec_im * spec_im  # [S, 512]
+    power = spec_re * spec_re + spec_im * spec_im  # [S, fpad]
     erb_db = 10.0 * torch.log10(mmf(power, "erb_fwd") + 1e-10)  # [S, 32]
     a = st.alpha
     new_mean = erb_db * (1.0 - a) + s["mean"] * a
@@ -466,13 +555,13 @@ def _frame_step(W: Dict[str, torch.Tensor], P: _Products, st: CellStatics,
     un_scale = torch.rsqrt(new_unit)
     fs_cur = torch.cat(
         [spec_re[:, :nb_df] * un_scale, spec_im[:, :nb_df] * un_scale], dim=-1
-    )  # [S, 192]
+    )  # [S, 2 * nb_df]
 
     erb_a, erb_b, fs_a, fs_b = s["erb_a"], s["erb_b"], s["fs_a"], s["fs_b"]
     ns["erb_a"], ns["erb_b"] = erb_b, feat_erb
     ns["fs_a"], ns["fs_b"] = fs_b, fs_cur
-    cur_re = spec_re[:, :BLK] * lane_mask
-    cur_im = spec_im[:, :BLK] * lane_mask
+    cur_re = spec_re[:, :blk] * lane_mask
+    cur_im = spec_im[:, :blk] * lane_mask
 
     # -- conv frontend (dense folds, windows split per context frame); the
     # trunk's activations are in the operand type
@@ -482,8 +571,8 @@ def _frame_step(W: Dict[str, torch.Tensor], P: _Products, st: CellStatics,
     e2 = relu(mm(e1, "e2_w") + W["e2_b"])             # [S, 128]
     e3 = relu(mm(e2, "e3_w") + W["e3_b"])             # [S, 128] (F,C) flat
     c0 = relu(mm(fs_a, "c0w_t0") + mm(fs_b, "c0w_t1")
-              + mm(fs_cur, "c0w_t2") + W["c0_b"])     # [S, 2048] (C,F) padded
-    c1 = relu(mm(c0, "c1_w") + W["c1_b"])             # [S, 768] (F,C) flat
+              + mm(fs_cur, "c0w_t2") + W["c0_b"])     # [S, 16 * blk] (C,F) padded
+    c1 = relu(mm(c0, "c1_w") + W["c1_b"])             # [S, 8 * nb_df] (F,C) flat
     cemb = relu(mm(c1, "gl_w"))                       # [S, 128]
     emb = e3 + cemb
 
@@ -516,35 +605,36 @@ def _frame_step(W: Dict[str, torch.Tensor], P: _Products, st: CellStatics,
         h_in = _gru_cell(s[f"dfh{li}"], gil, mm(s[f"dfh{li}"], f"df_whh{li}"),
                          W[f"df_bhh{li}"])
         ns[f"dfh{li}"] = h_in
-    coefs_t = torch.tanh(mmf(h_in, "df_out_w"))  # [S, O*2*BLK] float32
-    c0v = c0.reshape(n_rows, _CH, BLK).float()
-    cp = torch.einsum("co,scf->osf", P.w["convp_co"], c0v)  # [O*2, S, BLK]
+    coefs_t = torch.tanh(mmf(h_in, "df_out_w"))  # [S, O*2*blk] float32
+    c0v = c0.reshape(n_rows, _CH, blk).float()
+    cp = torch.einsum("co,scf->osf", P.w["convp_co"], c0v)  # [O*2, S, blk]
 
     # -- deep filter MAC: ring frames 0..3 and the current frame as tap 4
-    y_re = torch.zeros((n_rows, BLK), dtype=torch.float32, device=frame.device)
+    y_re = torch.zeros((n_rows, blk), dtype=torch.float32, device=frame.device)
     y_im = torch.zeros_like(y_re)
     for n in range(st.df_order):
         if n < st.df_order - 1:
             t_re, t_im = s[f"r{n}_re"], s[f"r{n}_im"]
         else:
             t_re, t_im = cur_re, cur_im
-        c_re = (coefs_t[:, (2 * n) * BLK: (2 * n + 1) * BLK]
+        c_re = (coefs_t[:, (2 * n) * blk: (2 * n + 1) * blk]
                 + relu(cp[2 * n] + W["convp_b"][0, 2 * n]))
-        c_im = (coefs_t[:, (2 * n + 1) * BLK: (2 * n + 2) * BLK]
+        c_im = (coefs_t[:, (2 * n + 1) * blk: (2 * n + 2) * blk]
                 + relu(cp[2 * n + 1] + W["convp_b"][0, 2 * n + 1]))
         y_re = y_re + t_re * c_re - t_im * c_im
         y_im = y_im + t_re * c_im + t_im * c_re
     for n in range(3):
         ns[f"r{n}_re"], ns[f"r{n}_im"] = s[f"r{n+1}_re"], s[f"r{n+1}_im"]
     ns["r3_re"], ns["r3_im"] = cur_re, cur_im
-    return _frame_tail(W, P, st, ns, s, frame, m, lsnr, y_re, y_im, spec_re, spec_im)
+    return _frame_tail(W, P, st, ns, s, frame, m, lsnr, y_re, y_im, spec_re, spec_im, g)
 
 
-def _frame_tail(W, P, st: CellStatics, ns, s, frame, m, lsnr, y_re, y_im, spec_re, spec_im):
+def _frame_tail(W, P, st: CellStatics, ns, s, frame, m, lsnr, y_re, y_im, spec_re, spec_im,
+                g: CellGeometry):
     """Post-model stages: ERB mask, post-filter, LSNR gating, atten-lim,
     silence skip, split-iDFT synthesis + overlap-add."""
-    nb_df = st.nb_df
-    bin_gains = P.mmf(m, "erb_inv")  # [S, 512]
+    nb_df, hop, fpad = st.nb_df, g.hop, g.fpad
+    bin_gains = P.mmf(m, "erb_inv")  # [S, fpad]
     sm_re = spec_re * bin_gains
     sm_im = spec_im * bin_gains
     se_re = torch.cat([y_re[:, :nb_df], sm_re[:, nb_df:]], dim=-1)
@@ -588,10 +678,10 @@ def _frame_tail(W, P, st: CellStatics, ns, s, frame, m, lsnr, y_re, y_im, spec_r
 
     # -- synthesis: windowed iDFT as separate re/im products against the
     # row-rescaled transposed DFT matrix, then overlap-add
-    x = ((se_re * W["imult"]).to(P.dtype).float() @ P.w["dft"][:, :FPAD].T
-         + (se_im * W["imult"]).to(P.dtype).float() @ P.w["dft"][:, FPAD:].T)  # [S, 960]
-    out = x[:, :HOP] + s["smem"]
-    ns["smem"] = x[:, HOP:]
+    x = ((se_re * W["imult"]).to(P.dtype).float() @ P.w["dft"][:, :fpad].T
+         + (se_im * W["imult"]).to(P.dtype).float() @ P.w["dft"][:, fpad:].T)  # [S, fft]
+    out = x[:, :hop] + s["smem"]
+    ns["smem"] = x[:, hop:]
     return ns, out
 
 
@@ -600,19 +690,20 @@ def cell_process_plain(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
                        products: type = _Products
                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Plain PyTorch version of the kernel: a Python loop over the frames of
-    audio [S, T]. Returns (new flat carry, enhanced audio [S, T]).
-    `products`: the class of the products (`whole_cell_check` swaps in
-    variants that sum or round differently)."""
+    audio [S, T], at the weight set's geometry (`geometry_of`). Returns (new
+    flat carry, enhanced audio [S, T]). `products`: the class of the products
+    (`whole_cell_check` swaps in variants that sum or round differently)."""
+    g = geometry_of(weights, statics)
     s, t = audio.shape
-    if t % HOP:
+    if t % g.hop:
         raise ValueError("cell_process needs whole hops")
-    st = _carry_split(carry)
+    st = _carry_split(carry, g)
     P = products(weights)
     outs = []
-    for f in range(t // HOP):
-        st, o = _frame_step(weights, P, statics, st, audio[:, f * HOP: (f + 1) * HOP])
+    for f in range(t // g.hop):
+        st, o = _frame_step(weights, P, statics, st, audio[:, f * g.hop: (f + 1) * g.hop])
         outs.append(o)
-    new_carry = {k: v.contiguous() for k, v in _carry_join(st).items()}
+    new_carry = {k: v.contiguous() for k, v in _carry_join(st, g).items()}
     out = torch.cat(outs, dim=-1) if outs else audio.new_zeros((s, 0))
     return new_carry, out
 
@@ -666,9 +757,10 @@ def packed_rows_weights(weights: Dict[str, torch.Tensor]):
 
 
 def rows_dft_t(weights: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The rows design's float32 copy of `dft` transposed, row-major [1024,
-    960]: the synthesis product's weight, which the kernel streams like the
-    analysis DFT's. Made once per weight set; no key of the set."""
+    """The rows design's float32 copy of `dft` transposed, row-major [2 x
+    FPAD, FFT] (DFN3: [1024, 960]): the synthesis product's weight, which the
+    kernel streams like the analysis DFT's. Made once per weight set; no key
+    of the set."""
     copies = _packed_copies(weights)
     if "dft_t" not in copies:
         copies["dft_t"] = weights["dft"].t().contiguous()
@@ -683,10 +775,14 @@ def rows_dft_t(weights: Dict[str, torch.Tensor]) -> torch.Tensor:
 _UNITS_SM_PER_TILE = {False: 16, True: 16}
 
 
-def _kernel_choice(s: int, n_sm: int, bf16: bool = False) -> str:
+def _kernel_choice(s: int, n_sm: int, bf16: bool = False,
+                   geometry: CellGeometry = DFN3_GEOMETRY) -> str:
     """Which design runs S streams on a card of n_sm multiprocessors, for the
     float32 or the bfloat16 build: "units" (`csrc/whole_cell.cu`) or "rows"
-    (`csrc/whole_cell_rows.cu`)."""
+    (`csrc/whole_cell_rows.cu`). The units design takes DFN3's geometry
+    only: rows at any other, at every S."""
+    if geometry != DFN3_GEOMETRY:
+        return "rows"
     return "units" if -(-s // plan.RT) * _UNITS_SM_PER_TILE[bf16] <= n_sm else "rows"
 
 
@@ -706,20 +802,26 @@ def _plan_on_device(s: int, n_blocks: int, bf16: bool, device: torch.device):
     return torch.from_numpy(table).to(device), info
 
 
-def _check_inputs(audio, carry, weights):
+def _check_inputs(audio, carry, weights, statics) -> CellGeometry:
+    """The inputs' geometry (`geometry_of`), once every array has the shape,
+    type and device it needs there and the rows kernel can be built for it
+    (`check_rows_geometry`); else ValueError or TypeError."""
     if audio.dim() != 2:
         raise ValueError(f"audio must be [S, T], got {tuple(audio.shape)}")
+    g = geometry_of(weights, statics)
+    check_rows_geometry(g, statics)
     s, t = audio.shape
-    if t % HOP:
+    if t % g.hop:
         raise ValueError("cell_process needs whole hops")
     dev = audio.device
     mdtype = weights["dft"].dtype
     if mdtype not in MATMUL_DTYPES:
         raise TypeError(f"weights['dft'] must be float32 or bfloat16, got {mdtype}")
     f32 = torch.float32
+    shapes = weight_shapes(g)
     want = [("audio", audio, (s, t), f32)]
-    want += [(f"carry[{k!r}]", carry[k], (s, d), f32) for k, d in CKEYS]
-    want += [(f"weights[{k!r}]", weights[k], WSHAPES[k], weight_dtype(k, mdtype)) for k in WKEYS]
+    want += [(f"carry[{k!r}]", carry[k], (s, d), f32) for k, d in carry_widths(g)]
+    want += [(f"weights[{k!r}]", weights[k], shapes[k], weight_dtype(k, mdtype)) for k in WKEYS]
     for name, x, shape, dtype in want:
         if x.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
@@ -727,6 +829,7 @@ def _check_inputs(audio, carry, weights):
             raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, audio on {dev}")
+    return g
 
 
 def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
@@ -734,9 +837,11 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Run the whole cell over audio [S, T], T a whole number of hops.
 
-    carry: dict of [S, d] float32 arrays (keys and widths per CKEYS);
-    weights, statics: from `build_cell_weights`, float32 or bfloat16
-    operands. Returns (new carry, enhanced audio [S, T]).
+    carry: dict of [S, d] float32 arrays (keys and widths per
+    `carry_widths` at the geometry); weights, statics: from
+    `build_cell_weights`, float32 or bfloat16 operands. Returns (new carry,
+    enhanced audio [S, T]). A geometry the rows kernel cannot be built for
+    (`check_rows_geometry`) raises ValueError before anything runs.
 
     CPU tensors run `cell_process_plain`. CUDA tensors launch the kernel
     once for all frames (counting one launch in `cell_process.launches`, and
@@ -749,7 +854,12 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     a tile of stream rows to itself (`_tile_rows`). Each design has a build
     for each operand type: float32 products in FMAs on the CUDA cores,
     bfloat16 ones on the tensor cores (`mma.sync` m16n8k16). Any S works:
-    both mask their ragged last tile.
+    both mask their ragged last tile. The units design takes DFN3's geometry
+    only; the rows design's library is built for the call's geometry
+    (`rows_defines`), the first load of each under the span `k2.build`. A
+    rows launch sets `cell_process.weight_bytes` to the weight bytes it
+    streams: its build's weight buffers (`rows_weight_bytes`) once a tile
+    and frame (0 after a units launch).
 
     While a torch profiler is recording, one call in `RECORD_EVERY` (the
     first of each stretch of traced calls, then every `RECORD_EVERY`-th) is
@@ -763,36 +873,36 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     kernel's work buffers) and `k2.launch` (the weights' addresses, the
     packed weights and the launch).
     """
-    _check_inputs(audio, carry, weights)
+    geo = _check_inputs(audio, carry, weights, statics)
     device = audio.device
     if device.type == "cpu":
         return cell_process_plain(audio, carry, weights, statics)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    if statics.nb_erb != _NB_ERB or statics.nb_df != _NB_DF or statics.df_order != _ORDER:
-        raise ValueError(f"the whole-cell kernel is built for DFN3's widths, got {statics}")
-    tensors = [audio] + [carry[k] for k, _ in CKEYS] + [weights[k] for k in WKEYS]
+    keys = [k for k, _ in CKEYS]
+    tensors = [audio] + [carry[k] for k in keys] + [weights[k] for k in WKEYS]
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("the whole-cell kernel needs contiguous inputs")
     s, t = audio.shape
-    n_frames = t // HOP
+    n_frames = t // geo.hop
     bf16 = weights["dft"].dtype == torch.bfloat16
     record = _record_this_call()
     with torch.cuda.device(device):
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        design = _kernel_choice(s, n_sm, bf16)
+        design = _kernel_choice(s, n_sm, bf16, geo)
         units = design == "units"
         with timings.span("k2.alloc"):
             out = torch.empty_like(audio)
-            new_carry = {k: torch.empty_like(carry[k]) for k, _ in CKEYS}
-            work = (_units_buffers if units else _rows_buffers)(s, n_sm, bf16, device, record)
+            new_carry = {k: torch.empty_like(carry[k]) for k in keys}
+            work = (_units_buffers(s, n_sm, bf16, device, record) if units
+                    else _rows_buffers(s, n_sm, bf16, device, record, geo))
         with timings.span("k2.launch"):
             ptr = ctypes.c_void_p * len(CKEYS)
             st = statics
             args = dict(
                 audio=audio, out=out, s=s, n_frames=n_frames, n_sm=n_sm, weights=weights,
-                c_in=ptr(*[carry[k].data_ptr() for k, _ in CKEYS]),
-                c_out=ptr(*[new_carry[k].data_ptr() for k, _ in CKEYS]),
+                c_in=ptr(*[carry[k].data_ptr() for k in keys]),
+                c_out=ptr(*[new_carry[k].data_ptr() for k in keys]),
                 w_ptrs=(ctypes.c_void_p * len(WKEYS))(*[weights[k].data_ptr() for k in WKEYS]),
                 scalars=(ctypes.c_float * 10)(
                     st.alpha, 1.0 - st.alpha, st.lsnr_min, st.lsnr_max, st.pf_beta,
@@ -810,6 +920,8 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     cell_process.launches += 1
     cell_process.bf16_launches += int(bf16)
     cell_process.frames += n_frames
+    cell_process.weight_bytes = 0 if units else rows_stream_bytes(weights, s, work["rows"],
+                                                                  n_frames)
     if work["records"] is not None:
         timings.k2_keep(design, STAGES[design], stage_families(design), n_frames,
                         work["records"])
@@ -857,12 +969,58 @@ def _units_buffers(s, n_sm, bf16, device, record):
         records=_records(n_sm, len(STAGES["units"]), device, record))
 
 
-def _rows_buffers(s, n_sm, bf16, device, record):
-    """One launch's buffers for the rows design: the tile's rows, the scratch
-    of its blocks and the record buffer."""
+_ROWS_LIBS: Dict[Tuple[str, ...], ctypes.CDLL] = {}  # the rows libraries bound, by defines
+
+
+def rows_library(geo: CellGeometry) -> ctypes.CDLL:
+    """The rows kernel's library for geometry `geo`, bound; its first load
+    (a build where none is cached) runs under the span `k2.build`."""
     from deepfilternet_torch.kernels import load
 
-    lib = _bind_rows(load("whole_cell_rows"))
+    defines = rows_defines(geo)
+    if defines not in _ROWS_LIBS:
+        with timings.span("k2.build"):
+            lib = _bind_rows(load("whole_cell_rows", defines))
+        built = (ctypes.c_int * 4)()
+        lib.dfn_whole_cell_rows_geometry(built)
+        if tuple(built) != (geo.hop, geo.fpad, geo.nb_df, geo.blk):
+            raise RuntimeError(f"the rows library was built for {tuple(built)}, not {geo}")
+        _ROWS_LIBS[defines] = lib
+    return _ROWS_LIBS[defines]
+
+
+def rows_weight_bytes(weights: Dict[str, torch.Tensor]) -> int:
+    """Bytes of the weight buffers the rows design reads once a tile and
+    frame: the float32 build's weight keys and its `rows_dft_t` copy; the
+    bfloat16 build's packed products (`packed_rows_weights`) and the keys no
+    product reads (biases, `imult`, `lsnr_w`, the DF head's channel map).
+    Made once per weight set."""
+    copies = _packed_copies(weights)
+    if "stream_bytes" not in copies:
+        def nbytes(t):
+            return t.numel() * t.element_size()
+        if weights["dft"].dtype == torch.bfloat16:
+            in_products = {k for keys in plan.ROWS_PRODUCTS for k in keys}
+            total = nbytes(packed_rows_weights(weights)[0]) + sum(
+                nbytes(weights[k]) for k in WKEYS if k not in in_products)
+        else:
+            total = sum(nbytes(weights[k]) for k in WKEYS) + nbytes(rows_dft_t(weights))
+        copies["stream_bytes"] = total
+    return copies["stream_bytes"]
+
+
+def rows_stream_bytes(weights: Dict[str, torch.Tensor], s: int, rows: int, n_frames: int) -> int:
+    """Weight bytes a rows launch of S streams in tiles of `rows` streams
+    reads over `n_frames` frames: `rows_weight_bytes` once a tile and
+    frame."""
+    return rows_weight_bytes(weights) * -(-s // rows) * n_frames
+
+
+def _rows_buffers(s, n_sm, bf16, device, record, geo: CellGeometry = DFN3_GEOMETRY):
+    """One launch's buffers for the rows design: the library for the
+    geometry, the tile's rows, the scratch of its blocks and the record
+    buffer."""
+    lib = rows_library(geo)
     if record and lib.dfn_whole_cell_rows_stages() != len(STAGES["rows"]):
         raise RuntimeError("the rows kernel and STAGES['rows'] disagree on the stages")
     rows = _tile_rows(s, n_sm, bf16)
@@ -871,7 +1029,7 @@ def _rows_buffers(s, n_sm, bf16, device, record):
     n_blocks = max(1, min(-(-s // rows), n_sm))
     scratch = torch.empty((n_blocks, rows, lib.dfn_whole_cell_rows_scratch_floats()),
                           dtype=torch.float32, device=device)
-    return dict(rows=rows, scratch=scratch,
+    return dict(lib=lib, rows=rows, scratch=scratch,
                 records=_records(n_blocks, len(STAGES["rows"]), device, record))
 
 
@@ -896,14 +1054,11 @@ def _launch_units(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, s
 
 
 def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, scalars, flags,
-                 stream, rows, scratch, records):
+                 stream, lib, rows, scratch, records):
     """The design of `csrc/whole_cell_rows.cu`: one persistent block per tile
     of 4, 8 or (bfloat16) 16 stream rows computes the whole frame by itself.
     The bfloat16 build reads the products' weights from their packed copy,
     the float32 build its synthesis product's from `rows_dft_t`."""
-    from deepfilternet_torch.kernels import load
-
-    lib = _bind_rows(load("whole_cell_rows"))
     bf16 = weights["dft"].dtype == torch.bfloat16
     wpack, offsets = packed_rows_weights(weights) if bf16 else (None, None)
     return lib.dfn_whole_cell_rows(
@@ -917,6 +1072,7 @@ def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, sc
 cell_process.launches = 0  # type: ignore[attr-defined]
 cell_process.bf16_launches = 0  # type: ignore[attr-defined]
 cell_process.frames = 0  # type: ignore[attr-defined]
+cell_process.weight_bytes = 0  # type: ignore[attr-defined]
 # the stages each thread block times (in the order of the kernel's records),
 # which differ between the two designs
 STAGES = {
@@ -983,4 +1139,6 @@ def _bind_rows(lib: ctypes.CDLL) -> ctypes.CDLL:
     for count in (lib.dfn_whole_cell_rows_scratch_floats, lib.dfn_whole_cell_rows_stages):
         count.argtypes = []
         count.restype = ctypes.c_int
+    lib.dfn_whole_cell_rows_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.dfn_whole_cell_rows_geometry.restype = None
     return lib

@@ -31,7 +31,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from deepfilternet_torch.ops.whole_cell import CKEYS, HOP, _Products, cell_process_plain
+from deepfilternet_torch.ops.whole_cell import CKEYS, _Products, cell_process_plain, geometry_of
 
 # (largest error, mean error) a bfloat16 kernel may have against the plain
 # version, fractions of each output's largest value: each frame from the
@@ -116,7 +116,7 @@ WRONG = (Unrounded, ResultsUnrounded, FloatResultsRounded)
 def cell_errors(got, ref) -> Dict[str, Tuple[float, float]]:
     """{output: (largest, mean absolute error over the reference's largest
     value)} of two `cell_process` results (carry, audio), over the audio and
-    the 11 carry arrays."""
+    the 11 carry arrays (at any geometry)."""
     (got_c, got_a), (ref_c, ref_a) = got, ref
     pairs = [("audio", got_a, ref_a)] + [(k, got_c[k], ref_c[k]) for k, _ in CKEYS]
     errs = {}
@@ -135,8 +135,9 @@ def frame_by_frame(step, audio, carry, weights, statics) -> Dict[str, Tuple[floa
     version reaches before it, against the plain version's frame: the
     `cell_errors` of each output, the worst over the frames."""
     worst: Dict[str, Tuple[float, float]] = {}
-    for f in range(audio.shape[1] // HOP):
-        x1 = audio[:, f * HOP: (f + 1) * HOP].contiguous()
+    hop = geometry_of(weights, statics).hop
+    for f in range(audio.shape[1] // hop):
+        x1 = audio[:, f * hop: (f + 1) * hop].contiguous()
         ref = cell_process_plain(x1, carry, weights, statics)
         for k, (e, m) in cell_errors(step(x1, carry), ref).items():
             e0, m0 = worst.get(k, (0.0, 0.0))

@@ -2,7 +2,10 @@
 
 Drop-in alternative to StreamingRuntime for DFN3 models that runs the entire
 per-frame pipeline, for all frames of a call, inside one launch of the
-whole-cell kernel (`ops/whole_cell.py`, `csrc/whole_cell.cu`). Same public
+whole-cell kernel (`ops/whole_cell.py`, `csrc/whole_cell.cu` and
+`csrc/whole_cell_rows.cu`), at the DSP geometry of `df_state` and the config
+(DFN3's FFT 960 / hop 480 / 96 DF bins, or e.g. DFN3-ll's 480 / 240 / 48;
+FFT = 2 x hop). Same public
 API and carry type (StreamCarry), same streaming semantics (fft-hop delay,
 silence skip, RuntimeParams atten-lim / post-filter / LSNR gating).
 
@@ -38,10 +41,10 @@ import torch.nn.functional as F
 
 from deepfilternet_torch.models import dfnet3
 from deepfilternet_torch.ops.whole_cell import (
-    BLK,
     build_cell_weights,
     cell_process,
     cell_process_plain,
+    df_lanes,
 )
 from deepfilternet_torch.streaming import RuntimeParams, StreamCarry, StreamingRuntime
 from deepfilternet_torch.utils.timings import span
@@ -59,8 +62,8 @@ def carry_to_flat(carry: StreamCarry) -> Dict[str, torch.Tensor]:
     sil = carry.analysis_mem.new_zeros((s, 8), dtype=torch.float32)
     sil[:, 0] = carry.silence_ctr.to(torch.float32)
 
-    def ring(x):  # frames padded to BLK lanes
-        return f32(F.pad(x, (0, BLK - x.shape[-1]))).reshape(s, -1)
+    def ring(x):  # frames padded to the whole cell's DF lanes
+        return f32(F.pad(x, (0, df_lanes(x.shape[-1]) - x.shape[-1]))).reshape(s, -1)
 
     return {
         "amem": f32(carry.analysis_mem),
@@ -82,6 +85,7 @@ def flat_to_carry(flat: Dict[str, torch.Tensor], like: StreamCarry) -> StreamCar
     m = like.model
     s = flat["amem"].shape[0]
     nb_erb = like.mean_norm.shape[-1]
+    blk = flat["ring_re"].shape[-1] // 4
     new_model = m._replace(
         erb_buf=flat["erb_ctx"].reshape(m.erb_buf.shape).to(m.erb_buf.dtype),
         spec_buf=flat["spec_ctx"].reshape(m.spec_buf.shape).to(m.spec_buf.dtype),
@@ -90,8 +94,8 @@ def flat_to_carry(flat: Dict[str, torch.Tensor], like: StreamCarry) -> StreamCar
         df_gru_h=torch.movedim(
             flat["df_h"].reshape(s, m.df_gru_h.shape[0], -1), 1, 0
         ).to(m.df_gru_h.dtype).contiguous(),
-        df_ring_re=flat["ring_re"].reshape(s, -1, BLK)[..., : m.df_ring_re.shape[-1]].contiguous(),
-        df_ring_im=flat["ring_im"].reshape(s, -1, BLK)[..., : m.df_ring_im.shape[-1]].contiguous(),
+        df_ring_re=flat["ring_re"].reshape(s, -1, blk)[..., : m.df_ring_re.shape[-1]].contiguous(),
+        df_ring_im=flat["ring_im"].reshape(s, -1, blk)[..., : m.df_ring_im.shape[-1]].contiguous(),
     )
     return StreamCarry(
         analysis_mem=flat["amem"],

@@ -16,8 +16,9 @@ where the port is compared with itself.
 
 The low-latency configuration (FFT 480, hop 240, 48 DF bins: a 5 ms delay)
 runs the per-frame paths through K1's plain version here; `chip_smoke.py`
-phase 15 runs them through the CUDA kernel on the card. The whole-cell
-runtime takes only DFN3's default geometry, as JAX's does.
+phase 15 runs them through the CUDA kernel on the card. JAX's whole cell
+takes only DFN3's default geometry; the port's takes DFN3-ll too
+(`tests/test_torch_whole_cell_geometry.py`, at the default widths).
 """
 
 import numpy as np
@@ -51,7 +52,6 @@ from deepfilternet_torch.config import config as t_config  # noqa: E402
 from deepfilternet_torch.enhance import enhance, init_df  # noqa: E402
 from deepfilternet_torch.models import dfnet3 as t_dfnet3  # noqa: E402
 from deepfilternet_torch.streaming import StreamingRuntime  # noqa: E402
-from deepfilternet_torch.streaming_whole_cell import WholeCellStreamingRuntime  # noqa: E402
 
 SELF = 1e-5
 DFN2 = {("MODEL", "train"): "deepfilternet2", ("GRU_TYPE", "deepfilternet"): "squeeze",
@@ -224,13 +224,13 @@ def test_low_latency_scan(low_latency, ll_audio, ll_offline):
 
 
 def test_low_latency_whole_cell_raises(low_latency):
-    """The whole cell takes only DFN3's default geometry (FFT 960, hop 480,
-    96 DF bins), in JAX and in the port alike."""
+    """JAX's whole cell takes only DFN3's default geometry (FFT 960, hop 480,
+    96 DF bins). The port's runs DFN3-ll, at the default widths the kernel
+    is built for, and matches its per-frame runtime there
+    (`tests/test_torch_whole_cell_geometry.py`)."""
     jm, jd, tm, td = low_latency
     with pytest.raises(AssertionError):
         PallasStreamingRuntime(jm, jd)
-    with pytest.raises(AssertionError):
-        WholeCellStreamingRuntime(tm, td)
 
 
 # -- non-default ERB and DF bin counts --------------------------------------------
