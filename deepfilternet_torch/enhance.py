@@ -16,17 +16,22 @@ compensation pads by n_fft and trims d = n_fft - hop, as in the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import hashlib
 import os
 import shutil
 import tarfile
 import tempfile
+import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from deepfilternet_torch.checkpoint import params_from_numpy, read_cp
 from deepfilternet_torch.config import config
@@ -201,8 +206,7 @@ def _offline(model: DfModel, df_state: DfState, audio: np.ndarray, lim: float) -
         spec_ri = _ri(spec)
         sf_ri = _ri(sf)
     with span("enhance.forward"):
-        (spec_e_ri, _, _, _), _ = model.module.forward(
-            model.params, model.state, model.cfg, spec_ri, erb, sf_ri)
+        spec_e_ri = _forward(model, (spec_ri, erb, sf_ri))
     with span("enhance.synthesis"):
         # attenuation-limit mixback (lim == 0 leaves spec_e)
         spec_e_ri = spec_ri * lim + spec_e_ri * (1.0 - lim)
@@ -234,13 +238,34 @@ def enhance(
     devices (weights copied to each, no traffic between them); the rows must
     divide over the devices.
 
+    On a CUDA device the offline forward runs eagerly at an input shape's
+    first calls, is captured as a CUDA graph at its `CAPTURE_AT`-th, and is
+    replayed from that graph at every later call while the weights stay as
+    they were.
+
     A call is the span `enhance` (utils/timings.py), with the children
-    `enhance.pad`, `enhance.h2d`, `enhance.features`, `enhance.forward`,
+    `enhance.pad`, `enhance.h2d`, `enhance.features`, `enhance.forward`
+    (inside it `enhance.forward.capture` or `enhance.forward.replay`),
     `enhance.synthesis`, `enhance.d2h` and `enhance.trim` on the offline
-    path.
+    path. `enhance.forward_calls` counts the offline forwards by how they
+    ran.
     """
     with span("enhance"):
         return _enhance(model, df_state, audio, pad, atten_lim_db, backend, mesh)
+
+
+# the offline path's forwards in this process, by how each ran: "eager",
+# "capture" (run on the side stream, then captured), "replay" and
+# "capture_failed" (run on the side stream, the capture refused); counted
+# through this name, so that a wrapper set in `enhance`'s place still counts
+_forward_calls = enhance.forward_calls = dict.fromkeys(  # type: ignore[attr-defined]
+    ("eager", "capture", "replay", "capture_failed"), 0)
+_forward_calls_lock = threading.Lock()
+
+
+def _count(how: str):
+    with _forward_calls_lock:
+        _forward_calls[how] += 1
 
 
 def _enhance(model, df_state, audio, pad, atten_lim_db, backend, mesh) -> np.ndarray:
@@ -297,6 +322,190 @@ def _get_scan_runtime(model: DfModel, df_state: DfState, mesh=None):
 
             model._cache[key] = ShardedStreamingRuntime(model, df_state, mesh)
     return model._cache[key]
+
+
+# ---------------------------------------------------------------------------
+# the offline forward, replayed from CUDA graphs at repeated shapes
+# ---------------------------------------------------------------------------
+
+# The call at a shape that captures its forward: the calls before it run
+# eagerly. On an H100, one clip a call (DFN3 and DFN2 at 2, 6 and 12 s), a
+# capture cost 1.5 to 9.2 times (median 6.3) what a replay then saved
+# against an eager call. Capturing once a shape's eager calls have lost about
+# what a capture costs keeps any number of repeats within about twice the
+# cost of the better choice made in hindsight; and a ragged archive, whose
+# shapes seldom recur that often, stays eager.
+CAPTURE_AT = 8
+# Graphs a model keeps, least recently used evicted. Each holds its call's
+# inputs and output on the card (DFN2 at [16, 10 s]: the peak grew by 172 MB
+# on an H100), while the forwards' temporaries share the model's one pool; a
+# job that cycles through more repeated shapes than this captures again.
+FORWARD_GRAPHS = 4
+# Shapes a model remembers having run, with their counts. Archives of ragged
+# clips bring a new shape almost every file, so this is a window, not a record.
+SEEN_SHAPES = 64
+
+
+def _forward_eager(model: DfModel, inputs) -> torch.Tensor:
+    """The model's offline forward; returns the enhanced spectrum [C, T, F, 2]."""
+    (spec_e_ri, _, _, _), _ = model.module.forward(
+        model.params, model.state, model.cfg, *inputs)
+    return spec_e_ri
+
+
+def _forward(model: DfModel, inputs) -> torch.Tensor:
+    """`_forward_eager`, through the model's `_ForwardGraphs` on a CUDA
+    device unless a compiler traces this code or the caller captures a graph
+    of its own."""
+    if (model.device.type == "cuda" and not torch.compiler.is_compiling()
+            and not torch.cuda.is_current_stream_capturing()):
+        graphs = model._cache.get("forward_graphs")
+        if graphs is None:
+            graphs = model._cache["forward_graphs"] = _ForwardGraphs(model.device)
+        return graphs(model, inputs)
+    _count("eager")
+    return _forward_eager(model, inputs)
+
+
+class _ForwardGraphs:
+    """One model's offline forward on a CUDA device, replayed from a CUDA
+    graph at each input shape it has run before: one graph launch in place
+    of the forward's thousands of kernel launches (cuDNN's GRUs launch two a
+    frame and layer).
+
+    A call's key is its inputs' shapes and dtypes. The calls at a key before
+    the `CAPTURE_AT`-th run eagerly; that one runs the forward on a side
+    stream and captures it there into the model's graph pool; later calls
+    copy their inputs into the captured ones and replay. The graphs hang on a
+    stamp of what the forward reads: the module, the cfg (its identity and
+    its scalar switches) and the id and version of every weight tensor, as
+    `nn/layers.py::_cudnn_gru_weights` stamps its flat copy, which a
+    captured graph keeps reading after an in-place edit replaces it. A new
+    stamp drops every graph and every count. The stamped tensors and cfg are
+    held, so that no id is reused while it counts. Whether the forward can
+    be captured at all depends on the module and cfg, not the shape or the
+    weights: after one refused capture every call runs eagerly until the
+    module or cfg changes (a refused capture keeps what it allocated in its
+    pool, so it is not repeated).
+
+    A replay's output is a copy, the caller's to keep. One thread at a time
+    uses the graphs (a call that finds them busy runs eagerly), on its
+    current stream, after the last replay on any stream.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stamp = None
+        self.held = None
+        self.seen: "OrderedDict[tuple, int]" = OrderedDict()
+        self.graphs: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self.refused = None
+        self.lock = threading.Lock()
+        self.pool = self.stream = self.done = None
+
+    def __call__(self, model: DfModel, inputs) -> torch.Tensor:
+        weights = pytree.tree_leaves((model.params, model.state))
+        if ((torch.is_grad_enabled() and any(t.requires_grad for t in (*weights, *inputs)))
+                or not self.lock.acquire(blocking=False)):
+            _count("eager")
+            return _forward_eager(model, inputs)
+        try:
+            return self._run(model, weights, inputs)
+        finally:
+            self.lock.release()
+
+    def _run(self, model, weights, inputs) -> torch.Tensor:
+        cfg = model.cfg
+        code = (model.module, id(cfg),
+                tuple((k, v) for k, v in cfg.items() if isinstance(v, (bool, int, float, str))))
+        stamp = (code, tuple((id(w), w._version) for w in weights))
+        if code == self.refused:
+            _count("eager")
+            return _forward_eager(model, inputs)
+        if stamp != self.stamp:
+            self.graphs.clear()
+            self.seen.clear()
+            self.stamp, self.held = stamp, (weights, cfg)
+        key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+        entry = self.graphs.get(key)
+        if entry is not None:
+            self.graphs.move_to_end(key)
+            with span("enhance.forward.replay"):
+                out = self._replay(entry, inputs)
+            _count("replay")
+            return out
+        sightings = self.seen.pop(key, 0) + 1
+        if sightings < CAPTURE_AT:
+            self.seen[key] = sightings
+            if len(self.seen) > SEEN_SHAPES:
+                self.seen.popitem(last=False)
+            _count("eager")
+            return _forward_eager(model, inputs)
+        fn = functools.partial(_forward_eager, model)
+        with span("enhance.forward.capture"):
+            out = self._warm_up(fn, inputs)
+            try:
+                entry = self._record(fn, inputs)
+            except RuntimeError:
+                self.refused = code
+                _count("capture_failed")
+                return out
+        self.graphs[key] = entry
+        if len(self.graphs) > FORWARD_GRAPHS:
+            self.graphs.popitem(last=False)
+        _count("capture")
+        return out
+
+    def _warm_up(self, fn, inputs) -> torch.Tensor:
+        """This call's forward, on the side stream the capture will use (its
+        library handles and workspaces are made there outside the capture)."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+            self.done = torch.cuda.Event()
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = fn(inputs)
+        cur.wait_stream(self.stream)
+        out.record_stream(cur)
+        return out
+
+    def _record(self, fn, inputs):
+        """(graph, static inputs, static output) of `fn` captured at copies
+        of `inputs`; raises RuntimeError where the forward cannot be captured
+        (a wait on the device, a copy from the host)."""
+        static_in = tuple(x.clone(memory_format=torch.contiguous_format) for x in inputs)
+        if not self.graphs:
+            # the graphs share one pool; torch frees a pool once no graph
+            # holds it, and refuses to capture into one it has let go
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                out = fn(static_in)
+            finally:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    # a capture cut short may leave the caching allocator
+                    # sending this stream's allocations to the graph's pool
+                    with contextlib.suppress(RuntimeError):
+                        torch._C._cuda_endAllocateToPool(self.stream.device.index, self.pool)
+                    raise
+        return graph, static_in, out
+
+    def _replay(self, entry, inputs) -> torch.Tensor:
+        graph, static_in, static_out = entry
+        with torch.cuda.device(self.device):
+            cur = torch.cuda.current_stream()
+            cur.wait_event(self.done)
+            for dst, src in zip(static_in, inputs):
+                dst.copy_(src)
+            graph.replay()
+            out = static_out.clone()
+            self.done.record(cur)
+        return out
 
 
 # ---------------------------------------------------------------------------
