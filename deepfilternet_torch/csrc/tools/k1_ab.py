@@ -28,6 +28,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import timing  # noqa: E402
 from deepfilternet_torch import kernels  # noqa: E402
 from deepfilternet_torch.ops import fused_frontend as ff  # noqa: E402
 
@@ -89,8 +90,8 @@ def main():
                         times[name] = None
                         continue
                     times[name].append((
-                        run_with(lib, lambda: cs.kernel_device_ms(call, "fused_frontend")),
-                        run_with(lib, lambda: cs.time_ms(call))))
+                        run_with(lib, lambda: timing.kernel_device_ms(call, "fused_frontend")),
+                        run_with(lib, lambda: timing.time_ms(call))))
             for name, t in times.items():
                 tag = f"K1 {'/'.join(map(str, shape))} S={s} {name} on {smi}:"
                 if t is None:

@@ -16,7 +16,7 @@ tree's process, and handed to both as files). Then:
   * ms a frame at S=64 x 200 and 512 x 30 in the units design and in the
     rows design (4 rows), and at 1056 x 20 and 4096 x 20 in the units design
     and in the rows design (8 rows), each forced, both builds (CUDA events
-    around 2 calls, as `chip_smoke.py` times K2), over ROUNDS rounds in
+    around 2 calls, `timing.time_ms`), over ROUNDS rounds in
     turns (this, others, others reversed, this, ...), and the stage split
     of each: for a tree whose kernel records every block's stages while a
     profiler records (`utils.timings.k2_records`), the median and the
@@ -56,9 +56,14 @@ TAG = "K2AB "
 
 def worker(root, model_dir):
     sys.path.insert(0, root)
+    # the side's own chip_smoke.py where its tree has one, else this tree's
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))))
     import numpy as np
     import torch
 
+    import chip_smoke as cs
+    import timing
     from deepfilternet_torch import kernels
     from deepfilternet_torch.enhance import init_df
     from deepfilternet_torch.ops import whole_cell as wc
@@ -86,28 +91,6 @@ def worker(root, model_dir):
                 matmul_dtype=getattr(torch, dtype))
         return runtimes[key]
 
-    def forced(design, rows, fn):
-        own = wc._kernel_choice, wc._tile_rows
-        if design is not None:
-            wc._kernel_choice = lambda *a: design
-        if rows is not None:
-            wc._tile_rows = lambda *a: rows
-        try:
-            return fn()
-        finally:
-            wc._kernel_choice, wc._tile_rows = own
-
-    def events_ms(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
     def stage_split(call, frames):
         from deepfilternet_torch.utils import timings
 
@@ -122,7 +105,7 @@ def worker(root, model_dir):
         every, wc.RECORD_EVERY = wc.RECORD_EVERY, 1  # every traced call runs the recording build
         try:
             with profile(activities=[ProfilerActivity.CPU]):
-                ms = events_ms(call, 2) / frames
+                ms = timing.time_ms(call, 2) / frames
         finally:
             wc.RECORD_EVERY = every
         ns = timings.k2_records()[-1]["ns"].astype(np.float64) / frames
@@ -151,7 +134,8 @@ def worker(root, model_dir):
             given = torch.load(cmd["path"])
             x = given["x"].to(dev).contiguous()
             carry = {k: v.to(dev) for k, v in given["carry"].items()}
-            c, o = forced(cmd["design"], cmd["rows"], lambda: wc.cell_process(x, carry, W, st))
+            with cs.k2_design(cmd["design"], cmd["rows"]):
+                c, o = wc.cell_process(x, carry, W, st)
             torch.cuda.synchronize()
             torch.save({k: v.cpu() for k, v in dict(c, audio=o).items()}, cmd["out"])
             reply({})
@@ -163,9 +147,10 @@ def worker(root, model_dir):
             carry = carry_to_flat(rt.init(s))
 
             def call():
-                return forced(cmd["design"], cmd["rows"], lambda: wc.cell_process(x, carry, W, st))
+                with cs.k2_design(cmd["design"], cmd["rows"]):
+                    return wc.cell_process(x, carry, W, st)
 
-            res = dict(ms=events_ms(call, 2) / frames)
+            res = dict(ms=timing.time_ms(call, 2) / frames)
             if frames > 1:
                 res.update(stage_split(call, frames))
             if frames == 1:
@@ -176,7 +161,7 @@ def worker(root, model_dir):
                     torch.cuda.synchronize()
                     waited.append((time.perf_counter() - t0) * 1e3)
                 res["host_ms"] = float(np.median(waited))
-                res["ms"] = events_ms(call, 20)
+                res["ms"] = timing.time_ms(call, 20)
             reply(res)
 
 
@@ -213,6 +198,7 @@ def main():
 
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
+    import timing
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -236,7 +222,7 @@ def main():
         print(f"{len(sides)} sides built and loaded in {time.perf_counter() - t0:.1f} s")
         for name, side in sides.items():
             print(f"{name}: {side.hello['source']}; "
-                  + "; ".join(cs.ptxas_report(side.hello["ptxas"], "whole_cell_")))
+                  + "; ".join(timing.ptxas_report(side.hello["ptxas"], "whole_cell_")))
         tmp = tempfile.mkdtemp()
         for dtype in ("float32", "bfloat16"):
             cases = cs.K2_CASES + (cs.K2_BF16_CASES if dtype == "bfloat16" else ())

@@ -30,9 +30,8 @@ def main():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     kernels.build()
     dev = torch.device("cuda")
-    card = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
     rng = np.random.default_rng(7)
     mem, mean, unit = cs.k1_state(dev, 64, cs.K1_DEFAULT, rng)
     args = [mem, cs.k1_frame(dev, 64, 480, rng), mean, unit]
@@ -61,13 +60,13 @@ def main():
     probe("start")
     audio = cs.noisy_speech_like(64, cs.SECONDS, seed=0)
     with tempfile.TemporaryDirectory() as root:
-        cs.export_path(card, smi, root)
+        cs.export_path(root)
         probe("after export_path")
-        cs.demo_training_path(card, smi, root, audio)
+        cs.demo_training_path(root, audio)
         probe("after demo_training_path")
-    cs.latest_corpus_path(card, smi)
+    cs.latest_corpus_path()
     probe("after phase 13")
-    cs.hdf5_edit_path(card, smi)
+    cs.hdf5_edit_path()
     probe("after phase 14")
     time.sleep(120)
     probe("after 120 s idle")

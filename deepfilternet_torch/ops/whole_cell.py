@@ -768,22 +768,21 @@ def rows_dft_t(weights: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 # The units design wins while there are few tiles of 64 streams for the
-# card's multiprocessors. Measured on an H100 (132 multiprocessors), by
-# operand type (bfloat16?): float32 ahead up to 8 tiles, level at 12 and
-# behind at 17; bfloat16 level with rows at 8 tiles and behind at 17
-# (PERF.md).
-_UNITS_SM_PER_TILE = {False: 16, True: 16}
+# card's multiprocessors, and both operand types cross over at the same S.
+# Measured on an H100 (132 multiprocessors): float32 ahead up to 8 tiles,
+# level at 12 and behind at 17; bfloat16 level with rows at 8 tiles and
+# behind at 17 (PERF.md).
+_UNITS_SM_PER_TILE = 16
 
 
-def _kernel_choice(s: int, n_sm: int, bf16: bool = False,
-                   geometry: CellGeometry = DFN3_GEOMETRY) -> str:
-    """Which design runs S streams on a card of n_sm multiprocessors, for the
-    float32 or the bfloat16 build: "units" (`csrc/whole_cell.cu`) or "rows"
+def _kernel_choice(s: int, n_sm: int, geometry: CellGeometry = DFN3_GEOMETRY) -> str:
+    """Which design runs S streams on a card of n_sm multiprocessors, for
+    either operand type: "units" (`csrc/whole_cell.cu`) or "rows"
     (`csrc/whole_cell_rows.cu`). The units design takes DFN3's geometry
     only: rows at any other, at every S."""
     if geometry != DFN3_GEOMETRY:
         return "rows"
-    return "units" if -(-s // plan.RT) * _UNITS_SM_PER_TILE[bf16] <= n_sm else "rows"
+    return "units" if -(-s // plan.RT) * _UNITS_SM_PER_TILE <= n_sm else "rows"
 
 
 def _tile_rows(s: int, n_sm: int, bf16: bool = False) -> int:
@@ -847,8 +846,8 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     once for all frames (counting one launch in `cell_process.launches`, and
     in `cell_process.bf16_launches` too for a bfloat16 weight set, the frames
     in `cell_process.frames`) or raise. Two designs of the kernel
-    exist and `_kernel_choice` picks one from S, the card and the operand
-    type, with no argument for the caller: for few streams every product is
+    exist and `_kernel_choice` picks one from S, the card and the geometry,
+    with no argument for the caller: for few streams every product is
     cut over all multiprocessors (`whole_cell_plan.plan`; a cooperative
     launch, one persistent block per multiprocessor), for many a block keeps
     a tile of stream rows to itself (`_tile_rows`). Each design has a build
@@ -889,7 +888,7 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     record = _record_this_call()
     with torch.cuda.device(device):
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        design = _kernel_choice(s, n_sm, bf16, geo)
+        design = _kernel_choice(s, n_sm, geo)
         units = design == "units"
         with timings.span("k2.alloc"):
             out = torch.empty_like(audio)

@@ -164,3 +164,55 @@ def test_root_script_has_its_port(script):
 def test_root_scripts_are_all_listed():
     scripts = os.listdir(os.path.join(REPO, "scripts"))
     assert set(ROOT_SCRIPTS) == {f for f in scripts if f.endswith((".py", ".sh"))}
+
+
+# the card check and the A/B tools beside the kernels: the tools import the
+# check for its inputs and checks, never the other way round, and the package
+# imports neither
+CHECK, TOOLS = "chip_smoke.py", os.path.join(PORT_PKG, "csrc", "tools")
+
+
+def _imports(path):
+    """Every module an import statement anywhere in the file names, and the
+    names it binds `chip_smoke` to."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    modules, check = set(), set()
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Import):
+            modules.update(a.name for a in n.names)
+            check.update(a.asname or a.name for a in n.names if a.name == CHECK[:-3])
+        elif isinstance(n, ast.ImportFrom) and n.module:
+            modules.add(n.module)
+    return tree, modules, check
+
+
+def _tool_files():
+    root = os.path.join(REPO, TOOLS)
+    return sorted(os.path.join(root, f) for f in os.listdir(root) if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("arrow", ["the check imports no tool", "the package imports no check",
+                                   "the tools use names the check defines"])
+def test_imports_point_from_the_tools_to_the_check(arrow):
+    if arrow == "the check imports no tool":
+        tools = {os.path.basename(p)[:-3] for p in _tool_files()}
+        _, modules, _ = _imports(os.path.join(REPO, CHECK))
+        bad = [m for m in modules if m.split(".")[0] in tools or "csrc" in m.split(".")]
+        assert tools and not bad, bad
+    elif arrow == "the package imports no check":
+        root = os.path.join(REPO, PORT_PKG)
+        paths = [os.path.join(d, f) for d, _, files in os.walk(root) for f in files
+                 if f.endswith(".py") and not d.startswith(os.path.join(REPO, TOOLS))]
+        bad = [p for p in paths if any(m.split(".")[0] == CHECK[:-3] for m in _imports(p)[1])]
+        assert len(paths) > 50 and not bad, bad
+    else:
+        defined, _, _ = public_names(os.path.join(REPO, CHECK))
+        used = {}
+        for path in _tool_files():
+            tree, _, aliases = _imports(path)
+            used[os.path.basename(path)] = {
+                n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+                and isinstance(n.value, ast.Name) and n.value.id in aliases}
+        missing = {tool: names - defined for tool, names in used.items() if names - defined}
+        assert sum(map(len, used.values())) > 10 and not missing, missing

@@ -560,7 +560,7 @@ def test_kernel_choice_and_rows_by_operand_type(s):
     (units up to 8 tiles of 64 streams), and rows of 16 a block once tiles of
     8 outnumber the multiprocessors; float32 never takes 16."""
     tiles = -(-s // wp.RT)
-    assert wc._kernel_choice(s, N_SM, True) == ("units" if tiles <= 8 else "rows")
+    assert wc._kernel_choice(s, N_SM) == ("units" if tiles <= 8 else "rows")
     want = 4 if -(-s // 4) <= N_SM else (8 if -(-s // 8) <= N_SM else 16)
     assert wc._tile_rows(s, N_SM, True) == want
     assert wc._tile_rows(s, N_SM, False) == min(want, 8) == wc._tile_rows(s, N_SM)

@@ -348,7 +348,7 @@ def test_cuda_rows_at_low_latency_matches_plain(cuda_device, dtype, s, monkeypat
     rt = WholeCellStreamingRuntime(model, df_state, matmul_dtype=dt)
     g = wc.geometry_of(rt.weights, rt.statics)
     n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert g.hop == 240 and wc._kernel_choice(s, n_sm, dt == torch.bfloat16, g) == "rows"
+    assert g.hop == 240 and wc._kernel_choice(s, n_sm, g) == "rows"
     x = _audio(s, 24 * HOP_LL, 2).to(cuda_device)
     carry, _ = wc.cell_process_plain(x[:, :8 * HOP_LL].contiguous(),
                                      carry_to_flat(rt.init(s)), rt.weights, rt.statics)
