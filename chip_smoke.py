@@ -18,7 +18,7 @@ the A/B tools under deepfilternet_torch/csrc/tools/.
                also 4 bytes off 16-byte alignment; the whole-cell kernel (K2)
                at float32 operands against its plain version in both of its
                designs (every product cut over all multiprocessors; a tile of
-               stream rows a block, built for 4 and 8 rows), also where a
+               stream rows a block, built for 4, 8 and 16 rows), also where a
                block walks over several units or tiles, each frame alone and
                in two calls; its silence skip; in the units design, 20 calls
                on the same inputs at S=64 x 200 and 512 x 30 equal bit for
@@ -38,8 +38,8 @@ the A/B tools under deepfilternet_torch/csrc/tools/.
                per-frame output and against itself in two calls; the CLI
                once, against enhance(). K1 and K2 read 0;
   6. reduced precision - K2's bfloat16 build (on the tensor cores) against
-               its plain bfloat16 version in both designs (also 16 rows a
-               block), the bfloat16 bounds against the plain version's wrong
+               its plain bfloat16 version in both designs and tiles, the
+               bfloat16 bounds against the plain version's wrong
                roundings; StreamingRuntime(dtype=bfloat16) on the main path's
                64 x 2 s (K1 once a frame) against the same streams on the CPU
                and the float32 run, its carry's types;
@@ -335,7 +335,7 @@ def compare_cell(tag, got, ref, rel_tol, mean_tol=None):
 def k2_design(design, rows=None):
     """Inside the block `cell_process` launches the named design of the kernel
     ("units": every product cut over all multiprocessors; "rows": a tile of
-    stream rows a block, with `rows` 4, 8 or (bfloat16) 16 a block) whatever S
+    stream rows a block, with `rows` 4, 8 or 16 a block) whatever S
     is, so that every build can be checked at one S. None leaves the
     wrapper's own choice."""
     from deepfilternet_torch.ops import whole_cell
@@ -351,14 +351,14 @@ def k2_design(design, rows=None):
         whole_cell._kernel_choice, whole_cell._tile_rows = own
 
 
-def own_k2_design(s, bf16):
-    """(design, rows a block or None) the wrapper picks at S streams for the
-    float32 or the bfloat16 build."""
+def own_k2_design(s):
+    """(design, rows a block or None) the wrapper picks at S streams, for
+    either build."""
     from deepfilternet_torch.ops.whole_cell import _kernel_choice, _tile_rows
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     design = _kernel_choice(s, n_sm)
-    return design, (_tile_rows(s, n_sm, bf16) if design == "rows" else None)
+    return design, (_tile_rows(s, n_sm) if design == "rows" else None)
 
 
 def design_name(design, rows):
@@ -367,15 +367,16 @@ def design_name(design, rows):
 
 # (streams, frames compared, design, rows a block; None: the wrapper's choice:
 # "units" up to 8 tiles of 64 streams on 132 multiprocessors, else "rows" with
-# 4 rows up to 4 x the card's multiprocessors, else 8, or 16 for bfloat16
-# beyond 8 x). 1100 streams are 18 tiles of 64 (the last ragged), 138 of 8,
-# 69 of 16 and 275 of 4: more units or tiles than blocks in every design but
-# 16 rows, so a block walks over several.
+# 4 rows up to 4 x the card's multiprocessors, 8 up to 8 x, else 16), for
+# both builds (the bfloat16 build's 16 rows are two n8 tiles of the tensor
+# cores). 1100 streams are 18 tiles of 64 (the last ragged), 138 of 8, 69 of
+# 16 and 275 of 4: more units or tiles than blocks in every design but 16
+# rows, so a block walks over several; 2200 are 138 tiles of 16, so a block
+# of 16 rows walks over two.
 K2_CASES = ((1, 8, None, None), (37, 8, None, None), (64, 8, None, None),
-            (37, 8, "rows", 4), (64, 8, "rows", 8), (1100, 2, None, None),
-            (1100, 2, "rows", 4), (1100, 2, "units", None))
-# the bfloat16 build's 16 rows a block (two n8 tiles of the tensor cores)
-K2_BF16_CASES = ((37, 8, "rows", 16), (64, 8, "rows", 16), (1100, 2, "rows", 16))
+            (37, 8, "rows", 4), (64, 8, "rows", 8), (37, 8, "rows", 16), (64, 8, "rows", 16),
+            (1100, 2, None, None), (1100, 2, "rows", 4), (1100, 2, "rows", 8),
+            (1100, 2, "units", None), (2200, 2, None, None))
 
 
 def k2_bounds(dtype):
@@ -477,7 +478,7 @@ def check_whole_cell(dev, model, df_state, dtype):
                                        matmul_dtype=dtype)
         W, st = rt.weights, rt.statics
         label = f"{dtype_name(dtype)}, " + ("runtime stages on" if stages else "default params")
-        for s, frames, design, rows in K2_CASES + (K2_BF16_CASES if bf16 else ()):
+        for s, frames, design, rows in K2_CASES:
             x = seeded_audio(s, 4 + frames, seed=100 + s).to(dev)
             # a non-trivial carry: 4 frames through the plain version first
             carry, _ = cell_process_plain(x[:, : 4 * HOP].contiguous(),
@@ -485,7 +486,7 @@ def check_whole_cell(dev, model, df_state, dtype):
             xc = x[:, 4 * HOP:].contiguous()
             ref = outputs(cell_process_plain(xc, carry, W, st))
             with k2_design(design, rows):
-                used = design_name(*own_k2_design(s, bf16))
+                used = design_name(*own_k2_design(s))
                 got = outputs(cell_process(xc, carry, W, st))
                 # each frame alone, from the carry the plain version reaches
                 each = frame_by_frame(lambda x1, c1: cell_process(x1, c1, W, st), xc, carry,
@@ -3067,7 +3068,7 @@ def low_latency_whole_cell(dev, model, df_state, audio, per_frame_out, tag):
         xc = x[:, 4 * hop:].contiguous()
         ref_carry, ref_audio = cell_process_plain(xc, carry, rt.weights, rt.statics)
         ref = dict(ref_carry, audio=ref_audio)
-        for rows in ((4, 8) if dtype == torch.float32 else (4, 8, 16)):
+        for rows in (4, 8, 16):
             with k2_design("rows", rows):
                 c, o = cell_process(xc, carry, rt.weights, rt.statics)
             torch.cuda.synchronize()

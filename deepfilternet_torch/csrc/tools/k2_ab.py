@@ -3,29 +3,33 @@
 Each other revision is a tree holding its `deepfilternet_torch` package (e.g.
 a parent commit's, unpacked by `git archive COMMIT deepfilternet_torch` into
 a directory `.gitignore` lists). Each side runs in a process of its own that
-imports its own package and builds its own `csrc/whole_cell.cu`; both load
-the same checkpoint and get the same inputs (made once, on the card, by this
-tree's process, and handed to both as files). Then:
+imports its own package and builds its own `csrc/whole_cell.cu` and
+`csrc/whole_cell_rows.cu` (at DFN3's geometry and at DFN3-ll's); all sides
+load the same checkpoint, or seed the same DFN3-ll model
+(`chip_smoke.seeded_models`), and get the same inputs (made once, on the
+card, by this tree's process, and handed to all as files). Then:
 
-  * every K2 case of `chip_smoke.py` (K2_CASES, and K2_BF16_CASES for the
-    bfloat16 build; default params and the runtime stages; the design
-    forced where the case names one), both builds: the 12 outputs bit for
-    bit this tree's, or with `--within REL` (for a change that moves a
-    build's rounding) each output within REL of its largest value, the
-    largest such difference printed;
-  * ms a frame at S=64 x 200 and 512 x 30 in the units design and in the
-    rows design (4 rows), and at 1056 x 20 and 4096 x 20 in the units design
-    and in the rows design (8 rows), each forced, both builds (CUDA events
-    around 2 calls, `timing.time_ms`), over ROUNDS rounds in
-    turns (this, others, others reversed, this, ...), and the stage split
-    of each: for a tree whose kernel records every block's stages while a
-    profiler records (`utils.timings.k2_records`), the median and the
-    slowest block by stage, and the ms a frame again with the records on;
-    for an older tree, block 0's stage clocks;
+  * every K2 case of `chip_smoke.py` (K2_CASES; default params and the
+    runtime stages; the design forced where the case names one), both
+    builds: the 12 outputs bit for bit this tree's, or with `--within REL`
+    (for a change that moves a build's rounding) each output within REL of
+    its largest value, the largest such difference printed. A case another
+    side's kernel refuses (a tile it has no build for) is reported as
+    refused there, and compared nowhere;
+  * ms a frame in each case of TIMED, each design and tile forced, both
+    builds (CUDA events around 2 calls, `timing.time_ms`), over ROUNDS
+    rounds in turns (this, others, others reversed, this, ...), and the
+    stage split of each: for a tree whose kernel records every block's
+    stages while a profiler records (`utils.timings.k2_records`), the
+    median and the slowest block by stage, and the ms a frame again with the
+    records on; for an older tree, block 0's stage clocks. Where a case
+    takes a tile of 16 rows, this tree's outputs at 16 rows and at 8 on the
+    timed inputs, float32, must be bit for bit the same;
   * one frame a call at S=64, both builds: device ms a call over 20 calls
     back to back, and the host's ms a call waited for (median of 50).
 
-Also prints each side's `-Xptxas -v` registers and spills of the kernel.
+Also prints each side's `-Xptxas -v` registers and spills of each kernel and
+of its products' function (gemm), library by library.
 Exits 1 if any output differs. Not part of the package's build. On a machine
 with the card, from the repository's root:
 
@@ -40,14 +44,19 @@ import tempfile
 import time
 
 MODEL_DIR = "pretrained/dfn3_fixture_demo"
-HOP = 480
 ROUNDS = 6
-# (streams, frames, design, rows): each size in both designs, whichever the
-# wrapper picks there (units up to 512 streams on 132 multiprocessors, rows
-# above; the stream cell runs rows 8 at 4096)
-TIMED = ((64, 200, "units", None), (512, 30, "units", None), (512, 30, "rows", 4),
-         (1056, 20, "units", None), (1056, 20, "rows", 8), (4096, 20, "units", None),
-         (4096, 20, "rows", 8))
+# (streams, frames, design, rows, geometry): each size in both designs,
+# whichever the wrapper picks there (units up to 512 streams on 132
+# multiprocessors, rows above; the stream cells run rows 16 at 4096), and
+# rows 8 against 16 where tiles of 8 outnumber the multiprocessors (1100: 2
+# tiles of 8 for 6 blocks, one of 16 for 69; 2112: 2 of 8, one of 16; 4096:
+# 4 or 3 of 8, 2 or 1 of 16), at DFN3's geometry and DFN3-ll's ("ll", rows
+# only)
+SWEEP = tuple((s, 20, "rows", rows, geo) for geo in ("dfn3", "ll") for s in (1100, 2112, 4096)
+              for rows in (8, 16))
+TIMED = ((64, 200, "units", None, "dfn3"), (512, 30, "units", None, "dfn3"),
+         (512, 30, "rows", 4, "dfn3"), (1056, 20, "units", None, "dfn3"),
+         (1056, 20, "rows", 8, "dfn3"), (4096, 20, "units", None, "dfn3")) + SWEEP
 TAG = "K2AB "
 
 
@@ -78,14 +87,20 @@ def worker(root, model_dir):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
-    built = kernels.build(["whole_cell"])
-    log = built["whole_cell"][1] if "whole_cell" in built else ""
-    model, df_state, _ = init_df(model_dir)
-    runtimes = {}
+    ll = cs.seeded_models(cs.LOW_LATENCY, cpu=False)[:2]  # resets the config: first
+    models = {"dfn3": init_df(model_dir)[:2], "ll": ll}
+    logs = {}  # -Xptxas -v of each library, by name and geometry
+    ll_defines = wc.rows_defines(wc.cell_geometry(480, 240, 48))
+    for geo, defines in (("", ()), (" at DFN3-ll", ll_defines)):
+        names = ["whole_cell", "whole_cell_rows"] if not defines else ["whole_cell_rows"]
+        for name, (_, text) in kernels.build(names, defines).items():
+            logs[name + geo] = text
+    runtimes, timed_audio = {}, {}
 
-    def runtime(dtype, stages):
-        key = (dtype, json.dumps(stages, sort_keys=True))
+    def runtime(dtype, stages, geometry="dfn3"):
+        key = (dtype, json.dumps(stages, sort_keys=True), geometry)
         if key not in runtimes:
+            model, df_state = models[geometry]
             runtimes[key] = WholeCellStreamingRuntime(
                 model, df_state, RuntimeParams(**stages),
                 matmul_dtype=getattr(torch, dtype))
@@ -112,44 +127,58 @@ def worker(root, model_dir):
         return dict(records_ms=ms, names=list(timings.k2_records()[-1]["stages"]),
                     median=np.median(ns, axis=0).tolist(), slowest=ns.max(axis=0).tolist())
 
-    reply(dict(source=wc.__file__, ptxas=log))
+    reply(dict(source=wc.__file__, ptxas=logs))
     for line in sys.stdin:
         cmd = json.loads(line)
         op = cmd["op"]
         if op == "quit":
             return
-        rt = runtime(cmd["dtype"], cmd.get("stages", {}))
+        rt = runtime(cmd["dtype"], cmd.get("stages", {}), cmd.get("geometry", "dfn3"))
         W, st = rt.weights, rt.statics
+        hop = rt.df_state.hop_size
         if op == "inputs":  # a case's inputs, as chip_smoke.check_whole_cell makes them
             s, frames = cmd["s"], cmd["frames"]
             rng = np.random.default_rng(100 + s)
-            x = torch.from_numpy((rng.standard_normal((s, (4 + frames) * HOP)) * 0.1)
+            x = torch.from_numpy((rng.standard_normal((s, (4 + frames) * hop)) * 0.1)
                                  .astype(np.float32)).to(dev)
-            carry, _ = wc.cell_process_plain(x[:, : 4 * HOP].contiguous(),
+            carry, _ = wc.cell_process_plain(x[:, : 4 * hop].contiguous(),
                                              carry_to_flat(rt.init(s)), W, st)
-            torch.save(dict(x=x[:, 4 * HOP:].cpu(), carry={k: v.cpu() for k, v in carry.items()}),
+            torch.save(dict(x=x[:, 4 * hop:].cpu(), carry={k: v.cpu() for k, v in carry.items()}),
                        cmd["path"])
             reply({})
-        elif op == "outputs":
+            continue
+        if op == "outputs":
             given = torch.load(cmd["path"])
             x = given["x"].to(dev).contiguous()
             carry = {k: v.to(dev) for k, v in given["carry"].items()}
-            with cs.k2_design(cmd["design"], cmd["rows"]):
-                c, o = wc.cell_process(x, carry, W, st)
+        else:  # the timed inputs, made once a size
+            s, frames = cmd["s"], cmd["frames"]
+            if (s, frames, hop) not in timed_audio:
+                rng = np.random.default_rng(7)
+                timed_audio[s, frames, hop] = torch.from_numpy(
+                    (rng.standard_normal((s, frames * hop)) * 0.1).astype(np.float32)).to(dev)
+            x = timed_audio[s, frames, hop]
+            carry = carry_to_flat(rt.init(s))
+
+        def call(design=cmd.get("design"), rows=cmd.get("rows")):
+            with cs.k2_design(design, rows):
+                return wc.cell_process(x, carry, W, st)
+
+        try:
+            c, o = call()
+        except RuntimeError as e:  # a tile this side's kernel has no build for
+            reply(dict(refused=str(e)))
+            continue
+        if op == "outputs":
             torch.cuda.synchronize()
             torch.save({k: v.cpu() for k, v in dict(c, audio=o).items()}, cmd["out"])
             reply({})
+        elif op == "same_bits":  # this tile's outputs against those of `against` rows
+            c8, o8 = call(rows=cmd["against"])
+            torch.cuda.synchronize()
+            a, b = dict(c, audio=o), dict(c8, audio=o8)
+            reply(dict(differ=[k for k in a if not torch.equal(a[k], b[k])]))
         elif op == "time":
-            s, frames = cmd["s"], cmd["frames"]
-            rng = np.random.default_rng(7)
-            x = torch.from_numpy((rng.standard_normal((s, frames * HOP)) * 0.1)
-                                 .astype(np.float32)).to(dev)
-            carry = carry_to_flat(rt.init(s))
-
-            def call():
-                with cs.k2_design(cmd["design"], cmd["rows"]):
-                    return wc.cell_process(x, carry, W, st)
-
             res = dict(ms=timing.time_ms(call, 2) / frames)
             if frames > 1:
                 res.update(stage_split(call, frames))
@@ -221,26 +250,32 @@ def main():
             side.hello = side.read()
         print(f"{len(sides)} sides built and loaded in {time.perf_counter() - t0:.1f} s")
         for name, side in sides.items():
-            print(f"{name}: {side.hello['source']}; "
-                  + "; ".join(timing.ptxas_report(side.hello["ptxas"], "whole_cell_")))
+            print(f"{name}: {side.hello['source']}")
+            for lib, log in side.hello["ptxas"].items():
+                print(f"  {lib}: " + "; ".join(timing.ptxas_report(log, "whole_cell_")
+                                               + timing.ptxas_report(log, "gemm")))
         tmp = tempfile.mkdtemp()
         for dtype in ("float32", "bfloat16"):
-            cases = cs.K2_CASES + (cs.K2_BF16_CASES if dtype == "bfloat16" else ())
             for stages in ({}, cs.K2_RUNTIME_STAGES):
-                for s, frames, design, rows in cases:
+                for s, frames, design, rows in cs.K2_CASES:
                     path = os.path.join(tmp, "inputs.pt")
                     sides["this"].ask(op="inputs", dtype=dtype, stages=stages, s=s,
                                       frames=frames, path=path)
                     outs = {}
-                    for i, (name, side) in enumerate(sides.items()):
-                        out = os.path.join(tmp, f"outputs{i}.pt")
-                        side.ask(op="outputs", dtype=dtype, stages=stages, path=path,
-                                 design=design, rows=rows, out=out)
-                        outs[name] = torch.load(out)
                     tag = (f"K2 {dtype} S={s} x {frames}, design "
                            f"{design or 'own'}{'' if rows is None else f' {rows}'}, "
                            f"{'runtime stages' if stages else 'default params'}")
-                    for name in list(sides)[1:]:
+                    for i, (name, side) in enumerate(sides.items()):
+                        out = os.path.join(tmp, f"outputs{i}.pt")
+                        got = side.ask(op="outputs", dtype=dtype, stages=stages, path=path,
+                                       design=design, rows=rows, out=out)
+                        if "refused" in got:
+                            print(f"{tag}: refused by {name}: {got['refused']}")
+                            if name == "this":
+                                failed.append(f"{tag}, refused by this tree")
+                            continue
+                        outs[name] = torch.load(out)
+                    for name in [n for n in list(sides)[1:] if n in outs and "this" in outs]:
                         differ = [k for k in outs["this"]
                                   if not torch.equal(outs["this"][k], outs[name][k])]
                         print(f"{tag}: 12 outputs bit for bit {name}'s: {not differ}"
@@ -255,14 +290,28 @@ def main():
                         if differ:
                             failed.append(f"{tag} vs {name}")
         for dtype in ("float32", "bfloat16"):
-            for s, frames, design, rows in TIMED + ((64, 1, "units", None),):
+            for s, frames, design, rows, geometry in TIMED + ((64, 1, "units", None, "dfn3"),):
+                case = dict(dtype=dtype, s=s, frames=frames, design=design, rows=rows,
+                            geometry=geometry)
+                at = "" if geometry == "dfn3" else " at DFN3-ll"
+                if rows == 16 and dtype == "float32":
+                    got = sides["this"].ask(op="same_bits", against=8, **case)
+                    same = not got.get("differ", True)
+                    print(f"K2 rows 16 {dtype} S={s} x {frames}{at}: 12 outputs bit for bit "
+                          f"rows 8's: {same}" + ("" if same else f" ({got})"))
+                    if not same:
+                        failed.append(f"rows 16 against rows 8, {dtype} S={s}{at}")
                 runs = {name: [] for name in sides}
                 for rnd in range(ROUNDS):
                     for name in (list(sides) if rnd % 2 == 0 else list(sides)[::-1]):
-                        runs[name].append(sides[name].ask(op="time", dtype=dtype, s=s,
-                                                           frames=frames, design=design,
-                                                           rows=rows))
+                        runs[name].append(sides[name].ask(op="time", **case))
                 for name, rs in runs.items():
+                    if "refused" in rs[0]:
+                        print(f"K2 {design} {rows} {dtype} S={s} x {frames}{at}: refused by "
+                              f"{name}: {rs[0]['refused']}")
+                        if name == "this":
+                            failed.append(f"{design} {rows} {dtype} S={s}{at}, refused by this")
+                        continue
                     ms = [r["ms"] for r in rs]
                     if frames == 1:
                         host = [r["host_ms"] for r in rs]
@@ -273,8 +322,8 @@ def main():
                               + ", ".join(f"{v:.3f}" for v in host))
                         continue
                     label = design if rows is None else f"{design} {rows}"
-                    print(f"K2 {label} {dtype} S={s} x {frames}, {name}, on {smi}: ms a frame "
-                          + ", ".join(f"{v:.4f}" for v in ms)
+                    print(f"K2 {label} {dtype} S={s} x {frames}{at}, {name}, on {smi}: "
+                          "ms a frame " + ", ".join(f"{v:.4f}" for v in ms)
                           + f" (median {float(np.median(ms)):.4f})")
                     if "clocks" in rs[0]:
                         clocks = np.asarray([r["clocks"] for r in rs], np.float64).mean(0) / frames

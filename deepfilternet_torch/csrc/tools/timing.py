@@ -63,11 +63,13 @@ def kernel_device_ms(fn, match, iters=20):
 
 
 def ptxas_report(log, kernel):
-    """'function build: N registers, spills' for each kernel whose name starts
-    with `kernel` in a `-Xptxas -v` log (the function, e.g. whole_cell_kernel
-    or whole_cell_recording, the build that times its stages, and the build
-    named by its operand type)."""
-    name, spills, out = None, {}, []
+    """'function build: N registers, spills' for each function whose name
+    starts with `kernel` in a `-Xptxas -v` log (the function, e.g.
+    whole_cell_kernel, whole_cell_recording, the build that times its stages,
+    or a device function such as gemm, which has no register count of its
+    own; then the stream rows of a rows kernel's tile and the build named by
+    its operand type)."""
+    name, out = None, {}
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
         if m:
@@ -76,11 +78,14 @@ def ptxas_report(log, kernel):
         if not name or kernel not in name:
             continue
         fn = re.search(r"\d+(%s[a-z_]*)" % re.escape(kernel), name)
-        short = f"{fn.group(1) if fn else kernel} {'bfloat16' if 'bfloat16' in name else 'float32'}"
+        rows = re.search(r"ILi(\d+)E", name)
+        short = (f"{fn.group(1) if fn else kernel}{f' rows {rows.group(1)}' if rows else ''} "
+                 f"{'bfloat16' if 'bfloat16' in name else 'float32'}")
+        entry = out.setdefault(short, ["", "spills not shown"])
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            spills[short] = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+            entry[1] = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out.append(f"{short}: {m.group(1)} registers, {spills.get(short, 'spills not shown')}")
-    return out
+            entry[0] = f"{m.group(1)} registers, "
+    return [f"{short}: {regs}{spills}" for short, (regs, spills) in out.items()]

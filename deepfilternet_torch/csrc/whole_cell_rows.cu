@@ -14,36 +14,49 @@
 // of the frame is computed here: in float32 FMAs on the CUDA cores (float32
 // build), or on the tensor cores (bfloat16 build, mma.sync m16n8k16).
 //
-// This is the row-tile design: one persistent block per tile of 4 or 8 stream
-// rows computes every product of the frame by itself. The wrapper launches it
-// for many streams only (ops/whole_cell.py::_kernel_choice); for few streams
-// the design of whole_cell.cu, which spreads every product over the whole
-// card, is several times faster.
+// This is the row-tile design: one persistent block per tile of 4, 8 or 16
+// stream rows computes every product of the frame by itself. The wrapper
+// launches it for many streams only (ops/whole_cell.py::_kernel_choice); for
+// few streams the design of whole_cell.cu, which spreads every product over
+// the whole card, is several times faster.
 //
 // What bounds it: a frame is about 7.2 M multiply-adds a stream (8.1 M at the
-// padded widths the weights are stored at) against 28 MB of float32 weights
-// that every thread block must read once a frame, from L2, at the 27 bytes a
-// clock one multiprocessor gets from it. With 8 rows a block and all
-// multiprocessors busy the weight stream and the FMAs cost about the same in
-// the float32 build. In the bfloat16 build the tensor cores leave the weight
-// stream alone as the bound: 14.3 MB a tile and frame, which 16 rows a block
-// share among twice the streams.
+// padded widths the weights are stored at) against 32 MB of float32 weights
+// (28 MB of dense-folded products, and the copy of dft^T) that every thread
+// block reads once a tile and frame from L2. In the float32 build it is not
+// that stream: a tile of 16 rows, which reads each weight byte for twice the
+// streams, took twice the time of a tile of 8 until its loop changed (an
+// H100, 4096 streams: 8 rows move 34 bytes a clock an SM, 16 rows 14). The
+// product loops run at 50-65% of the FMA peak, paced by issuing their FMAs,
+// x's broadcasts and weight loads with 4 warps a scheduler to hide L2's
+// latency, and about a third of a tile's time is the per-row work around
+// them (staging x, adding K slices, the gates and the DSP), which grows with
+// R. 16 rows gain what their loop and their staging save: 9% a stream at
+// 4096 streams, both geometries. In the bfloat16 build the tensor cores
+// leave the weight stream as the bound: 14.3 MB a tile and frame, which 16
+// rows share among twice the streams.
 //
 // What the design does about it:
-//   * one persistent block of 512 threads per tile of R = 4 or 8 streams
-//     (template; 16 in the bfloat16 build), looping over the call's frames;
-//     blocks beyond the number
-//     of multiprocessors are folded into a loop over tiles, so the scratch
-//     is bounded by the card and not by S. The ragged last tile reads the
-//     last valid stream again for its missing rows and stores nothing for them;
+//   * one persistent block of 512 threads per tile of R = 4, 8 or 16 streams
+//     (template; the wrapper picks R from S and the card,
+//     ops/whole_cell.py::_tile_rows), looping over the call's frames;
+//     blocks beyond the number of multiprocessors are folded into a loop
+//     over tiles, so the scratch is bounded by the card and not by S. The
+//     ragged last tile reads the last valid stream again for its missing
+//     rows and stores nothing for them;
 //   * one device routine gemm<R>: y[R, N] = act(x[R, K] @ W[K, N] + b) + addend.
 //     x is staged in shared memory transposed ([K][R], so one 16-byte
-//     broadcast load gives a thread 4 rows of one k), every thread owns 4
-//     neighbouring columns (one 16-byte coalesced weight load for 4R FMAs,
-//     4 such loads in flight while the last 4 are multiplied) and, where
-//     N / 4 is below the thread count, a slice of K; slices are then added
-//     in shared memory in slice order, so results do not depend on timing
-//     or on R;
+//     broadcast load gives a thread 4 rows of one k, read as it is used),
+//     every thread owns 4 neighbouring columns (one 16-byte coalesced weight
+//     load for 4R FMAs, 4 such loads in flight while the last 4 are
+//     multiplied; at R = 16 a ring of 5, fma_rows) and, where N / 4 is
+//     below the thread count, a slice of K; slices are then added in shared
+//     memory in slice order, so results do not depend on timing or on R: 16
+//     rows give the bits of 8. x is staged 16 bytes of a row a thread. At
+//     R = 16 (float32) every product takes the sliced path (one slice for
+//     the widest), so that the function holds one loop of 64 sums, and the
+//     slices' partial sums are laid over x after a barrier (128 KB each at
+//     DFN3's widths: together they would not fit);
 //   * the synthesis product [se_re | se_im] @ dft^T is one more gemm, against
 //     a copy of dft^T the wrapper makes once per weight set (float32:
 //     row-major [2 * FPAD, FFT]; bfloat16: packed with the other products),
@@ -70,8 +83,8 @@
 // the geometry could change). The model's widths stay DFN3's: 32 ERB bands,
 // DF order 5, GRUs of 256, 16 conv channels.
 //
-// Two builds, by the weights' type (the TPU kernel's mdtype): float32 (R = 4,
-// 8), and bfloat16 (R = 4, 8, 16), the JAX package's default. The bfloat16
+// Two builds, by the weights' type (the TPU kernel's mdtype), each for R = 4,
+// 8 and 16: float32, and bfloat16, the JAX package's default. The bfloat16
 // build runs every product on the tensor cores, as the TPU kernel runs it on
 // its MXU (gemm_mma): y^T = W^T x^T with mma.sync m16n8k16, bfloat16 x
 // bfloat16 -> float32, A the weight from a copy the wrapper packs once per
@@ -301,59 +314,131 @@ __device__ __forceinline__ float act_apply(float v, int act) {
   }
 }
 
+// weight rows a thread keeps in flight at 16 rows (fma_rows)
+constexpr int RING = 5;
+
 // acc[r][0..3] += x[r] * w4 over this thread's rows k0..k1 of one weight
 // segment (float32 build). xs: staged x, [K][R]; w: this thread's 4 columns
-// of row 0. The weight rows come in batches of U 16-byte loads, the next
-// batch in flight while the current one is multiplied.
+// of row 0. x is read 4 rows (one 16-byte broadcast) at a time, as it is
+// used. Up to 8 rows the weight rows come in batches of UNROLL 16-byte
+// loads, the next batch in flight while the current one is multiplied. 16
+// rows, whose 64 sums leave room for two batches of 2 at most, keep a ring
+// of RING rows instead: the ring's rows are multiplied, then refilled a ring
+// further on, with the pointer stepped a row at a time and no test in the
+// steady loop (on an H100 faster than two batches of 2; a ring of 5 gave 16
+// rows their best time at both geometries, of rings of 4 to 8). Each sum
+// runs over k in order, whatever R: a row's results do not depend on R.
 template <int R>
 __device__ __forceinline__ void fma_rows(float (&acc)[R][4], const float* __restrict__ xs,
                                          const float* __restrict__ w, int ldw, int k0, int k1) {
-  constexpr int U = UNROLL;
-  auto load = [&](float4 (&wv)[U], int k) {
+  // acc += x[k] * wv
+  auto mac1 = [&](const float4& wv, int k) {
 #pragma unroll
-    for (int u = 0; u < U; ++u) wv[u] = wget4(w + (size_t)(k + u) * ldw);
-  };
-  auto mac = [&](const float4 (&wv)[U], int k) {
+    for (int q = 0; q < R / 4; ++q) {
+      const float4 xv = *reinterpret_cast<const float4*>(xs + k * R + 4 * q);
+      const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float xr[R];
-#pragma unroll
-      for (int q = 0; q < R / 4; ++q) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + (k + u) * R + 4 * q);
-        xr[4 * q] = xv.x; xr[4 * q + 1] = xv.y; xr[4 * q + 2] = xv.z; xr[4 * q + 3] = xv.w;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        acc[r][0] = fmaf(xr[r], wv[u].x, acc[r][0]);
-        acc[r][1] = fmaf(xr[r], wv[u].y, acc[r][1]);
-        acc[r][2] = fmaf(xr[r], wv[u].z, acc[r][2]);
-        acc[r][3] = fmaf(xr[r], wv[u].w, acc[r][3]);
+      for (int i = 0; i < 4; ++i) {
+        float (&a)[4] = acc[4 * q + i];
+        a[0] = fmaf(xr[i], wv.x, a[0]);
+        a[1] = fmaf(xr[i], wv.y, a[1]);
+        a[2] = fmaf(xr[i], wv.z, a[2]);
+        a[3] = fmaf(xr[i], wv.w, a[3]);
       }
     }
   };
-  const int nb = (k1 - k0) / U;
-  float4 wa[U], wb[U];
-  if (nb > 0) load(wa, k0);
-  int b = 0;
-  for (; b + 2 <= nb; b += 2) {
-    load(wb, k0 + (b + 1) * U);
-    mac(wa, k0 + b * U);
-    if (b + 2 < nb) load(wa, k0 + (b + 2) * U);
-    mac(wb, k0 + (b + 1) * U);
-  }
-  if (b < nb) mac(wa, k0 + b * U);
-  for (int k = k0 + nb * U; k < k1; ++k) {
-    const float4 wv = wget4(w + (size_t)k * ldw);
+  if constexpr (R > 8) {
+    const int step = ldw / 4;  // a weight row, in 16-byte loads
+    const float4* wp = reinterpret_cast<const float4*>(w) + (size_t)k0 * step;
+    float4 ring[RING];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float xr = xs[k * R + r];
-      acc[r][0] = fmaf(xr, wv.x, acc[r][0]);
-      acc[r][1] = fmaf(xr, wv.y, acc[r][1]);
-      acc[r][2] = fmaf(xr, wv.z, acc[r][2]);
-      acc[r][3] = fmaf(xr, wv.w, acc[r][3]);
+    for (int d = 0; d < RING; ++d)
+      if (k0 + d < k1) ring[d] = __ldg(wp + d * step);
+    wp += RING * step;  // row k + RING
+    int k = k0;
+    for (; k + 2 * RING <= k1; k += RING) {  // every slot refilled
+#pragma unroll
+      for (int d = 0; d < RING; ++d) {
+        mac1(ring[d], k + d);
+        ring[d] = __ldg(wp);
+        wp += step;
+      }
+    }
+    for (; k < k1; k += RING) {  // the last rows, fewer than 2 * RING
+#pragma unroll
+      for (int d = 0; d < RING; ++d) {
+        if (k + d < k1) mac1(ring[d], k + d);
+        if (k + d + RING < k1) ring[d] = __ldg(wp + d * step);
+      }
+      wp += RING * step;
+    }
+  } else {
+    constexpr int U = UNROLL;
+    auto load = [&](float4 (&wv)[U], int k) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) wv[u] = wget4(w + (size_t)(k + u) * ldw);
+    };
+    auto mac = [&](const float4 (&wv)[U], int k) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) mac1(wv[u], k + u);
+    };
+    const int nb = (k1 - k0) / U;
+    float4 wa[U], wb[U];
+    if (nb > 0) load(wa, k0);
+    int b = 0;
+    for (; b + 2 <= nb; b += 2) {
+      load(wb, k0 + (b + 1) * U);
+      mac(wa, k0 + b * U);
+      if (b + 2 < nb) load(wa, k0 + (b + 2) * U);
+      mac(wb, k0 + (b + 1) * U);
+    }
+    if (b < nb) mac(wa, k0 + b * U);
+    for (int k = k0 + nb * U; k < k1; ++k) {
+      const float4 wv = wget4(w + (size_t)k * ldw);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float xr = xs[k * R + r];
+        acc[r][0] = fmaf(xr, wv.x, acc[r][0]);
+        acc[r][1] = fmaf(xr, wv.y, acc[r][1]);
+        acc[r][2] = fmaf(xr, wv.z, acc[r][2]);
+        acc[r][3] = fmaf(xr, wv.w, acc[r][3]);
+      }
     }
   }
 }
+
+// shared memory of a build: a product's staged input (float32 [K][R], or
+// bfloat16 pairs [R8][K / 2][8]), then its K slices' partial sums; the
+// float32 build's 16 rows lay the partial sums over the staged input (128 KB
+// each at DFN3's widths, which would not fit beside each other; at DFN3-ll's,
+// 64 and 128 KB, the shared memory saved goes to L1, which the scratch rows
+// need)
+template <int R, typename WT>
+__host__ __device__ constexpr int staged_floats() {
+  return kBf16<WT> ? (R + 7) / 8 * KMAX * 4 : KMAX * R;
+}
+template <int R, typename WT>
+__host__ __device__ constexpr int red_floats() {
+  return kBf16<WT> ? NWARPS * 16 * R : THREADS * R * 4;
+}
+template <int R, typename WT>
+__host__ __device__ constexpr bool red_over_x() {
+  return !kBf16<WT> && R > 8;
+}
+// a block's dynamic shared memory at most: sm_90's 227 KB, less room for the
+// body's static arrays
+constexpr size_t SMEM_DYNAMIC_MAX = 225 * 1024;
+template <int R, typename WT>
+__host__ __device__ constexpr size_t smem_bytes() {
+  constexpr int staged = staged_floats<R, WT>(), red = red_floats<R, WT>();
+  return sizeof(float) * (red_over_x<R, WT>() ? (staged > red ? staged : red) : staged + red);
+}
+static_assert(cmax(cmax(2 * FPAD, CH * BLK), cmax(ORDER * 2 * BLK, cmax(FFT, 3 * HID))) <=
+                  4 * THREADS,
+              "16 rows give each thread at most one column group of the widest product");
+static_assert(smem_bytes<16, float>() <= SMEM_DYNAMIC_MAX &&
+                  smem_bytes<16, __nv_bfloat16>() <= SMEM_DYNAMIC_MAX,
+              "a build's shared memory must fit in a block");
 
 // One row's 4 finished columns: bias, activation, addend, store; the
 // bfloat16 build rounds where `rnd` says.
@@ -547,14 +632,25 @@ __device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
   } else {
     const int tid = threadIdx.x;
     const int K = k_seg * nseg;
-    for (int i = tid; i < K * R; i += THREADS) {
-      const int r = i % R, k = i / R;
-      sm_x[i] = x[(size_t)r * SCR + k];
+    // x to [K][R]: 16 bytes of a row a thread (K % 4 == 0), a warp's loads
+    // on R rows
+    for (int i = tid; i < K / 4 * R; i += THREADS) {
+      const int r = i % R, k = 4 * (i / R);
+      const float4 v = *reinterpret_cast<const float4*>(x + (size_t)r * SCR + k);
+      sm_x[k * R + r] = v.x;
+      sm_x[(k + 1) * R + r] = v.y;
+      sm_x[(k + 2) * R + r] = v.z;
+      sm_x[(k + 3) * R + r] = v.w;
     }
     __syncthreads();
 
     const int CG = N / 4;  // column groups of 4
-    if (CG >= THREADS) {
+    // 16 rows take the K-sliced path for the widest products too, one slice
+    // of THREADS groups (N <= 4 * THREADS): one loop of 64 sums in the
+    // function, not two, keeps it within the registers
+    bool sliced = CG < THREADS;
+    if constexpr (R > 8) sliced = true;
+    if (!sliced) {
       for (int cg = tid; cg < CG; cg += THREADS) {
         float acc[R][4] = {};
         for (int s = 0; s < nseg; ++s) {
@@ -569,14 +665,18 @@ __device__ __noinline__ void gemm(float* sm_x, float* sm_red, const float* x,
     } else {
       const int ksl = THREADS / CG;  // K slices
       const int cg = tid % CG, ks = tid / CG;
+      float acc[R][4] = {};
       if (ks < ksl) {
-        float acc[R][4] = {};
         const int kper = (k_seg + ksl - 1) / ksl;
         const int k0 = min(ks * kper, k_seg), k1 = min(k0 + kper, k_seg);
         for (int s = 0; s < nseg; ++s) {
           const WT* w = s == 0 ? w0 : (s == 1 ? w1 : w2);
           fma_rows<R>(acc, sm_x + s * k_seg * R, w + 4 * cg, N, k0, k1);
         }
+      }
+      // the partial sums laid over x: every thread has read its last x first
+      if constexpr (red_over_x<R, WT>()) __syncthreads();
+      if (ks < ksl) {
 #pragma unroll
         for (int r = 0; r < R; ++r)
           *reinterpret_cast<float4*>(sm_red + ((size_t)(ks * R + r) * CG + cg) * 4) =
@@ -617,18 +717,6 @@ __device__ void gru_gate(float* sc, int o_h) {
   __syncthreads();
 }
 
-// shared memory of a build: a product's staged input (float32 [K][R], or
-// bfloat16 pairs [R8][K / 2][8]), then its K slices' partial sums
-template <int R, typename WT>
-__host__ __device__ constexpr int staged_floats() {
-  return kBf16<WT> ? (R + 7) / 8 * KMAX * 4 : KMAX * R;
-}
-template <int R, typename WT>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (staged_floats<R, WT>() + (kBf16<WT> ? NWARPS * 16 * R : THREADS * R * 4));
-}
-
 #ifdef DFN_K2_PLANT
 // A test build only: thread 0 spends k2_plant_ns of the global timer at the
 // end of stage k2_plant_stage (dfn_k2_plant sets both), so that a test can
@@ -644,7 +732,7 @@ template <int R, typename WT, bool TIMED>
 __device__ __forceinline__ void whole_cell_body(const Params& p) {
   extern __shared__ __align__(16) float smem[];
   float* sm_x = smem;                                      // staged x
-  float* sm_red = smem + staged_floats<R, WT>();            // K slices' partial sums
+  float* sm_red = smem + (red_over_x<R, WT>() ? 0 : staged_floats<R, WT>());  // K slices' sums
   __shared__ float sm_co[CH * ORDER * 2];
   __shared__ float sm_cb[ORDER * 2];
   __shared__ float sm_lsnr[R];
@@ -1095,7 +1183,7 @@ extern "C" void dfn_whole_cell_rows_geometry(int* out) {
 // whole_cell_plan.pack_rows_weights (bfloat16, on the device) and pk the host
 // array of its n_weights + 1 offsets; else both are ignored. dft_t: dft^T as a
 // row-major float32 [2 * FPAD, FFT] on the device, the float32 build's synthesis
-// weight (ignored with `bf16`). rows: 4 or 8, or 16 with `bf16`. scratch:
+// weight (ignored with `bf16`). rows: 4, 8 or 16. scratch:
 // n_blocks * rows * dfn_whole_cell_rows_scratch_floats() floats. records: null
 // (no block reads a clock), or n_blocks x (dfn_whole_cell_rows_stages() + 3)
 // int64 on the device, every entry written: a block's ns in each stage, then
@@ -1135,7 +1223,8 @@ extern "C" int dfn_whole_cell_rows(const void* audio, void* out, const void* con
   using bf = __nv_bfloat16;
   if (rows == 4) err = bf16 ? launch<4, bf>(p, n_blocks, st) : launch<4, float>(p, n_blocks, st);
   else if (rows == 8) err = bf16 ? launch<8, bf>(p, n_blocks, st) : launch<8, float>(p, n_blocks, st);
-  else if (rows == 16 && bf16) err = launch<16, bf>(p, n_blocks, st);
+  else if (rows == 16)
+    err = bf16 ? launch<16, bf>(p, n_blocks, st) : launch<16, float>(p, n_blocks, st);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

@@ -785,14 +785,16 @@ def _kernel_choice(s: int, n_sm: int, geometry: CellGeometry = DFN3_GEOMETRY) ->
     return "units" if -(-s // plan.RT) * _UNITS_SM_PER_TILE <= n_sm else "rows"
 
 
-def _tile_rows(s: int, n_sm: int, bf16: bool = False) -> int:
-    """Stream rows per thread block of the rows design (float32: built for 4
-    and 8; bfloat16 also 16): 4 while that gives every tile a multiprocessor
-    of its own, else 8, which reads the weights once for twice the streams;
-    bfloat16 takes 16 once tiles of 8 outnumber the multiprocessors."""
+def _tile_rows(s: int, n_sm: int) -> int:
+    """Stream rows per thread block of the rows design, either operand type:
+    4 while that gives every tile a multiprocessor of its own, else 8 while
+    tiles of 8 do, else 16. Each step reads the weights once for twice the
+    streams; once tiles of 8 outnumber the multiprocessors, one tile of 16
+    takes less time than two of 8 (measured on an H100 at 1100, 2112 and
+    4096 streams, both types and both geometries, PERF.md)."""
     if -(-s // 4) <= n_sm:
         return 4
-    return 16 if bf16 and -(-s // 8) > n_sm else 8
+    return 8 if -(-s // 8) <= n_sm else 16
 
 
 @functools.lru_cache(maxsize=None)
@@ -856,9 +858,10 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
     both mask their ragged last tile. The units design takes DFN3's geometry
     only; the rows design's library is built for the call's geometry
     (`rows_defines`), the first load of each under the span `k2.build`. A
-    rows launch sets `cell_process.weight_bytes` to the weight bytes it
-    streams: its build's weight buffers (`rows_weight_bytes`) once a tile
-    and frame (0 after a units launch).
+    rows launch sets `cell_process.tile_rows` to its tile's stream rows and
+    `cell_process.weight_bytes` to the weight bytes it streams: its build's
+    weight buffers (`rows_weight_bytes`) once a tile and frame (both 0 after
+    a units launch).
 
     While a torch profiler is recording, one call in `RECORD_EVERY` (the
     first of each stretch of traced calls, then every `RECORD_EVERY`-th) is
@@ -894,7 +897,7 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
             out = torch.empty_like(audio)
             new_carry = {k: torch.empty_like(carry[k]) for k in keys}
             work = (_units_buffers(s, n_sm, bf16, device, record) if units
-                    else _rows_buffers(s, n_sm, bf16, device, record, geo))
+                    else _rows_buffers(s, n_sm, device, record, geo))
         with timings.span("k2.launch"):
             ptr = ctypes.c_void_p * len(CKEYS)
             st = statics
@@ -916,15 +919,22 @@ def cell_process(audio: torch.Tensor, carry: Dict[str, torch.Tensor],
             f"whole_cell kernel launch failed: cudaError {err}"
             + (" (the card refused the cooperative launch of one block per multiprocessor)"
                if err in (720, 801) else ""))
-    cell_process.launches += 1
-    cell_process.bf16_launches += int(bf16)
-    cell_process.frames += n_frames
-    cell_process.weight_bytes = 0 if units else rows_stream_bytes(weights, s, work["rows"],
-                                                                  n_frames)
+    _count_launch(weights, s, n_frames, bf16, 0 if units else work["rows"])
     if work["records"] is not None:
         timings.k2_keep(design, STAGES[design], stage_families(design), n_frames,
                         work["records"])
     return new_carry, out
+
+
+def _count_launch(weights: Dict[str, torch.Tensor], s: int, n_frames: int, bf16: bool,
+                  rows: int):
+    """A launch of S streams over `n_frames` frames in `cell_process`'s
+    counters; `rows`: the rows design's tile, 0 for a units launch."""
+    cell_process.launches += 1
+    cell_process.bf16_launches += int(bf16)
+    cell_process.frames += n_frames
+    cell_process.tile_rows = rows
+    cell_process.weight_bytes = rows_stream_bytes(weights, s, rows, n_frames) if rows else 0
 
 
 # while a profiler records, the calls that run the recording kernel: one in
@@ -1015,14 +1025,14 @@ def rows_stream_bytes(weights: Dict[str, torch.Tensor], s: int, rows: int, n_fra
     return rows_weight_bytes(weights) * -(-s // rows) * n_frames
 
 
-def _rows_buffers(s, n_sm, bf16, device, record, geo: CellGeometry = DFN3_GEOMETRY):
+def _rows_buffers(s, n_sm, device, record, geo: CellGeometry = DFN3_GEOMETRY):
     """One launch's buffers for the rows design: the library for the
     geometry, the tile's rows, the scratch of its blocks and the record
     buffer."""
     lib = rows_library(geo)
     if record and lib.dfn_whole_cell_rows_stages() != len(STAGES["rows"]):
         raise RuntimeError("the rows kernel and STAGES['rows'] disagree on the stages")
-    rows = _tile_rows(s, n_sm, bf16)
+    rows = _tile_rows(s, n_sm)
     # one persistent block per multiprocessor at most: each walks over its
     # tiles of `rows` streams, so the scratch stays small
     n_blocks = max(1, min(-(-s // rows), n_sm))
@@ -1055,7 +1065,7 @@ def _launch_units(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, s
 def _launch_rows(audio, out, s, n_frames, n_sm, weights, c_in, c_out, w_ptrs, scalars, flags,
                  stream, lib, rows, scratch, records):
     """The design of `csrc/whole_cell_rows.cu`: one persistent block per tile
-    of 4, 8 or (bfloat16) 16 stream rows computes the whole frame by itself.
+    of 4, 8 or 16 stream rows computes the whole frame by itself.
     The bfloat16 build reads the products' weights from their packed copy,
     the float32 build its synthesis product's from `rows_dft_t`."""
     bf16 = weights["dft"].dtype == torch.bfloat16
@@ -1072,6 +1082,7 @@ cell_process.launches = 0  # type: ignore[attr-defined]
 cell_process.bf16_launches = 0  # type: ignore[attr-defined]
 cell_process.frames = 0  # type: ignore[attr-defined]
 cell_process.weight_bytes = 0  # type: ignore[attr-defined]
+cell_process.tile_rows = 0  # type: ignore[attr-defined]
 # the stages each thread block times (in the order of the kernel's records),
 # which differ between the two designs
 STAGES = {

@@ -22,6 +22,7 @@ held against their plain versions on the card by `chip_smoke.py`.
 """
 
 import gc
+import inspect
 import weakref
 
 import numpy as np
@@ -202,7 +203,8 @@ def test_kernel_choice_and_rows(s):
     tiles = -(-s // wp.RT)
     # measured on an H100: the units design is ahead up to 8 tiles of 64 streams
     assert design == ("units" if tiles <= 8 else "rows")
-    assert wc._tile_rows(s, N_SM) == (4 if -(-s // 4) <= N_SM else 8)
+    assert wc._tile_rows(s, N_SM) == (4 if -(-s // 4) <= N_SM else 8 if -(-s // 8) <= N_SM
+                                      else 16)
     assert set(wc.STAGES) == {"units", "rows"}
     assert wc.STAGES["units"][-1] == "waiting on producers"
 
@@ -556,14 +558,22 @@ def test_hidden_products_first_is_bit_equal(runtimes, pset, monkeypatch):
 
 @pytest.mark.parametrize("s", STREAMS)
 def test_kernel_choice_and_rows_by_operand_type(s):
-    """The bfloat16 build's choices: the same design crossover as float32
-    (units up to 8 tiles of 64 streams), and rows of 16 a block once tiles of
-    8 outnumber the multiprocessors; float32 never takes 16."""
+    """Both builds' choices, which take no operand type: the same design
+    crossover (units up to 8 tiles of 64 streams), and the smallest tile of 4
+    or 8 stream rows whose tiles the multiprocessors hold at once, else 16,
+    in the float32 build as in the bfloat16 one."""
     tiles = -(-s // wp.RT)
     assert wc._kernel_choice(s, N_SM) == ("units" if tiles <= 8 else "rows")
-    want = 4 if -(-s // 4) <= N_SM else (8 if -(-s // 8) <= N_SM else 16)
-    assert wc._tile_rows(s, N_SM, True) == want
-    assert wc._tile_rows(s, N_SM, False) == min(want, 8) == wc._tile_rows(s, N_SM)
+    fits = [r for r in (4, 8) if -(-s // r) <= N_SM]
+    assert wc._tile_rows(s, N_SM) == (fits[0] if fits else 16)
+    assert list(inspect.signature(wc._tile_rows).parameters) == ["s", "n_sm"]
+
+
+@pytest.mark.parametrize("s, rows", [(528, 4), (529, 8), (1056, 8), (1057, 16), (4096, 16)])
+def test_tile_rows_at_the_thresholds(s, rows):
+    """Where 8 and 16 rows a block start on 132 multiprocessors: 529 streams
+    (133 tiles of 4), 1057 (133 tiles of 8)."""
+    assert wc._tile_rows(s, N_SM) == rows
 
 
 @pytest.mark.parametrize("s", STREAMS)

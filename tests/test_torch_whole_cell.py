@@ -411,15 +411,19 @@ def test_cuda_kernel_matches_plain(cuda_device, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [4, 8])
+@pytest.mark.parametrize("rows", [4, 8, 16])
 @pytest.mark.parametrize("s", [37, 70])
 def test_cuda_float32_rows_design_matches_plain(cuda_device, monkeypatch, s, rows):
-    """The float32 rows design, forced whatever S, with 4 and 8 stream rows a
-    block (37 and 70 streams leave a ragged last tile), against the plain
-    version as above."""
+    """The float32 rows design, forced whatever S, with 4, 8 and 16 stream
+    rows a block (37 and 70 streams leave a ragged last tile), against the
+    plain version as above; 16 rows give the bits of 8."""
     monkeypatch.setattr(wc, "_kernel_choice", lambda *a: "rows")
     monkeypatch.setattr(wc, "_tile_rows", lambda *a: rows)
-    _kernel_matches_plain(cuda_device, s)
+    got = _kernel_matches_plain(cuda_device, s)
+    if rows == 16:
+        monkeypatch.setattr(wc, "_tile_rows", lambda *a: 8)
+        for k, v in _kernel_matches_plain(cuda_device, s).items():
+            assert torch.equal(got[k], v), k
 
 
 def _kernel_matches_plain(cuda_device, s):
@@ -439,3 +443,4 @@ def _kernel_matches_plain(cuda_device, s):
     ref_c, ref = wc.cell_process_plain(x, carry, rt.weights, rt.statics)
     for name, a, b in [("audio", got, ref)] + [(k, got_c[k], ref_c[k]) for k, _ in wc.CKEYS]:
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+    return dict(got_c, audio=got)

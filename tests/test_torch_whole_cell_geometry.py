@@ -322,6 +322,43 @@ def test_weight_bytes_counter(ll, dfn3_weights):
         wc.cell_process.weight_bytes = saved
 
 
+@pytest.mark.parametrize("rows", [4, 8, 16])
+def test_rows_stream_bytes_by_tile(dfn3_weights, rows):
+    """A tile of `rows` streams reads the build's weight buffers once a
+    frame: 16 rows at S=4096 read them 256 times a frame, half as often as 8,
+    and a ragged last tile counts whole."""
+    for rt in dfn3_weights.values():
+        once = wc.rows_weight_bytes(rt.weights)
+        for s, frames in ((4096, 400), (37, 3), (1100, 20)):
+            assert wc.rows_stream_bytes(rt.weights, s, rows, frames) == \
+                once * -(-s // rows) * frames
+        assert wc.rows_stream_bytes(rt.weights, 4096, rows, 1) == once * 4096 // rows
+
+
+@pytest.mark.parametrize("rows", [0, 4, 8, 16])
+def test_launch_counts_its_tile(dfn3_weights, rows):
+    """A launch's counters (`_count_launch`, which `cell_process` calls after
+    every launch on a card): one launch, its frames, its tile's stream rows
+    in `cell_process.tile_rows` and the weight bytes it streams; a units
+    launch (rows 0) sets both to 0."""
+    names = ("launches", "bf16_launches", "frames", "tile_rows", "weight_bytes")
+    saved = {k: getattr(wc.cell_process, k) for k in names}
+    try:
+        for dt, rt in dfn3_weights.items():
+            before = {k: getattr(wc.cell_process, k) for k in names}
+            wc._count_launch(rt.weights, 4096, 20, dt == torch.bfloat16, rows)
+            assert wc.cell_process.launches == before["launches"] + 1
+            assert wc.cell_process.bf16_launches == before["bf16_launches"] + (
+                dt == torch.bfloat16)
+            assert wc.cell_process.frames == before["frames"] + 20
+            assert wc.cell_process.tile_rows == rows
+            assert wc.cell_process.weight_bytes == (
+                wc.rows_stream_bytes(rt.weights, 4096, rows, 20) if rows else 0)
+    finally:
+        for k, v in saved.items():
+            setattr(wc.cell_process, k, v)
+
+
 # -- on a card ------------------------------------------------------------------
 
 
@@ -354,7 +391,8 @@ def test_cuda_rows_at_low_latency_matches_plain(cuda_device, dtype, s, monkeypat
                                      carry_to_flat(rt.init(s)), rt.weights, rt.statics)
     xr = x[:, 8 * HOP_LL:].contiguous()
     ref = wc.cell_process_plain(xr, carry, rt.weights, rt.statics)
-    for rows in ((4, 8) if dt == torch.float32 else (4, 8, 16)):
+    outs = {}
+    for rows in (4, 8, 16):
         monkeypatch.setattr(wc, "_tile_rows", lambda *a, r=rows: r)
         launches = wc.cell_process.launches
         got = wc.cell_process(xr, carry, rt.weights, rt.statics)
@@ -364,4 +402,9 @@ def test_cuda_rows_at_low_latency_matches_plain(cuda_device, dtype, s, monkeypat
             assert max(e for e, _ in errs.values()) <= 1e-4, (rows, errs)
         else:
             assert not chk.out_of_bounds(errs, chk.BF16_BOUNDS["frames"]), (rows, errs)
+        assert wc.cell_process.tile_rows == rows
         assert wc.cell_process.weight_bytes == wc.rows_stream_bytes(rt.weights, s, rows, 16)
+        outs[rows] = dict(got[0], audio=got[1])
+    if dt == torch.float32:  # each row's sums run as at 8 rows: the same bits
+        for k, v in outs[8].items():
+            assert torch.equal(outs[16][k], v), k
